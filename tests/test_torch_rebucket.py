@@ -1,0 +1,105 @@
+"""K2 (re-bucket): the port's plain twin against the JAX pf_rebucket (interpret
+mode on the CPU) — bit-equal on positions, values, mask and drops, including
+cell overflow — and the move codes bit-equal to pf_move_codes."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yasph2d_tpu.ops.dense_grid import DenseGridConfig as JGrid
+from yasph2d_tpu.ops.pallas_slotmajor import (
+    pf_move_codes as j_move_codes,
+    pf_rebucket,
+    to_planes as j_to_planes,
+)
+from yasph2d_tpu_torch.ops import rebucket as trb
+from yasph2d_tpu_torch.ops.dense_grid import DenseGridConfig as TGrid
+from yasph2d_tpu_torch.ops.planes import pf_move_codes, to_planes
+
+torch.set_num_threads(1)
+
+BR = 4
+H = 0.1
+
+
+def make_case(seed, ny=11, nx=17, p=3, fill=0.5, shift=(0.0, 0.0), step=0.12):
+    """Random live slots, advected by random sub-cell displacements (some cross
+    cell borders, some leave the grid), plus a payload of value planes with a
+    -0.0 among them."""
+    rng = np.random.default_rng(seed)
+    base = dict(cell_size=H, origin=(-0.05, 0.02), nx=nx, ny=ny, occupancy=p)
+    jgrid = JGrid(**base, use_pallas_slotmajor=True, pallas_sm_row_block=BR)
+    tgrid = TGrid(**base)
+    mask = rng.random((ny, nx, p)) < fill
+    cy, cx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    cell = np.stack([cx, cy], axis=-1)[:, :, None, :] * H + np.asarray(base["origin"])
+    pos = cell + rng.random((ny, nx, p, 2)) * H
+    disp = (rng.random((ny, nx, p, 2)) - 0.5) * step + np.asarray(shift) * H
+    adv = np.where(mask[..., None], pos + disp, 0.0).astype(np.float32)
+    vals = rng.standard_normal((ny, nx, p, 3)).astype(np.float32)
+    vals[0, 0, 0, 0] = -0.0
+    return jgrid, tgrid, adv, mask, vals
+
+
+def run_both(jgrid, tgrid, adv, mask, vals):
+    ny, nx = tgrid.ny, tgrid.nx
+    jvals = jnp.stack([j_to_planes(jnp.asarray(vals[..., k]), jgrid, BR) for k in range(3)])
+    jpos, jmask, jv, jdrops = jax.jit(
+        lambda a, m, v: pf_rebucket(a, m, v, jgrid, br=BR)
+    )(j_to_planes(jnp.asarray(adv), jgrid, BR),
+      j_to_planes(jnp.asarray(mask), jgrid, BR).astype(bool), jvals)
+    tvals = torch.stack([to_planes(torch.as_tensor(vals[..., k])) for k in range(3)])
+    tpos, tmask, tv, tdrops = trb.rebucket_ref(
+        to_planes(torch.as_tensor(adv)), to_planes(torch.as_tensor(mask)), tvals, tgrid)
+    crop = lambda a: np.ascontiguousarray(np.asarray(a)[..., :ny, :nx])
+    return ((crop(jpos), crop(jmask), crop(jv), int(jdrops)),
+            (tpos.numpy(), tmask.numpy(), tv.numpy(), int(tdrops)))
+
+
+CASES = {
+    "moves": dict(seed=5),
+    "dense": dict(seed=6, p=4, fill=0.8),
+    # everything drifts one cell right/up into half-full cells: overflow
+    "overflow": dict(seed=7, p=2, fill=0.9, shift=(0.6, 0.6), step=0.05),
+}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_rebucket_bit_equal_to_jax(name):
+    jgrid, tgrid, adv, mask, vals = make_case(**CASES[name])
+    (jpos, jmask, jv, jdrops), (tpos, tmask, tv, tdrops) = run_both(
+        jgrid, tgrid, adv, mask, vals)
+    assert tdrops == jdrops
+    if name == "overflow":
+        assert tdrops > 0
+    np.testing.assert_array_equal(tmask, jmask)
+    # bit patterns, so +0.0 / -0.0 count too
+    np.testing.assert_array_equal(tpos.view(np.uint32), jpos.view(np.uint32))
+    np.testing.assert_array_equal(tv.view(np.uint32), jv.view(np.uint32))
+    assert tmask.sum() + tdrops == mask.sum()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_move_codes_bit_equal(name):
+    jgrid, tgrid, adv, mask, _ = make_case(**CASES[name])
+    jc = j_move_codes(j_to_planes(jnp.asarray(adv), jgrid, BR),
+                      j_to_planes(jnp.asarray(mask), jgrid, BR).astype(bool), jgrid)
+    tc = pf_move_codes(to_planes(torch.as_tensor(adv)), to_planes(torch.as_tensor(mask)),
+                       tgrid)
+    jc = np.asarray(jc)[:, :tgrid.ny, :tgrid.nx]
+    np.testing.assert_array_equal(tc.numpy().astype(np.float32), jc)
+    assert set(np.unique(tc.numpy())) <= set(range(10))
+
+
+def test_wrapper_dispatch_is_by_device():
+    _, tgrid, adv, mask, vals = make_case(5)
+    pos, m = to_planes(torch.as_tensor(adv)), to_planes(torch.as_tensor(mask))
+    v = torch.stack([to_planes(torch.as_tensor(vals[..., k])) for k in range(3)])
+    before = dict(trb.LAUNCHES)
+    for a, b in zip(trb.rebucket(pos, m, v, tgrid), trb.rebucket_ref(pos, m, v, tgrid)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert trb.LAUNCHES == before
+    with pytest.raises(ValueError):
+        trb.rebucket(pos.to("meta"), m.to("meta"), v.to("meta"), tgrid)

@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
+
+The sources have a plain C interface and include no PyTorch header, so `nvcc`
+builds them in seconds. At first use the library is compiled for Hopper
+(sm_90a) into `build/yasph2d_tpu_torch/` at the repository root, under a name
+keyed by a hash of the sources and flags, and loaded with ctypes. Nothing runs
+at import: the CPU-only test suite imports every module.
+
+Flags: no --use_fast_math (IEEE division and sqrt, as in the JAX package), and
+-fmad=false so that no multiply-add is contracted: each kernel then performs
+the same float32 operations, in the same order, as its plain PyTorch twin.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yasph2d_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return str(path)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libyasph2d_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these exact sources exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+class PairConsts(ctypes.Structure):
+    """Float32 constants of the pair kernels (csrc/pair_reduce.cu PairConsts);
+    the field order is the C struct's."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "radius_sq", "w_h_inv", "w_norm", "w_norm_grad", "p6_hsq", "p6_norm",
+        "xsph_coef", "mass", "w0", "rho0", "alpha_eps", "gx", "gy",
+    )]
+
+
+PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib = ctypes.CDLL(str(build()))
+    for form in PAIR_FORMS:
+        fn = getattr(lib, f"pair_reduce_{form}")
+        # q_pos, q_mask, s_pos, s_mask, planes, n_planes, out,
+        # P, Ps, ny, nx, scalar, consts, stream
+        fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), _I, _P,
+                       _I, _I, _I, _I, ctypes.c_float,
+                       ctypes.POINTER(PairConsts), _P]
+        fn.restype = _I
+    # code, payload planes, n_pay, out, total, P, ny, nx, stream
+    lib.rebucket.argtypes = [_P, ctypes.POINTER(_P), _I, _P, _P, _I, _I, _I, _P]
+    lib.rebucket.restype = _I
+    return lib
+
+
+def check(err: int, what: str):
+    """Raise on a nonzero cudaError_t returned by a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def pointer_array(ptrs) -> ctypes.Array:
+    return (_P * max(len(ptrs), 1))(*ptrs)

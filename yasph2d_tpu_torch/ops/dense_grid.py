@@ -1,0 +1,132 @@
+"""Dense slot grid, init-time part (PyTorch port of yasph2d_tpu/ops/dense_grid.py).
+
+Particles are sorted by row-major cell key and laid out in a dense (ny, nx, P)
+slot grid (P = max occupancy per cell). The port needs this only to build the
+initial carry and the static boundary index space; the per-step neighbourhood
+rebuild is the windowed re-bucket (ops/rebucket.py).
+
+The slot build is bit-for-bit the JAX package's: same f32 cell-coordinate
+arithmetic, a stable sort (jax.lax.sort is stable, so ties keep input order),
+same clamped slot indices, same overflow accounting.
+"""
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+from ..units import INDEX, REAL
+
+MIN_DISTANCE_SQ = 1.0e-10  # self/degenerate filter (reference: neighborhood_search.rs:324)
+
+
+@dataclass(frozen=True)
+class DenseGridConfig:
+    """Static dense-grid configuration: the grid covers [origin, origin + (nx, ny)
+    * cell_size), with cell_size == search radius == smoothing length
+    (neighborhood_search.rs:461-479)."""
+
+    cell_size: float
+    origin: tuple  # (x0, y0)
+    nx: int
+    ny: int
+    occupancy: int = 8  # P: max particles per cell
+
+    @property
+    def radius_sq(self) -> float:
+        return self.cell_size * self.cell_size
+
+    @property
+    def num_cells(self) -> int:
+        return self.nx * self.ny
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=REAL, device=device)
+
+
+def cell_coords(positions: torch.Tensor, grid: DenseGridConfig):
+    """(cx, cy) int32 cell coordinates, clamped into the grid. `inv` is the f32
+    rounding of the double 1/cell_size, as in the JAX package."""
+    inv = _f32(1.0 / grid.cell_size, positions.device)
+    origin = _f32(grid.origin, positions.device)
+    coords = torch.floor((positions - origin) * inv).to(INDEX)
+    cx = torch.clamp(coords[..., 0], 0, grid.nx - 1)
+    cy = torch.clamp(coords[..., 1], 0, grid.ny - 1)
+    return cx, cy
+
+
+def cell_keys(positions: torch.Tensor, grid: DenseGridConfig, alive=None):
+    """Row-major cell key per particle; dead particles get the sentinel key
+    `num_cells`, which sorts after every real cell and never enters the grid."""
+    cx, cy = cell_coords(positions, grid)
+    keys = cy * grid.nx + cx
+    if alive is not None:
+        keys = torch.where(alive, keys, torch.full_like(keys, grid.num_cells))
+    return keys
+
+
+class SlotGrid(NamedTuple):
+    """Dense slot layout of one sorted index space (see the JAX twin)."""
+
+    slot_idx: torch.Tensor  # (C, P) int32 into sorted arrays (clamped where masked)
+    slot_mask: torch.Tensor  # (C, P) bool
+    inverse: torch.Tensor  # (N,) int32 into flat (C*P,) slot order
+    in_grid: torch.Tensor  # (N,) bool: particle kept (rank < P)
+    num_dropped: torch.Tensor  # () int32
+
+
+def build_slot_grid(sorted_keys: torch.Tensor, grid: DenseGridConfig) -> SlotGrid:
+    """Dense slot layout from sorted cell keys: cell starts are the exclusive
+    cumsum of per-cell counts, and a cell's slots are `start + lane`."""
+    device = sorted_keys.device
+    n = sorted_keys.shape[0]
+    p = grid.occupancy
+    c = grid.num_cells
+    if n == 0:
+        return SlotGrid(
+            slot_idx=torch.zeros((c, p), dtype=INDEX, device=device),
+            slot_mask=torch.zeros((c, p), dtype=torch.bool, device=device),
+            inverse=torch.zeros((0,), dtype=INDEX, device=device),
+            in_grid=torch.zeros((0,), dtype=torch.bool, device=device),
+            num_dropped=torch.zeros((), dtype=INDEX, device=device),
+        )
+    keys = sorted_keys.long()
+    # keys >= C are the dead-particle sentinel: excluded from the counts
+    counts = torch.bincount(keys[keys < c], minlength=c)[:c]
+    starts = torch.cumsum(counts, 0) - counts
+
+    lane = torch.arange(p, device=device)
+    slot_idx = torch.clamp(starts[:, None] + lane[None, :], 0, n - 1)
+    slot_mask = lane[None, :] < torch.clamp(counts, max=p)[:, None]
+
+    rank = torch.arange(n, device=device) - starts[torch.clamp(keys, max=c - 1)]
+    in_grid = (rank < p) & (keys < c)
+    inverse = torch.clamp(keys * p + torch.clamp(rank, max=p - 1), 0, c * p - 1)
+    num_dropped = torch.clamp(counts - p, min=0).sum()
+    return SlotGrid(
+        slot_idx=slot_idx.to(INDEX),
+        slot_mask=slot_mask,
+        inverse=inverse.to(INDEX),
+        in_grid=in_grid,
+        num_dropped=num_dropped.to(INDEX),
+    )
+
+
+def sort_by_dense_keys(tensors, positions: torch.Tensor, grid: DenseGridConfig,
+                       alive=None):
+    """Sort a tuple of per-particle tensors into dense cell-key order (stable, so
+    the order matches jax.lax.sort's). Returns (sorted_tensors, sorted_keys)."""
+    keys = cell_keys(positions, grid, alive)
+    sorted_keys, perm = torch.sort(keys, stable=True)
+    return tuple(t[perm] for t in tensors), sorted_keys
+
+
+def pad_to_slots(values: torch.Tensor, slots: SlotGrid, grid: DenseGridConfig):
+    """Sorted per-particle values (N, ...) -> padded (ny, nx, P, ...); masked slots
+    hold the value at a clamped index (callers must mask). An empty index space
+    yields zeros."""
+    shape = (grid.ny, grid.nx, grid.occupancy) + tuple(values.shape[1:])
+    if values.shape[0] == 0:
+        return torch.zeros(shape, dtype=values.dtype, device=values.device)
+    return values[slots.slot_idx.long()].reshape(shape)

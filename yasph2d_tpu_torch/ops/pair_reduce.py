@@ -1,0 +1,158 @@
+"""K1, the masked pair reduction over each query slot's 3x3 cell neighbourhood
+(PyTorch port of yasph2d_tpu/ops/pallas_slotmajor.py pf_pair_reduce).
+
+`pair_reduce` dispatches on the device of its tensors: a CUDA tensor launches
+the hand-written kernel of csrc/pair_reduce.cu (one instantiation per call
+form, named by `PairForm.name`), a CPU tensor runs the plain PyTorch twin
+`pair_reduce_ref`. There is no fallback from one to the other.
+
+Contract (the JAX kernel's): for every live query slot, sum
+term_fn(dx, dy, r_sq, r, scalars, q_planes, s_planes) over the source slots of
+the 3x3 cells around it in (dyv, dxv, sp) order, where dx = x_j - x_i and a
+pair is valid when the source is live and 1e-10 < r_sq <= h^2; then map the
+n_acc accumulators through post_fn(accs, post_planes, scalars) if given. Dead
+query slots output zeros.
+"""
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from . import cuda_build
+from .dense_grid import MIN_DISTANCE_SQ
+from .planes import PlaneGeom
+
+# kernel launches per call form, counted where the wrapper launches
+LAUNCHES = {form: 0 for form in cuda_build.PAIR_FORMS}
+
+
+def reset_launch_counts():
+    for form in LAUNCHES:
+        LAUNCHES[form] = 0
+
+
+@dataclass(frozen=True)
+class PairForm:
+    """One call form of K1: the CUDA instantiation's name and the same math as
+    Python callables for the twin. `n_acc` defaults to n_out."""
+
+    name: str
+    n_out: int
+    term_fn: Callable
+    post_fn: Optional[Callable] = None
+    n_acc: Optional[int] = None
+
+
+def _planes(vals: Sequence[torch.Tensor]) -> list:
+    """Logical (·, ny, nx) planes of plane-form values: a (P, ny, nx) scalar is
+    one plane, a (L, P, ny, nx) stack contributes L planes in order."""
+    out = []
+    for v in vals:
+        out.extend([v] if v.ndim == 3 else list(v.unbind(0)))
+    return out
+
+
+def pair_reduce_ref(term_fn, n_out: int, q: PlaneGeom, s: PlaneGeom,
+                    radius_sq: float, q_vals=(), s_vals=(), scalars=(),
+                    post_fn=None, post_planes=(), n_acc: int = None) -> torch.Tensor:
+    """Plain PyTorch twin of K1: nine shifted views of the one-cell-padded
+    source planes; per view the terms of all Ps source slots are evaluated at
+    once ((Ps, P, ny, nx) candidates) and added slot by slot, which keeps the
+    kernel's (dyv, dxv, sp) order. Returns (n_out, P, ny, nx)."""
+    _, ny, nx = q.mask.shape
+    ps = s.mask.shape[0]
+    n_acc = n_out if n_acc is None else n_acc
+
+    def pad(a):  # one dead cell ring around the grid
+        return torch.nn.functional.pad(a, (1, 1, 1, 1))
+
+    s_pos = pad(s.pos)
+    s_mask = pad(s.mask)
+    s_planes_all = [pad(a) for a in _planes(s_vals)]
+    qx, qy = q.pos[0], q.pos[1]
+    q_planes = tuple(_planes(q_vals))
+    radius_sq = torch.tensor(radius_sq, dtype=q.pos.dtype, device=q.pos.device)
+    accs = [torch.zeros_like(qx) for _ in range(n_acc)]
+    for dyv in range(3):
+        for dxv in range(3):
+            rows, cols = slice(dyv, dyv + ny), slice(dxv, dxv + nx)
+            dx = s_pos[0, :, None, rows, cols] - qx
+            dy = s_pos[1, :, None, rows, cols] - qy
+            r_sq = dx * dx + dy * dy
+            valid = (
+                q.mask & s_mask[:, None, rows, cols]
+                & (r_sq <= radius_sq) & (r_sq > MIN_DISTANCE_SQ)
+            )
+            s_planes = tuple(a[:, None, rows, cols] for a in s_planes_all)
+            outs = term_fn(dx, dy, r_sq, torch.sqrt(r_sq), scalars,
+                           q_planes, s_planes)
+            for sp in range(ps):
+                # where, not a multiply: invalid candidates may hold inf/NaN
+                accs = [a + torch.where(valid[sp], o[sp], 0.0)
+                        for a, o in zip(accs, outs)]
+    outs = accs if post_fn is None else post_fn(accs, tuple(_planes(post_planes)), scalars)
+    out = torch.stack(list(outs))
+    return torch.where(q.mask[None], out, 0.0)
+
+
+def _check(t: torch.Tensor, device, shape, dtype, what: str):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"pair_reduce: {what} must be a contiguous {dtype} tensor on {device} "
+            f"of shape {tuple(shape)}, got {t.device} {t.dtype} {tuple(t.shape)}"
+        )
+
+
+def _plane_ptrs(vals, device, p, ny, nx, what) -> list:
+    """Data pointers of each logical plane (vectors contribute one pointer per
+    component, no copy)."""
+    ptrs = []
+    for v in vals:
+        lead = 1 if v.ndim == 3 else v.shape[0]
+        _check(v, device, ((p, ny, nx) if v.ndim == 3 else (lead, p, ny, nx)),
+               torch.float32, what)
+        step = p * ny * nx * v.element_size()
+        ptrs.extend(v.data_ptr() + k * step for k in range(lead))
+    return ptrs
+
+
+def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
+                consts: cuda_build.PairConsts, q_vals=(), s_vals=(),
+                scalars=(), post_planes=()) -> torch.Tensor:
+    """Run one K1 call form; returns the stacked (n_out, P, ny, nx) output.
+    `consts.radius_sq` is the pair cutoff for both routes."""
+    device = q.pos.device
+    if device.type == "cpu":
+        return pair_reduce_ref(
+            form.term_fn, form.n_out, q, s, consts.radius_sq, q_vals=q_vals,
+            s_vals=s_vals, scalars=scalars, post_fn=form.post_fn,
+            post_planes=post_planes, n_acc=form.n_acc,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"pair_reduce: unsupported device {device}")
+    p, ny, nx = q.mask.shape
+    ps = s.mask.shape[0]
+    _check(q.pos, device, (2, p, ny, nx), torch.float32, "query positions")
+    _check(q.mask, device, (p, ny, nx), torch.bool, "query mask")
+    _check(s.pos, device, (2, ps, ny, nx), torch.float32, "source positions")
+    _check(s.mask, device, (ps, ny, nx), torch.bool, "source mask")
+    if len(scalars) > 1:
+        raise ValueError("pair_reduce: the CUDA forms take at most one scalar")
+    ptrs = (
+        _plane_ptrs(q_vals, device, p, ny, nx, "query value")
+        + _plane_ptrs(s_vals, device, ps, ny, nx, "source value")
+        + _plane_ptrs(post_planes, device, p, ny, nx, "post plane")
+    )
+    out = torch.empty((form.n_out, p, ny, nx), dtype=torch.float32, device=device)
+    fn = getattr(cuda_build.library(), f"pair_reduce_{form.name}")
+    err = fn(
+        q.pos.data_ptr(), q.mask.data_ptr(), s.pos.data_ptr(), s.mask.data_ptr(),
+        cuda_build.pointer_array(ptrs), len(ptrs), out.data_ptr(),
+        p, ps, ny, nx, float(scalars[0]) if scalars else 0.0,
+        consts, torch.cuda.current_stream(device).cuda_stream,
+    )
+    cuda_build.check(err, f"pair_reduce_{form.name}")
+    LAUNCHES[form.name] += 1
+    return out

@@ -1,0 +1,110 @@
+"""Where the time of the DFSPH plane step goes on one GPU.
+
+    python -m yasph2d_tpu_torch.tools.trace_step [--particles 100000]
+        [--settle 50] [--steps 20] [--trace out.json]
+
+Runs the double dam-break through the CUDA kernels: `--settle` steps first
+(per-window ms/step, iteration counts and drops are printed), then `--steps`
+steps under torch.profiler. Reports the host-clock ms/step of the profiled
+window, the device time per kernel name (per step and per launch), and the
+device's busy and idle shares of the window (one stream, so busy = the sum of
+kernel and memcpy/memset times). Needs a CUDA device.
+"""
+
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(evt, attr, None)
+        if value:
+            return float(value)
+    return 0.0
+
+
+def main():
+    from yasph2d_tpu_torch import AdaptiveTimeStep, DFSPHPlaneSolver, XSPHViscosityModel
+    from yasph2d_tpu_torch.scenes import double_dam_break
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--particles", type=int, default=100_000)
+    ap.add_argument("--settle", type=int, default=50)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--window", type=int, default=50, help="settle report window")
+    ap.add_argument("--trace", default=None, help="write a chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_step needs a CUDA device")
+    device = torch.device("cuda", 0)
+
+    world = double_dam_break(args.particles)
+    grid = world.dense_grid(occupancy=7)
+    solver = DFSPHPlaneSolver(
+        viscosity_model=XSPHViscosityModel(world.properties.smoothing_length),
+        properties=world.properties, grid=grid,
+        step_config=AdaptiveTimeStep(1.0 / 360.0, 1.0 / 24000.0, 1.5),
+    )
+    boundary = solver.boundary_planes(world.boundary_dense(grid, device=device))
+    carry = solver.init_carry(world.initial_state(device=device), boundary)
+    n = int(carry.ctx.mask.sum())
+    print(f"scene: {n} fluid / {world.num_boundary_particles} boundary, grid "
+          f"{grid.nx}x{grid.ny} P {grid.occupancy}, {torch.cuda.get_device_name(0)}",
+          flush=True)
+
+    done = 0
+    while done < args.settle:
+        k = min(args.window, args.settle - done)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, agg = solver.simulate(carry, boundary, k)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / k * 1e3
+        done += k
+        print(f"steps {done - k}-{done}: {ms:.3f} ms/step, iterations/step density "
+              f"{agg.density_iterations / k:.2f} divergence "
+              f"{agg.divergence_iterations / k:.2f}, max drops {agg.neighbor_drops}, "
+              f"dt {float(agg.dt):.3e}, max |v| {float(agg.max_velocity):.3f}",
+              flush=True)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry, agg = solver.simulate(carry, boundary, args.steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    rows = []
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            rows.append((evt.key, us, evt.count))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(us for _, us, _ in rows) / 1e3
+    steps = args.steps
+    print(f"profiled {steps} steps: {wall_ms / steps:.3f} ms/step host clock, "
+          f"device busy {busy_ms / steps:.3f} ms/step "
+          f"({100.0 * busy_ms / wall_ms:.1f}% busy, "
+          f"{100.0 - 100.0 * busy_ms / wall_ms:.1f}% idle), iterations/step density "
+          f"{agg.density_iterations / steps:.2f} divergence "
+          f"{agg.divergence_iterations / steps:.2f}", flush=True)
+    for name, us, count in rows[:20]:
+        print(f"  {us / 1e3 / steps:8.4f} ms/step  {count / steps:6.2f} launches/step  "
+              f"{us / count:9.2f} us/launch  {name[:90]}")
+    print(json.dumps({
+        "particles": n, "steps": steps, "ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "kernels": [{"name": name, "ms_per_step": us / 1e3 / steps,
+                     "launches_per_step": count / steps} for name, us, count in rows],
+    }))
+
+
+if __name__ == "__main__":
+    main()

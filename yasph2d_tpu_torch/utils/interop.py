@@ -1,0 +1,72 @@
+"""Convert the JAX package's plane-solver state into the port's (no JAX needed).
+
+The JAX plane carry stores its planes padded for the TPU, (P, NYP, NXP) with
+NYP a multiple of the row band and NXP of the 128-lane vreg; the padded region
+is dead by construction (mask False). These converters take the carry's leaves
+as numpy arrays and crop them to the port's (P, ny, nx) layout.
+
+`carry_from_numpy` keys (field paths of yasph2d_tpu DFSPHPlaneCarry):
+  ctx.pos, ctx.mask, ctx.sum_grad_stat, ctx.neighbor_total, ctx.densities,
+  ctx.alpha, ctx.num_dropped, v, kappa, stiff, prev_density_iterations,
+  prev_divergence_iterations, time.dt, time.total_simulated_time,
+  time.num_steps, time.target_frame_length.
+`boundary_from_numpy` keys (fields of yasph2d_tpu BoundaryDense):
+  pos_pad, mask, num_dropped.
+"""
+
+import numpy as np
+import torch
+
+from ..models.dfsph_dense import BoundaryDense
+from ..models.dfsph_plane import BoundaryPlanes, DFSPHPlaneCarry, PlaneCtx
+from ..ops.dense_grid import DenseGridConfig
+from ..ops.planes import PlaneGeom, to_planes
+from ..timemanager import TimeState
+from ..units import INDEX, REAL
+
+
+def carry_from_numpy(leaves: dict, grid: DenseGridConfig, device="cpu") -> DFSPHPlaneCarry:
+    ny, nx = grid.ny, grid.nx
+
+    def plane(key, dtype=REAL):
+        a = np.array(np.asarray(leaves[key])[..., :ny, :nx])  # writable copy
+        return torch.as_tensor(a, device=device).to(dtype)
+
+    def scalar(key):
+        return torch.as_tensor(np.array(leaves[key]), device=device).to(INDEX)
+
+    ctx = PlaneCtx(
+        pos=plane("ctx.pos"),
+        mask=plane("ctx.mask", torch.bool),
+        sum_grad_stat=plane("ctx.sum_grad_stat"),
+        neighbor_total=plane("ctx.neighbor_total"),
+        densities=plane("ctx.densities"),
+        alpha=plane("ctx.alpha"),
+        num_dropped=scalar("ctx.num_dropped"),
+    )
+    time = TimeState(
+        dt=np.float32(leaves["time.dt"]),
+        total_simulated_time=np.float32(leaves["time.total_simulated_time"]),
+        num_steps=np.int32(leaves["time.num_steps"]),
+        target_frame_length=np.float32(leaves["time.target_frame_length"]),
+    )
+    return DFSPHPlaneCarry(
+        ctx=ctx,
+        v=plane("v"),
+        kappa=plane("kappa"),
+        stiff=plane("stiff"),
+        prev_density_iterations=int(leaves["prev_density_iterations"]),
+        prev_divergence_iterations=int(leaves["prev_divergence_iterations"]),
+        time=time,
+    )
+
+
+def boundary_from_numpy(leaves: dict, device="cpu") -> BoundaryPlanes:
+    dense = BoundaryDense(
+        pos_pad=torch.as_tensor(np.array(leaves["pos_pad"]), dtype=REAL, device=device),
+        mask=torch.as_tensor(np.array(leaves["mask"]), dtype=torch.bool, device=device),
+        num_dropped=torch.as_tensor(np.array(leaves["num_dropped"]), device=device).to(INDEX),
+    )
+    return BoundaryPlanes(
+        dense=dense, geom=PlaneGeom(to_planes(dense.pos_pad), to_planes(dense.mask))
+    )
