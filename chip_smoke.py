@@ -5,16 +5,21 @@
 Phases, each reported on its own line:
   1. environment: GPU name and power limit, torch / CUDA / nvcc versions;
   2. build: compile the CUDA kernels (yasph2d_tpu_torch/csrc) with nvcc;
-  3. kernels: on the 100k double dam-break state, each of the six call forms of
-     the pair kernel and the re-bucket kernel against its plain PyTorch twin on
-     the same CUDA tensors (pair forms to rtol 1e-5 plus 1e-6 of the plane's
-     scale; re-bucket bit-equal, with and without forced cell overflow), and
-     their times (CUDA events, median of several runs);
+  3. kernels: each kernel against its plain PyTorch twin on the same CUDA
+     tensors, at the 100k double dam-break shapes after 3 steps: the nine call
+     forms of the pair kernel K1 and the re-bucket K2 on the plane states of
+     the DFSPH and WCSPH steps, the three forms of the slot-major pair kernel
+     K3 and the slot-major re-bucket K4 on the padded WCSPH state. Pair forms
+     agree to rtol 1e-5 plus 1e-6 of the plane's scale; the re-buckets
+     bit-equal, with and without forced cell overflow. Times are CUDA events,
+     median of several runs;
   4. small reference: a 3k-particle scene stepped through the kernels on the
-     GPU and through the twins on the CPU must agree;
-  5. main path: init_carry + 20 DFSPH steps of the 100k double dam-break through
-     the kernels, with every kernel's launch count > 0, no dropped particle, all
-     99,372 particles live, finite state and densities in [rho0, 1.3 rho0].
+     GPU and through the twins on the CPU must agree (DFSPH and both WCSPH
+     solvers);
+  5. main path: init_carry + 20 steps of the 100k double dam-break through the
+     kernels, for the DFSPH plane solver and each WCSPH solver, with the launch
+     count of every kernel of that path > 0, no dropped particle, all 99,372
+     particles live, finite state and densities in [rho0, 1.3 rho0].
 
 The line before the last is the GPU's name and power limit as nvidia-smi
 reports them, the one before that the per-kernel JSON record; the last line is
@@ -33,10 +38,28 @@ import torch
 STEPS = 20
 N_FLUID = 99_372
 REPEATS = 7
-PAIR_SOURCE = "yasph2d_tpu_torch/csrc/pair_reduce.cu"
-REBUCKET_SOURCE = "yasph2d_tpu_torch/csrc/rebucket.cu"
-PAIR_REPLACES = "yasph2d_tpu/ops/pallas_slotmajor.py:821"  # pf_pair_reduce
-REBUCKET_REPLACES = "yasph2d_tpu/ops/pallas_slotmajor.py:1120"  # pf_rebucket
+WARMUP_STEPS = 3
+CSRC = "yasph2d_tpu_torch/csrc/"
+SOURCES = {
+    "pair_reduce": CSRC + "pair_reduce.cu",
+    "rebucket": CSRC + "rebucket.cu",
+    "sm_pair_reduce": CSRC + "sm_pair_reduce.cu",
+    "sm_rebucket": CSRC + "sm_rebucket.cu",
+}
+REPLACES = {
+    "pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:821",  # pf_pair_reduce
+    "rebucket": "yasph2d_tpu/ops/pallas_slotmajor.py:1120",  # pf_rebucket
+    "sm_pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:252",  # sm_pair_reduce
+    "sm_rebucket": "yasph2d_tpu/ops/pallas_slotmajor.py:1263",  # sm_rebucket
+}
+DFSPH_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v")
+WCSPH_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces")
+# the kernels each main path must launch
+PATHS = {
+    "dfsph_plane": [f"pair_reduce_{f}" for f in DFSPH_FORMS] + ["rebucket"],
+    "wcsph_padded": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"],
+    "wcsph_plane": [f"pair_reduce_{f}" for f in WCSPH_FORMS] + ["rebucket"],
+}
 
 
 def log(msg):
@@ -66,22 +89,44 @@ def cuda_ms(fn, repeats=REPEATS) -> float:
     return statistics.median(times)
 
 
-def build_solver(world, device):
-    from yasph2d_tpu_torch import AdaptiveTimeStep, DFSPHPlaneSolver, XSPHViscosityModel
+def build_solver(kind, world, device):
+    """(solver, boundary) of one main path, as a user builds them."""
+    from yasph2d_tpu_torch import (
+        AdaptiveTimeStep, DFSPHPlaneSolver, WCSPHPaddedSolver, WCSPHPlaneSolver,
+        XSPHViscosityModel,
+    )
 
+    cls = {"dfsph_plane": DFSPHPlaneSolver, "wcsph_padded": WCSPHPaddedSolver,
+           "wcsph_plane": WCSPHPlaneSolver}[kind]
     grid = world.dense_grid(occupancy=7)
-    solver = DFSPHPlaneSolver(
+    solver = cls(
         viscosity_model=XSPHViscosityModel(
             smoothing_length=world.properties.smoothing_length
         ),
         properties=world.properties,
         grid=grid,
+        # WCSPH runs the reference's tighter CFL (bench.py:116-120)
         step_config=AdaptiveTimeStep(
-            timestep_max=1.0 / 360.0, timestep_min=1.0 / 24000.0, cfl_factor=1.5
+            timestep_max=1.0 / 360.0, timestep_min=1.0 / 24000.0,
+            cfl_factor=0.2 if kind.startswith("wcsph") else 1.5,
         ),
     )
-    boundary = solver.boundary_planes(world.boundary_dense(grid, device=device))
+    boundary = world.boundary_dense(grid, device=device)
+    if kind != "wcsph_padded":
+        boundary = solver.boundary_planes(boundary)
     return solver, boundary
+
+
+def moving_state(kind, device):
+    """A 100k state in motion: init_carry + a few steps."""
+    from yasph2d_tpu_torch.scenes import double_dam_break
+
+    world = double_dam_break(100_000)
+    solver, boundary = build_solver(kind, world, device)
+    carry = solver.init_carry(world.initial_state(device=device), boundary)
+    carry, _ = solver.simulate(carry, boundary, WARMUP_STEPS)
+    torch.cuda.synchronize()
+    return solver, boundary, carry
 
 
 def phase_environment():
@@ -106,9 +151,8 @@ def phase_build():
         f"{t_build:.2f} s, load {time.perf_counter() - t0 - t_build:.2f} s")
 
 
-def pair_error(kernel_out, twin_out, mask):
+def pair_error(kernel_out, twin_out, live):
     """(max abs error on live slots, passes the stated tolerance)."""
-    live = mask.expand_as(kernel_out)
     a, b = kernel_out[live], twin_out[live]
     err = (a - b).abs()
     scale = max(1.0, float(b.abs().max())) if b.numel() else 1.0
@@ -116,17 +160,75 @@ def pair_error(kernel_out, twin_out, mask):
     return float(err.max()) if err.numel() else 0.0, ok
 
 
-def phase_kernels(device):
+def bit_equal(outs_k, outs_t) -> bool:
+    def bits(a):
+        return a.contiguous().view(torch.int32) if a.dtype == torch.float32 else a
+    return all(torch.equal(bits(a), bits(b)) for a, b in zip(outs_k, outs_t))
+
+
+class Records:
+    """The per-kernel JSON records; a kernel checked in several calls keeps
+    the first (main-path) call's times and the largest error."""
+
+    def __init__(self):
+        self.by_name = {}
+        self.nonzero = set()
+
+    def add(self, name, kernel, max_abs_err, ms, plain_ms):
+        if name in self.by_name:
+            rec = self.by_name[name]
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err)
+            return
+        self.by_name[name] = dict(name=name, route="cuda", source=SOURCES[kernel],
+                                  replaces=REPLACES[kernel], max_abs_err=max_abs_err,
+                                  ms=ms, plain_ms=plain_ms)
+
+    def check_pair(self, kernel, label, form, run_kernel, run_twin, live):
+        out_k, out_t = run_kernel(), run_twin()
+        torch.cuda.synchronize()
+        err, ok = pair_error(out_k, out_t, live)
+        nonzero = bool(out_t[live].abs().sum() > 0)
+        name = f"{kernel}_{form.name}"
+        if nonzero:
+            self.nonzero.add(name)
+        ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_twin)
+        log(f"phase 3 kernels: {kernel}_{label} max_abs_err {err!r} "
+            f"{'ok' if ok else 'MISMATCH'} nonzero {nonzero} "
+            f"kernel {ms:.4f} ms twin {plain_ms:.4f} ms")
+        if not ok:
+            raise RuntimeError(f"{kernel}_{label} disagrees with its twin "
+                               f"(max_abs_err {err})")
+        self.add(name, kernel, err, ms, plain_ms)
+
+    def check_rebucket(self, kernel, label, run_kernel, run_twin, overflow):
+        out_k, out_t = run_kernel(), run_twin()
+        torch.cuda.synchronize()
+        equal = bit_equal(out_k, out_t)
+        drops = int(out_k[3])
+        log(f"phase 3 kernels: {kernel}[{label}] bit-equal {equal} drops {drops} "
+            f"live {int(out_k[1].sum())}")
+        if not equal:
+            raise RuntimeError(f"{kernel}[{label}] is not bit-equal to its twin")
+        if overflow and drops == 0:
+            raise RuntimeError(f"{kernel}[{label}] forced no drops")
+        if not overflow:
+            if drops != 0:
+                raise RuntimeError(f"{kernel}[{label}] dropped particles")
+            ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_twin)
+            log(f"phase 3 kernels: {kernel} kernel {ms:.4f} ms twin {plain_ms:.4f} ms")
+            self.add(kernel, kernel, 0.0, ms, plain_ms)
+
+    def require_nonzero(self, names):
+        idle = set(names) - self.nonzero
+        if idle:
+            raise RuntimeError(f"pair forms never produced a nonzero live output: {idle}")
+
+
+def phase_kernels_dfsph(device, rec: Records):
     from yasph2d_tpu_torch.ops import pair_reduce as pr
     from yasph2d_tpu_torch.ops import rebucket as rb
-    from yasph2d_tpu_torch.ops.cuda_build import PAIR_FORMS
-    from yasph2d_tpu_torch.scenes import double_dam_break
 
-    world = double_dam_break(100_000)
-    solver, boundary = build_solver(world, device)
-    carry = solver.init_carry(world.initial_state(device=device), boundary)
-    carry, _ = solver.simulate(carry, boundary, 3)  # a state in motion
-    torch.cuda.synchronize()
+    solver, boundary, carry = moving_state("dfsph_plane", device)
     ctx = carry.ctx
     geom = ctx.geom
     dt = float(carry.time.dt)
@@ -165,41 +267,16 @@ def phase_kernels(device):
             q_vals=(k,), s_vals=(k,), scalars=(scale,),
             post_planes=(v, k, ctx.sum_grad_stat))),
     ]
-    records = {}
-    nonzero_forms = set()
+    live = ctx.mask
     for label, form, src, kw in calls:
-        def kernel():
-            return pr.pair_reduce(form, geom, src, solver._consts, **kw)
-
-        def twin():
-            return pr.pair_reduce_ref(
+        rec.check_pair(
+            "pair_reduce", label, form,
+            lambda: pr.pair_reduce(form, geom, src, solver._consts, **kw),
+            lambda: pr.pair_reduce_ref(
                 form.term_fn, form.n_out, geom, src, solver._consts.radius_sq,
-                post_fn=form.post_fn, n_acc=form.n_acc, **kw)
-
-        out_k, out_t = kernel(), twin()
-        torch.cuda.synchronize()
-        err, ok = pair_error(out_k, out_t, ctx.mask)
-        nonzero = bool(out_t[ctx.mask.expand_as(out_t)].abs().sum() > 0)
-        if nonzero:
-            nonzero_forms.add(form.name)
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(twin)
-        log(f"phase 3 kernels: pair_reduce_{label} max_abs_err {err!r} "
-            f"{'ok' if ok else 'MISMATCH'} nonzero {nonzero} "
-            f"kernel {ms:.4f} ms twin {plain_ms:.4f} ms")
-        if not ok:
-            raise RuntimeError(f"pair_reduce_{label} disagrees with its twin "
-                               f"(max_abs_err {err})")
-        name = f"pair_reduce_{form.name}"
-        if name in records:  # keep the main-path call's times
-            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
-        else:
-            records[name] = dict(name=name, route="cuda", source=PAIR_SOURCE,
-                                 replaces=PAIR_REPLACES, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms)
-    idle = set(PAIR_FORMS) - nonzero_forms
-    if idle:
-        raise RuntimeError(f"pair forms never produced a nonzero live output: {idle}")
-    records = list(records.values())
+                post_fn=form.post_fn, n_acc=form.n_acc, **kw),
+            live.expand(form.n_out, *live.shape))
+    rec.require_nonzero([f"pair_reduce_{n}" for n in DFSPH_FORMS])
 
     # re-bucket: the step's own advection, and a forced overflow in which every
     # particle of an odd cell column moves one cell left
@@ -209,31 +286,101 @@ def phase_kernels(device):
     odd = (torch.arange(grid.nx, device=device) % 2 == 1).to(torch.float32)
     crowded = pos.clone()
     crowded[0] -= odd * grid.cell_size
-    rb_ms = rb_plain_ms = None
-    for name, p in (("advect", pos), ("overflow", crowded)):
-        out_k = rb.rebucket(p, ctx.mask, extra, grid)
-        out_t = rb.rebucket_ref(p, ctx.mask, extra, grid)
-        torch.cuda.synchronize()
-        equal = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
-                                b.view(torch.int32) if b.dtype == torch.float32 else b)
-                    for a, b in zip(out_k, out_t))
-        drops = int(out_k[3])
-        log(f"phase 3 kernels: rebucket[{name}] bit-equal {equal} drops {drops} "
-            f"live {int(out_k[1].sum())}")
-        if not equal:
-            raise RuntimeError(f"rebucket[{name}] is not bit-equal to its twin")
-        if name == "overflow" and drops == 0:
-            raise RuntimeError("rebucket[overflow] forced no drops")
-        if name == "advect":
-            if drops != 0:
-                raise RuntimeError("rebucket[advect] dropped particles")
-            rb_ms = cuda_ms(lambda: rb.rebucket(p, ctx.mask, extra, grid))
-            rb_plain_ms = cuda_ms(lambda: rb.rebucket_ref(p, ctx.mask, extra, grid))
-    log(f"phase 3 kernels: rebucket kernel {rb_ms:.4f} ms twin {rb_plain_ms:.4f} ms")
-    records.append(dict(name="rebucket", route="cuda", source=REBUCKET_SOURCE,
-                        replaces=REBUCKET_REPLACES, max_abs_err=0.0, ms=rb_ms,
-                        plain_ms=rb_plain_ms))
-    return records
+    for label, p in (("advect", pos), ("overflow", crowded)):
+        rec.check_rebucket("rebucket", label,
+                           lambda: rb.rebucket(p, ctx.mask, extra, grid),
+                           lambda: rb.rebucket_ref(p, ctx.mask, extra, grid),
+                           overflow=label == "overflow")
+
+
+def wcsph_operands(solver, live, v_live, v, dens, rng):
+    """Forces-pass operands of a WCSPH state: the barely compressed early state
+    has rho = rho0 and p = 0 everywhere, so seeded density (up) and velocity
+    noise on live slots gives the pressure and viscosity terms real work."""
+    from yasph2d_tpu_torch.models.wcsph import tait_pressure
+
+    def noise(t, scale):
+        return torch.as_tensor(rng.normal(0.0, scale, tuple(t.shape)).astype(np.float32),
+                               device=t.device)
+
+    rho0 = solver.properties.fluid_density
+    dens = torch.where(live, dens + noise(dens, 0.05 * rho0).abs(), dens)
+    v = torch.where(v_live, v + noise(v, 0.5), v)
+    return tait_pressure(solver.stiffness, rho0, dens), dens, v
+
+
+def phase_kernels_wcsph(device, rec: Records):
+    from yasph2d_tpu_torch.ops import pair_reduce as pr
+    from yasph2d_tpu_torch.ops import rebucket as rb
+    from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
+    from yasph2d_tpu_torch.ops import sm_rebucket as smr
+    from yasph2d_tpu_torch.ops.planes import PlaneGeom
+
+    rng = np.random.default_rng(1)
+
+    # K3 and K4 on the padded state
+    solver, boundary, carry = moving_state("wcsph_padded", device)
+    f, c, grid = solver._forms, solver._consts, solver.grid
+    dt = float(carry.time.dt)
+    pos, mask = carry.pos_pad, carry.mask
+    pres, dens, v = wcsph_operands(solver, mask, mask[..., None], carry.v_pad,
+                                   carry.dens_pad, rng)
+    fluid = (pos, mask)
+    walls = (boundary.pos_pad, boundary.mask)
+    calls = [
+        ("wcsph_density", f.density, fluid, {}),
+        ("wcsph_stat", f.stat, walls, {}),
+        # the fluid -> boundary pass sums nothing before the columns reach the
+        # walls: the same instantiation fluid -> fluid
+        ("wcsph_stat[fluid->fluid]", f.stat, fluid, {}),
+        ("wcsph_forces", f.forces, fluid, dict(
+            q_vals=(pres, dens, v), s_vals=(pres, dens, v), scalars=(dt,))),
+    ]
+    for label, form, (s_pos, s_mask), kw in calls:
+        rec.check_pair(
+            "sm_pair_reduce", label, form,
+            lambda: smp.sm_pair_reduce(form, pos, mask, s_pos, s_mask, c, **kw),
+            lambda: smp.sm_pair_reduce_ref(form.term_fn, form.n_out, pos, mask, s_pos,
+                                           s_mask, c.radius_sq, **kw),
+            mask[..., None].expand(*mask.shape, form.n_out))
+    rec.require_nonzero([f"sm_pair_reduce_{n}" for n in WCSPH_FORMS])
+    adv = pos + carry.v_pad * dt
+    odd = (torch.arange(grid.nx, device=device) % 2 == 1).to(torch.float32)
+    crowded = adv.clone()
+    crowded[..., 0] -= odd[None, :, None] * grid.cell_size
+    for label, p in (("advect", adv), ("overflow", crowded)):
+        rec.check_rebucket("sm_rebucket", label,
+                           lambda: smr.sm_rebucket(p, mask, carry.v_pad, grid),
+                           lambda: smr.sm_rebucket_ref(p, mask, carry.v_pad, grid),
+                           overflow=label == "overflow")
+
+    # K1's WCSPH forms and K2 with the velocity payload on the plane state
+    solver, boundary, carry = moving_state("wcsph_plane", device)
+    f, c = solver._forms, solver._consts
+    dt = float(carry.time.dt)
+    geom = PlaneGeom(carry.pos, carry.mask)
+    pres, dens, v = wcsph_operands(solver, carry.mask, carry.mask[None], carry.v,
+                                   carry.dens, rng)
+    calls = [
+        ("wcsph_density", f.density, geom, {}),
+        ("wcsph_stat", f.stat, boundary.geom, {}),
+        ("wcsph_stat[fluid->fluid]", f.stat, geom, {}),
+        ("wcsph_forces", f.forces, geom, dict(
+            q_vals=(pres, dens, v), s_vals=(pres, dens, v), scalars=(dt,))),
+    ]
+    for label, form, src, kw in calls:
+        rec.check_pair(
+            "pair_reduce", label, form,
+            lambda: pr.pair_reduce(form, geom, src, c, **kw),
+            lambda: pr.pair_reduce_ref(form.term_fn, form.n_out, geom, src,
+                                       c.radius_sq, **kw),
+            carry.mask.expand(form.n_out, *carry.mask.shape))
+    rec.require_nonzero([f"pair_reduce_{n}" for n in WCSPH_FORMS])
+    adv = carry.pos + carry.v * dt
+    rec.check_rebucket("rebucket", "wcsph advect",
+                       lambda: rb.rebucket(adv, carry.mask, carry.v, solver.grid),
+                       lambda: rb.rebucket_ref(adv, carry.mask, carry.v, solver.grid),
+                       overflow=False)
 
 
 def live_rows(state):
@@ -247,39 +394,56 @@ def phase_small_reference(device):
     """Kernels on the GPU against the twins on the CPU, 5 steps of a 3k scene."""
     from yasph2d_tpu_torch.scenes import double_dam_break
 
-    runs = {}
-    for dev in (device, torch.device("cpu")):
-        world = double_dam_break(3_000)
-        solver, boundary = build_solver(world, dev)
-        carry = solver.init_carry(world.initial_state(device=dev), boundary)
-        iters = []
-        for _ in range(5):
-            carry, d = solver.simulate(carry, boundary, 1)
-            iters.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
-        runs[dev.type] = (iters, live_rows(solver.export_state(carry)))
-    (gi, grows), (ci, crows) = runs["cuda"], runs["cpu"]
-    diff = float(np.abs(grows - crows).max())
-    log(f"phase 4 small reference: {grows.shape[0]} particles, iterations "
-        f"gpu {gi} cpu {ci}, max row diff {diff!r}")
-    if gi != ci or grows.shape != crows.shape or not np.allclose(
-            grows, crows, rtol=1e-5, atol=1e-5):
-        raise RuntimeError("GPU kernels and CPU twins disagree on the small scene")
+    for kind in PATHS:
+        runs = {}
+        for dev in (device, torch.device("cpu")):
+            solver, boundary = build_solver(kind, double_dam_break(3_000), dev)
+            carry = solver.init_carry(double_dam_break(3_000).initial_state(device=dev),
+                                      boundary)
+            counts = []
+            for _ in range(5):
+                carry, d = solver.simulate(carry, boundary, 1)
+                counts.append((d.density_iterations, d.divergence_iterations,
+                               d.neighbor_drops))
+            runs[dev.type] = (counts, live_rows(solver.export_state(carry)))
+        (gc, grows), (cc, crows) = runs["cuda"], runs["cpu"]
+        diff = float(np.abs(grows - crows).max()) if grows.shape == crows.shape else None
+        log(f"phase 4 small reference: {kind} {grows.shape[0]} particles, "
+            f"(iterations, drops) gpu {gc} cpu {cc}, max row diff {diff!r}")
+        if gc != cc or grows.shape != crows.shape or not np.allclose(
+                grows, crows, rtol=1e-5, atol=1e-5):
+            raise RuntimeError(f"{kind}: GPU kernels and CPU twins disagree on the "
+                               "small scene")
 
 
-def phase_main_path(device):
-    from yasph2d_tpu_torch.ops import pair_reduce as pr
-    from yasph2d_tpu_torch.ops import rebucket as rb
+def reset_launch_counts():
+    from yasph2d_tpu_torch.ops import pair_reduce, rebucket, sm_pair_reduce, sm_rebucket
+
+    for mod in (pair_reduce, rebucket, sm_pair_reduce, sm_rebucket):
+        mod.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    from yasph2d_tpu_torch.ops import pair_reduce, rebucket, sm_pair_reduce, sm_rebucket
+
+    counts = {f"pair_reduce_{k}": v for k, v in pair_reduce.LAUNCHES.items()}
+    counts.update({f"sm_pair_reduce_{k}": v for k, v in sm_pair_reduce.LAUNCHES.items()})
+    counts.update(rebucket.LAUNCHES)
+    counts.update(sm_rebucket.LAUNCHES)
+    return counts
+
+
+def phase_main_path(device, kind) -> dict:
     from yasph2d_tpu_torch.scenes import double_dam_break
 
     world = double_dam_break(100_000)
     assert world.num_dynamic_particles == N_FLUID, world.num_dynamic_particles
-    solver, boundary = build_solver(world, device)
+    solver, boundary = build_solver(kind, world, device)
     grid = solver.grid
     state = world.initial_state(device=device)
     torch.cuda.synchronize()
 
-    pr.reset_launch_counts()
-    rb.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     carry = solver.init_carry(state, boundary)
     torch.cuda.synchronize()
@@ -291,8 +455,7 @@ def phase_main_path(device):
         diags.append(d)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {f"pair_reduce_{k}": v for k, v in pr.LAUNCHES.items()}
-    launches["rebucket"] = rb.LAUNCHES["rebucket"]
+    launches = launch_counts()
 
     s = solver.export_state(carry)
     live = int(s.alive.sum())
@@ -302,23 +465,27 @@ def phase_main_path(device):
                   and torch.isfinite(dens).all())
     dmin, dmax = float(dens.min()), float(dens.max())
     drops = max(d.neighbor_drops for d in diags)
-    iters = [(d.density_iterations, d.divergence_iterations) for d in diags]
     ms = elapsed / STEPS * 1e3
-    log(f"phase 5 main path: grid {grid.nx}x{grid.ny} P {grid.occupancy}, "
+    log(f"phase 5 main path [{kind}]: grid {grid.nx}x{grid.ny} P {grid.occupancy}, "
         f"{live} live / {world.num_boundary_particles} boundary, init {t_init:.3f} s, "
         f"{STEPS} steps {ms:.3f} ms/step {live * STEPS / elapsed:.1f} particle-steps/s, "
-        f"drops {drops}, density [{dmin!r}, {dmax!r}], dt {float(carry.time.dt)!r}")
-    log(f"phase 5 main path: iterations per step (density, divergence) {iters}")
-    log(f"phase 5 main path: launches {launches}")
-    problems = [k for k, v in launches.items() if v <= 0]
+        f"drops {drops}, density [{dmin!r}, {dmax!r}], dt {float(carry.time.dt)!r}, "
+        f"max |v| {float(max(d.max_velocity for d in diags))!r}")
+    if kind == "dfsph_plane":
+        iters = [(d.density_iterations, d.divergence_iterations) for d in diags]
+        log(f"phase 5 main path [{kind}]: iterations per step (density, divergence) "
+            f"{iters}")
+    path = {k: launches[k] for k in PATHS[kind]}
+    log(f"phase 5 main path [{kind}]: launches {path}")
+    problems = [k for k, v in path.items() if v <= 0]
     if problems:
-        raise RuntimeError(f"kernels never launched on the main path: {problems}")
+        raise RuntimeError(f"{kind}: kernels never launched on the main path: {problems}")
     if drops != 0 or live != N_FLUID or not finite:
-        raise RuntimeError(f"main path state wrong: drops {drops} live {live} "
+        raise RuntimeError(f"{kind}: main path state wrong: drops {drops} live {live} "
                            f"finite {finite}")
     if not (rho0 <= dmin and dmax <= 1.3 * rho0):
-        raise RuntimeError(f"densities outside [rho0, 1.3 rho0]: [{dmin}, {dmax}]")
-    return launches
+        raise RuntimeError(f"{kind}: densities outside [rho0, 1.3 rho0]: [{dmin}, {dmax}]")
+    return path
 
 
 def main():
@@ -326,9 +493,15 @@ def main():
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     phase_build()
-    records = phase_kernels(device)
+    rec = Records()
+    phase_kernels_dfsph(device, rec)
+    phase_kernels_wcsph(device, rec)
     phase_small_reference(device)
-    launches = phase_main_path(device)
+    launches = {}
+    for kind in PATHS:
+        for name, count in phase_main_path(device, kind).items():
+            launches[name] = launches.get(name, 0) + count
+    records = list(rec.by_name.values())
     for r in records:
         r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": records}), flush=True)

@@ -1,7 +1,7 @@
-"""K1 (pair reduction): the port's plain twin in all six call forms against the
-JAX plane solver's passes, whose pf_pair_reduce runs in interpret mode on the
-CPU (as tests/test_pallas_plane.py runs it), on random grids and on distinct
-query (fluid) / source (boundary) spaces.
+"""K1 (pair reduction): the port's plain twin in all nine call forms against the
+JAX plane solvers' passes (six DFSPH, three WCSPH), whose pf_pair_reduce runs
+in interpret mode on the CPU (as tests/test_pallas_plane.py runs it), on random
+grids and on distinct query (fluid) / source (boundary) spaces.
 
 Tolerance on live slots: rtol 1e-5, and atol 1e-6 in units of the output
 plane's largest magnitude. The accumulation order is the same (dyv, dxv, sp)
@@ -24,6 +24,7 @@ from yasph2d_tpu.models.dfsph_plane import (
     PlaneCtx as JCtx,
 )
 from yasph2d_tpu.models.viscosity import XSPHViscosityModel as JXSPH
+from yasph2d_tpu.models.wcsph_plane import WCSPHPlaneSolver as JWSolver
 from yasph2d_tpu.ops.dense_grid import DenseGridConfig as JGrid
 from yasph2d_tpu.ops.pallas_slotmajor import (
     pass_flags,
@@ -39,6 +40,7 @@ from yasph2d_tpu_torch.models.dfsph_plane import (
     PlaneCtx as TCtx,
 )
 from yasph2d_tpu_torch.models.viscosity import XSPHViscosityModel as TXSPH
+from yasph2d_tpu_torch.models.wcsph_plane import WCSPHPlaneSolver as TWSolver
 from yasph2d_tpu_torch.ops import pair_reduce as tpr
 from yasph2d_tpu_torch.ops.dense_grid import DenseGridConfig as TGrid
 from yasph2d_tpu_torch.ops.planes import PlaneGeom, to_planes
@@ -49,7 +51,8 @@ torch.set_num_threads(1)
 
 BR = 4
 RTOL, ATOL = 1e-5, 1e-6
-FORMS = ["ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v"]
+FORMS = ["ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
+         "wcsph_density", "wcsph_stat", "wcsph_forces"]
 
 
 NY, NX, P, PB = 11, 17, 3, 2
@@ -69,6 +72,16 @@ def solvers():
                  step_config=JFixed(1.0 / 3000.0))
     ts = TSolver(viscosity_model=TXSPH(h), properties=tp, grid=TGrid(**base),
                  step_config=TFixed(1.0 / 3000.0))
+    jws = JWSolver(viscosity_model=JXSPH(h), properties=jp, grid=jgrid,
+                   step_config=JFixed(1.0 / 3000.0))
+    tws = TWSolver(viscosity_model=TXSPH(h), properties=tp, grid=TGrid(**base),
+                   step_config=TFixed(1.0 / 3000.0))
+    wcsph = {
+        form: jax.jit(lambda q, s, qv, sv, sc, terms=terms, n_out=n_out: pf_pair_reduce(
+            terms, n_out, q, s, pass_flags(q, s, jgrid), jgrid, BR,
+            q_vals=qv, s_vals=sv, scalars=sc))
+        for form, (terms, n_out) in jax_wcsph_terms(jws).items()
+    }
     jitted = dict(
         ctx=jax.jit(lambda q, s: pf_pair_reduce(
             jax_ctx_terms(js), 5, q, s, pass_flags(q, s, jgrid), jgrid, BR)),
@@ -77,8 +90,9 @@ def solvers():
         err_ki=jax.jit(js._density_err_ki_pf),
         delta_ki=jax.jit(js._divergence_delta_ki_pf),
         corr_v=jax.jit(js._apply_correction_pf),
+        **wcsph,
     )
-    return h, jgrid, js, ts, jitted
+    return h, jgrid, js, ts, tws, jitted
 
 
 class Case:
@@ -88,7 +102,7 @@ class Case:
 
     def __init__(self, seed, ny=NY, nx=NX, p=P, pb=PB, fill=0.6, bfill=0.3):
         rng = np.random.default_rng(seed)
-        h, self.jgrid, self.js, self.ts, self.jitted = solvers()
+        h, self.jgrid, self.js, self.ts, self.tws, self.jitted = solvers()
         self.ny, self.nx = ny, nx
 
         def slots(pp, fill_):
@@ -108,6 +122,7 @@ class Case:
         self.alpha = 1e-3 * f()
         self.sgs = (f(2) - 0.5) * 40.0
         self.nt = np.floor(f() * 18.0)  # straddles the <9-neighbour guard
+        self.pres = 500.0 * f()
         self.dt = np.float32(1.0 / 2700.0)
 
     # --- JAX side (TPU-padded planes)
@@ -159,8 +174,52 @@ def jax_ctx_terms(solver):
     return ctx_terms
 
 
+def jax_wcsph_terms(js):
+    """The JAX WCSPH plane solver's three pair closures
+    (models/wcsph_plane.py step), op for op, with their output counts."""
+    m = float(js.properties.particle_mass)
+
+    def density(dx, dy, r_sq, r, sc, q, s):
+        return (js.density_kernel.evaluate(r_sq, r),)
+
+    def stat(dx, dy, r_sq, r, sc, q, s):
+        w_b = js.pressure_kernel.evaluate(r_sq, r)
+        c = -js.boundary_force_factor * w_b / r_sq
+        return (js.density_kernel.evaluate(r_sq, r), c * dx, c * dy)
+
+    def forces(dx, dy, r_sq, r, scalars, q, s):
+        p_i, rho_i, vx_i, vy_i = q
+        p_j, rho_j, vx_j, vy_j = s
+        coef = -m * (p_i + p_j) / (2.0 * rho_i * rho_j)
+        gc = coef * js.pressure_kernel.gradient_coefficient(r_sq, r)
+        c = js.viscosity_model.viscous_coefficient(scalars[0], r_sq, r, m, rho_j)
+        return (gc * dx + c * (vx_j - vx_i), gc * dy + c * (vy_j - vy_i))
+
+    return dict(wcsph_density=(density, 1), wcsph_stat=(stat, 3),
+                wcsph_forces=(forces, 2))
+
+
+def run_wcsph_form(case: Case, form: str):
+    """(jax outputs, port outputs) of one WCSPH call form; stat runs against
+    the boundary space, density and forces fluid -> fluid."""
+    boundary = form == "wcsph_stat"
+    spos, smask = (case.bpos, case.bmask) if boundary else (case.pos, case.mask)
+    qv = (case.pres, case.rho, case.v) if form == "wcsph_forces" else ()
+    sc = (case.dt,) if form == "wcsph_forces" else ()
+    out_j = case.jitted[form](case.jgeom(case.pos, case.mask), case.jgeom(spos, smask),
+                              tuple(map(case.j, qv)), tuple(map(case.j, qv)),
+                              tuple(jnp.float32(x) for x in sc))
+    pform = getattr(case.tws._forms, form.split("_")[1])
+    out_t = tpr.pair_reduce(pform, case.tctx().geom, PlaneGeom(case.t(spos), case.t(smask)),
+                            case.tws._consts, q_vals=tuple(map(case.t, qv)),
+                            s_vals=tuple(map(case.t, qv)), scalars=tuple(map(float, sc)))
+    return list(out_j), list(out_t)
+
+
 def run_form(case: Case, form: str):
     """(jax outputs, port outputs) of one call form, as lists of planes."""
+    if form.startswith("wcsph"):
+        return run_wcsph_form(case, form)
     ts, jit = case.ts, case.jitted
     dt = case.dt
     if form == "ctx":

@@ -69,16 +69,22 @@ def build() -> Path:
 
 
 class PairConsts(ctypes.Structure):
-    """Float32 constants of the pair kernels (csrc/pair_reduce.cu PairConsts);
+    """Float32 constants of the pair kernels (csrc/pair_terms.cuh PairConsts);
     the field order is the C struct's."""
 
     _fields_ = [(name, ctypes.c_float) for name in (
         "radius_sq", "w_h_inv", "w_norm", "w_norm_grad", "p6_hsq", "p6_norm",
         "xsph_coef", "mass", "w0", "rho0", "alpha_eps", "gx", "gy",
+        "d6_hsq", "d6_norm", "sp_h", "sp_norm", "sp_norm_grad", "bff",
     )]
 
 
-PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v")
+# K1's call forms (csrc/pair_reduce.cu): the DFSPH plane step's six, then the
+# WCSPH plane step's three
+PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
+              "wcsph_density", "wcsph_stat", "wcsph_forces")
+# K3's call forms (csrc/sm_pair_reduce.cu): the WCSPH padded step's three
+SM_PAIR_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,9 +102,20 @@ def library() -> ctypes.CDLL:
                        _I, _I, _I, _I, ctypes.c_float,
                        ctypes.POINTER(PairConsts), _P]
         fn.restype = _I
+    for form in SM_PAIR_FORMS:
+        fn = getattr(lib, f"sm_pair_reduce_{form}")
+        # q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out,
+        # P, Ps, ny, nx, scalar, consts, stream
+        fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
+                       _I, _I, _I, _I, ctypes.c_float,
+                       ctypes.POINTER(PairConsts), _P]
+        fn.restype = _I
     # code, payload planes, n_pay, out, total, P, ny, nx, stream
     lib.rebucket.argtypes = [_P, ctypes.POINTER(_P), _I, _P, _P, _I, _I, _I, _P]
     lib.rebucket.restype = _I
+    # code, pos, vals, D, out_pos, out_vals, total, P, ny, nx, stream
+    lib.sm_rebucket.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P]
+    lib.sm_rebucket.restype = _I
     return lib
 
 
@@ -108,5 +125,20 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
+def check_tensor(t, device, shape, dtype, what: str):
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`,
+    the only kind of operand a launcher takes."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{what} must be a contiguous {dtype} tensor on {device} of shape "
+            f"{tuple(shape)}, got {t.device} {t.dtype} {tuple(t.shape)}"
+        )
+
+
 def pointer_array(ptrs) -> ctypes.Array:
     return (_P * max(len(ptrs), 1))(*ptrs)
+
+
+def int_array(values) -> ctypes.Array:
+    return (_I * max(len(values), 1))(*values)

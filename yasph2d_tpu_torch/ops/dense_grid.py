@@ -1,9 +1,12 @@
-"""Dense slot grid, init-time part (PyTorch port of yasph2d_tpu/ops/dense_grid.py).
+"""Dense slot grid (PyTorch port of yasph2d_tpu/ops/dense_grid.py): the init-time
+slot build and the re-bucket's move codes.
 
 Particles are sorted by row-major cell key and laid out in a dense (ny, nx, P)
-slot grid (P = max occupancy per cell). The port needs this only to build the
-initial carry and the static boundary index space; the per-step neighbourhood
-rebuild is the windowed re-bucket (ops/rebucket.py).
+slot grid (P = max occupancy per cell). The port needs the slot build only to
+build the initial carry and the static boundary index space; the per-step
+neighbourhood rebuild is the windowed re-bucket (ops/rebucket.py in plane form,
+ops/sm_rebucket.py in this slot layout), which takes its move codes from
+`move_codes`.
 
 The slot build is bit-for-bit the JAX package's: same f32 cell-coordinate
 arithmetic, a stable sort (jax.lax.sort is stable, so ties keep input order),
@@ -130,3 +133,20 @@ def pad_to_slots(values: torch.Tensor, slots: SlotGrid, grid: DenseGridConfig):
     if values.shape[0] == 0:
         return torch.zeros(shape, dtype=values.dtype, device=values.device)
     return values[slots.slot_idx.long()].reshape(shape)
+
+
+def move_codes(positions_pad: torch.Tensor, mask: torch.Tensor,
+               grid: DenseGridConfig) -> torch.Tensor:
+    """(ny, nx, P) uint8 move code per slot, in the OLD slot layout: 0 for a
+    dead slot, else (dy+1)*3 + (dx+1) + 1 with (dx, dy) the clamped offset of
+    the cell holding the slot's (advected) position from the slot's own cell.
+    Bit-identical to the JAX move_codes on one device (no `row0`)."""
+    ny, nx, _ = mask.shape
+    device = positions_pad.device
+    iy = torch.arange(ny, dtype=INDEX, device=device)[:, None, None]
+    ix = torch.arange(nx, dtype=INDEX, device=device)[None, :, None]
+    cx, cy = cell_coords(positions_pad, grid)
+    dy = torch.clamp(cy - iy, -1, 1)
+    dx = torch.clamp(cx - ix, -1, 1)
+    code = (dy + 1) * 3 + (dx + 1) + 1
+    return torch.where(mask, code, 0).to(torch.uint8)

@@ -96,23 +96,15 @@ def pair_reduce_ref(term_fn, n_out: int, q: PlaneGeom, s: PlaneGeom,
     return torch.where(q.mask[None], out, 0.0)
 
 
-def _check(t: torch.Tensor, device, shape, dtype, what: str):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"pair_reduce: {what} must be a contiguous {dtype} tensor on {device} "
-            f"of shape {tuple(shape)}, got {t.device} {t.dtype} {tuple(t.shape)}"
-        )
-
-
 def _plane_ptrs(vals, device, p, ny, nx, what) -> list:
     """Data pointers of each logical plane (vectors contribute one pointer per
     component, no copy)."""
     ptrs = []
     for v in vals:
         lead = 1 if v.ndim == 3 else v.shape[0]
-        _check(v, device, ((p, ny, nx) if v.ndim == 3 else (lead, p, ny, nx)),
-               torch.float32, what)
+        cuda_build.check_tensor(v, device,
+                                (p, ny, nx) if v.ndim == 3 else (lead, p, ny, nx),
+                                torch.float32, f"pair_reduce: {what}")
         step = p * ny * nx * v.element_size()
         ptrs.extend(v.data_ptr() + k * step for k in range(lead))
     return ptrs
@@ -134,10 +126,12 @@ def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
         raise ValueError(f"pair_reduce: unsupported device {device}")
     p, ny, nx = q.mask.shape
     ps = s.mask.shape[0]
-    _check(q.pos, device, (2, p, ny, nx), torch.float32, "query positions")
-    _check(q.mask, device, (p, ny, nx), torch.bool, "query mask")
-    _check(s.pos, device, (2, ps, ny, nx), torch.float32, "source positions")
-    _check(s.mask, device, (ps, ny, nx), torch.bool, "source mask")
+    for t, shape, dtype, what in (
+            (q.pos, (2, p, ny, nx), torch.float32, "query positions"),
+            (q.mask, (p, ny, nx), torch.bool, "query mask"),
+            (s.pos, (2, ps, ny, nx), torch.float32, "source positions"),
+            (s.mask, (ps, ny, nx), torch.bool, "source mask")):
+        cuda_build.check_tensor(t, device, shape, dtype, f"pair_reduce: {what}")
     if len(scalars) > 1:
         raise ValueError("pair_reduce: the CUDA forms take at most one scalar")
     ptrs = (

@@ -74,12 +74,7 @@ def rebucket(pos, mask, values, grid: DenseGridConfig):
     d = values.shape[0]
     for t, shape, what in ((pos, (2, p, ny, nx), "positions"),
                            (values, (d, p, ny, nx), "values")):
-        if t.device != device or t.dtype != REAL or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"rebucket: {what} must be a contiguous CUDA float32 tensor of "
-                f"shape {shape}, got {t.device} {t.dtype} {tuple(t.shape)}"
-            )
+        cuda_build.check_tensor(t, device, shape, REAL, f"rebucket: {what}")
     if mask.device != device or mask.dtype != torch.bool:
         raise ValueError("rebucket: mask must be a CUDA bool tensor")
     code = pf_move_codes(pos, mask, grid)

@@ -1,9 +1,11 @@
-"""Where the time of the DFSPH plane step goes on one GPU.
+"""Where the time of a solver step goes on one GPU.
 
-    python -m yasph2d_tpu_torch.tools.trace_step [--particles 100000]
+    python -m yasph2d_tpu_torch.tools.trace_step
+        [--solver dfsph_plane|wcsph_padded|wcsph_plane] [--particles 100000]
         [--settle 50] [--steps 20] [--trace out.json]
 
-Runs the double dam-break through the CUDA kernels: `--settle` steps first
+Runs the double dam-break through the CUDA kernels, with the solver's bench
+time step (adaptive CFL 1.5 for DFSPH, 0.2 for WCSPH): `--settle` steps first
 (per-window ms/step, iteration counts and drops are printed), then `--steps`
 steps under torch.profiler. Reports the host-clock ms/step of the profiled
 window, the device time per kernel name (per step and per launch), and the
@@ -27,11 +29,18 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+SOLVERS = ("dfsph_plane", "wcsph_padded", "wcsph_plane")
+
+
 def main():
-    from yasph2d_tpu_torch import AdaptiveTimeStep, DFSPHPlaneSolver, XSPHViscosityModel
+    from yasph2d_tpu_torch import (
+        AdaptiveTimeStep, DFSPHPlaneSolver, WCSPHPaddedSolver, WCSPHPlaneSolver,
+        XSPHViscosityModel,
+    )
     from yasph2d_tpu_torch.scenes import double_dam_break
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--solver", choices=SOLVERS, default="dfsph_plane")
     ap.add_argument("--particles", type=int, default=100_000)
     ap.add_argument("--settle", type=int, default=50)
     ap.add_argument("--steps", type=int, default=20)
@@ -44,16 +53,20 @@ def main():
 
     world = double_dam_break(args.particles)
     grid = world.dense_grid(occupancy=7)
-    solver = DFSPHPlaneSolver(
+    cls = dict(zip(SOLVERS, (DFSPHPlaneSolver, WCSPHPaddedSolver, WCSPHPlaneSolver)))
+    solver = cls[args.solver](
         viscosity_model=XSPHViscosityModel(world.properties.smoothing_length),
         properties=world.properties, grid=grid,
-        step_config=AdaptiveTimeStep(1.0 / 360.0, 1.0 / 24000.0, 1.5),
+        step_config=AdaptiveTimeStep(
+            1.0 / 360.0, 1.0 / 24000.0, 1.5 if args.solver == "dfsph_plane" else 0.2),
     )
-    boundary = solver.boundary_planes(world.boundary_dense(grid, device=device))
+    boundary = world.boundary_dense(grid, device=device)
+    if args.solver != "wcsph_padded":
+        boundary = solver.boundary_planes(boundary)
     carry = solver.init_carry(world.initial_state(device=device), boundary)
-    n = int(carry.ctx.mask.sum())
-    print(f"scene: {n} fluid / {world.num_boundary_particles} boundary, grid "
-          f"{grid.nx}x{grid.ny} P {grid.occupancy}, {torch.cuda.get_device_name(0)}",
+    n = int(solver.export_state(carry).alive.sum())
+    print(f"scene: {args.solver}, {n} fluid / {world.num_boundary_particles} boundary, "
+          f"grid {grid.nx}x{grid.ny} P {grid.occupancy}, {torch.cuda.get_device_name(0)}",
           flush=True)
 
     done = 0
@@ -98,7 +111,7 @@ def main():
         print(f"  {us / 1e3 / steps:8.4f} ms/step  {count / steps:6.2f} launches/step  "
               f"{us / count:9.2f} us/launch  {name[:90]}")
     print(json.dumps({
-        "particles": n, "steps": steps, "ms_per_step": wall_ms / steps,
+        "solver": args.solver, "particles": n, "steps": steps, "ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels": [{"name": name, "ms_per_step": us / 1e3 / steps,

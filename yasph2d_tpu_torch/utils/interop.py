@@ -12,6 +12,11 @@ as numpy arrays and crop them to the port's (P, ny, nx) layout.
   time.num_steps, time.target_frame_length.
 `boundary_from_numpy` keys (fields of yasph2d_tpu BoundaryDense):
   pos_pad, mask, num_dropped.
+`wcsph_padded_carry_from_numpy` keys (fields of yasph2d_tpu WCSPHPaddedCarry,
+already in the port's (ny, nx, P[, 2]) layout): pos_pad, v_pad, accel_pad,
+  dens_pad, mask, time.*.
+`wcsph_plane_carry_from_numpy` keys (fields of yasph2d_tpu WCSPHPlaneCarry,
+cropped): pos, v, accel, dens, mask, time.*.
 """
 
 import numpy as np
@@ -19,6 +24,8 @@ import torch
 
 from ..models.dfsph_dense import BoundaryDense
 from ..models.dfsph_plane import BoundaryPlanes, DFSPHPlaneCarry, PlaneCtx
+from ..models.wcsph_dense import WCSPHPaddedCarry
+from ..models.wcsph_plane import WCSPHPlaneCarry
 from ..ops.dense_grid import DenseGridConfig
 from ..ops.planes import PlaneGeom, to_planes
 from ..timemanager import TimeState
@@ -44,12 +51,6 @@ def carry_from_numpy(leaves: dict, grid: DenseGridConfig, device="cpu") -> DFSPH
         alpha=plane("ctx.alpha"),
         num_dropped=scalar("ctx.num_dropped"),
     )
-    time = TimeState(
-        dt=np.float32(leaves["time.dt"]),
-        total_simulated_time=np.float32(leaves["time.total_simulated_time"]),
-        num_steps=np.int32(leaves["time.num_steps"]),
-        target_frame_length=np.float32(leaves["time.target_frame_length"]),
-    )
     return DFSPHPlaneCarry(
         ctx=ctx,
         v=plane("v"),
@@ -57,7 +58,38 @@ def carry_from_numpy(leaves: dict, grid: DenseGridConfig, device="cpu") -> DFSPH
         stiff=plane("stiff"),
         prev_density_iterations=int(leaves["prev_density_iterations"]),
         prev_divergence_iterations=int(leaves["prev_divergence_iterations"]),
-        time=time,
+        time=_time(leaves),
+    )
+
+
+def _time(leaves: dict) -> TimeState:
+    return TimeState(
+        dt=np.float32(leaves["time.dt"]),
+        total_simulated_time=np.float32(leaves["time.total_simulated_time"]),
+        num_steps=np.int32(leaves["time.num_steps"]),
+        target_frame_length=np.float32(leaves["time.target_frame_length"]),
+    )
+
+
+def wcsph_padded_carry_from_numpy(leaves: dict, device="cpu") -> WCSPHPaddedCarry:
+    def slots(key, dtype=REAL):
+        return torch.as_tensor(np.array(leaves[key]), device=device).to(dtype)
+
+    return WCSPHPaddedCarry(
+        pos_pad=slots("pos_pad"), v_pad=slots("v_pad"), accel_pad=slots("accel_pad"),
+        dens_pad=slots("dens_pad"), mask=slots("mask", torch.bool), time=_time(leaves),
+    )
+
+
+def wcsph_plane_carry_from_numpy(leaves: dict, grid: DenseGridConfig,
+                                 device="cpu") -> WCSPHPlaneCarry:
+    def plane(key, dtype=REAL):
+        a = np.array(np.asarray(leaves[key])[..., :grid.ny, :grid.nx])  # writable copy
+        return torch.as_tensor(a, device=device).to(dtype)
+
+    return WCSPHPlaneCarry(
+        pos=plane("pos"), v=plane("v"), accel=plane("accel"), dens=plane("dens"),
+        mask=plane("mask", torch.bool), time=_time(leaves),
     )
 
 
