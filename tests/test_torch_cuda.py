@@ -6,8 +6,11 @@ CPU-only test host). Imports no JAX, so it runs on a GPU host without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The kernels perform the twins' float32 operations in the same order (built
-with -fmad=false), so pair outputs (K1, K3) are compared to rtol 1e-5 plus
-1e-6 of the plane's scale and the re-buckets (K2, K4) bit for bit."""
+with -fmad=false; K5's twin sums each view's candidates with torch.sum), so
+pair outputs (K1, K3, K5) are compared to rtol 1e-5 plus 1e-6 of the plane's
+scale and the re-buckets (K2, K4) bit for bit."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,6 +18,7 @@ import torch
 
 from yasph2d_tpu_torch import (
     AdaptiveTimeStep,
+    DFSPHPaddedSolver,
     DFSPHPlaneSolver,
     FluidParticleWorld,
     WCSPHPaddedSolver,
@@ -23,12 +27,13 @@ from yasph2d_tpu_torch import (
 )
 from yasph2d_tpu_torch.models.dfsph_plane import PlaneCtx
 from yasph2d_tpu_torch.ops import pair_reduce as pr
+from yasph2d_tpu_torch.ops import pallas_pair as tpp
 from yasph2d_tpu_torch.ops import rebucket as rb
 from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
 from yasph2d_tpu_torch.ops import sm_rebucket as smr
 from yasph2d_tpu_torch.ops.dense_grid import DenseGridConfig
 from yasph2d_tpu_torch.ops.planes import PlaneGeom, to_planes
-from yasph2d_tpu_torch.scenes import double_dam_break
+from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 
 pytestmark = pytest.mark.cuda
 
@@ -51,7 +56,8 @@ def case(device):
     world = FluidParticleWorld(1.0, 60.0, 100.0)
     h = world.properties.smoothing_length
     ny, nx, p, pb = 23, 37, 4, 2
-    grid = DenseGridConfig(cell_size=h, origin=(0.0, 0.0), nx=nx, ny=ny, occupancy=p)
+    grid = DenseGridConfig(cell_size=h, origin=(0.0, 0.0), nx=nx, ny=ny, occupancy=p,
+                           use_pallas_slotmajor=True)
     solver = DFSPHPlaneSolver(
         viscosity_model=XSPHViscosityModel(h), properties=world.properties,
         grid=grid, step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 1.5))
@@ -157,7 +163,8 @@ def wcase(device):
     world = FluidParticleWorld(2.0, 400.0, 100.0)
     h = world.properties.smoothing_length
     ny, nx, p, pb = 23, 37, 5, 3
-    grid = DenseGridConfig(cell_size=h, origin=(0.0, 0.0), nx=nx, ny=ny, occupancy=p)
+    grid = DenseGridConfig(cell_size=h, origin=(0.0, 0.0), nx=nx, ny=ny, occupancy=p,
+                           use_pallas_slotmajor=True)
     common = dict(viscosity_model=XSPHViscosityModel(h), properties=world.properties,
                   grid=grid, step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 0.2))
 
@@ -234,22 +241,14 @@ def test_sm_rebucket_kernel_bit_equal(device, wcase, shift):
         assert int(out[3]) > 0
 
 
-@pytest.mark.parametrize("kind", ["wcsph_padded", "wcsph_plane"])
+@pytest.mark.parametrize("kind", ["wcsph_padded", "wcsph_plane", "wcsph_padded_k5"])
 def test_wcsph_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal drops and live rows."""
     rows, drops = {}, {}
-    cls = WCSPHPaddedSolver if kind == "wcsph_padded" else WCSPHPlaneSolver
     for dev in (device, torch.device("cpu")):
         world = double_dam_break(3_000)
-        grid = world.dense_grid(occupancy=7)
-        solver = cls(
-            viscosity_model=XSPHViscosityModel(world.properties.smoothing_length),
-            properties=world.properties, grid=grid,
-            step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 0.2))
-        boundary = world.boundary_dense(grid, device=dev)
-        if kind == "wcsph_plane":
-            boundary = solver.boundary_planes(boundary)
+        solver, boundary = bench_solver(kind, world, device=dev)
         carry = solver.init_carry(world.initial_state(device=dev), boundary)
         drops[dev.type] = []
         for _ in range(5):
@@ -262,18 +261,14 @@ def test_wcsph_solver_gpu_matches_cpu(device, kind):
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-5, atol=1e-5)
 
 
-def test_solver_gpu_matches_cpu(device):
+@pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_padded", "dfsph_padded_k5"])
+def test_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal iteration counts and live rows."""
     rows, iters = {}, {}
     for dev in (device, torch.device("cpu")):
         world = double_dam_break(3_000)
-        grid = world.dense_grid(occupancy=7)
-        solver = DFSPHPlaneSolver(
-            viscosity_model=XSPHViscosityModel(world.properties.smoothing_length),
-            properties=world.properties, grid=grid,
-            step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 1.5))
-        boundary = solver.boundary_planes(world.boundary_dense(grid, device=dev))
+        solver, boundary = bench_solver(kind, world, device=dev)
         carry = solver.init_carry(world.initial_state(device=dev), boundary)
         it = []
         for _ in range(5):
@@ -284,3 +279,126 @@ def test_solver_gpu_matches_cpu(device):
         rows[dev.type], iters[dev.type] = r[np.lexsort(r.T)], it
     assert iters["cuda"] == iters["cpu"]
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def dcase(device):
+    """Random fluid/boundary slot grids in the slot-major layout, seeded
+    velocity, stiffness and density (dead slots hold rho = 0), and the DFSPH
+    padded solver on each route."""
+    rng = np.random.default_rng(3)
+    world = FluidParticleWorld(2.0, 400.0, 100.0)
+    h = world.properties.smoothing_length
+    ny, nx, p, pb = 23, 37, 6, 3
+    grid = DenseGridConfig(cell_size=h, origin=(0.0, 0.0), nx=nx, ny=ny, occupancy=p)
+    common = dict(viscosity_model=XSPHViscosityModel(h), properties=world.properties,
+                  step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 1.5))
+    solvers = {route: DFSPHPaddedSolver(**common, grid=dataclasses.replace(
+        grid, use_pallas_slotmajor=sm)) for route, sm in (("k3", True), ("k5", False))}
+
+    def slots(pp, fill):
+        mask = rng.random((ny, nx, pp)) < fill
+        cy, cx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+        cell = np.stack([cx, cy], axis=-1)[:, :, None, :] * h
+        pos = cell + (rng.random((ny, nx, pp, 2)) * 1.1 - 0.05) * h
+        pos = np.where(mask[..., None], pos, 0.0).astype(np.float32)
+        return torch.as_tensor(pos).to(device), torch.as_tensor(mask).to(device)
+
+    fluid, walls = slots(p, 0.6), slots(pb, 0.4)
+    v = _planes(rng, (ny, nx, p, 2), 2.0, -1.0).to(device)
+    k = _planes(rng, (ny, nx, p), 50.0, -25.0).to(device)
+    rho = torch.where(fluid[1], _planes(rng, (ny, nx, p), 30.0, 100.0).to(device), 0.0)
+    return solvers, fluid, walls, dict(v=v, k=k, rho=rho)
+
+
+def _slot_operands(dcase, form, route):
+    solvers, fluid, walls, vals = dcase
+    v, k, rho = vals["v"], vals["k"], vals["rho"]
+    f = solvers[route]._padded_forms
+    return {
+        "ctx": (f.ctx, fluid, {}),
+        "stat": (f.stat, walls, {}),
+        "div": (f.div, fluid, dict(q_vals=(v,), s_vals=(v,))),
+        "corr": (f.corr, fluid, dict(q_vals=(k,), s_vals=(k,))),
+        "visc": (f.visc, fluid, dict(q_vals=(v,), s_vals=(v, rho), scalars=(1.0 / 2700.0,))),
+    }[form]
+
+
+def _check_slot_kernel(mod, run, ref, pform, pos, mask, src, consts, kw):
+    before = mod.LAUNCHES[pform.name]
+    out = run(pform, pos, mask, src[0], src[1], consts, **kw)
+    assert mod.LAUNCHES[pform.name] == before + 1
+    twin = ref(pform.term_fn, pform.n_out, pos, mask, src[0], src[1], consts.radius_sq, **kw)
+    torch.cuda.synchronize()
+    live = mask[..., None].expand_as(out)
+    a, b = out[live], twin[live]
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * max(1.0, float(b.abs().max())))
+    assert (out[~live] == 0).all()
+    assert float(b.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("form", ["ctx", "stat", "div", "corr", "visc"])
+def test_sm_pair_kernel_dfsph_forms_match_twin(device, dcase, form):
+    solvers, (pos, mask), _, _ = dcase
+    pform, src, kw = _slot_operands(dcase, form, "k3")
+    _check_slot_kernel(smp, smp.sm_pair_reduce, smp.sm_pair_reduce_ref, pform, pos, mask,
+                       src, solvers["k3"]._consts, kw)
+
+
+@pytest.mark.parametrize("form", ["ctx", "stat", "div", "corr", "visc"])
+def test_tile_pair_kernel_dfsph_forms_match_twin(device, dcase, form):
+    """K5's DFSPH forms; `stat` is its dfsph_ctx form against the boundary
+    space (Ps != P)."""
+    solvers, (pos, mask), _, _ = dcase
+    pform, src, kw = _slot_operands(dcase, form, "k5")
+    _check_slot_kernel(tpp, tpp.pallas_pair_reduce, tpp.pallas_pair_reduce_ref, pform,
+                       pos, mask, src, solvers["k5"]._consts, kw)
+
+
+@pytest.mark.parametrize("form,boundary", [
+    ("density", False), ("stat", True), ("stat", False), ("forces", False)])
+def test_tile_pair_kernel_wcsph_forms_match_twin(device, wcase, form, boundary):
+    padded, _, (pos, mask), walls, vals = wcase
+    k5 = WCSPHPaddedSolver(viscosity_model=padded.viscosity_model,
+                           properties=padded.properties, step_config=padded.step_config,
+                           grid=dataclasses.replace(padded.grid, use_pallas_slotmajor=False))
+    pform = getattr(k5._forms, form)
+    kw = dict(q_vals=vals, s_vals=vals, scalars=(1.0 / 2700.0,)) if form == "forces" else {}
+    _check_slot_kernel(tpp, tpp.pallas_pair_reduce, tpp.pallas_pair_reduce_ref, pform,
+                       pos, mask, walls if boundary else (pos, mask), k5._consts, kw)
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.6])
+def test_sm_rebucket_kernel_dfsph_payload_bit_equal(device, dcase, shift):
+    """K4 with the DFSPH padded step's payload [v*(2) | kappa | stiffness]."""
+    solvers, (pos, mask), _, vals = dcase
+    grid = solvers["k3"].grid
+    adv = pos.clone()
+    adv[..., 0] += shift * grid.cell_size  # 0.6 cells crowds cells: forced overflow
+    noise = torch.rand(adv.shape, generator=torch.Generator().manual_seed(4)) - 0.5
+    adv = adv + noise.to(device) * 0.2 * grid.cell_size
+    values = torch.cat([vals["v"], vals["k"][..., None], vals["rho"][..., None]], dim=-1)
+    assert values.shape[-1] == 4
+    out = smr.sm_rebucket(adv, mask, values, grid)
+    ref = smr.sm_rebucket_ref(adv, mask, values, grid)
+    torch.cuda.synchronize()
+    for a, b in zip(out, ref):
+        if a.dtype == torch.float32:
+            a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+        assert torch.equal(a, b)
+    if shift:
+        assert int(out[3]) > 0
+
+
+def test_tile_pair_kernel_refuses_what_cannot_fit(device, dcase):
+    """A source space too deep for one block's shared memory is refused with a
+    message before any launch."""
+    solvers, (pos, mask), _, _ = dcase
+    ny, nx, _ = mask.shape
+    deep = torch.zeros((ny, nx, 5000, 2), device=device)
+    deep_mask = torch.zeros((ny, nx, 5000), dtype=torch.bool, device=device)
+    before = dict(tpp.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        tpp.pallas_pair_reduce(solvers["k5"]._padded_forms.ctx, pos, mask, deep, deep_mask,
+                               solvers["k5"]._consts)
+    assert tpp.LAUNCHES == before

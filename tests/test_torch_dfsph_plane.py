@@ -79,7 +79,8 @@ class Run:
         jw, tw = scene(JWorld), scene(TWorld)
         self.n = jw.num_dynamic_particles
         h = jw.properties.smoothing_length
-        self.tgrid = tw.dense_grid(occupancy=3)
+        self.tgrid = dataclasses.replace(tw.dense_grid(occupancy=3),
+                                         use_pallas_slotmajor=True)
         self.jgrid = dataclasses.replace(
             jw.dense_grid(occupancy=3), use_pallas_slotmajor=True, pallas_sm_row_block=4
         )
@@ -89,9 +90,9 @@ class Run:
                           grid=self.tgrid, step_config=tcfg)
         jdense = jw.boundary_dense(self.jgrid)
         self.jb = self.js.boundary_planes(jdense)
-        self.tb = self.ts.boundary_planes(tw.boundary_dense(self.tgrid))
+        self.tb = self.ts.boundary_planes(tw.boundary_dense(self.tgrid, device="cpu"))
         self.jb_leaves = {f: np.asarray(getattr(jdense, f)) for f in jdense._fields}
-        self.t_state = tw.initial_state()
+        self.t_state = tw.initial_state(device="cpu")
 
         c = jax.jit(self.js.init_carry)(jw.initial_state(), self.jb)
         self.j_init = carry_leaves(c)
@@ -184,7 +185,7 @@ def test_contact_scene_steps_match():
     h = jw.properties.smoothing_length
     jgrid = dataclasses.replace(jw.dense_grid(), use_pallas_slotmajor=True,
                                 pallas_sm_row_block=4)
-    tgrid = tw.dense_grid()
+    tgrid = dataclasses.replace(tw.dense_grid(), use_pallas_slotmajor=True)
     js = JSolver(viscosity_model=JXSPH(h), properties=jw.properties, grid=jgrid,
                  step_config=JFixed(1.0 / 250.0))
     ts = TSolver(viscosity_model=TXSPH(h), properties=tw.properties, grid=tgrid,

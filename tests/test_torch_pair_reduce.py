@@ -70,11 +70,12 @@ def solvers():
                   pallas_pf_unroll=False)
     js = JSolver(viscosity_model=JXSPH(h), properties=jp, grid=jgrid,
                  step_config=JFixed(1.0 / 3000.0))
-    ts = TSolver(viscosity_model=TXSPH(h), properties=tp, grid=TGrid(**base),
+    tgrid = TGrid(**base, use_pallas_slotmajor=True)
+    ts = TSolver(viscosity_model=TXSPH(h), properties=tp, grid=tgrid,
                  step_config=TFixed(1.0 / 3000.0))
     jws = JWSolver(viscosity_model=JXSPH(h), properties=jp, grid=jgrid,
                    step_config=JFixed(1.0 / 3000.0))
-    tws = TWSolver(viscosity_model=TXSPH(h), properties=tp, grid=TGrid(**base),
+    tws = TWSolver(viscosity_model=TXSPH(h), properties=tp, grid=tgrid,
                    step_config=TFixed(1.0 / 3000.0))
     wcsph = {
         form: jax.jit(lambda q, s, qv, sv, sc, terms=terms, n_out=n_out: pf_pair_reduce(

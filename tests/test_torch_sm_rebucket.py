@@ -1,6 +1,7 @@
 """K4 (slot-major re-bucket): the port's plain twin against the JAX sm_rebucket
 (interpret mode on the CPU) — bit-equal on positions, values, mask and drops,
-including cell overflow — against the K2 twin on the same state through
+including cell overflow, with the WCSPH (D = 2, 3) and DFSPH (D = 4) payload
+widths — against the K2 twin on the same state through
 to_planes, and the slot-layout move codes bit-equal to the JAX move_codes."""
 
 import jax
@@ -49,6 +50,9 @@ CASES = {
     "dense": dict(seed=6, p=3, fill=0.8, d=3),
     # everything drifts one cell right/up into half-full cells: overflow
     "overflow": dict(seed=7, p=2, fill=0.9, shift=(0.6, 0.6), step=0.05),
+    # the DFSPH padded step's payload [v*(2) | kappa | stiffness], D = 4
+    "dfsph_payload": dict(seed=8, p=3, fill=0.6, d=4),
+    "dfsph_overflow": dict(seed=9, p=2, fill=0.9, shift=(0.6, 0.6), step=0.05, d=4),
 }
 
 
@@ -66,7 +70,7 @@ def test_sm_rebucket_bit_equal_to_jax(name):
     tpos, tmask, tv, tdrops = tsr.sm_rebucket_ref(
         torch.as_tensor(adv), torch.as_tensor(mask), torch.as_tensor(vals), tgrid)
     assert int(tdrops) == int(jdrops)
-    if name == "overflow":
+    if name.endswith("overflow"):
         assert int(tdrops) > 0
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
     # bit patterns, so +0.0 / -0.0 count too

@@ -1,6 +1,6 @@
-"""WCSPH as a whole: the port's Tait equation of state, and its two solvers
-(padded slot-major: K3 + K4 twins; plane: K1 + K2 twins) against the JAX
-WCSPHPaddedSolver on its XLA path, on the scene of
+"""WCSPH as a whole: the port's Tait equation of state, and its solvers
+(padded slot-major on K3 + K4 twins and on K5 + K4 twins; plane: K1 + K2
+twins) against the JAX WCSPHPaddedSolver on its XLA path, on the scene of
 tests/test_wcsph_plane.py:148-152.
 
 The JAX reference runs the XLA pair_reduce and rebucket, to which the JAX
@@ -106,19 +106,23 @@ class Run:
         jw, tw = scene(JWorld), scene(TWorld)
         self.n = jw.num_dynamic_particles
         h = jw.properties.smoothing_length
-        self.tgrid = tw.dense_grid(occupancy=3)
+        self.tgrid = dataclasses.replace(tw.dense_grid(occupancy=3),
+                                         use_pallas_slotmajor=True)
         self.jgrid = jw.dense_grid(occupancy=3)
         self.js = JPadded(viscosity_model=JXSPH(h), properties=jw.properties,
                           grid=self.jgrid, step_config=jcfg)
         common = dict(viscosity_model=TXSPH(h), properties=tw.properties,
                       grid=self.tgrid, step_config=tcfg)
         self.padded, self.plane = TPadded(**common), TPlane(**common)
+        # the K5 route: use_pallas_slotmajor off, as the JAX XLA route
+        self.padded_k5 = TPadded(**dict(common, grid=dataclasses.replace(
+            self.tgrid, use_pallas_slotmajor=False)))
         jdense = jw.boundary_dense(self.jgrid)
         self.jb = jdense
-        self.tb = tw.boundary_dense(self.tgrid)
+        self.tb = tw.boundary_dense(self.tgrid, device="cpu")
         self.tb_planes = self.plane.boundary_planes(self.tb)
         self.tb_leaves = {f: np.asarray(getattr(jdense, f)) for f in jdense._fields}
-        self.t_state = tw.initial_state()
+        self.t_state = tw.initial_state(device="cpu")
 
         c = jax.jit(self.js.init_carry)(jw.initial_state())
         self.j_init = leaves(c)
@@ -190,6 +194,14 @@ def test_padded_one_step_from_converted_carry(run):
     check_step(run, carry, diag, "padded")
 
 
+def test_padded_k5_one_step_from_converted_carry(run):
+    carry = wcsph_padded_carry_from_numpy(run.j_carries[CONVERTED_AT - 1])
+    boundary = boundary_from_numpy(run.tb_leaves).dense
+    carry = carry._replace(time=carry.time.account_step())
+    carry, diag = run.padded_k5.step(carry, boundary)
+    check_step(run, carry, diag, "padded")
+
+
 def test_plane_one_step_from_converted_carry(run):
     c = wcsph_padded_carry_from_numpy(run.j_carries[CONVERTED_AT - 1])
     carry = WCSPHPlaneCarry(*(to_planes(a) for a in c[:-1]), time=c.time.account_step())
@@ -197,10 +209,10 @@ def test_plane_one_step_from_converted_carry(run):
     check_step(run, carry, diag, "plane")
 
 
-@pytest.mark.parametrize("solver", ["padded", "plane"])
+@pytest.mark.parametrize("solver", ["padded", "plane", "padded_k5"])
 def test_six_steps_from_scratch(run, solver):
     s = getattr(run, solver)
-    boundary = run.tb if solver == "padded" else run.tb_planes
+    boundary = run.tb_planes if solver == "plane" else run.tb
     carry = s.init_carry(run.t_state)
     for k in range(STEPS):
         carry, diag = s.simulate(carry, boundary, 1)

@@ -79,7 +79,7 @@ def test_scene_positions_bit_equal(worlds):
         assert a.dtype == b.dtype == np.float32
         np.testing.assert_array_equal(b.view(np.uint32), a.view(np.uint32))
     np.testing.assert_array_equal(
-        tw.initial_state().positions.numpy(), np.asarray(jw.initial_state().positions)
+        tw.initial_state(device="cpu").positions.numpy(), np.asarray(jw.initial_state().positions)
     )
 
 
@@ -95,7 +95,7 @@ def test_dense_grid_fields_equal(worlds, occupancy):
 def test_boundary_dense_exact(worlds):
     jw, tw = worlds
     jg, tg = jw.dense_grid(occupancy=7), tw.dense_grid(occupancy=7)
-    jb, tb = jw.boundary_dense(jg), tw.boundary_dense(tg)
+    jb, tb = jw.boundary_dense(jg), tw.boundary_dense(tg, device="cpu")
     assert tb.pos_pad.shape == tuple(jb.pos_pad.shape)
     np.testing.assert_array_equal(tb.mask.numpy(), np.asarray(jb.mask))
     np.testing.assert_array_equal(tb.pos_pad.numpy(), np.asarray(jb.pos_pad))
@@ -139,11 +139,11 @@ def test_padded_init_exact(worlds):
                    step_config=TFixed(1.0 / 3000.0))
     ref = JPadded(viscosity_model=JXSPH(h), properties=jw.properties, grid=jg,
                   step_config=JFixed(1.0 / 3000.0))
-    jb, tb = jw.boundary_dense(jg), tw.boundary_dense(tg)
+    jb, tb = jw.boundary_dense(jg), tw.boundary_dense(tg, device="cpu")
     state = jw.initial_state()
     (sorted_state,), keys = ref._sort((state,), state.positions, state.alive)
     slots = jdg.build_slot_grid(keys, jg)
-    init = port._padded_init(tw.initial_state(), tb)
+    init = port._padded_init(tw.initial_state(device="cpu"), tb)
     np.testing.assert_array_equal(
         init.pos_pad.numpy(), np.asarray(jdg.pad_to_slots(sorted_state.positions, slots, jg))
     )
@@ -156,3 +156,20 @@ def test_padded_init_exact(worlds):
     assert not init.v_pad.any() and not init.kappa_pad.any()
     assert (init.prev_density_iterations, init.prev_divergence_iterations) == (1, 0)
     assert init.time.dt == np.float32(1.0 / 3000.0)
+
+
+def test_scene_tensors_default_to_the_card(worlds):
+    """`initial_state` and `boundary_dense` make CUDA tensors unless asked for
+    the CPU; without a CUDA device the default fails as torch fails, with no
+    fallback to the CPU."""
+    _, tw = worlds
+    grid = tw.dense_grid(occupancy=7)
+    if torch.cuda.is_available():
+        assert tw.initial_state().positions.is_cuda
+        assert tw.boundary_dense(grid).pos_pad.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tw.initial_state()
+        with pytest.raises((AssertionError, RuntimeError)):
+            tw.boundary_dense(grid)
+    assert tw.initial_state(device="cpu").positions.device.type == "cpu"

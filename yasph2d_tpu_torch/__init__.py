@@ -3,19 +3,26 @@
 The package mirrors yasph2d_tpu's module paths. It imports torch and numpy and
 never JAX. Its solvers so far:
 
+- DFSPH, padded slot-major carry (models/dfsph_dense.DFSPHPaddedSolver);
 - DFSPH, plane carry (models/dfsph_plane.DFSPHPlaneSolver);
 - WCSPH, padded slot-major carry (models/wcsph_dense.WCSPHPaddedSolver);
 - WCSPH, plane carry (models/wcsph_plane.WCSPHPlaneSolver).
 
-They run on four hand-written CUDA kernels: K1, the pair reduction in plane
-form (csrc/pair_reduce.cu, ops/pair_reduce.py; nine call forms), K2, the
-re-bucket in plane form (csrc/rebucket.cu, ops/rebucket.py), K3, the pair
-reduction in the slot-major layout (csrc/sm_pair_reduce.cu,
-ops/sm_pair_reduce.py; three call forms) and K4, the re-bucket in that layout
-(csrc/sm_rebucket.cu, ops/sm_rebucket.py). CUDA tensors run the kernels, CPU
-tensors their plain PyTorch twins.
+They run on five hand-written CUDA kernels: K1, the pair reduction in plane
+form (csrc/pair_reduce.cu, ops/pair_reduce.py), K2, the re-bucket in plane
+form (csrc/rebucket.cu, ops/rebucket.py), K3, the pair reduction in the
+slot-major layout (csrc/sm_pair_reduce.cu, ops/sm_pair_reduce.py), K4, the
+re-bucket in that layout (csrc/sm_rebucket.cu, ops/sm_rebucket.py), and K5,
+the pair reduction on shared-memory cell tiles in that layout
+(csrc/tile_pair_reduce.cu, ops/pallas_pair.py). The padded solvers run their
+pair passes on K3 when `DenseGridConfig.use_pallas_slotmajor` is True and on
+K5 when it is False (the default); the plane solvers require True. CUDA
+tensors run the kernels, CPU tensors their plain PyTorch twins. The scene's
+tensors (`FluidParticleWorld.initial_state`, `boundary_dense`) are made on the
+card unless `device="cpu"` is asked for.
 """
 
+from .models.dfsph_dense import DFSPHPaddedSolver
 from .models.dfsph_plane import DFSPHPlaneSolver
 from .models.viscosity import PhysicalViscosityModel, XSPHViscosityModel
 from .models.wcsph_dense import WCSPHPaddedSolver
@@ -25,6 +32,7 @@ from .world import FluidParticleWorld
 
 __all__ = [
     "AdaptiveTimeStep",
+    "DFSPHPaddedSolver",
     "DFSPHPlaneSolver",
     "FixedTimeStep",
     "FluidParticleWorld",

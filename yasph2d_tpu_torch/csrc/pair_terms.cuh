@@ -1,5 +1,6 @@
 // Pair terms and epilogues shared by the pair kernels K1 (csrc/pair_reduce.cu,
-// plane layout) and K3 (csrc/sm_pair_reduce.cu, slot-major layout).
+// plane layout), K3 (csrc/sm_pair_reduce.cu, slot-major layout) and K5
+// (csrc/tile_pair_reduce.cu, slot-major layout, per-view sums).
 //
 // A term functor adds one valid pair to its accumulators:
 //   Term::term(acc, dx, dy, r_sq, r, qv, sv, c, scalar)
@@ -13,7 +14,11 @@
 // Every formula is written in the JAX package's operation order; the kernels
 // are built with -fmad=false and without fast math, so each f32 operation is
 // rounded as in the plain PyTorch twins (ops/pair_reduce.py,
-// ops/sm_pair_reduce.py) and the JAX package.
+// ops/sm_pair_reduce.py, ops/pallas_pair.py) and the JAX package. The JAX
+// package has two orders: its slot-major closures scale the gradient
+// coefficient first ((dvx dx + dvy dy) gc), its XLA closures form the gradient
+// vector gc * (dx, dy) first (dvx (gc dx) + dvy (gc dy), (gc dx) m). The
+// *XlaTerm functors follow the second.
 
 #pragma once
 
@@ -167,6 +172,61 @@ struct WcsphForcesTerm {  // symmetric pressure + XSPH; qv, sv = p rho vx vy; dt
     const float vc = xsph_c(r_sq, sv[1], scalar, c);
     acc[0] += gc * dx + vc * (sv[2] - qv[2]);
     acc[1] += gc * dy + vc * (sv[3] - qv[3]);
+  }
+};
+
+// The XLA closures' order (models/dfsph_dense.py terms/div/corr,
+// models/wcsph_dense.py dyn_forces): the gradient is the vector gc (dx, dy).
+
+struct CtxXlaTerm {  // W, (grad W) m (x, y), |(grad W) m|^2, count
+  static constexpr int NQV = 0, NSV = 0, NACC = 5;
+  __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
+                              const float* qv, const float* sv, const PairConsts& c,
+                              float scalar) {
+    const float w = wendland_w(r, c);
+    const float gc = wendland_gc(r, c);
+    const float gx = (gc * dx) * c.mass;
+    const float gy = (gc * dy) * c.mass;
+    acc[0] += w;
+    acc[1] += gx;
+    acc[2] += gy;
+    acc[3] += gx * gx + gy * gy;
+    acc[4] += 1.0f;
+  }
+};
+
+struct DivXlaTerm {  // sum((v_i - v_j) * grad W)
+  static constexpr int NQV = 2, NSV = 2, NACC = 1;
+  __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
+                              const float* qv, const float* sv, const PairConsts& c,
+                              float scalar) {
+    const float gc = wendland_gc(r, c);
+    acc[0] += (qv[0] - sv[0]) * (gc * dx) + (qv[1] - sv[1]) * (gc * dy);
+  }
+};
+
+struct CorrXlaTerm {  // (k_i + k_j) grad W
+  static constexpr int NQV = 1, NSV = 1, NACC = 2;
+  __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
+                              const float* qv, const float* sv, const PairConsts& c,
+                              float scalar) {
+    const float kk = qv[0] + sv[0];
+    const float gc = wendland_gc(r, c);
+    acc[0] += kk * (gc * dx);
+    acc[1] += kk * (gc * dy);
+  }
+};
+
+struct WcsphForcesXlaTerm {  // coef grad W_spiky + XSPH; qv, sv = p rho vx vy; dt
+  static constexpr int NQV = 4, NSV = 4, NACC = 2;
+  __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
+                              const float* qv, const float* sv, const PairConsts& c,
+                              float scalar) {
+    const float coef = (-c.mass * (qv[0] + sv[0])) / ((2.0f * qv[1]) * sv[1]);
+    const float gc = spiky_gc(r, c);
+    const float vc = xsph_c(r_sq, sv[1], scalar, c);
+    acc[0] += coef * (gc * dx) + vc * (sv[2] - qv[2]);
+    acc[1] += coef * (gc * dy) + vc * (sv[3] - qv[3]);
   }
 };
 

@@ -7,7 +7,7 @@
 // (y, x), in the TPU kernel's accumulation order (dyv, dxv, sp). A pair counts
 // when the query and the source are live and 1e-10 < r_sq <= h^2; a dead
 // query writes zeros. No epilogue. The term functors are K1's
-// (csrc/pair_terms.cuh).
+// (csrc/pair_terms.cuh); eight call forms, three WCSPH and five DFSPH.
 //
 // Layout: the carry is read in place, with no transpose into planes: positions
 // (ny, nx, P, 2) f32 read as float2, masks (ny, nx, P) bool, and each value as
@@ -156,3 +156,11 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
 SM_PAIR_LAUNCHER(wcsph_density, WcsphDensityTerm)  // Poly6 density
 SM_PAIR_LAUNCHER(wcsph_stat, WcsphStatTerm)        // boundary density + force
 SM_PAIR_LAUNCHER(wcsph_forces, WcsphForcesTerm)    // pressure + XSPH
+// the five call forms of the DFSPH padded step (models/dfsph_dense.py); the
+// boundary ctx pass is an XLA pair_reduce in the JAX package, so it takes the
+// XLA closure's operation order
+SM_PAIR_LAUNCHER(dfsph_ctx, CtxTerm)        // fluid ctx: W, m grad W, |.|^2, count
+SM_PAIR_LAUNCHER(dfsph_stat, CtxXlaTerm)    // the same sums against the boundary
+SM_PAIR_LAUNCHER(dfsph_div, DivTerm)        // velocity divergence
+SM_PAIR_LAUNCHER(dfsph_corr, CorrTerm)      // k-correction
+SM_PAIR_LAUNCHER(dfsph_visc, ViscTerm)      // XSPH viscosity

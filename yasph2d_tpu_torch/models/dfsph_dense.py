@@ -1,13 +1,32 @@
-"""DFSPH on the dense slot grid: the parts the plane solver builds on (PyTorch
-port of yasph2d_tpu/models/dfsph_dense.py; algorithm: Bender & Koschier,
-reference src/sph/solver/dfsph.rs).
+"""DFSPH on the dense slot grid with the padded-resident carry (PyTorch port of
+DFSPHPaddedSolver in yasph2d_tpu/models/dfsph_dense.py; algorithm: Bender &
+Koschier, reference src/sph/solver/dfsph.rs:414-525).
 
-Ported: the static boundary index space (`build_boundary_dense`), the padded
-initial layout of `DFSPHPaddedSolver.init_carry` (sort, slot grid, padded
-positions and velocities, zero warm starts), the live count and `simulate`.
-The sorted-carry `DFSPHDenseSolver` step and the XLA pair passes are not
-ported: the plane solver (models/dfsph_plane.py) runs every pass through the
-pair kernel.
+The state stays in the (ny, nx, P[, 2]) slot layout between steps: positions,
+velocities and both warm starts. A step is the viscosity pass, the CFL
+update, the constant-density loop, advection, the neighbourhood rebuild, a new
+pair context and the divergence-free loop. Every pair pass runs on a kernel
+that reads the carry in place; `DenseGridConfig.use_pallas_slotmajor` picks
+which one:
+
+    True   K3 (ops/sm_pair_reduce.py): dfsph_ctx, dfsph_stat (the boundary),
+           dfsph_div, dfsph_corr, dfsph_visc, in the JAX slot-major closures'
+           operation order; the boundary pass, an XLA pair_reduce in the JAX
+           package, in its XLA closure's order
+    False  K5 (ops/pallas_pair.py): dfsph_ctx (fluid and boundary), dfsph_div,
+           dfsph_corr, dfsph_visc, in the XLA closures' order
+
+and the rebuild is K4 (ops/sm_rebucket.py) with the payload
+[v*(2) | kappa | stiffness] on both (the JAX package's XLA rebucket is
+bit-equal to it). The JAX `lax.while_loop`s become host loops that read one
+residual back per iteration, with the JAX exit test (a loop may run max + 1
+times).
+
+Also here: the static boundary index space (`build_boundary_dense`), the
+padded initial layout (`_padded_init`) and `simulate`, which the plane solver
+(models/dfsph_plane.py) builds on. Not ported: the sorted-carry
+`DFSPHDenseSolver`, its cached / MXU loop gradients, and the stale steps of
+`rebuild_every > 1`.
 """
 
 import dataclasses
@@ -17,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.cuda_build import PairConsts
 from ..ops.dense_grid import (
     DenseGridConfig,
     build_slot_grid,
@@ -24,12 +44,18 @@ from ..ops.dense_grid import (
     pad_to_slots,
     sort_by_dense_keys,
 )
+from ..ops.pair_reduce import PairForm
+from ..ops.pallas_pair import pallas_pair_reduce
+from ..ops.sm_pair_reduce import sm_pair_reduce
+from ..ops.sm_rebucket import sm_rebucket
 from ..ops.smoothing_kernels import WendlandQuinticC2
-from ..timemanager import StepConfig, TimeState
+from ..timemanager import StepConfig, TimeState, update_simulation_step
 from ..units import INDEX, REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
 from ..world import GRAVITY, FluidProperties, ParticleState
-from .viscosity import ViscosityModel
+from .viscosity import ViscosityModel, XSPHViscosityModel
+
+f32 = REAL_NP
 
 ALPHA_EPSILON = 1e-6  # dfsph.rs:71
 
@@ -77,9 +103,44 @@ class PaddedInit(NamedTuple):
     time: TimeState
 
 
+class DenseCtx(NamedTuple):
+    """Per-rebuild pair context of the padded carry (the JAX DenseCtx's padded
+    fields): everything that is invariant while positions are frozen."""
+
+    pos_pad: torch.Tensor  # (ny, nx, P, 2)
+    mask: torch.Tensor  # (ny, nx, P) bool
+    sum_grad_stat: torch.Tensor  # (ny, nx, P, 2): sum of grad W to boundary neighbours
+    neighbor_total: torch.Tensor  # (ny, nx, P) f32: fluid + boundary neighbour counts
+    densities_pad: torch.Tensor  # (ny, nx, P): clamped density per slot
+    alpha_pad: torch.Tensor  # (ny, nx, P): DFSPH alpha per slot
+    num_dropped: torch.Tensor  # () int32
+
+
+class DFSPHPaddedCarry(NamedTuple):
+    """Padded-resident solver state: nothing leaves the slot layout between steps."""
+
+    ctx: DenseCtx
+    v_pad: torch.Tensor  # (ny, nx, P, 2)
+    kappa_pad: torch.Tensor  # (ny, nx, P) density-loop warm start
+    stiff_pad: torch.Tensor  # (ny, nx, P) divergence-loop warm start
+    prev_density_iterations: int
+    prev_divergence_iterations: int
+    time: TimeState
+
+
+class PaddedForms(NamedTuple):
+    """The pair call forms of the padded step on one route (K3 or K5)."""
+
+    ctx: PairForm  # fluid -> fluid ctx sums
+    stat: PairForm  # fluid -> boundary ctx sums
+    div: PairForm  # velocity divergence
+    corr: PairForm  # k-correction
+    visc: PairForm  # XSPH viscosity
+
+
 @dataclass(frozen=True)
 class DFSPHPaddedSolver:
-    """Configuration and the padded-layout init (tolerances as dfsph.rs:49-55)."""
+    """DFSPH with the padded-resident carry (tolerances as dfsph.rs:49-55)."""
 
     viscosity_model: ViscosityModel
     properties: FluidProperties
@@ -92,10 +153,88 @@ class DFSPHPaddedSolver:
     gravity: tuple = GRAVITY
 
     def __post_init__(self):
-        object.__setattr__(
-            self, "kernel", WendlandQuinticC2(self.properties.smoothing_length)
-        )
+        kernel = WendlandQuinticC2(self.properties.smoothing_length)
+        object.__setattr__(self, "kernel", kernel)
         assert abs(self.grid.cell_size - self.properties.smoothing_length) < 1e-12
+        m = float(self.properties.particle_mass)
+        # W(0), the density self-contribution, evaluated in f32
+        zero = torch.zeros((), dtype=REAL)
+        w0 = float(kernel.evaluate(zero, zero))
+        visc = self.viscosity_model
+        xsph = isinstance(visc, XSPHViscosityModel)
+        object.__setattr__(self, "_w0", w0)
+        object.__setattr__(self, "_xsph", xsph)
+        object.__setattr__(self, "_consts", PairConsts(
+            radius_sq=self.grid.radius_sq,
+            w_h_inv=kernel._h_inv, w_norm=kernel._norm,
+            w_norm_grad=kernel._norm_grad,
+            p6_hsq=visc.kernel._hsq if xsph else 0.0,
+            p6_norm=visc.kernel._norm if xsph else 0.0,
+            xsph_coef=float(visc.epsilon * m) if xsph else 0.0,
+            mass=m, w0=w0, rho0=float(self.properties.fluid_density),
+            alpha_eps=ALPHA_EPSILON,
+            gx=float(self.gravity[0]), gy=float(self.gravity[1]),
+        ))
+        slotmajor = self.grid.use_pallas_slotmajor
+        object.__setattr__(self, "_reduce",
+                           sm_pair_reduce if slotmajor else pallas_pair_reduce)
+        object.__setattr__(self, "_padded_forms", self._make_padded_forms(m, slotmajor))
+
+    def _make_padded_forms(self, m: float, slotmajor: bool) -> PaddedForms:
+        """The pair terms as Python callables (the twins'), op for op the JAX
+        closures of models/dfsph_dense.py: the slot-major ones (:284-289,
+        :381-386, :431-435) on K3, the XLA ones (:269-276, :401-403, :451-453)
+        on K5 and for K3's boundary pass; viscosity is c (v_j - v_i) in both."""
+        kernel = self.kernel
+        visc_model = self.viscosity_model
+
+        def ctx_sm(dx, dy, r_sq, r, scalars, q, s):
+            w = kernel.evaluate(r_sq, r)
+            mgc = kernel.gradient_coefficient(r_sq, r) * m
+            gx = mgc * dx
+            gy = mgc * dy
+            return (w, gx, gy, gx * gx + gy * gy, torch.ones_like(r_sq))
+
+        def ctx_xla(dx, dy, r_sq, r, scalars, q, s):
+            w = kernel.evaluate(r_sq, r)
+            gc = kernel.gradient_coefficient(r_sq, r)
+            gx = (gc * dx) * m
+            gy = (gc * dy) * m
+            return (w, gx, gy, gx * gx + gy * gy, torch.ones_like(r_sq))
+
+        def div_sm(dx, dy, r_sq, r, scalars, q, s):
+            gc = kernel.gradient_coefficient(r_sq, r)
+            return (((q[0] - s[0]) * dx + (q[1] - s[1]) * dy) * gc,)
+
+        def div_xla(dx, dy, r_sq, r, scalars, q, s):
+            gc = kernel.gradient_coefficient(r_sq, r)
+            return ((q[0] - s[0]) * (gc * dx) + (q[1] - s[1]) * (gc * dy),)
+
+        def corr_sm(dx, dy, r_sq, r, scalars, q, s):
+            kk = (q[0] + s[0]) * kernel.gradient_coefficient(r_sq, r)
+            return (kk * dx, kk * dy)
+
+        def corr_xla(dx, dy, r_sq, r, scalars, q, s):
+            kk = q[0] + s[0]
+            gc = kernel.gradient_coefficient(r_sq, r)
+            return (kk * (gc * dx), kk * (gc * dy))
+
+        def visc(dx, dy, r_sq, r, scalars, q, s):
+            c = visc_model.viscous_coefficient(scalars[0], r_sq, r, m, s[2])
+            return (c * (s[0] - q[0]), c * (s[1] - q[1]))
+
+        visc_form = PairForm("dfsph_visc", 2, visc)
+        if slotmajor:
+            return PaddedForms(
+                ctx=PairForm("dfsph_ctx", 5, ctx_sm),
+                stat=PairForm("dfsph_stat", 5, ctx_xla),
+                div=PairForm("dfsph_div", 1, div_sm),
+                corr=PairForm("dfsph_corr", 2, corr_sm),
+                visc=visc_form,
+            )
+        ctx = PairForm("dfsph_ctx", 5, ctx_xla)
+        return PaddedForms(ctx=ctx, stat=ctx, div=PairForm("dfsph_div", 1, div_xla),
+                           corr=PairForm("dfsph_corr", 2, corr_xla), visc=visc_form)
 
     def _padded_init(self, state: ParticleState, boundary: BoundaryDense) -> PaddedInit:
         """DFSPHPaddedSolver.init_carry's layout (via DFSPHDenseSolver.init_carry):
@@ -133,3 +272,208 @@ class DFSPHPaddedSolver:
             carry, diag = self.step(carry, boundary)
             agg = agg.accumulate(diag)
         return carry, agg
+
+    # ------------------------------------------------------------ pair context
+
+    def _ctx_from_padded(self, pos_pad, mask, boundary: BoundaryDense,
+                         dropped) -> DenseCtx:
+        """The fluid and boundary ctx passes and their assembly
+        (dfsph_dense.py:261-346): density with the self-term and the rho0
+        clamp, alpha, the boundary gradient sums and the neighbour totals."""
+        f, c = self._padded_forms, self._consts
+        dyn = self._reduce(f.ctx, pos_pad, mask, pos_pad, mask, c)
+        stat = self._reduce(f.stat, pos_pad, mask, boundary.pos_pad, boundary.mask, c)
+        m = float(self.properties.particle_mass)
+        dens = torch.clamp(m * ((self._w0 + dyn[..., 0]) + stat[..., 0]),
+                           min=self.properties.fluid_density)
+        vx = dyn[..., 1] + stat[..., 1]
+        vy = dyn[..., 2] + stat[..., 2]
+        denom = ((vx * vx + vy * vy) + dyn[..., 3]) + stat[..., 3]
+        # a tensor divisor: a Python one would become a reciprocal multiply on
+        # CUDA, one ulp away from the JAX package's true division
+        m_t = torch.tensor(m, dtype=REAL, device=pos_pad.device)
+        return DenseCtx(
+            pos_pad=pos_pad,
+            mask=mask,
+            sum_grad_stat=stat[..., 1:3] / m_t,
+            neighbor_total=dyn[..., 4] + stat[..., 4],
+            densities_pad=dens,
+            alpha_pad=1.0 / torch.clamp(denom, min=ALPHA_EPSILON),
+            num_dropped=dropped,
+        )
+
+    # --------------------------------------------------------------- pair ops
+
+    def _velocity_divergence(self, ctx: DenseCtx, v_pad):
+        """sum_dyn (v_i - v_j).grad + v_i.sum_grad_stat (dfsph.rs:99-126, 249-280)."""
+        dyn = self._reduce(self._padded_forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                           ctx.mask, self._consts, q_vals=(v_pad,), s_vals=(v_pad,))
+        sgs = ctx.sum_grad_stat
+        return dyn[..., 0] + (v_pad[..., 0] * sgs[..., 0] + v_pad[..., 1] * sgs[..., 1])
+
+    def _k_correction(self, ctx: DenseCtx, k_pad):
+        """sum_dyn (k_i + k_j) grad + k_i sum_grad_stat (dfsph.rs:128-161)."""
+        dyn = self._reduce(self._padded_forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                           ctx.mask, self._consts, q_vals=(k_pad,), s_vals=(k_pad,))
+        return dyn + k_pad[..., None] * ctx.sum_grad_stat
+
+    def _viscosity_pass(self, ctx: DenseCtx, v_pad, rho_pad, dt):
+        """Viscous acceleration over fluid neighbours, (ny, nx, P, 2)."""
+        if ctx.pos_pad.is_cuda and not self._xsph:
+            raise NotImplementedError("the CUDA pair kernels implement XSPH viscosity only")
+        return self._reduce(self._padded_forms.visc, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                            ctx.mask, self._consts, q_vals=(v_pad,),
+                            s_vals=(v_pad, rho_pad), scalars=(float(dt),))
+
+    def _mean_live(self, value_pad, ctx: DenseCtx, n_particles) -> np.float32:
+        total = torch.where(ctx.mask, value_pad, 0.0).sum()
+        return f32(float(total)) / f32(n_particles)
+
+    def _max_velocity(self, vstar_pad, mask) -> np.float32:
+        """CFL velocity estimate over live slots (dfsph.rs:474-477)."""
+        v_est_sq = torch.where(mask, (vstar_pad * vstar_pad).sum(dim=-1), 0.0)
+        return f32(float(torch.sqrt(v_est_sq.max())))
+
+    # ---------------------------------------------------------- pressure loops
+
+    def _correct_density_error(self, dt, dens_pad, alpha_pad, v_pad, kappa_pad,
+                               prev_iterations, ctx: DenseCtx, n_particles):
+        """Constant-density loop (dfsph_dense.py:529-561); returns
+        (v, kappa sum, iterations, last average density error)."""
+        rho0 = f32(self.properties.fluid_density)
+        m = f32(self.properties.particle_mass)
+        scale = float((f32(1.0) / f32(dt)) * m)
+        tol = f32(self.max_avg_density_error)
+        if prev_iterations > 1:  # warm start
+            k = 0.5 * torch.clamp(kappa_pad, min=float(f32(-0.5) * rho0 * rho0))
+            v_pad = v_pad - scale * self._k_correction(ctx, k)
+        k_sum = torch.zeros_like(kappa_pad)
+        num, avg = 0, f32(np.inf)
+        while num == 0 or (
+            (avg / rho0) * dt >= tol and num <= self.max_density_iterations
+        ):
+            delta = self._velocity_divergence(ctx, v_pad)
+            err = torch.clamp(dens_pad + delta * float(m) * float(dt),
+                              min=float(rho0)) - float(rho0)
+            ki = err * alpha_pad
+            k_sum = k_sum + ki
+            v_pad = v_pad - scale * self._k_correction(ctx, ki)
+            avg = self._mean_live(err, ctx, n_particles)
+            num += 1
+        return v_pad, k_sum, num, avg
+
+    def _correct_divergence_error(self, dt, alpha_pad, v_pad, stiff_pad,
+                                  prev_iterations, ctx: DenseCtx, n_particles):
+        """Divergence-free loop (dfsph_dense.py:565-598)."""
+        rho0 = f32(self.properties.fluid_density)
+        m = float(f32(self.properties.particle_mass))
+        tol = f32(self.max_divergence_error)
+        if prev_iterations > 1:  # warm start
+            s = 0.5 * torch.clamp(stiff_pad, min=float(f32(-0.5) * rho0 * rho0))
+            v_pad = v_pad - m * self._k_correction(ctx, s)
+        s_sum = torch.zeros_like(stiff_pad)
+        num, avg = 0, f32(np.inf)
+        while num == 0 or (avg * dt >= tol and num <= self.max_divergence_iterations):
+            delta = torch.clamp(self._velocity_divergence(ctx, v_pad) * m, min=0.0)
+            # particle-deficiency guard (<9 total neighbours, dfsph.rs:260-264)
+            delta = torch.where(ctx.neighbor_total < 9, 0.0, delta)
+            ki = delta * alpha_pad
+            s_sum = s_sum + ki
+            v_pad = v_pad - m * self._k_correction(ctx, ki)
+            avg = self._mean_live(delta, ctx, n_particles) / rho0
+            num += 1
+        return v_pad, s_sum, num, avg
+
+    # ------------------------------------------------------------- host bounds
+
+    def init_carry(self, state: ParticleState, boundary: BoundaryDense
+                   ) -> DFSPHPaddedCarry:
+        base = self._padded_init(state, boundary)
+        return DFSPHPaddedCarry(
+            ctx=self._ctx_from_padded(base.pos_pad, base.mask, boundary,
+                                      base.num_dropped),
+            v_pad=base.v_pad,
+            kappa_pad=base.kappa_pad,
+            stiff_pad=base.stiff_pad,
+            prev_density_iterations=base.prev_density_iterations,
+            prev_divergence_iterations=base.prev_divergence_iterations,
+            time=base.time,
+        )
+
+    def export_state(self, carry: DFSPHPaddedCarry) -> ParticleState:
+        """Flat slot-order view: N = ny*nx*P rows, `alive` = slot mask; dead
+        rows hold zero velocity and rho0."""
+        mask = carry.ctx.mask.reshape(-1)
+        return ParticleState(
+            positions=carry.ctx.pos_pad.reshape(-1, 2),
+            velocities=torch.where(mask[:, None], carry.v_pad.reshape(-1, 2), 0.0),
+            densities=torch.where(mask, carry.ctx.densities_pad.reshape(-1),
+                                  self.properties.fluid_density),
+            alive=mask,
+        )
+
+    # -------------------------------------------------------------------- step
+
+    def step(self, carry: DFSPHPaddedCarry, boundary: BoundaryDense):
+        """One simulation step in the JAX step's order (dfsph.rs:414-525), with
+        the neighbourhood rebuilt every step."""
+        ctx = carry.ctx
+        time_state = carry.time
+        dt = time_state.dt
+        n = self._count_live(ctx.mask)
+        v_pad = carry.v_pad
+        rho_pad = ctx.densities_pad
+
+        gvec = torch.tensor(self.gravity, dtype=REAL, device=v_pad.device)
+        accel = self._viscosity_pass(ctx, v_pad, rho_pad, dt) + gvec
+
+        # CFL with the old-dt estimate (dfsph.rs:472-481)
+        vstar = v_pad + accel * float(dt)
+        max_velocity = self._max_velocity(vstar, ctx.mask)
+        time_state = update_simulation_step(
+            self.step_config, time_state,
+            self.properties.particle_radius * 2.0, max_velocity,
+        )
+        dt = time_state.dt
+
+        # predict v* with the new dt, constant-density loop (dfsph.rs:484-496)
+        pred = v_pad + accel * float(dt)
+        pred, kappa, density_iters, avg_density_error = self._correct_density_error(
+            dt, rho_pad, ctx.alpha_pad, pred, carry.kappa_pad,
+            carry.prev_density_iterations, ctx, n,
+        )
+
+        # advect + re-bucket (dfsph.rs:499-512): [v*(2) | kappa | stiffness]
+        pos = ctx.pos_pad + pred * float(dt)
+        extra = torch.cat([pred, kappa[..., None], carry.stiff_pad[..., None]], dim=-1)
+        pos, mask, extra, drops = sm_rebucket(pos, ctx.mask, extra, self.grid)
+        pred = extra[..., :2].contiguous()
+        kappa = extra[..., 2].contiguous()
+        stiff = extra[..., 3].contiguous()
+        ctx = self._ctx_from_padded(pos, mask, boundary, drops + boundary.num_dropped)
+
+        # divergence-free loop (dfsph.rs:521)
+        pred, stiff, divergence_iters, avg_divergence = self._correct_divergence_error(
+            dt, ctx.alpha_pad, pred, stiff, carry.prev_divergence_iterations, ctx, n,
+        )
+
+        new_carry = DFSPHPaddedCarry(
+            ctx=ctx,
+            v_pad=pred,
+            kappa_pad=kappa,
+            stiff_pad=stiff,
+            prev_density_iterations=density_iters,
+            prev_divergence_iterations=divergence_iters,
+            time=time_state,
+        )
+        diagnostics = Diagnostics(
+            dt=dt,
+            max_velocity=max_velocity,
+            neighbor_drops=int(ctx.num_dropped),
+            density_iterations=density_iters,
+            divergence_iterations=divergence_iters,
+            avg_density_error=avg_density_error,
+            avg_divergence=avg_divergence,
+            migration_drops=0,
+        )
+        return new_carry, diagnostics

@@ -26,7 +26,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.cuda_build import PairConsts
 from ..ops.pair_reduce import PairForm, pair_reduce
 from ..ops.planes import PlaneGeom, from_planes, to_planes
 from ..ops.rebucket import rebucket
@@ -35,7 +34,6 @@ from ..units import REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
 from ..world import ParticleState
 from .dfsph_dense import ALPHA_EPSILON, BoundaryDense, DFSPHPaddedSolver
-from .viscosity import XSPHViscosityModel
 
 f32 = REAL_NP
 
@@ -88,26 +86,13 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
     def __post_init__(self):
         super().__post_init__()
-        kernel = self.kernel
-        m = float(self.properties.particle_mass)
-        rho0 = float(self.properties.fluid_density)
-        # W(0), the density self-contribution, evaluated in f32
-        zero = torch.zeros((), dtype=REAL)
-        w0 = float(kernel.evaluate(zero, zero))
-        visc = self.viscosity_model
-        xsph = isinstance(visc, XSPHViscosityModel)
-        object.__setattr__(self, "_xsph", xsph)
-        object.__setattr__(self, "_consts", PairConsts(
-            radius_sq=self.grid.radius_sq,
-            w_h_inv=kernel._h_inv, w_norm=kernel._norm,
-            w_norm_grad=kernel._norm_grad,
-            p6_hsq=visc.kernel._hsq if xsph else 0.0,
-            p6_norm=visc.kernel._norm if xsph else 0.0,
-            xsph_coef=float(visc.epsilon * m) if xsph else 0.0,
-            mass=m, w0=w0, rho0=rho0, alpha_eps=ALPHA_EPSILON,
-            gx=float(self.gravity[0]), gy=float(self.gravity[1]),
-        ))
-        object.__setattr__(self, "_forms", self._make_forms(m, rho0, w0))
+        assert self.grid.use_pallas_slotmajor, (
+            "DFSPHPlaneSolver is the plane-resident slot-major path; set "
+            "DenseGridConfig.use_pallas_slotmajor=True"
+        )
+        object.__setattr__(self, "_forms", self._make_forms(
+            float(self.properties.particle_mass), float(self.properties.fluid_density),
+            self._w0))
 
     def _make_forms(self, m: float, rho0: float, w0: float) -> _Forms:
         """The six K1 call forms: their math as Python callables (the twin's),
@@ -245,10 +230,6 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
     # ------------------------------------------------------------- reductions
 
-    def _mean_live_pf(self, value, ctx: PlaneCtx, n_particles) -> np.float32:
-        total = torch.where(ctx.mask, value, 0.0).sum()
-        return f32(float(total)) / f32(n_particles)
-
     def _max_velocity_pf(self, vstar, mask) -> np.float32:
         v_est_sq = torch.where(mask, (vstar * vstar).sum(dim=0), 0.0)
         return f32(float(torch.sqrt(v_est_sq.max())))
@@ -272,7 +253,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
             err, ki = self._density_err_ki_pf(ctx, v, dens, alpha, dt)
             k_sum = k_sum + ki
             v = self._apply_correction_pf(ctx, ki, v, scale)
-            avg = self._mean_live_pf(err, ctx, n_particles)
+            avg = self._mean_live(err, ctx, n_particles)
             num += 1
         return v, k_sum, num, avg
 
@@ -290,7 +271,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
             delta, ki = self._divergence_delta_ki_pf(ctx, v)
             s_sum = s_sum + ki
             v = self._apply_correction_pf(ctx, ki, v, m)
-            avg = self._mean_live_pf(delta, ctx, n_particles) / rho0
+            avg = self._mean_live(delta, ctx, n_particles) / rho0
             num += 1
         return v, s_sum, num, avg
 

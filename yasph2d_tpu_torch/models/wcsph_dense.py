@@ -1,23 +1,24 @@
-"""WCSPH with the padded slot-major carry (PyTorch port of
-WCSPHPaddedSolver with use_pallas_slotmajor=True in
+"""WCSPH with the padded slot-major carry (PyTorch port of WCSPHPaddedSolver in
 yasph2d_tpu/models/wcsph_dense.py; algorithm: Becker & Teschner 2007,
 reference src/sph/solver/wscsph.rs:126-179).
 
 Leapfrog, Tait EOS (gamma 7), symmetric pressure forces with the Spiky kernel,
 Poly6 density, XSPH viscosity, Monaghan-Kajtar boundary penalty. The state
 stays in the (ny, nx, P[, 2]) slot layout between steps, and every pass runs
-on a kernel that reads it in place:
+on a kernel that reads it in place. The rebuild is K4 sm_rebucket
+(ops/sm_rebucket.py); `DenseGridConfig.use_pallas_slotmajor` picks the pair
+kernel of the three passes (fluid Poly6 density, boundary density + penalty
+force against the boundary, symmetric pressure + XSPH viscosity):
 
-    K4 sm_rebucket     the per-step neighbourhood rebuild (ops/sm_rebucket.py)
-    K3 wcsph_density   fluid Poly6 density sums     (ops/sm_pair_reduce.py)
-    K3 wcsph_stat      boundary density + penalty force, against the boundary
-    K3 wcsph_forces    symmetric pressure + XSPH viscosity
+    True   K3 (ops/sm_pair_reduce.py) wcsph_density, wcsph_stat, wcsph_forces,
+           in the JAX slot-major closures' order
+    False  K5 (ops/pallas_pair.py), the same three forms in the JAX XLA
+           closures' order (wcsph_dense.py:141-150, 189-197)
 
-The JAX package runs the boundary pass through the XLA dense_grid.pair_reduce;
-here it is K3's third form, so its f32 sums come in the kernel's (dyv, dxv, sp)
-order and agree with the JAX package to f32 tolerance, not bitwise (as the JAX
-plane solver's do). The sorted-carry WCSPHDenseSolver and the XLA pair and
-re-bucket branches are not ported.
+The JAX package runs the boundary pass through the XLA dense_grid.pair_reduce
+on both of its routes; here it is the route's kernel, so its f32 sums come in
+the kernel's order and agree with the JAX package to f32 tolerance, not
+bitwise. The sorted-carry WCSPHDenseSolver is not ported.
 
 dt lives on the host as np.float32 (timemanager.py); each step reads the CFL
 velocity and the drop count back from the device.
@@ -37,6 +38,7 @@ from ..ops.dense_grid import (
     sort_by_dense_keys,
 )
 from ..ops.pair_reduce import PairForm
+from ..ops.pallas_pair import pallas_pair_reduce
 from ..ops.sm_pair_reduce import sm_pair_reduce
 from ..ops.sm_rebucket import sm_rebucket
 from ..ops.smoothing_kernels import Poly6, Spiky
@@ -63,8 +65,9 @@ class WCSPHPaddedCarry(NamedTuple):
 
 
 class WCSPHForms(NamedTuple):
-    """The three pair call forms of a WCSPH step, shared by K3 (padded) and K1
-    (plane): the CUDA instantiations' names and their math for the twins."""
+    """The three pair call forms of a WCSPH step: the CUDA instantiations'
+    names and their math for the twins. K1 (plane) and K3 take the slot-major
+    order, K5 the XLA order."""
 
     density: PairForm
     stat: PairForm
@@ -73,7 +76,7 @@ class WCSPHForms(NamedTuple):
 
 @dataclass(frozen=True)
 class WCSPHPaddedSolver:
-    """WCSPH, padded slot-major carry, every pass through K3 and K4."""
+    """WCSPH, padded slot-major carry, every pass through K3 or K5, and K4."""
 
     viscosity_model: ViscosityModel
     properties: FluidProperties
@@ -113,11 +116,15 @@ class WCSPHPaddedSolver:
             sp_norm_grad=pressure_kernel._norm_grad,
             bff=self.boundary_force_factor,
         ))
-        object.__setattr__(self, "_forms", self._make_forms(m))
+        slotmajor = self.grid.use_pallas_slotmajor
+        object.__setattr__(self, "_reduce",
+                           sm_pair_reduce if slotmajor else pallas_pair_reduce)
+        object.__setattr__(self, "_forms", self._make_forms(m, slotmajor))
 
-    def _make_forms(self, m: float) -> WCSPHForms:
+    def _make_forms(self, m: float, slotmajor: bool) -> WCSPHForms:
         """The pair terms as Python callables (the twins'), op for op the JAX
-        closures of models/wcsph_dense.py and models/wcsph_plane.py."""
+        closures of models/wcsph_dense.py and models/wcsph_plane.py: the
+        slot-major forces on K3 and K1, the XLA ones (coef (gc dx)) on K5."""
         dk, pk = self.density_kernel, self.pressure_kernel
         bff = self.boundary_force_factor
         visc = self.viscosity_model
@@ -138,10 +145,20 @@ class WCSPHPaddedSolver:
             c = visc.viscous_coefficient(scalars[0], r_sq, r, m, rho_j)
             return (gc * dx + c * (vx_j - vx_i), gc * dy + c * (vy_j - vy_i))
 
+        def force_terms_xla(dx, dy, r_sq, r, scalars, q, s):
+            p_i, rho_i, vx_i, vy_i = q
+            p_j, rho_j, vx_j, vy_j = s
+            coef = -m * (p_i + p_j) / (2.0 * rho_i * rho_j)
+            gc = pk.gradient_coefficient(r_sq, r)
+            c = visc.viscous_coefficient(scalars[0], r_sq, r, m, rho_j)
+            return (coef * (gc * dx) + c * (vx_j - vx_i),
+                    coef * (gc * dy) + c * (vy_j - vy_i))
+
         return WCSPHForms(
             density=PairForm("wcsph_density", 1, density_terms),
             stat=PairForm("wcsph_stat", 3, stat_terms),
-            forces=PairForm("wcsph_forces", 2, force_terms),
+            forces=PairForm("wcsph_forces", 2,
+                            force_terms if slotmajor else force_terms_xla),
         )
 
     def _check_viscosity(self, t: torch.Tensor):
@@ -161,19 +178,20 @@ class WCSPHPaddedSolver:
     # ------------------------------------------------------------ pair passes
 
     def _density_and_forces(self, pos, v, mask, boundary: BoundaryDense, dt):
-        """The three K3 passes: Poly6 density with self-contribution and clamp,
-        boundary density + Monaghan-Kajtar penalty in one pass (wscsph.rs:108-116),
-        symmetric pressure + viscosity forces (wscsph.rs:59-105). Returns
-        (dens (ny, nx, P), accel (ny, nx, P, 2)) with accel EXCLUDING gravity."""
-        f, c = self._forms, self._consts
+        """The three pair passes (K3 or K5): Poly6 density with self-contribution
+        and clamp, boundary density + Monaghan-Kajtar penalty in one pass
+        (wscsph.rs:108-116), symmetric pressure + viscosity forces
+        (wscsph.rs:59-105). Returns (dens (ny, nx, P), accel (ny, nx, P, 2))
+        with accel EXCLUDING gravity."""
+        f, c, reduce = self._forms, self._consts, self._reduce
         self._check_viscosity(pos)
-        dyn_w = sm_pair_reduce(f.density, pos, mask, pos, mask, c)[..., 0]
-        stat = sm_pair_reduce(f.stat, pos, mask, boundary.pos_pad, boundary.mask, c)
+        dyn_w = reduce(f.density, pos, mask, pos, mask, c)[..., 0]
+        stat = reduce(f.stat, pos, mask, boundary.pos_pad, boundary.mask, c)
         dens = self._density(dyn_w, stat[..., 0])
         pres = tait_pressure(self.stiffness, self.properties.fluid_density, dens)
-        accel_dyn = sm_pair_reduce(f.forces, pos, mask, pos, mask, c,
-                                   q_vals=(pres, dens, v), s_vals=(pres, dens, v),
-                                   scalars=(float(dt),))
+        accel_dyn = reduce(f.forces, pos, mask, pos, mask, c,
+                           q_vals=(pres, dens, v), s_vals=(pres, dens, v),
+                           scalars=(float(dt),))
         return dens, accel_dyn + stat[..., 1:3]
 
     # ------------------------------------------------------------- host bounds

@@ -53,6 +53,13 @@ class WCSPHPlaneSolver(WCSPHPaddedSolver):
     # plane-form boundary geometry, built once per boundary change
     boundary_planes = DFSPHPlaneSolver.boundary_planes
 
+    def __post_init__(self):
+        super().__post_init__()
+        assert self.grid.use_pallas_slotmajor, (
+            "WCSPHPlaneSolver is the plane-resident slot-major path; set "
+            "DenseGridConfig.use_pallas_slotmajor=True"
+        )
+
     def init_carry(self, state: ParticleState, boundary=None) -> WCSPHPlaneCarry:
         """The padded init in plane form. `boundary` is accepted so that every
         solver's init_carry takes the same arguments, and ignored."""

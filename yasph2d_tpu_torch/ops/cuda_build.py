@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
 The sources have a plain C interface and include no PyTorch header, so `nvcc`
-builds them in seconds. At first use the library is compiled for Hopper
-(sm_90a) into `build/yasph2d_tpu_torch/` at the repository root, under a name
-keyed by a hash of the sources and flags, and loaded with ctypes. Nothing runs
-at import: the CPU-only test suite imports every module.
+builds them in seconds. At first use each source is compiled for Hopper
+(sm_90a) by its own `nvcc` process, all started together, and the objects are
+linked into one library in `build/yasph2d_tpu_torch/` at the repository root,
+under a name keyed by a hash of the sources and flags, and loaded with ctypes.
+Nothing runs at import: the CPU-only test suite imports every module.
 
 Flags: no --use_fast_math (IEEE division and sqrt, as in the JAX package), and
 -fmad=false so that no multiply-add is contracted: each kernel then performs
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yasph2d_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 
@@ -50,21 +51,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libyasph2d_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the first failure's output
+    once every process has ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these exact sources exists."""
+    """Compile the kernels unless a library for these exact sources exists:
+    one nvcc per source, in parallel, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+    try:
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(sources, objs)])
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 
@@ -83,8 +102,14 @@ class PairConsts(ctypes.Structure):
 # WCSPH plane step's three
 PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
               "wcsph_density", "wcsph_stat", "wcsph_forces")
-# K3's call forms (csrc/sm_pair_reduce.cu): the WCSPH padded step's three
-SM_PAIR_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces")
+# K3's call forms (csrc/sm_pair_reduce.cu): the WCSPH padded step's three,
+# then the DFSPH padded step's five
+SM_PAIR_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces",
+                 "dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc")
+# K5's call forms (csrc/tile_pair_reduce.cu): the DFSPH padded step's four, then
+# the WCSPH padded step's three
+TILE_PAIR_FORMS = ("dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc",
+                   "wcsph_density", "wcsph_stat", "wcsph_forces")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -108,6 +133,14 @@ def library() -> ctypes.CDLL:
         # P, Ps, ny, nx, scalar, consts, stream
         fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
                        _I, _I, _I, _I, ctypes.c_float,
+                       ctypes.POINTER(PairConsts), _P]
+        fn.restype = _I
+    for form in TILE_PAIR_FORMS:
+        fn = getattr(lib, f"tile_pair_reduce_{form}")
+        # q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out,
+        # P, Ps, ny, nx, br, bc, threads, scalar, consts, stream
+        fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
+                       _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                        ctypes.POINTER(PairConsts), _P]
         fn.restype = _I
     # code, payload planes, n_pay, out, total, P, ny, nx, stream

@@ -2,7 +2,16 @@
 slot build and the re-bucket's move codes.
 
 Particles are sorted by row-major cell key and laid out in a dense (ny, nx, P)
-slot grid (P = max occupancy per cell). The port needs the slot build only to
+slot grid (P = max occupancy per cell).
+
+`DenseGridConfig.use_pallas_slotmajor` (the JAX field, with its default False)
+picks the pair kernel of the padded solvers: True runs their pair passes on
+K3 (ops/sm_pair_reduce.py), False on K5 (ops/pallas_pair.py); both rebuild
+on K4 (ops/sm_rebucket.py). The plane solvers require True, as the JAX ones
+do. The JAX package has two routes for False, the XLA `pair_reduce` and the
+gen-1 Pallas kernel behind `use_pallas`; they compute one contract, so here
+both are the one K5 route and the `use_pallas` flag is not ported (it would
+be a knob without effect). The port needs the slot build only to
 build the initial carry and the static boundary index space; the per-step
 neighbourhood rebuild is the windowed re-bucket (ops/rebucket.py in plane form,
 ops/sm_rebucket.py in this slot layout), which takes its move codes from
@@ -16,9 +25,10 @@ same clamped slot indices, same overflow accounting.
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ..units import INDEX, REAL
+from ..units import INDEX
 
 MIN_DISTANCE_SQ = 1.0e-10  # self/degenerate filter (reference: neighborhood_search.rs:324)
 
@@ -34,6 +44,7 @@ class DenseGridConfig:
     nx: int
     ny: int
     occupancy: int = 8  # P: max particles per cell
+    use_pallas_slotmajor: bool = False  # padded solvers: K3 if True, else K5
 
     @property
     def radius_sq(self) -> float:
@@ -44,19 +55,20 @@ class DenseGridConfig:
         return self.nx * self.ny
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=REAL, device=device)
+def f32_scalar(x) -> float:
+    """The f32 rounding of a double as a Python float. An f32 tensor op with
+    it computes in f32, as with a 0-d f32 tensor, and makes no host-to-device
+    copy, so the glue around the kernels can be captured in a CUDA graph."""
+    return float(np.float32(x))
 
 
 def cell_coords(positions: torch.Tensor, grid: DenseGridConfig):
     """(cx, cy) int32 cell coordinates, clamped into the grid. `inv` is the f32
     rounding of the double 1/cell_size, as in the JAX package."""
-    inv = _f32(1.0 / grid.cell_size, positions.device)
-    origin = _f32(grid.origin, positions.device)
-    coords = torch.floor((positions - origin) * inv).to(INDEX)
-    cx = torch.clamp(coords[..., 0], 0, grid.nx - 1)
-    cy = torch.clamp(coords[..., 1], 0, grid.ny - 1)
-    return cx, cy
+    inv = f32_scalar(1.0 / grid.cell_size)
+    cx = torch.floor((positions[..., 0] - f32_scalar(grid.origin[0])) * inv).to(INDEX)
+    cy = torch.floor((positions[..., 1] - f32_scalar(grid.origin[1])) * inv).to(INDEX)
+    return torch.clamp(cx, 0, grid.nx - 1), torch.clamp(cy, 0, grid.ny - 1)
 
 
 def cell_keys(positions: torch.Tensor, grid: DenseGridConfig, alive=None):

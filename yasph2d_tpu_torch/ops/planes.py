@@ -16,8 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..units import INDEX, REAL
-from .dense_grid import DenseGridConfig
+from ..units import INDEX
+from .dense_grid import DenseGridConfig, f32_scalar
 
 
 class PlaneGeom(NamedTuple):
@@ -51,9 +51,8 @@ def pf_move_codes(pos: torch.Tensor, mask: torch.Tensor,
     f32 (pos - origin) * inv."""
     _, ny, nx = mask.shape
     device = pos.device
-    inv = torch.tensor(1.0 / grid.cell_size, dtype=REAL, device=device)
-    ox = torch.tensor(grid.origin[0], dtype=REAL, device=device)
-    oy = torch.tensor(grid.origin[1], dtype=REAL, device=device)
+    inv = f32_scalar(1.0 / grid.cell_size)
+    ox, oy = f32_scalar(grid.origin[0]), f32_scalar(grid.origin[1])
     cx = torch.clamp(torch.floor((pos[0] - ox) * inv).to(INDEX), 0, grid.nx - 1)
     cy = torch.clamp(torch.floor((pos[1] - oy) * inv).to(INDEX), 0, grid.ny - 1)
     iy = torch.arange(ny, dtype=INDEX, device=device)[None, :, None]

@@ -86,10 +86,33 @@ def _value_ptrs(vals, device, shape, what):
     for v in vals:
         c = 1 if v.ndim == 3 else v.shape[-1]
         cuda_build.check_tensor(v, device, shape if v.ndim == 3 else shape + (c,),
-                                torch.float32, f"sm_pair_reduce: {what}")
+                                torch.float32, what)
         ptrs.extend(v.data_ptr() + k * v.element_size() for k in range(c))
         strides.extend([c] * c)
     return ptrs, strides
+
+
+def slot_operands(kernel: str, q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars):
+    """Check the operands of a slot-major pair kernel (K3, K5) and return
+    ((ny, nx, P, Ps), value pointers, value strides, the f32 scalar)."""
+    device = q_pos.device
+    ny, nx, p = q_mask.shape
+    ps = s_mask.shape[2]
+    for t, shape, dtype, what in (
+            (q_pos, (ny, nx, p, 2), torch.float32, "query positions"),
+            (q_mask, (ny, nx, p), torch.bool, "query mask"),
+            (s_pos, (ny, nx, ps, 2), torch.float32, "source positions"),
+            (s_mask, (ny, nx, ps), torch.bool, "source mask")):
+        cuda_build.check_tensor(t, device, shape, dtype, f"{kernel}: {what}")
+    if q_pos.data_ptr() % 8 or s_pos.data_ptr() % 8:
+        raise ValueError(f"{kernel}: positions must be 8-byte aligned (float2)")
+    if len(scalars) > 1:
+        raise ValueError(f"{kernel}: the CUDA forms take at most one scalar")
+    q_ptrs, q_strides = _value_ptrs(q_vals, device, (ny, nx, p), f"{kernel}: query value")
+    s_ptrs, s_strides = _value_ptrs(s_vals, device, (ny, nx, ps),
+                                    f"{kernel}: source value")
+    return ((ny, nx, p, ps), q_ptrs + s_ptrs, q_strides + s_strides,
+            float(scalars[0]) if scalars else 0.0)
 
 
 def sm_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,
@@ -106,28 +129,15 @@ def sm_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,
                                   s_vals=s_vals, scalars=scalars)
     if device.type != "cuda":
         raise ValueError(f"sm_pair_reduce: unsupported device {device}")
-    ny, nx, p = q_mask.shape
-    ps = s_mask.shape[2]
-    for t, shape, dtype, what in (
-            (q_pos, (ny, nx, p, 2), torch.float32, "query positions"),
-            (q_mask, (ny, nx, p), torch.bool, "query mask"),
-            (s_pos, (ny, nx, ps, 2), torch.float32, "source positions"),
-            (s_mask, (ny, nx, ps), torch.bool, "source mask")):
-        cuda_build.check_tensor(t, device, shape, dtype, f"sm_pair_reduce: {what}")
-    if q_pos.data_ptr() % 8 or s_pos.data_ptr() % 8:
-        raise ValueError("sm_pair_reduce: positions must be 8-byte aligned (float2)")
-    if len(scalars) > 1:
-        raise ValueError("sm_pair_reduce: the CUDA forms take at most one scalar")
-    q_ptrs, q_strides = _value_ptrs(q_vals, device, (ny, nx, p), "query value")
-    s_ptrs, s_strides = _value_ptrs(s_vals, device, (ny, nx, ps), "source value")
-    ptrs, strides = q_ptrs + s_ptrs, q_strides + s_strides
+    (ny, nx, p, ps), ptrs, strides, scalar = slot_operands(
+        "sm_pair_reduce", q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars)
     out = torch.empty((ny, nx, p, form.n_out), dtype=torch.float32, device=device)
     fn = getattr(cuda_build.library(), f"sm_pair_reduce_{form.name}")
     err = fn(
         q_pos.data_ptr(), q_mask.data_ptr(), s_pos.data_ptr(), s_mask.data_ptr(),
         cuda_build.pointer_array(ptrs), cuda_build.int_array(strides), len(ptrs),
-        out.data_ptr(), p, ps, ny, nx, float(scalars[0]) if scalars else 0.0,
-        consts, torch.cuda.current_stream(device).cuda_stream,
+        out.data_ptr(), p, ps, ny, nx, scalar, consts,
+        torch.cuda.current_stream(device).cuda_stream,
     )
     cuda_build.check(err, f"sm_pair_reduce_{form.name}")
     LAUNCHES[form.name] += 1

@@ -1,5 +1,7 @@
 """Benchmark scenes (copies of the scene functions in the repository's bench.py,
-which imports JAX)."""
+which imports JAX) and the bench's solver configurations on them."""
+
+from typing import NamedTuple
 
 from .world import FluidParticleWorld
 
@@ -24,3 +26,49 @@ def double_dam_break(target_particles: int) -> FluidParticleWorld:
     world.add_boundary_thick_line((1.7, 0.45), (2.3, 0.45), 2)
     world.add_boundary_thick_line((2.3, 0.45), (2.3, 0.0), 2)
     return world
+
+
+class SolverSpec(NamedTuple):
+    """One of the bench's solver configurations."""
+
+    solver: str  # class name in yasph2d_tpu_torch
+    slotmajor: bool  # padded pair passes on K3 (use_pallas_slotmajor) or on K5
+    cfl_factor: float  # adaptive CFL factor (bench.py:116-120)
+    plane_boundary: bool  # the solver takes the boundary in plane form
+
+
+# The bench's solver configurations on one scene, by name.
+SOLVERS = {
+    "dfsph_plane": SolverSpec("DFSPHPlaneSolver", True, 1.5, True),
+    "dfsph_padded": SolverSpec("DFSPHPaddedSolver", True, 1.5, False),
+    "dfsph_padded_k5": SolverSpec("DFSPHPaddedSolver", False, 1.5, False),
+    "wcsph_padded": SolverSpec("WCSPHPaddedSolver", True, 0.2, False),
+    "wcsph_padded_k5": SolverSpec("WCSPHPaddedSolver", False, 0.2, False),
+    "wcsph_plane": SolverSpec("WCSPHPlaneSolver", True, 0.2, True),
+}
+
+
+def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=7):
+    """(solver, boundary) of one of SOLVERS on `world`, as the bench builds them
+    (bench.py:125-150): occupancy 7, XSPH viscosity, the entry's adaptive CFL,
+    the boundary on `device` (in plane form for the plane solvers)."""
+    import dataclasses
+
+    import yasph2d_tpu_torch as y
+
+    spec = SOLVERS[kind]
+    grid = dataclasses.replace(world.dense_grid(occupancy=occupancy),
+                               use_pallas_slotmajor=spec.slotmajor)
+    solver = getattr(y, spec.solver)(
+        viscosity_model=y.XSPHViscosityModel(world.properties.smoothing_length),
+        properties=world.properties,
+        grid=grid,
+        step_config=y.AdaptiveTimeStep(
+            timestep_max=1.0 / 360.0, timestep_min=1.0 / 24000.0,
+            cfl_factor=spec.cfl_factor,
+        ),
+    )
+    boundary = world.boundary_dense(grid, device=device)
+    if spec.plane_boundary:
+        boundary = solver.boundary_planes(boundary)
+    return solver, boundary

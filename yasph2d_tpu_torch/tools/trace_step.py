@@ -1,11 +1,13 @@
 """Where the time of a solver step goes on one GPU.
 
     python -m yasph2d_tpu_torch.tools.trace_step
-        [--solver dfsph_plane|wcsph_padded|wcsph_plane] [--particles 100000]
+        [--solver dfsph_plane|dfsph_padded|dfsph_padded_k5|wcsph_padded|
+                  wcsph_padded_k5|wcsph_plane] [--particles 100000]
         [--settle 50] [--steps 20] [--trace out.json]
 
-Runs the double dam-break through the CUDA kernels, with the solver's bench
-time step (adaptive CFL 1.5 for DFSPH, 0.2 for WCSPH): `--settle` steps first
+Runs the double dam-break through the CUDA kernels, with the solver as
+`scenes.bench_solver` builds it (`*_k5`: the padded solver on K5 instead of
+K3; adaptive CFL 1.5 for DFSPH, 0.2 for WCSPH): `--settle` steps first
 (per-window ms/step, iteration counts and drops are printed), then `--steps`
 steps under torch.profiler. Reports the host-clock ms/step of the profiled
 window, the device time per kernel name (per step and per launch), and the
@@ -29,18 +31,11 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-SOLVERS = ("dfsph_plane", "wcsph_padded", "wcsph_plane")
-
-
 def main():
-    from yasph2d_tpu_torch import (
-        AdaptiveTimeStep, DFSPHPlaneSolver, WCSPHPaddedSolver, WCSPHPlaneSolver,
-        XSPHViscosityModel,
-    )
-    from yasph2d_tpu_torch.scenes import double_dam_break
+    from yasph2d_tpu_torch.scenes import SOLVERS, bench_solver, double_dam_break
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--solver", choices=SOLVERS, default="dfsph_plane")
+    ap.add_argument("--solver", choices=list(SOLVERS), default="dfsph_plane")
     ap.add_argument("--particles", type=int, default=100_000)
     ap.add_argument("--settle", type=int, default=50)
     ap.add_argument("--steps", type=int, default=20)
@@ -52,17 +47,8 @@ def main():
     device = torch.device("cuda", 0)
 
     world = double_dam_break(args.particles)
-    grid = world.dense_grid(occupancy=7)
-    cls = dict(zip(SOLVERS, (DFSPHPlaneSolver, WCSPHPaddedSolver, WCSPHPlaneSolver)))
-    solver = cls[args.solver](
-        viscosity_model=XSPHViscosityModel(world.properties.smoothing_length),
-        properties=world.properties, grid=grid,
-        step_config=AdaptiveTimeStep(
-            1.0 / 360.0, 1.0 / 24000.0, 1.5 if args.solver == "dfsph_plane" else 0.2),
-    )
-    boundary = world.boundary_dense(grid, device=device)
-    if args.solver != "wcsph_padded":
-        boundary = solver.boundary_planes(boundary)
+    solver, boundary = bench_solver(args.solver, world, device=device)
+    grid = solver.grid
     carry = solver.init_carry(world.initial_state(device=device), boundary)
     n = int(solver.export_state(carry).alive.sum())
     print(f"scene: {args.solver}, {n} fluid / {world.num_boundary_particles} boundary, "

@@ -12,6 +12,11 @@ as numpy arrays and crop them to the port's (P, ny, nx) layout.
   time.num_steps, time.target_frame_length.
 `boundary_from_numpy` keys (fields of yasph2d_tpu BoundaryDense):
   pos_pad, mask, num_dropped.
+`dfsph_padded_carry_from_numpy` keys (field paths of yasph2d_tpu
+DFSPHPaddedCarry, already in the port's (ny, nx, P[, 2]) layout):
+  ctx.pos_pad, ctx.mask, ctx.sum_grad_stat, ctx.neighbor_total,
+  ctx.densities_pad, ctx.alpha_pad, ctx.num_dropped, v_pad, kappa_pad,
+  stiff_pad, prev_density_iterations, prev_divergence_iterations, time.*.
 `wcsph_padded_carry_from_numpy` keys (fields of yasph2d_tpu WCSPHPaddedCarry,
 already in the port's (ny, nx, P[, 2]) layout): pos_pad, v_pad, accel_pad,
   dens_pad, mask, time.*.
@@ -22,7 +27,7 @@ cropped): pos, v, accel, dens, mask, time.*.
 import numpy as np
 import torch
 
-from ..models.dfsph_dense import BoundaryDense
+from ..models.dfsph_dense import BoundaryDense, DenseCtx, DFSPHPaddedCarry
 from ..models.dfsph_plane import BoundaryPlanes, DFSPHPlaneCarry, PlaneCtx
 from ..models.wcsph_dense import WCSPHPaddedCarry
 from ..models.wcsph_plane import WCSPHPlaneCarry
@@ -68,6 +73,30 @@ def _time(leaves: dict) -> TimeState:
         total_simulated_time=np.float32(leaves["time.total_simulated_time"]),
         num_steps=np.int32(leaves["time.num_steps"]),
         target_frame_length=np.float32(leaves["time.target_frame_length"]),
+    )
+
+
+def dfsph_padded_carry_from_numpy(leaves: dict, device="cpu") -> DFSPHPaddedCarry:
+    def slots(key, dtype=REAL):
+        return torch.as_tensor(np.array(leaves[key]), device=device).to(dtype)
+
+    ctx = DenseCtx(
+        pos_pad=slots("ctx.pos_pad"),
+        mask=slots("ctx.mask", torch.bool),
+        sum_grad_stat=slots("ctx.sum_grad_stat"),
+        neighbor_total=slots("ctx.neighbor_total"),
+        densities_pad=slots("ctx.densities_pad"),
+        alpha_pad=slots("ctx.alpha_pad"),
+        num_dropped=slots("ctx.num_dropped", INDEX),
+    )
+    return DFSPHPaddedCarry(
+        ctx=ctx,
+        v_pad=slots("v_pad"),
+        kappa_pad=slots("kappa_pad"),
+        stiff_pad=slots("stiff_pad"),
+        prev_density_iterations=int(leaves["prev_density_iterations"]),
+        prev_divergence_iterations=int(leaves["prev_divergence_iterations"]),
+        time=_time(leaves),
     )
 
 

@@ -4,7 +4,8 @@
 Scene construction is host numpy, copied from the JAX package line for line so
 that both packages start from bit-identical particle positions (the seeded
 jitter included). Device tensors are made only by `initial_state` and
-`boundary_dense`, each on the `device` it is given.
+`boundary_dense`, on the card by default and on the CPU when they are given
+`device="cpu"`; on a host without CUDA the default fails as torch fails.
 """
 
 from dataclasses import dataclass
@@ -143,8 +144,9 @@ class FluidParticleWorld:
             return np.concatenate(self._boundary, axis=0)
         return np.zeros((0, 2), dtype=np.float32)
 
-    def initial_state(self, device="cpu") -> ParticleState:
-        """Fluid state for the current scene (velocities and densities zero)."""
+    def initial_state(self, device="cuda") -> ParticleState:
+        """Fluid state for the current scene (velocities and densities zero), on
+        the card unless `device` says otherwise."""
         pos = torch.as_tensor(self.host_positions(), dtype=REAL, device=device)
         n = pos.shape[0]
         return ParticleState(
@@ -197,9 +199,10 @@ class FluidParticleWorld:
             occupancy=occupancy,
         )
 
-    def boundary_dense(self, grid, occupancy=None, device="cpu"):
-        """Dense-layout static index space; None sizes the slot axis to the
-        boundary's exact max cell occupancy."""
+    def boundary_dense(self, grid, occupancy=None, device="cuda"):
+        """Dense-layout static index space, on the card unless `device` says
+        otherwise; None sizes the slot axis to the boundary's exact max cell
+        occupancy."""
         from .models.dfsph_dense import build_boundary_dense
 
         boundary = torch.as_tensor(
