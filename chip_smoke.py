@@ -8,39 +8,50 @@ Phases, each reported on its own line:
      process per source, all started together;
   3. kernels: each kernel against its plain PyTorch twin on the same CUDA
      tensors, at the 100k double dam-break shapes: the nine call forms of the
-     pair kernel K1 and the re-bucket K2 on the plane states of the DFSPH and
-     WCSPH steps; the eight forms of the slot-major pair kernel K3 (three
-     WCSPH, five DFSPH) and the slot-major re-bucket K4 with the WCSPH (D = 2)
-     and DFSPH (D = 4) payloads on the padded states; the seven forms of the
-     tiled pair kernel K5 (four DFSPH, three WCSPH) on the padded states of its
-     route. The WCSPH states are taken after 3 steps, the DFSPH states after
-     60, when the columns touch the walls and every fluid -> boundary pass
-     must sum something. Pair forms agree to rtol 1e-5 plus 1e-6 of each
-     output component's largest live magnitude; the re-buckets bit-equal,
-     with and without forced cell overflow. `ms` is the kernel's device time:
-     10 wrapper calls captured in a CUDA graph, each replay timed with CUDA
+     pair kernel K1, with float32 and with bfloat16 operands, and the
+     re-bucket K2 on the plane states of the DFSPH and WCSPH steps; the eight
+     forms of the slot-major pair kernel K3 (three WCSPH, five DFSPH) and the
+     slot-major re-bucket K4 with the WCSPH (D = 2) and DFSPH (D = 4) payloads
+     on the padded states; the seven forms of the tiled pair kernel K5 (four
+     DFSPH, three WCSPH) on the padded states of its route. The WCSPH states
+     are taken after 3 steps, the DFSPH states after 60, when the columns
+     touch the walls and every fluid -> boundary pass must sum something. Then,
+     at the TPU probes' shapes, the speed probes K6 (FMA chains x4 and x8, the
+     compare/select/add mix x8, 1,690,624 elements; rtol 1e-5 on the TPU
+     probe's constant input and on a seeded input spread across 0.5) and the
+     ctx-pass probe K7 (64 x 1612 cells, P 7) beside K1's ctx form on the same
+     inputs. Pair forms agree to rtol 1e-5 plus 1e-6 of each output
+     component's largest live magnitude; the re-buckets bit-equal, with and
+     without forced cell overflow. `ms` is the kernel's device time: 10
+     wrapper calls captured in a CUDA graph, each replay timed with CUDA
      events, median of 7, over 10; `plain_ms` the twin's, eager, CUDA events,
      median of 7. `bound_ms` is the larger of the bytes the call must move
      over 3.35 TB/s and its float32 operations (counted from the live
-     candidate and valid pair counts of these inputs) over 67 TFLOP/s, the
-     H100 SXM's data-sheet rates. The bytes: every mask read once in full,
-     positions and values only of the slots that can change the result
-     (live queries; live sources in the 3x3 cells of a live query; the live
-     slots a re-bucket moves), every output written once in full. No single
-     PyTorch call computes a pair reduction or a re-bucket, so `library_ms`
-     is null;
+     candidate and valid pair counts of these inputs; K6 as the TPU probe
+     counts them, an FMA as 2) over 67 TFLOP/s, the H100 SXM's data-sheet
+     rates (the counting rules live in yasph2d_tpu_torch/tools/roofline.py).
+     The bytes: every mask read once in full, positions and values only of
+     the slots that can change the result (live queries; live sources in the
+     3x3 cells of a live query; the live slots a re-bucket moves), K6's
+     input once, every output written once in full. No single PyTorch call
+     computes any of these functions, so `library_ms` is null;
   4. small reference: a 3k-particle scene stepped through the kernels on the
-     GPU and through the twins on the CPU must agree, for every main path:
+     GPU and through the twins on the CPU must agree, for every solver path:
      5 steps from rest, and for the DFSPH paths 5 more from the GPU's state
      after 55 steps, where the columns touch the walls, the divergence loop
      iterates and warm-starts, and the fluid -> boundary pass sums something;
   5. main paths: init_carry + 20 steps of the 100k double dam-break through the
-     kernels, for each solver and route of PATHS, with the launch count of
-     every kernel of that path > 0, no dropped particle, all 99,372 particles
-     live, finite state and densities in [rho0, 1.3 rho0] (the columns are
-     still falling; after the impact, by step 60, the densest particle of the
-     DFSPH plane step reaches 1.55 rho0, so phases 3 and 4 check the contact
-     regime instead).
+     kernels, for each solver, route and operand dtype of SOLVER_PATHS, with
+     the launch count of every kernel of that path > 0, no dropped particle,
+     all 99,372 particles live, finite state and densities in [rho0, 1.3 rho0]
+     (the columns are still falling; after the impact, by step 60, the
+     densest particle of the DFSPH plane step reaches 1.55 rho0, so phases 3
+     and 4 check the contact regime instead). Then the tools of TOOL_PATHS
+     through their entry points, each with its launch counts > 0: the K6
+     rates (FMA, mix, HBM stream), the K7 probe beside K1 ctx, and the
+     roofline at 1M particles in bfloat16 after 100 settle steps, whose state
+     must have no drop, every particle live and finite values (no density
+     gate: the columns have hit the floor).
 
 The line before the last is the GPU's name and power limit as nvidia-smi
 reports them, the one before that the per-kernel JSON record; the last line is
@@ -55,6 +66,17 @@ import time
 import numpy as np
 import torch
 
+from yasph2d_tpu_torch.tools.roofline import (
+    OPS_PER_PAIR,
+    OPS_PER_QUERY,
+    OPS_PER_SLOT_REBUCKET,
+    bound,
+    nbytes,
+    pair_bytes,
+    pair_counts,
+    plane_pairs,
+    rebucket_bytes,
+)
 from yasph2d_tpu_torch.utils.cuda_timing import event_ms, graph_ms
 
 STEPS = 20
@@ -62,8 +84,7 @@ N_FLUID = 99_372
 WARMUP_STEPS = 3  # the WCSPH kernel states
 CONTACT_STEPS = 60  # the DFSPH kernel states: the columns touch the walls
 CONTACT_STEPS_3K = 55  # the same on the 3k scene of phase 4
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+ROOFLINE = ("1000000", "100")  # tools.roofline: particles, settle steps (bf16)
 CSRC = "yasph2d_tpu_torch/csrc/"
 SOURCES = {
     "pair_reduce": CSRC + "pair_reduce.cu",
@@ -71,6 +92,8 @@ SOURCES = {
     "sm_pair_reduce": CSRC + "sm_pair_reduce.cu",
     "sm_rebucket": CSRC + "sm_rebucket.cu",
     "tile_pair_reduce": CSRC + "tile_pair_reduce.cu",
+    "vpu_probe": CSRC + "vpu_probe.cu",
+    "probe_ctx": CSRC + "probe_ctx.cu",
 }
 REPLACES = {
     "pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:821",  # pf_pair_reduce
@@ -78,13 +101,16 @@ REPLACES = {
     "sm_pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:252",  # sm_pair_reduce
     "sm_rebucket": "yasph2d_tpu/ops/pallas_slotmajor.py:1263",  # sm_rebucket
     "tile_pair_reduce": "yasph2d_tpu/ops/pallas_pair.py:97",  # pallas_pair_reduce
+    "vpu_probe_fma": "tools/vpu_probe.py:39",  # fma_probe
+    "vpu_probe_mix": "tools/vpu_probe.py:76",  # mix_probe
+    "probe_ctx": "tools/probe_pallas_slotmajor.py:113",  # ctx_pass_slotmajor
 }
 DFSPH_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v")
 WCSPH_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces")
 DFSPH_SM_FORMS = ("dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc")
 DFSPH_TILE_FORMS = ("dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc")
-# the kernels each main path must launch
-PATHS = {
+# the kernels each main path must launch: the solvers' steps, then the tools
+SOLVER_PATHS = {
     "dfsph_plane": [f"pair_reduce_{f}" for f in DFSPH_FORMS] + ["rebucket"],
     "wcsph_padded": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"],
     "wcsph_plane": [f"pair_reduce_{f}" for f in WCSPH_FORMS] + ["rebucket"],
@@ -92,19 +118,16 @@ PATHS = {
     "dfsph_padded_k5": [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_FORMS]
     + ["sm_rebucket"],
     "wcsph_padded_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"],
+    "dfsph_plane_bf16": [f"pair_reduce_{f}_bf16" for f in DFSPH_FORMS] + ["rebucket"],
+    "wcsph_plane_bf16": [f"pair_reduce_{f}_bf16" for f in WCSPH_FORMS] + ["rebucket"],
 }
-# float32 operations per valid pair of each call form, counted from its term
-# functor in csrc/pair_terms.cuh (sqrt included), and per live query of its
-# epilogue (K1); every live candidate adds 5 (dx, dy, r_sq)
-OPS_PER_PAIR = {
-    "ctx": 26, "ctx_post": 26, "visc_gravity": 15, "err_ki": 14, "delta_ki": 14,
-    "corr_v": 13, "wcsph_density": 7, "wcsph_stat": 18, "wcsph_forces": 31,
-    "dfsph_ctx": 27, "dfsph_stat": 27, "dfsph_div": 14, "dfsph_corr": 13,
-    "dfsph_visc": 15,
+VPU_PROBES = ["vpu_probe_fma4", "vpu_probe_fma8", "vpu_probe_mix8"]
+TOOL_PATHS = {
+    "vpu_probe": VPU_PROBES,
+    "probe_ctx": ["probe_ctx", "pair_reduce_ctx"],
+    "roofline": [f"pair_reduce_{f}_bf16" for f in DFSPH_FORMS] + ["rebucket"] + VPU_PROBES,
 }
-OPS_PER_QUERY = {"ctx_post": 15, "visc_gravity": 2, "err_ki": 8, "delta_ki": 8,
-                 "corr_v": 8}
-OPS_PER_SLOT_REBUCKET = 10  # cell coordinates and the move code of a live slot
+PATHS = {**SOLVER_PATHS, **TOOL_PATHS}
 
 
 def log(msg):
@@ -116,69 +139,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-
-
-def nbytes(t) -> int:
-    return t.numel() * t.element_size()
-
-
-def slot_bytes(t, need) -> int:
-    """Bytes of the slots of `t` that `need` (a slot mask) selects."""
-    assert t.numel() % need.numel() == 0, (t.shape, need.shape)
-    return nbytes(t) // need.numel() * int(need.sum())
-
-
-def pair_bytes(q_tensors, s_tensors, masks, outputs, q_mask, s_mask) -> int:
-    """Bytes a pair call must move: every mask in full; positions and values
-    of the live query slots, and of the live source slots in the 3x3 cells
-    around a cell with a live query (no other slot can change the result);
-    every output in full (dead slots are written as zeros). `q_mask` and
-    `s_mask` are in the slot layout; a tensor read as query and as source
-    counts each of its slots once."""
-    occupied = q_mask.any(-1)[None, None].to(torch.float32)
-    near = torch.nn.functional.max_pool2d(occupied, 3, stride=1, padding=1)[0, 0] > 0
-    need = {}
-    for ts, m in ((q_tensors, q_mask), (s_tensors, s_mask & near[..., None])):
-        for t in ts:
-            seen = need.get(t.data_ptr())
-            need[t.data_ptr()] = (t, m if seen is None else seen[1] | m)
-    distinct_masks = {m.data_ptr(): m for m in masks}.values()
-    return (sum(slot_bytes(t, m) for t, m in need.values())
-            + sum(nbytes(m) for m in distinct_masks) + sum(nbytes(o) for o in outputs))
-
-
-def rebucket_bytes(pos, mask, values, outputs) -> int:
-    """Bytes a re-bucket must move: the mask in full, positions and payload of
-    the live slots, every output in full."""
-    return (nbytes(mask) + slot_bytes(pos, mask) + slot_bytes(values, mask)
-            + sum(nbytes(o) for o in outputs))
-
-
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the larger of the memory and FP32 times."""
-    mem_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
-    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
-
-
-def pair_counts(q_pos, q_mask, s_pos, s_mask, radius_sq):
-    """(live candidates, valid pairs) of a pair pass in the slot layout:
-    query live and source live in the 3x3 cells, and within h."""
-    ny, nx, _ = q_mask.shape
-
-    def pad(a):
-        return torch.nn.functional.pad(a, (0, 0) * (a.ndim - 2) + (1, 1, 1, 1))
-
-    sp, sm = pad(s_pos.contiguous()), pad(s_mask.contiguous())
-    cand = valid = 0
-    for dyv in range(3):
-        for dxv in range(3):
-            rows, cols = slice(dyv, dyv + ny), slice(dxv, dxv + nx)
-            live = q_mask[..., None] & sm[rows, cols, None, :]
-            d = sp[rows, cols, None, :, :] - q_pos[..., None, :]
-            r_sq = (d * d).sum(-1)
-            cand += int(live.sum())
-            valid += int((live & (r_sq <= radius_sq) & (r_sq > 1e-10)).sum())
-    return cand, valid
 
 
 def role_tensors(q_pos, s_pos, kw):
@@ -220,7 +180,7 @@ class Records:
         self.nonzero = set()
 
     def add(self, name, kernel, max_abs_err, ms, plain_ms, n_bytes, n_ops,
-            counter=None, paths=None):
+            counter=None, paths=None, replaces=None):
         if name in self.by_name:
             rec = self.by_name[name]
             rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err)
@@ -230,24 +190,27 @@ class Records:
             f"({n_bytes} bytes, {n_ops} float32 operations), kernel {ms:.5f} ms, "
             f"{bound_ms / ms:.3f} of the bound")
         self.by_name[name] = dict(
-            name=name, route="cuda", source=SOURCES[kernel], replaces=REPLACES[kernel],
+            name=name, route="cuda", source=SOURCES[kernel],
+            replaces=REPLACES[replaces or kernel],
             launches=0, max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             _counter=counter or name, _paths=paths)
 
     def check_pair(self, kernel, label, form, run_kernel, run_twin, live, comp_dim,
-                   roles, masks, pairs, radius_sq):
+                   roles, masks, pairs, radius_sq, variant=""):
         """`live`: the query slot mask, `comp_dim` the output's component
         axis; `roles`: the (query-side, source-side) input tensors and `masks`
         the input masks, for its bytes; `pairs`: (q_pos, q_mask, s_pos,
         s_mask) in the slot layout and the cutoff, for its needed slots and
-        operation count."""
+        operation count; `variant`: the operand mode's suffix of the launch
+        name ("_bf16" for K1's bf16 operands, whose `pairs` are rebased)."""
         out_k, out_t = run_kernel(), run_twin()
         torch.cuda.synchronize()
         errs, ok = pair_error(out_k, out_t, live, comp_dim)
         err = max(errs)
         nonzero = bool(out_t.movedim(comp_dim, -1)[live].abs().sum() > 0)
-        name = f"{kernel}_{form.name}"
+        name = f"{kernel}_{form.name}{variant}"
+        label = f"{label}{variant}"
         if nonzero:
             self.nonzero.update((name, f"{kernel}_{label}"))
         log(f"phase 3 kernels: {kernel}_{label} max_abs_err {err!r} per component "
@@ -259,7 +222,8 @@ class Records:
             self.by_name[name]["max_abs_err"] = max(self.by_name[name]["max_abs_err"], err)
             return
         ms, plain_ms = graph_ms(run_kernel), event_ms(run_twin)
-        cand, valid = pair_counts(*pairs, radius_sq)
+        cand, valid = pair_counts(*pairs[:4], radius_sq,
+                                  rebase_cell=pairs[4] if len(pairs) > 4 else None)
         n_live = int(pairs[1].sum())
         n_ops = 5 * cand + OPS_PER_PAIR[form.name] * valid \
             + OPS_PER_QUERY.get(form.name, 0) * n_live
@@ -333,18 +297,20 @@ def phase_build():
         f"{t_build:.2f} s, load {time.perf_counter() - t0 - t_build:.2f} s")
 
 
-def plane_pairs(q, s):
-    """A K1 call's geometry in the slot layout, for its operation count."""
-    from yasph2d_tpu_torch.ops.planes import from_planes
+def k1_pairs(q, s):
+    """A K1 call's geometry in the slot layout for its operation count, and
+    its rebase cell in bf16 mode."""
+    return (*plane_pairs(q, s), q.rebase_cell)
 
-    return from_planes(q.pos), from_planes(q.mask), from_planes(s.pos), from_planes(s.mask)
 
-
-def phase_kernels_dfsph(device, rec: Records):
+def phase_kernels_dfsph(device, rec: Records, kind="dfsph_plane"):
+    """K1's six DFSPH forms on the plane state of `kind` (f32 or bf16
+    operands) and, in f32, the re-bucket K2."""
     from yasph2d_tpu_torch.ops import pair_reduce as pr
     from yasph2d_tpu_torch.ops import rebucket as rb
 
-    solver, boundary, carry = moving_state("dfsph_plane", device, CONTACT_STEPS)
+    solver, boundary, carry = moving_state(kind, device, CONTACT_STEPS)
+    variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
     ctx = carry.ctx
     geom = ctx.geom
     dt = float(carry.time.dt)
@@ -391,9 +357,11 @@ def phase_kernels_dfsph(device, rec: Records):
                 form.term_fn, form.n_out, geom, src, solver._consts.radius_sq,
                 post_fn=form.post_fn, n_acc=form.n_acc, **kw),
             ctx.mask, 0, role_tensors(geom.pos, src.pos, kw), [geom.mask, src.mask],
-            plane_pairs(geom, src), solver._consts.radius_sq)
-    rec.require_nonzero([f"pair_reduce_{n}" for n in DFSPH_FORMS]
-                        + ["pair_reduce_ctx[boundary]"])
+            k1_pairs(geom, src), solver._consts.radius_sq, variant)
+    rec.require_nonzero([f"pair_reduce_{n}{variant}" for n in DFSPH_FORMS]
+                        + [f"pair_reduce_ctx[boundary]{variant}"])
+    if variant:
+        return  # K2 does not change with the operand mode
 
     # re-bucket: the step's own advection, and a forced overflow in which every
     # particle of an odd cell column moves one cell left
@@ -465,10 +433,7 @@ def wcsph_slot_calls(solver, boundary, carry, rng):
 
 
 def phase_kernels_wcsph(device, rec: Records):
-    from yasph2d_tpu_torch.ops import pair_reduce as pr
-    from yasph2d_tpu_torch.ops import rebucket as rb
     from yasph2d_tpu_torch.ops import sm_rebucket as smr
-    from yasph2d_tpu_torch.ops.planes import PlaneGeom
 
     rng = np.random.default_rng(1)
 
@@ -498,11 +463,21 @@ def phase_kernels_wcsph(device, rec: Records):
                      carry.pos_pad, carry.mask, solver._consts)
     rec.require_nonzero([f"tile_pair_reduce_{n}" for n in WCSPH_FORMS])
 
-    # K1's WCSPH forms and K2 with the velocity payload on the plane state
-    solver, boundary, carry = moving_state("wcsph_plane", device, WARMUP_STEPS)
+    phase_kernels_wcsph_plane(device, rec, "wcsph_plane", rng)
+
+
+def phase_kernels_wcsph_plane(device, rec: Records, kind, rng):
+    """K1's WCSPH forms on the plane state of `kind` (f32 or bf16 operands)
+    and, in f32, K2 with the velocity payload."""
+    from yasph2d_tpu_torch.ops import pair_reduce as pr
+    from yasph2d_tpu_torch.ops import rebucket as rb
+    from yasph2d_tpu_torch.ops.planes import plane_geom
+
+    solver, boundary, carry = moving_state(kind, device, WARMUP_STEPS)
+    variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
     f, c = solver._forms, solver._consts
     dt = float(carry.time.dt)
-    geom = PlaneGeom(carry.pos, carry.mask)
+    geom = plane_geom(carry.pos, carry.mask, solver.grid)
     pres, dens, v = wcsph_operands(solver, carry.mask, carry.mask[None], carry.v,
                                    carry.dens, rng)
     calls = [
@@ -519,8 +494,10 @@ def phase_kernels_wcsph(device, rec: Records):
             lambda: pr.pair_reduce_ref(form.term_fn, form.n_out, geom, src,
                                        c.radius_sq, **kw),
             carry.mask, 0, role_tensors(geom.pos, src.pos, kw), [geom.mask, src.mask],
-            plane_pairs(geom, src), c.radius_sq)
-    rec.require_nonzero([f"pair_reduce_{n}" for n in WCSPH_FORMS])
+            k1_pairs(geom, src), c.radius_sq, variant)
+    rec.require_nonzero([f"pair_reduce_{n}{variant}" for n in WCSPH_FORMS])
+    if variant:
+        return  # K2 does not change with the operand mode
     adv = carry.pos + carry.v * dt
     rec.check_rebucket("rebucket", "wcsph advect",
                        lambda: rb.rebucket(adv, carry.mask, carry.v, solver.grid),
@@ -589,6 +566,71 @@ def phase_kernels_dfsph_padded(device, rec: Records):
                         + ["tile_pair_reduce_dfsph_ctx[boundary]"])
 
 
+def phase_kernels_probes(device, rec: Records):
+    """K6 (fma x4, x8, mix x8) and K7 against their twins at the TPU probes'
+    shapes; K7 beside K1's ctx form on the same inputs. K6 is checked on the
+    TPU probe's constant input and on a seeded one spread across the select's
+    0.5, which a kernel that drops the select or reads the wrong element
+    fails; it is timed on the TPU probe's."""
+    from yasph2d_tpu_torch.tools import probe_pallas_slotmajor as pc
+    from yasph2d_tpu_torch.tools import vpu_probe as vp
+
+    x = vp.probe_input(device)
+    inputs = {"0.999": x, "spread": vp.spread_input(device)}
+    n = x.numel()
+    probes = [(f"vpu_probe_fma{c}", "vpu_probe_fma", (lambda a, c=c: vp.fma_probe(a, c)),
+               (lambda a, c=c: vp.fma_probe_ref(a, c)), vp.fma_ops(n, c))
+              for c in vp.FMA_CHAINS]
+    probes.append((f"vpu_probe_mix{vp.MIX_CHAINS}", "vpu_probe_mix", vp.mix_probe,
+                   vp.mix_probe_ref, vp.mix_ops(n)))
+    for name, replaces, run_kernel, run_twin, n_ops in probes:
+        errs = []
+        for label, a in inputs.items():
+            out_k, out_t = run_kernel(a), run_twin(a)
+            torch.cuda.synchronize()
+            errs.append(float((out_k - out_t).abs().max()))
+            # the FMA rounds once per step; the twin rounds the exact float64
+            # product plus 1e-7 to float64, then to f32 (an ulp off, rarely)
+            ok = bool(torch.isfinite(out_k).all()) and bool(
+                torch.allclose(out_k, out_t, rtol=1e-5, atol=0.0))
+            log(f"phase 3 kernels: {name}[{label}] max_abs_err {errs[-1]!r} (rtol 1e-5) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise RuntimeError(f"{name}[{label}] disagrees with its twin "
+                                   f"(max_abs_err {errs[-1]})")
+        ms, plain_ms = graph_ms(lambda: run_kernel(x)), event_ms(lambda: run_twin(x))
+        log(f"phase 3 kernels: {name} kernel {ms:.5f} ms twin {plain_ms:.4f} ms, "
+            f"{n_ops / (ms * 1e-3) / 1e12:.2f} T operations/s")
+        rec.add(name, "vpu_probe", max(errs), ms, plain_ms, nbytes(x) + nbytes(out_k),
+                n_ops, replaces=replaces)
+
+    d = pc.GPU_SHAPE
+    pos, mask = pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"])
+    q = pc.probe_planes(pos, mask, device)
+    run_kernel = lambda: pc.ctx_pass(q, q, d["h"], d["m"])  # noqa: E731
+    run_twin = lambda: pc.ctx_pass_ref(q, q, d["h"], d["m"])  # noqa: E731
+    k1 = pc.k1_ctx_call(q, q, d["h"], d["m"])
+    out_k, out_t, out_k1 = run_kernel(), run_twin(), k1()
+    torch.cuda.synchronize()
+    live = q[2] > 0.0
+    errs, ok = pair_error(out_k, out_t, live, 0)
+    beside = pc.agree(out_k, out_k1)
+    log(f"phase 3 kernels: probe_ctx max_abs_err {max(errs)!r} per component {errs!r} "
+        f"{'ok' if ok else 'MISMATCH'}; agrees with K1 ctx (rtol 1e-4) {beside}")
+    if not (ok and beside):
+        raise RuntimeError(f"probe_ctx disagrees with its twin or with K1 ctx ({errs})")
+    ms, plain_ms, k1_ms = graph_ms(run_kernel), event_ms(run_twin), graph_ms(k1)
+    pos_planes = q[:2]  # read as query and as source: each slot counted once
+    slot_q, slot_m = pos_planes.permute(2, 3, 1, 0), live.permute(1, 2, 0)
+    cand, valid = pair_counts(slot_q, slot_m, slot_q, slot_m, d["h"] * d["h"])
+    log(f"phase 3 kernels: probe_ctx kernel {ms:.5f} ms twin {plain_ms:.4f} ms, K1 ctx "
+        f"on the same inputs {k1_ms:.5f} ms ({k1_ms / ms:.2f}x K7), planes "
+        f"{tuple(q.shape)}, {cand} live candidates, {valid} valid pairs")
+    rec.add("probe_ctx", "probe_ctx", max(errs), ms, plain_ms,
+            pair_bytes((pos_planes,), (pos_planes,), [q[2]], [out_k], slot_m, slot_m),
+            5 * cand + OPS_PER_PAIR["probe_ctx"] * valid)
+
+
 def live_rows(state):
     """(x, y, density) of the live particles, on the CPU, in slot order."""
     alive = state.alive
@@ -633,7 +675,7 @@ def phase_small_reference(device):
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 
     sides = {"gpu": device, "cpu": torch.device("cpu")}
-    for kind in PATHS:
+    for kind in SOLVER_PATHS:
         solvers = {side: bench_solver(kind, double_dam_break(3_000), dev)
                    for side, dev in sides.items()}
         starts = {"rest": {side: solvers[side][0].init_carry(
@@ -683,10 +725,12 @@ def _kernel_modules():
     from yasph2d_tpu_torch.ops import (
         pair_reduce, pallas_pair, rebucket, sm_pair_reduce, sm_rebucket,
     )
+    from yasph2d_tpu_torch.tools import probe_pallas_slotmajor, vpu_probe
 
     return {"pair_reduce": pair_reduce, "sm_pair_reduce": sm_pair_reduce,
             "tile_pair_reduce": pallas_pair, "rebucket": rebucket,
-            "sm_rebucket": sm_rebucket}
+            "sm_rebucket": sm_rebucket, "vpu_probe": vpu_probe,
+            "probe_ctx": probe_pallas_slotmajor}
 
 
 def reset_launch_counts():
@@ -744,17 +788,47 @@ def phase_main_path(device, kind) -> dict:
         iters = [(d.density_iterations, d.divergence_iterations) for d in diags]
         log(f"phase 5 main path [{kind}]: iterations per step (density, divergence) "
             f"{iters}")
-    path = {k: launches[k] for k in PATHS[kind]}
-    log(f"phase 5 main path [{kind}]: launches {path}")
-    problems = [k for k, v in path.items() if v <= 0]
-    if problems:
-        raise RuntimeError(f"{kind}: kernels never launched on the main path: {problems}")
+    path = check_launches(kind, launches)
     if drops != 0 or live != N_FLUID or not finite:
         raise RuntimeError(f"{kind}: main path state wrong: drops {drops} live {live} "
                            f"finite {finite}")
     if not (rho0 <= dmin and dmax <= 1.3 * rho0):
         raise RuntimeError(f"{kind}: densities outside [rho0, 1.3 rho0]: [{dmin}, {dmax}]")
     return path
+
+
+def check_launches(kind, launches) -> dict:
+    path = {k: launches[k] for k in PATHS[kind]}
+    log(f"phase 5 main path [{kind}]: launches {path}")
+    problems = [k for k, v in path.items() if v <= 0]
+    if problems:
+        raise RuntimeError(f"{kind}: kernels never launched on the main path: {problems}")
+    return path
+
+
+def phase_tool_path(device, kind) -> dict:
+    """One of TOOL_PATHS through the tool's entry point, as a user runs it:
+    the K6 rates (FMA, mix, HBM), the K7 probe beside K1 ctx, and the 1M bf16
+    roofline, whose settled state must have no drop, every particle live and
+    finite values (no density gate: the columns have hit the floor)."""
+    from yasph2d_tpu_torch.tools import probe_pallas_slotmajor, roofline, vpu_probe
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if kind == "vpu_probe":
+        vpu_probe.main(["--device", str(device)])
+    elif kind == "probe_ctx":
+        probe_pallas_slotmajor.main(["gpu", "--device", str(device)])
+    else:
+        r = roofline.main([*ROOFLINE, "--pair-dtype", "bfloat16", "--device", str(device)])
+        if r["drops"] != 0 or r["live"] != r["fluid"] or not r["finite"]:
+            raise RuntimeError(f"roofline: settled state wrong: drops {r['drops']} live "
+                               f"{r['live']} of {r['fluid']} finite {r['finite']}")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"phase 5 main path [{kind}]: {time.perf_counter() - t0:.2f} s")
+    return check_launches(kind, launches)
 
 
 def main():
@@ -766,8 +840,12 @@ def main():
     phase_kernels_dfsph(device, rec)
     phase_kernels_wcsph(device, rec)
     phase_kernels_dfsph_padded(device, rec)
+    phase_kernels_dfsph(device, rec, "dfsph_plane_bf16")
+    phase_kernels_wcsph_plane(device, rec, "wcsph_plane_bf16", np.random.default_rng(4))
+    phase_kernels_probes(device, rec)
     phase_small_reference(device)
-    path_launches = {kind: phase_main_path(device, kind) for kind in PATHS}
+    path_launches = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}
+    path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})
     records = list(rec.by_name.values())
     for r in records:
         counter, paths = r.pop("_counter"), r.pop("_paths")

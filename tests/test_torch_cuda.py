@@ -7,8 +7,10 @@ CPU-only test host). Imports no JAX, so it runs on a GPU host without it:
 
 The kernels perform the twins' float32 operations in the same order (built
 with -fmad=false; K5's twin sums each view's candidates with torch.sum), so
-pair outputs (K1, K3, K5) are compared to rtol 1e-5 plus 1e-6 of the plane's
-scale and the re-buckets (K2, K4) bit for bit."""
+pair outputs (K1 in both operand modes, K3, K5, K7) are compared to rtol 1e-5
+plus 1e-6 of the plane's scale and the re-buckets (K2, K4) bit for bit. The
+FMA probe of K6 rounds once per step where its twin rounds twice (rtol 1e-5);
+its mix probe is bit-equal to the twin."""
 
 import dataclasses
 
@@ -32,8 +34,10 @@ from yasph2d_tpu_torch.ops import rebucket as rb
 from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
 from yasph2d_tpu_torch.ops import sm_rebucket as smr
 from yasph2d_tpu_torch.ops.dense_grid import DenseGridConfig
-from yasph2d_tpu_torch.ops.planes import PlaneGeom, to_planes
+from yasph2d_tpu_torch.ops.planes import PlaneGeom, plane_geom, to_planes
 from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
+from yasph2d_tpu_torch.tools import probe_pallas_slotmajor as pc
+from yasph2d_tpu_torch.tools import vpu_probe as vp
 
 pytestmark = pytest.mark.cuda
 
@@ -78,7 +82,8 @@ def case(device):
                    neighbor_total=torch.floor(_planes(rng, shape, 18.0)),
                    densities=_planes(rng, shape, 5.0, 100.0),
                    alpha=_planes(rng, shape, 1e-3),
-                   num_dropped=torch.zeros((), dtype=torch.int32))
+                   num_dropped=torch.zeros((), dtype=torch.int32),
+                   geom=PlaneGeom(pos, mask))
     vals = dict(v=_planes(rng, (2,) + shape, 2.0, -1.0), k=_planes(rng, shape, 50.0, -25.0),
                 rho=_planes(rng, shape, 30.0, 100.0))
     return solver, ctx, PlaneGeom(bpos, bmask), vals
@@ -241,7 +246,8 @@ def test_sm_rebucket_kernel_bit_equal(device, wcase, shift):
         assert int(out[3]) > 0
 
 
-@pytest.mark.parametrize("kind", ["wcsph_padded", "wcsph_plane", "wcsph_padded_k5"])
+@pytest.mark.parametrize("kind", ["wcsph_padded", "wcsph_plane", "wcsph_padded_k5",
+                                  "wcsph_plane_bf16"])
 def test_wcsph_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal drops and live rows."""
@@ -261,7 +267,8 @@ def test_wcsph_solver_gpu_matches_cpu(device, kind):
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_padded", "dfsph_padded_k5"])
+@pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_padded", "dfsph_padded_k5",
+                                  "dfsph_plane_bf16"])
 def test_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal iteration counts and live rows."""
@@ -402,3 +409,93 @@ def test_tile_pair_kernel_refuses_what_cannot_fit(device, dcase):
         tpp.pallas_pair_reduce(solvers["k5"]._padded_forms.ctx, pos, mask, deep, deep_mask,
                                solvers["k5"]._consts)
     assert tpp.LAUNCHES == before
+
+
+def _bf16(geom, grid):
+    """K1's bf16 geometry of a plane-form index space on `grid`."""
+    return plane_geom(geom.pos, geom.mask, dataclasses.replace(grid, pair_dtype="bfloat16"))
+
+
+@pytest.mark.parametrize("form", ["ctx", "ctx_post", "visc_gravity", "err_ki",
+                                  "delta_ki", "corr_v"])
+def test_pair_kernel_bf16_matches_twin(device, case, form):
+    """K1's DFSPH forms with bf16 operands: rebased bf16 geometry, values
+    rounded to bf16 at load, f32 math."""
+    solver, ctx, bgeom, vals = case
+    pform, src, kw = _operands(solver, ctx, bgeom, vals, form)
+    grid = solver.grid
+    q = _bf16(PlaneGeom(ctx.pos.to(device), ctx.mask.to(device)), grid)
+    s = q if src.pos is ctx.pos else _bf16(
+        PlaneGeom(src.pos.to(device), src.mask.to(device)), grid)
+    kw = _to(device, kw)
+    name = f"{pform.name}_bf16"
+    before = pr.LAUNCHES[name]
+    out = pr.pair_reduce(pform, q, s, solver._consts, **kw)
+    assert pr.LAUNCHES[name] == before + 1
+    ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, s, solver._consts.radius_sq,
+                             post_fn=pform.post_fn, n_acc=pform.n_acc, **kw)
+    torch.cuda.synchronize()
+    live = q.mask.expand_as(out)
+    a, b = out[live], ref[live]
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * max(1.0, float(b.abs().max())))
+    assert float(b.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("form", ["density", "stat", "forces"])
+def test_pair_kernel_bf16_wcsph_forms_match_twin(device, wcase, form):
+    _, plane, (pos, mask), walls, (pres, rho, v) = wcase
+    pform = getattr(plane._forms, form)
+    q = _bf16(PlaneGeom(to_planes(pos), to_planes(mask)), plane.grid)
+    s = _bf16(PlaneGeom(to_planes(walls[0]), to_planes(walls[1])), plane.grid) \
+        if form == "stat" else q
+    pv = (to_planes(pres), to_planes(rho), to_planes(v))
+    kw = dict(q_vals=pv, s_vals=pv, scalars=(1.0 / 2700.0,)) if form == "forces" else {}
+    out = pr.pair_reduce(pform, q, s, plane._consts, **kw)
+    ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, s, plane._consts.radius_sq,
+                             **kw)
+    torch.cuda.synchronize()
+    live = q.mask.expand_as(out)
+    a, b = out[live], ref[live]
+    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * max(1.0, float(b.abs().max())))
+    assert float(b.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("probe,chains", [("fma", 4), ("fma", 8), ("mix", 8)])
+def test_vpu_probe_kernels_match_twins(device, probe, chains, spread):
+    """K6 at a tenth of the probe's element count, on the TPU probe's constant
+    input and on a seeded one spread across the mix's 0.5."""
+    n = vp.N_ELEMENTS // 10
+    x = vp.spread_input(device, n) if spread else vp.probe_input(device, n)
+    run, ref = {"fma": (vp.fma_probe, vp.fma_probe_ref),
+                "mix": (vp.mix_probe, vp.mix_probe_ref)}[probe]
+    key = f"{probe}{chains}"
+    before = vp.LAUNCHES[key]
+    out = run(x, chains)
+    assert vp.LAUNCHES[key] == before + 1
+    twin = ref(x, chains)
+    torch.cuda.synchronize()
+    if probe == "mix":
+        assert torch.equal(out.view(torch.int32), twin.view(torch.int32))
+    else:
+        torch.testing.assert_close(out, twin, rtol=1e-5, atol=0.0)
+
+
+def test_probe_ctx_kernel_matches_twin(device):
+    """K7 at the probe's check shape and at a deeper source space (Ps != P)."""
+    d = pc.CHECK_SHAPE
+    pos, mask = pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"])
+    q = pc.probe_planes(pos, mask, device)
+    spos, smask = pc.probe_inputs(d["ny"], d["nx"], 3, d["h"], seed=1)
+    s = pc.probe_planes(spos, smask, device)
+    for src in (q, s):
+        before = pc.LAUNCHES["probe_ctx"]
+        out = pc.ctx_pass(q, src, d["h"], d["m"])
+        assert pc.LAUNCHES["probe_ctx"] == before + 1
+        ref = pc.ctx_pass_ref(q, src, d["h"], d["m"])
+        torch.cuda.synchronize()
+        for k in range(5):
+            torch.testing.assert_close(out[k], ref[k], rtol=1e-5,
+                                       atol=1e-6 * max(1.0, float(ref[k].abs().max())))
+        assert float(ref[4].sum()) > 0
+    assert pc.agree(pc.ctx_pass(q, q, d["h"], d["m"]), pc.k1_ctx_call(q, q, d["h"], d["m"])())

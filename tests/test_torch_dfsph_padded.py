@@ -188,7 +188,7 @@ def one_step(scene, route, k):
     init carry for k = 0), against JAX's step k + 1, slot for slot: the
     re-bucket is exact, so the slots hold the same particles."""
     src = scene.j_init if k == 0 else scene.j_carries[k - 1]
-    carry = dfsph_padded_carry_from_numpy(src)
+    carry = dfsph_padded_carry_from_numpy(src, device="cpu")
     carry = carry._replace(time=carry.time.account_step())
     carry, diag = scene.solvers[route].step(carry, scene.tb)
     ref, jd = scene.j_carries[k], scene.j_diags[k]
@@ -242,7 +242,7 @@ def test_contact_scene_steps_match(contact, route):
     """Six steps from the noisy converted init carry: per-step iteration and
     drop counts equal to JAX's, live rows to f32 drift."""
     solver = contact.solvers[route]
-    carry = dfsph_padded_carry_from_numpy(contact.j_init)
+    carry = dfsph_padded_carry_from_numpy(contact.j_init, device="cpu")
     ours = []
     for _ in range(STEPS):
         carry, diag = solver.simulate(carry, contact.tb, 1)

@@ -132,8 +132,8 @@ def test_init_ctx_matches(run):
 
 
 def test_one_step_from_converted_carry(run):
-    carry = carry_from_numpy(run.j_init, run.tgrid)
-    boundary = boundary_from_numpy(run.jb_leaves)
+    carry = carry_from_numpy(run.j_init, run.tgrid, device="cpu")
+    boundary = boundary_from_numpy(run.jb_leaves, device="cpu")
     carry = carry._replace(time=carry.time.account_step())
     carry, diag = run.ts.step(carry, boundary)
     ref, jd = run.j_step1, run.j_diags[0]
@@ -195,9 +195,9 @@ def test_contact_scene_steps_match():
     c = jax.jit(js.init_carry)(jw.initial_state(), jb)
     noise = np.random.default_rng(42).normal(0.0, 3.0, c.v.shape).astype(np.float32)
     c = c._replace(v=jax.numpy.asarray(noise * np.asarray(c.ctx.mask)))
-    carry = carry_from_numpy(carry_leaves(c), tgrid)
+    carry = carry_from_numpy(carry_leaves(c), tgrid, device="cpu")
     boundary = boundary_from_numpy({f: np.asarray(getattr(jdense, f))
-                                    for f in jdense._fields})
+                                    for f in jdense._fields}, device="cpu")
     simulate = jax.jit(js.simulate, static_argnums=2)
     counts_j, counts_t = [], []
     for _ in range(4):

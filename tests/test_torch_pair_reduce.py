@@ -152,7 +152,8 @@ class Case:
         return TCtx(pos=self.t(self.pos), mask=self.t(self.mask),
                     sum_grad_stat=self.t(self.sgs), neighbor_total=self.t(self.nt),
                     densities=self.t(self.dens), alpha=self.t(self.alpha),
-                    num_dropped=torch.zeros((), dtype=torch.int32))
+                    num_dropped=torch.zeros((), dtype=torch.int32),
+                    geom=PlaneGeom(self.t(self.pos), self.t(self.mask)))
 
     def tboundary(self):
         return TBoundaryPlanes(dense=None, geom=PlaneGeom(self.t(self.bpos),

@@ -149,13 +149,13 @@ def test_init_matches(run):
     """Both inits equal the JAX padded init bit for bit (the plane one through
     the JAX plane init's cropped planes)."""
     carry = run.padded.init_carry(run.t_state)
-    ref = wcsph_padded_carry_from_numpy(run.j_init)
+    ref = wcsph_padded_carry_from_numpy(run.j_init, device="cpu")
     for f in ("pos_pad", "v_pad", "accel_pad", "dens_pad", "mask"):
         torch.testing.assert_close(getattr(carry, f), getattr(ref, f), rtol=0, atol=0,
                                    msg=f)
     assert int(carry.mask.sum()) == run.n
     plane = run.plane.init_carry(run.t_state)
-    ref = wcsph_plane_carry_from_numpy(run.j_plane_init, run.tgrid)
+    ref = wcsph_plane_carry_from_numpy(run.j_plane_init, run.tgrid, device="cpu")
     for f in ("pos", "v", "accel", "dens", "mask"):
         torch.testing.assert_close(getattr(plane, f), getattr(ref, f), rtol=0, atol=0,
                                    msg=f)
@@ -187,25 +187,25 @@ def check_step(run, carry, diag, layout):
 
 
 def test_padded_one_step_from_converted_carry(run):
-    carry = wcsph_padded_carry_from_numpy(run.j_carries[CONVERTED_AT - 1])
-    boundary = boundary_from_numpy(run.tb_leaves).dense
+    carry = wcsph_padded_carry_from_numpy(run.j_carries[CONVERTED_AT - 1], device="cpu")
+    boundary = boundary_from_numpy(run.tb_leaves, device="cpu").dense
     carry = carry._replace(time=carry.time.account_step())
     carry, diag = run.padded.step(carry, boundary)
     check_step(run, carry, diag, "padded")
 
 
 def test_padded_k5_one_step_from_converted_carry(run):
-    carry = wcsph_padded_carry_from_numpy(run.j_carries[CONVERTED_AT - 1])
-    boundary = boundary_from_numpy(run.tb_leaves).dense
+    carry = wcsph_padded_carry_from_numpy(run.j_carries[CONVERTED_AT - 1], device="cpu")
+    boundary = boundary_from_numpy(run.tb_leaves, device="cpu").dense
     carry = carry._replace(time=carry.time.account_step())
     carry, diag = run.padded_k5.step(carry, boundary)
     check_step(run, carry, diag, "padded")
 
 
 def test_plane_one_step_from_converted_carry(run):
-    c = wcsph_padded_carry_from_numpy(run.j_carries[CONVERTED_AT - 1])
+    c = wcsph_padded_carry_from_numpy(run.j_carries[CONVERTED_AT - 1], device="cpu")
     carry = WCSPHPlaneCarry(*(to_planes(a) for a in c[:-1]), time=c.time.account_step())
-    carry, diag = run.plane.step(carry, boundary_from_numpy(run.tb_leaves))
+    carry, diag = run.plane.step(carry, boundary_from_numpy(run.tb_leaves, device="cpu"))
     check_step(run, carry, diag, "plane")
 
 

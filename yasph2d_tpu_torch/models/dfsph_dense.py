@@ -42,6 +42,7 @@ from ..ops.dense_grid import (
     build_slot_grid,
     cell_keys,
     pad_to_slots,
+    require_float32_pairs,
     sort_by_dense_keys,
 )
 from ..ops.pair_reduce import PairForm
@@ -152,7 +153,13 @@ class DFSPHPaddedSolver:
     max_divergence_iterations: int = 400
     gravity: tuple = GRAVITY
 
+    # the padded kernels K3 / K5 take float32 operands only; the plane
+    # solver's K1 takes bf16 too
+    _bf16_operands = False
+
     def __post_init__(self):
+        if not self._bf16_operands:
+            require_float32_pairs(self.grid, type(self).__name__)
         kernel = WendlandQuinticC2(self.properties.smoothing_length)
         object.__setattr__(self, "kernel", kernel)
         assert abs(self.grid.cell_size - self.properties.smoothing_length) < 1e-12

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.pair_reduce import PairForm, pair_reduce
-from ..ops.planes import PlaneGeom, from_planes, to_planes
+from ..ops.planes import PlaneGeom, from_planes, plane_geom, to_planes
 from ..ops.rebucket import rebucket
 from ..timemanager import TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
@@ -55,10 +55,7 @@ class PlaneCtx(NamedTuple):
     densities: torch.Tensor  # (P, ny, nx) clamped density
     alpha: torch.Tensor  # (P, ny, nx)
     num_dropped: torch.Tensor  # () int32
-
-    @property
-    def geom(self) -> PlaneGeom:
-        return PlaneGeom(self.pos, self.mask)
+    geom: PlaneGeom  # K1's geometry of this rebuild (ops/planes.plane_geom)
 
 
 class DFSPHPlaneCarry(NamedTuple):
@@ -82,7 +79,11 @@ class _Forms(NamedTuple):
 
 @dataclass(frozen=True)
 class DFSPHPlaneSolver(DFSPHPaddedSolver):
-    """DFSPH, plane-resident carry, every pass through the pair kernel."""
+    """DFSPH, plane-resident carry, every pass through the pair kernel. Takes
+    `grid.pair_dtype` "float32" or "bfloat16" (K1's bf16 operand mode)."""
+
+    # K1 takes bf16 operands (ops/pair_reduce.py); the padded kernels do not
+    _bf16_operands = True
 
     def __post_init__(self):
         super().__post_init__()
@@ -168,18 +169,21 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
     # ------------------------------------------------------------- boundaries
 
     def boundary_planes(self, boundary: BoundaryDense) -> BoundaryPlanes:
-        """Plane-form boundary geometry; build once per boundary change."""
+        """Plane-form boundary geometry under `grid.pair_dtype`; build once per
+        boundary change."""
         return BoundaryPlanes(
             dense=boundary,
-            geom=PlaneGeom(to_planes(boundary.pos_pad), to_planes(boundary.mask)),
+            geom=plane_geom(to_planes(boundary.pos_pad), to_planes(boundary.mask),
+                            self.grid),
         )
 
     # ------------------------------------------------------------ pair context
 
     def _ctx_pf(self, pos, mask, boundary: BoundaryPlanes, dropped) -> PlaneCtx:
         """Fluid-boundary and fused fluid-fluid ctx passes: density, alpha and
-        neighbour totals, plus the boundary gradient sums the loops reuse."""
-        geom = PlaneGeom(pos, mask)
+        neighbour totals, plus the boundary gradient sums the loops reuse. K1's
+        geometry is built here, once per rebuild, and kept in the ctx."""
+        geom = plane_geom(pos, mask, self.grid)
         f = self._forms
         stat = pair_reduce(f.ctx, geom, boundary.geom, self._consts)
         fused = pair_reduce(f.ctx_post, geom, geom, self._consts, post_planes=(stat,))
@@ -194,6 +198,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
             densities=fused[0],
             alpha=fused[1],
             num_dropped=dropped,
+            geom=geom,
         )
 
     # --------------------------------------------------------------- pair ops

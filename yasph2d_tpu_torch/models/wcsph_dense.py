@@ -35,6 +35,7 @@ from ..ops.dense_grid import (
     DenseGridConfig,
     build_slot_grid,
     pad_to_slots,
+    require_float32_pairs,
     sort_by_dense_keys,
 )
 from ..ops.pair_reduce import PairForm
@@ -87,7 +88,13 @@ class WCSPHPaddedSolver:
     expected_max_flow_speed: float = 1.0
     gravity: tuple = GRAVITY
 
+    # the padded kernels K3 / K5 take float32 operands only; the plane
+    # solver's K1 takes bf16 too
+    _bf16_operands = False
+
     def __post_init__(self):
+        if not self._bf16_operands:
+            require_float32_pairs(self.grid, type(self).__name__)
         h = self.properties.smoothing_length
         assert abs(self.grid.cell_size - h) < 1e-12
         density_kernel, pressure_kernel = Poly6(h), Spiky(h)

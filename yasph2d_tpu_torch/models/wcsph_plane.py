@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.pair_reduce import pair_reduce
-from ..ops.planes import PlaneGeom, from_planes, to_planes
+from ..ops.planes import from_planes, plane_geom, to_planes
 from ..ops.rebucket import rebucket
 from ..timemanager import TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
@@ -48,10 +48,12 @@ class WCSPHPlaneCarry(NamedTuple):
 
 @dataclass(frozen=True)
 class WCSPHPlaneSolver(WCSPHPaddedSolver):
-    """WCSPH, plane-resident carry, every pass through K1 and K2."""
+    """WCSPH, plane-resident carry, every pass through K1 and K2. Takes
+    `grid.pair_dtype` "float32" or "bfloat16" (K1's bf16 operand mode)."""
 
     # plane-form boundary geometry, built once per boundary change
     boundary_planes = DFSPHPlaneSolver.boundary_planes
+    _bf16_operands = True
 
     def __post_init__(self):
         super().__post_init__()
@@ -100,7 +102,8 @@ class WCSPHPlaneSolver(WCSPHPaddedSolver):
         pos, mask, v, drops = rebucket(pos, carry.mask, v, self.grid)
 
         # density passes (fluidparticleworld.rs:197-231 + wscsph.rs:108-116)
-        geom = PlaneGeom(pos, mask)
+        # on K1's geometry of this rebuild
+        geom = plane_geom(pos, mask, self.grid)
         self._check_viscosity(pos)
         dyn_w = pair_reduce(f.density, geom, geom, c)[0]
         stat = pair_reduce(f.stat, geom, boundary.geom, c)

@@ -98,6 +98,14 @@ class PairConsts(ctypes.Structure):
     )]
 
 
+class ProbeConsts(ctypes.Structure):
+    """Float32 constants of the ctx-pass probe K7 (csrc/probe_ctx.cu
+    ProbeConsts); the field order is the C struct's."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "radius_sq", "inv_h", "norm_w", "norm_g", "mass")]
+
+
 # K1's call forms (csrc/pair_reduce.cu): the DFSPH plane step's six, then the
 # WCSPH plane step's three
 PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
@@ -120,13 +128,14 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(str(build()))
     for form in PAIR_FORMS:
-        fn = getattr(lib, f"pair_reduce_{form}")
         # q_pos, q_mask, s_pos, s_mask, planes, n_planes, out,
-        # P, Ps, ny, nx, scalar, consts, stream
-        fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), _I, _P,
-                       _I, _I, _I, _I, ctypes.c_float,
-                       ctypes.POINTER(PairConsts), _P]
-        fn.restype = _I
+        # P, Ps, ny, nx, scalar, [cell: bf16 operands only], consts, stream
+        for name, cell in ((form, []), (f"{form}_bf16", [ctypes.c_float])):
+            fn = getattr(lib, f"pair_reduce_{name}")
+            fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), _I, _P,
+                           _I, _I, _I, _I, ctypes.c_float, *cell,
+                           ctypes.POINTER(PairConsts), _P]
+            fn.restype = _I
     for form in SM_PAIR_FORMS:
         fn = getattr(lib, f"sm_pair_reduce_{form}")
         # q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out,
@@ -149,6 +158,13 @@ def library() -> ctypes.CDLL:
     # code, pos, vals, D, out_pos, out_vals, total, P, ny, nx, stream
     lib.sm_rebucket.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P]
     lib.sm_rebucket.restype = _I
+    for probe in ("vpu_fma_probe", "vpu_mix_probe"):  # K6
+        # x, out, n, chains, inner, trips, stream
+        getattr(lib, probe).argtypes = [_P, _P, _I, _I, _I, _I, _P]
+        getattr(lib, probe).restype = _I
+    # K7: q, s, out, P, Ps, ny, nx, consts, stream
+    lib.probe_ctx.argtypes = [_P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(ProbeConsts), _P]
+    lib.probe_ctx.restype = _I
     return lib
 
 

@@ -11,7 +11,9 @@ on K4 (ops/sm_rebucket.py). The plane solvers require True, as the JAX ones
 do. The JAX package has two routes for False, the XLA `pair_reduce` and the
 gen-1 Pallas kernel behind `use_pallas`; they compute one contract, so here
 both are the one K5 route and the `use_pallas` flag is not ported (it would
-be a knob without effect). The port needs the slot build only to
+be a knob without effect). `pair_dtype` ("float32" or "bfloat16") is the
+JAX field; only the plane solvers take "bfloat16". The port needs the slot
+build only to
 build the initial carry and the static boundary index space; the per-step
 neighbourhood rebuild is the windowed re-bucket (ops/rebucket.py in plane form,
 ops/sm_rebucket.py in this slot layout), which takes its move codes from
@@ -31,6 +33,7 @@ import torch
 from ..units import INDEX
 
 MIN_DISTANCE_SQ = 1.0e-10  # self/degenerate filter (reference: neighborhood_search.rs:324)
+PAIR_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -45,6 +48,21 @@ class DenseGridConfig:
     ny: int
     occupancy: int = 8  # P: max particles per cell
     use_pallas_slotmajor: bool = False  # padded solvers: K3 if True, else K5
+    # Operand dtype of the plane solvers' pair kernel K1: "float32" (exact) or
+    # "bfloat16": positions rebased onto their cell centre and stored in bf16,
+    # value operands rounded to bf16, all math and accumulation in f32
+    # (ops/planes.plane_geom, ops/pair_reduce.py). The padded solvers take
+    # float32 only.
+    pair_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.pair_dtype not in PAIR_DTYPES:
+            raise ValueError(f"pair_dtype must be one of {tuple(PAIR_DTYPES)}, "
+                             f"got {self.pair_dtype!r}")
+
+    @property
+    def pair_torch_dtype(self) -> torch.dtype:
+        return PAIR_DTYPES[self.pair_dtype]
 
     @property
     def radius_sq(self) -> float:
@@ -53,6 +71,25 @@ class DenseGridConfig:
     @property
     def num_cells(self) -> int:
         return self.nx * self.ny
+
+
+def require_float32_pairs(grid: DenseGridConfig, solver: str):
+    """The padded solvers' pair kernels take float32 operands only: raise for
+    a bfloat16 grid, as the JAX padded solvers assert on their slot-major
+    route. Their XLA route (K5 here) has a bf16 mode of its own that does the
+    pair math in bf16 (yasph2d_tpu/ops/dense_grid.py pair_reduce `relative`);
+    it is not ported."""
+    if grid.pair_dtype == "float32":
+        return
+    if grid.use_pallas_slotmajor:
+        raise ValueError(
+            f"{solver}: the slot-major pair kernel K3 computes on float32 planes; "
+            "bfloat16 operands need the plane solvers (DFSPHPlaneSolver, "
+            "WCSPHPlaneSolver)")
+    raise ValueError(
+        f"{solver}: the bfloat16 pair math of the K5 route (the JAX XLA "
+        "pair_reduce's bf16 mode) is not ported yet (ROADMAP.md Queue 1 item 18); "
+        "use pair_dtype='float32' or the plane solvers")
 
 
 def f32_scalar(x) -> float:

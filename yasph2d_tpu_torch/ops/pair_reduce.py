@@ -12,6 +12,14 @@ the 3x3 cells around it in (dyv, dxv, sp) order, where dx = x_j - x_i and a
 pair is valid when the source is live and 1e-10 < r_sq <= h^2; then map the
 n_acc accumulators through post_fn(accs, post_planes, scalars) if given. Dead
 query slots output zeros.
+
+bfloat16 operands (the JAX kernel's `rebase_cell` mode, selected by a
+geometry from `planes.plane_geom` on a bfloat16 grid): positions are bf16
+offsets from each slot's cell centre and every query and source value plane
+is rounded to bf16 (round to nearest even) at load; both upcast to f32, and
+dx = (x_j - x_i) + f32((dxv - 1) * h) on every view, dy likewise. All math
+and accumulation stay f32 and post planes stay exact f32. The CUDA forms of
+this mode launch and count under `<form>_bf16`.
 """
 
 from dataclasses import dataclass
@@ -20,11 +28,13 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from . import cuda_build
-from .dense_grid import MIN_DISTANCE_SQ
+from .dense_grid import MIN_DISTANCE_SQ, f32_scalar
 from .planes import PlaneGeom
 
-# kernel launches per call form, counted where the wrapper launches
-LAUNCHES = {form: 0 for form in cuda_build.PAIR_FORMS}
+# kernel launches per call form, counted where the wrapper launches; the
+# bfloat16-operand forms count under "<form>_bf16"
+LAUNCHES = {f"{form}{suffix}": 0 for suffix in ("", "_bf16")
+            for form in cuda_build.PAIR_FORMS}
 
 
 def reset_launch_counts():
@@ -44,6 +54,25 @@ class PairForm:
     n_acc: Optional[int] = None
 
 
+def _operand_mode(q: PlaneGeom, s: PlaneGeom):
+    """The views' centre deltas (None in float32 mode) and the value loader of
+    the geometries' operand mode; raises unless both were built alike."""
+    if q.rebase_cell != s.rebase_cell or q.pos.dtype != s.pos.dtype:
+        raise ValueError(
+            f"pair_reduce: query and source geometry differ in operand mode "
+            f"({q.pos.dtype}, rebase {q.rebase_cell}) vs ({s.pos.dtype}, rebase "
+            f"{s.rebase_cell}): build both with planes.plane_geom on one grid")
+    want = torch.float32 if q.rebase_cell is None else torch.bfloat16
+    if q.pos.dtype != want:
+        raise ValueError(f"pair_reduce: {q.pos.dtype} positions with rebase cell "
+                         f"{q.rebase_cell}; expected {want}")
+    if q.rebase_cell is None:
+        return None, lambda a: a
+    h = q.rebase_cell
+    return ((f32_scalar(-h), 0.0, f32_scalar(h)),
+            lambda a: a.to(torch.bfloat16).to(torch.float32))
+
+
 def _planes(vals: Sequence[torch.Tensor]) -> list:
     """Logical (·, ny, nx) planes of plane-form values: a (P, ny, nx) scalar is
     one plane, a (L, P, ny, nx) stack contributes L planes in order."""
@@ -59,26 +88,31 @@ def pair_reduce_ref(term_fn, n_out: int, q: PlaneGeom, s: PlaneGeom,
     """Plain PyTorch twin of K1: nine shifted views of the one-cell-padded
     source planes; per view the terms of all Ps source slots are evaluated at
     once ((Ps, P, ny, nx) candidates) and added slot by slot, which keeps the
-    kernel's (dyv, dxv, sp) order. Returns (n_out, P, ny, nx)."""
+    kernel's (dyv, dxv, sp) order. Returns (n_out, P, ny, nx). A bfloat16
+    geometry selects the bf16 operand mode (module docstring)."""
     _, ny, nx = q.mask.shape
     ps = s.mask.shape[0]
     n_acc = n_out if n_acc is None else n_acc
+    deltas, load = _operand_mode(q, s)
 
     def pad(a):  # one dead cell ring around the grid
         return torch.nn.functional.pad(a, (1, 1, 1, 1))
 
-    s_pos = pad(s.pos)
+    s_pos = pad(s.pos.to(torch.float32))
     s_mask = pad(s.mask)
-    s_planes_all = [pad(a) for a in _planes(s_vals)]
-    qx, qy = q.pos[0], q.pos[1]
-    q_planes = tuple(_planes(q_vals))
-    radius_sq = torch.tensor(radius_sq, dtype=q.pos.dtype, device=q.pos.device)
+    s_planes_all = [pad(load(a)) for a in _planes(s_vals)]
+    qx, qy = q.pos[0].to(torch.float32), q.pos[1].to(torch.float32)
+    q_planes = tuple(load(a) for a in _planes(q_vals))
+    radius_sq = torch.tensor(radius_sq, dtype=torch.float32, device=q.pos.device)
     accs = [torch.zeros_like(qx) for _ in range(n_acc)]
     for dyv in range(3):
         for dxv in range(3):
             rows, cols = slice(dyv, dyv + ny), slice(dxv, dxv + nx)
             dx = s_pos[0, :, None, rows, cols] - qx
             dy = s_pos[1, :, None, rows, cols] - qy
+            if deltas is not None:  # the views' centre offsets, on every view
+                dx = dx + deltas[dxv]
+                dy = dy + deltas[dyv]
             r_sq = dx * dx + dy * dy
             valid = (
                 q.mask & s_mask[:, None, rows, cols]
@@ -114,8 +148,11 @@ def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
                 consts: cuda_build.PairConsts, q_vals=(), s_vals=(),
                 scalars=(), post_planes=()) -> torch.Tensor:
     """Run one K1 call form; returns the stacked (n_out, P, ny, nx) output.
-    `consts.radius_sq` is the pair cutoff for both routes."""
+    `consts.radius_sq` is the pair cutoff for both routes. The geometries'
+    dtype picks the operand mode (float32, or bfloat16 from
+    `planes.plane_geom`); value and post planes are f32 in both."""
     device = q.pos.device
+    _operand_mode(q, s)
     if device.type == "cpu":
         return pair_reduce_ref(
             form.term_fn, form.n_out, q, s, consts.radius_sq, q_vals=q_vals,
@@ -127,9 +164,9 @@ def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
     p, ny, nx = q.mask.shape
     ps = s.mask.shape[0]
     for t, shape, dtype, what in (
-            (q.pos, (2, p, ny, nx), torch.float32, "query positions"),
+            (q.pos, (2, p, ny, nx), q.pos.dtype, "query positions"),
             (q.mask, (p, ny, nx), torch.bool, "query mask"),
-            (s.pos, (2, ps, ny, nx), torch.float32, "source positions"),
+            (s.pos, (2, ps, ny, nx), q.pos.dtype, "source positions"),
             (s.mask, (ps, ny, nx), torch.bool, "source mask")):
         cuda_build.check_tensor(t, device, shape, dtype, f"pair_reduce: {what}")
     if len(scalars) > 1:
@@ -140,13 +177,16 @@ def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
         + _plane_ptrs(post_planes, device, p, ny, nx, "post plane")
     )
     out = torch.empty((form.n_out, p, ny, nx), dtype=torch.float32, device=device)
-    fn = getattr(cuda_build.library(), f"pair_reduce_{form.name}")
+    # the bf16 launchers take the f32 rebase cell before the constants
+    name, cell = (form.name, ()) if q.rebase_cell is None else (
+        f"{form.name}_bf16", (f32_scalar(q.rebase_cell),))
+    fn = getattr(cuda_build.library(), f"pair_reduce_{name}")
     err = fn(
         q.pos.data_ptr(), q.mask.data_ptr(), s.pos.data_ptr(), s.mask.data_ptr(),
         cuda_build.pointer_array(ptrs), len(ptrs), out.data_ptr(),
-        p, ps, ny, nx, float(scalars[0]) if scalars else 0.0,
+        p, ps, ny, nx, float(scalars[0]) if scalars else 0.0, *cell,
         consts, torch.cuda.current_stream(device).cuda_stream,
     )
-    cuda_build.check(err, f"pair_reduce_{form.name}")
-    LAUNCHES[form.name] += 1
+    cuda_build.check(err, f"pair_reduce_{name}")
+    LAUNCHES[name] += 1
     return out

@@ -12,19 +12,52 @@ thread indexes any (p, y, x) directly and masks the grid edge itself, so the
 port keeps the unpadded grid. Dead slots are marked by the mask plane alone.
 """
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..units import INDEX
+from ..units import INDEX, REAL
 from .dense_grid import DenseGridConfig, f32_scalar
 
 
 class PlaneGeom(NamedTuple):
-    """Geometry of one index space (fluid or boundary) in plane form."""
+    """Geometry of one index space (fluid or boundary) in plane form, as the
+    pair kernel K1 reads it. In float32 mode `pos` is the carry's position
+    planes themselves; in bfloat16 mode (`plane_geom`) it is a bf16 copy
+    rebased onto each cell's centre and `rebase_cell` is the cell size it
+    was built with."""
 
-    pos: torch.Tensor  # (2, P, ny, nx) f32
+    pos: torch.Tensor  # (2, P, ny, nx) f32, or bf16 cell-relative
     mask: torch.Tensor  # (P, ny, nx) bool
+    rebase_cell: Optional[float] = None  # None: absolute f32 positions
+
+
+@functools.lru_cache(maxsize=8)
+def _cell_centres(grid: DenseGridConfig, device: torch.device) -> torch.Tensor:
+    """(2, 1, ny, nx) f32 centre of every cell, built once per grid and
+    device: (i + 0.5) * f32(h) + f32(origin), each operation in f32 as the
+    JAX `_pf_rebase` computes it."""
+    h = f32_scalar(grid.cell_size)
+    cx = (torch.arange(grid.nx, dtype=REAL, device=device) + 0.5) * h \
+        + f32_scalar(grid.origin[0])
+    cy = (torch.arange(grid.ny, dtype=REAL, device=device) + 0.5) * h \
+        + f32_scalar(grid.origin[1])
+    shape = (grid.ny, grid.nx)
+    return torch.stack([cx.expand(shape), cy[:, None].expand(shape)])[:, None]
+
+
+def plane_geom(pos: torch.Tensor, mask: torch.Tensor, grid: DenseGridConfig) -> PlaneGeom:
+    """K1's geometry of one index space under `grid.pair_dtype`, built once
+    per rebuild (the port's `pf_build_geom`): the planes themselves in
+    float32; in bfloat16 the positions relative to their own cell's centre
+    (values in [-h/2, h/2] survive the cast, absolute coordinates would not),
+    one f32 subtract and a round-to-nearest-even cast: JAX's `_pf_rebase`
+    and astype, bit for bit. Dead slots stay marked by the mask alone."""
+    if grid.pair_dtype == "float32":
+        return PlaneGeom(pos, mask)
+    rebased = pos - _cell_centres(grid, pos.device)
+    return PlaneGeom(rebased.to(grid.pair_torch_dtype), mask, float(grid.cell_size))
 
 
 def to_planes(a: torch.Tensor) -> torch.Tensor:

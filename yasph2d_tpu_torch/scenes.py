@@ -35,9 +35,12 @@ class SolverSpec(NamedTuple):
     slotmajor: bool  # padded pair passes on K3 (use_pallas_slotmajor) or on K5
     cfl_factor: float  # adaptive CFL factor (bench.py:116-120)
     plane_boundary: bool  # the solver takes the boundary in plane form
+    pair_dtype: str = "float32"  # DenseGridConfig.pair_dtype
 
 
-# The bench's solver configurations on one scene, by name.
+# The bench's solver configurations on one scene, by name. The bench's own
+# default operand dtype is bfloat16 (bench.py:83-88); the *_bf16 entries run
+# the plane solvers so.
 SOLVERS = {
     "dfsph_plane": SolverSpec("DFSPHPlaneSolver", True, 1.5, True),
     "dfsph_padded": SolverSpec("DFSPHPaddedSolver", True, 1.5, False),
@@ -45,20 +48,25 @@ SOLVERS = {
     "wcsph_padded": SolverSpec("WCSPHPaddedSolver", True, 0.2, False),
     "wcsph_padded_k5": SolverSpec("WCSPHPaddedSolver", False, 0.2, False),
     "wcsph_plane": SolverSpec("WCSPHPlaneSolver", True, 0.2, True),
+    "dfsph_plane_bf16": SolverSpec("DFSPHPlaneSolver", True, 1.5, True, "bfloat16"),
+    "wcsph_plane_bf16": SolverSpec("WCSPHPlaneSolver", True, 0.2, True, "bfloat16"),
 }
 
 
-def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=7):
+def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=7,
+                 pair_dtype=None):
     """(solver, boundary) of one of SOLVERS on `world`, as the bench builds them
     (bench.py:125-150): occupancy 7, XSPH viscosity, the entry's adaptive CFL,
-    the boundary on `device` (in plane form for the plane solvers)."""
+    the boundary on `device` (in plane form for the plane solvers).
+    `pair_dtype` overrides the entry's operand dtype."""
     import dataclasses
 
     import yasph2d_tpu_torch as y
 
     spec = SOLVERS[kind]
     grid = dataclasses.replace(world.dense_grid(occupancy=occupancy),
-                               use_pallas_slotmajor=spec.slotmajor)
+                               use_pallas_slotmajor=spec.slotmajor,
+                               pair_dtype=pair_dtype or spec.pair_dtype)
     solver = getattr(y, spec.solver)(
         viscosity_model=y.XSPHViscosityModel(world.properties.smoothing_length),
         properties=world.properties,

@@ -22,6 +22,11 @@ already in the port's (ny, nx, P[, 2]) layout): pos_pad, v_pad, accel_pad,
   dens_pad, mask, time.*.
 `wcsph_plane_carry_from_numpy` keys (fields of yasph2d_tpu WCSPHPlaneCarry,
 cropped): pos, v, accel, dens, mask, time.*.
+
+Every converter makes its tensors on the card unless given a `device` (the
+CPU tests pass device="cpu"). `carry_from_numpy` and `boundary_from_numpy`
+build K1's geometry under the grid's `pair_dtype` (ops/planes.plane_geom),
+so a bfloat16 grid gets the rebased bf16 geometry the plane solvers use.
 """
 
 import numpy as np
@@ -32,12 +37,12 @@ from ..models.dfsph_plane import BoundaryPlanes, DFSPHPlaneCarry, PlaneCtx
 from ..models.wcsph_dense import WCSPHPaddedCarry
 from ..models.wcsph_plane import WCSPHPlaneCarry
 from ..ops.dense_grid import DenseGridConfig
-from ..ops.planes import PlaneGeom, to_planes
+from ..ops.planes import PlaneGeom, plane_geom, to_planes
 from ..timemanager import TimeState
 from ..units import INDEX, REAL
 
 
-def carry_from_numpy(leaves: dict, grid: DenseGridConfig, device="cpu") -> DFSPHPlaneCarry:
+def carry_from_numpy(leaves: dict, grid: DenseGridConfig, device="cuda") -> DFSPHPlaneCarry:
     ny, nx = grid.ny, grid.nx
 
     def plane(key, dtype=REAL):
@@ -47,14 +52,16 @@ def carry_from_numpy(leaves: dict, grid: DenseGridConfig, device="cpu") -> DFSPH
     def scalar(key):
         return torch.as_tensor(np.array(leaves[key]), device=device).to(INDEX)
 
+    pos, mask = plane("ctx.pos"), plane("ctx.mask", torch.bool)
     ctx = PlaneCtx(
-        pos=plane("ctx.pos"),
-        mask=plane("ctx.mask", torch.bool),
+        pos=pos,
+        mask=mask,
         sum_grad_stat=plane("ctx.sum_grad_stat"),
         neighbor_total=plane("ctx.neighbor_total"),
         densities=plane("ctx.densities"),
         alpha=plane("ctx.alpha"),
         num_dropped=scalar("ctx.num_dropped"),
+        geom=plane_geom(pos, mask, grid),
     )
     return DFSPHPlaneCarry(
         ctx=ctx,
@@ -76,7 +83,7 @@ def _time(leaves: dict) -> TimeState:
     )
 
 
-def dfsph_padded_carry_from_numpy(leaves: dict, device="cpu") -> DFSPHPaddedCarry:
+def dfsph_padded_carry_from_numpy(leaves: dict, device="cuda") -> DFSPHPaddedCarry:
     def slots(key, dtype=REAL):
         return torch.as_tensor(np.array(leaves[key]), device=device).to(dtype)
 
@@ -100,7 +107,7 @@ def dfsph_padded_carry_from_numpy(leaves: dict, device="cpu") -> DFSPHPaddedCarr
     )
 
 
-def wcsph_padded_carry_from_numpy(leaves: dict, device="cpu") -> WCSPHPaddedCarry:
+def wcsph_padded_carry_from_numpy(leaves: dict, device="cuda") -> WCSPHPaddedCarry:
     def slots(key, dtype=REAL):
         return torch.as_tensor(np.array(leaves[key]), device=device).to(dtype)
 
@@ -111,7 +118,7 @@ def wcsph_padded_carry_from_numpy(leaves: dict, device="cpu") -> WCSPHPaddedCarr
 
 
 def wcsph_plane_carry_from_numpy(leaves: dict, grid: DenseGridConfig,
-                                 device="cpu") -> WCSPHPlaneCarry:
+                                 device="cuda") -> WCSPHPlaneCarry:
     def plane(key, dtype=REAL):
         a = np.array(np.asarray(leaves[key])[..., :grid.ny, :grid.nx])  # writable copy
         return torch.as_tensor(a, device=device).to(dtype)
@@ -122,12 +129,15 @@ def wcsph_plane_carry_from_numpy(leaves: dict, grid: DenseGridConfig,
     )
 
 
-def boundary_from_numpy(leaves: dict, device="cpu") -> BoundaryPlanes:
+def boundary_from_numpy(leaves: dict, grid: DenseGridConfig = None,
+                        device="cuda") -> BoundaryPlanes:
+    """The boundary's dense build and K1's plane geometry of it, under
+    `grid.pair_dtype` (float32 when no grid is given)."""
     dense = BoundaryDense(
         pos_pad=torch.as_tensor(np.array(leaves["pos_pad"]), dtype=REAL, device=device),
         mask=torch.as_tensor(np.array(leaves["mask"]), dtype=torch.bool, device=device),
         num_dropped=torch.as_tensor(np.array(leaves["num_dropped"]), device=device).to(INDEX),
     )
-    return BoundaryPlanes(
-        dense=dense, geom=PlaneGeom(to_planes(dense.pos_pad), to_planes(dense.mask))
-    )
+    pos, mask = to_planes(dense.pos_pad), to_planes(dense.mask)
+    geom = PlaneGeom(pos, mask) if grid is None else plane_geom(pos, mask, grid)
+    return BoundaryPlanes(dense=dense, geom=geom)
