@@ -20,9 +20,14 @@ Phases, each reported on its own line:
      compare/select/add mix x8, 1,690,624 elements; rtol 1e-5 on the TPU
      probe's constant input and on a seeded input spread across 0.5) and the
      ctx-pass probe K7 (64 x 1612 cells, P 7) beside K1's ctx form on the same
-     inputs. Pair forms agree to rtol 1e-5 plus 1e-6 of each output
+     inputs. K1's forms must be bit-equal to their twins (max_abs_err 0.0),
+     the other pair forms agree to rtol 1e-5 plus 1e-6 of each output
      component's largest live magnitude; the re-buckets bit-equal, with and
-     without forced cell overflow. `ms` is the kernel's device time: 10
+     without forced cell overflow (K2 timed as the DFSPH step calls it: one
+     launch, its payload planes by pointer). Then, where the device and not
+     the host sets the pace, K1's six DFSPH forms in bfloat16 and K2 on the
+     1M state that the roofline path settles (records `*_1m`, whose launches
+     are those of the roofline path). `ms` is the kernel's device time: 10
      wrapper calls captured in a CUDA graph, each replay timed with CUDA
      events, median of 7, over 10; `plain_ms` the twin's, eager, CUDA events,
      median of 7. `bound_ms` is the larger of the bytes the call must move
@@ -85,6 +90,7 @@ WARMUP_STEPS = 3  # the WCSPH kernel states
 CONTACT_STEPS = 60  # the DFSPH kernel states: the columns touch the walls
 CONTACT_STEPS_3K = 55  # the same on the 3k scene of phase 4
 ROOFLINE = ("1000000", "100")  # tools.roofline: particles, settle steps (bf16)
+SIZE_1M = "_1m"  # the suffix of the records on the roofline's 1M state
 CSRC = "yasph2d_tpu_torch/csrc/"
 SOURCES = {
     "pair_reduce": CSRC + "pair_reduce.cu",
@@ -197,24 +203,31 @@ class Records:
             _counter=counter or name, _paths=paths)
 
     def check_pair(self, kernel, label, form, run_kernel, run_twin, live, comp_dim,
-                   roles, masks, pairs, radius_sq, variant=""):
+                   roles, masks, pairs, radius_sq, variant="", size="", paths=None):
         """`live`: the query slot mask, `comp_dim` the output's component
         axis; `roles`: the (query-side, source-side) input tensors and `masks`
         the input masks, for its bytes; `pairs`: (q_pos, q_mask, s_pos,
         s_mask) in the slot layout and the cutoff, for its needed slots and
         operation count; `variant`: the operand mode's suffix of the launch
-        name ("_bf16" for K1's bf16 operands, whose `pairs` are rebased)."""
+        name ("_bf16" for K1's bf16 operands, whose `pairs` are rebased);
+        `size`: a suffix of the record's name for another state than the
+        100k one, whose launches are counted on `paths`. K1 must be bit-equal
+        to its twin, the other pair kernels within `pair_error`."""
         out_k, out_t = run_kernel(), run_twin()
         torch.cuda.synchronize()
         errs, ok = pair_error(out_k, out_t, live, comp_dim)
+        if kernel == "pair_reduce":
+            ok = bit_equal([out_k], [out_t])
         err = max(errs)
         nonzero = bool(out_t.movedim(comp_dim, -1)[live].abs().sum() > 0)
-        name = f"{kernel}_{form.name}{variant}"
-        label = f"{label}{variant}"
+        counter = f"{kernel}_{form.name}{variant}"
+        name = counter + size
+        label = f"{label}{variant}{size}"
         if nonzero:
             self.nonzero.update((name, f"{kernel}_{label}"))
         log(f"phase 3 kernels: {kernel}_{label} max_abs_err {err!r} per component "
-            f"{errs!r} {'ok' if ok else 'MISMATCH'} nonzero {nonzero}")
+            f"{errs!r} {'ok' if ok else 'MISMATCH'}"
+            f"{' (bit-equal required)' if kernel == 'pair_reduce' else ''} nonzero {nonzero}")
         if not ok:
             raise RuntimeError(f"{kernel}_{label} disagrees with its twin "
                                f"(max_abs_err per component {errs})")
@@ -230,12 +243,17 @@ class Records:
         log(f"phase 3 kernels: {kernel}_{label} kernel {ms:.5f} ms twin {plain_ms:.4f} ms, "
             f"{n_live} live queries, {cand} live candidates, {valid} valid pairs")
         n_bytes = pair_bytes(*roles, masks, [out_k], pairs[1], pairs[3])
-        self.add(name, kernel, err, ms, plain_ms, n_bytes, n_ops)
+        self.add(name, kernel, err, ms, plain_ms, n_bytes, n_ops, counter=counter,
+                 paths=paths)
 
     def check_rebucket(self, kernel, label, run_kernel, run_twin, overflow, inputs,
                        name=None, paths=None):
-        """`inputs`: the call's (positions, mask, payload)."""
+        """`inputs`: the call's (positions, mask, payload); `run_kernel` may
+        return the payload as a tuple of parts (`rebucket_planes`)."""
         out_k, out_t = run_kernel(), run_twin()
+        if isinstance(out_k[2], tuple):
+            out_k = (out_k[0], out_k[1],
+                     torch.cat([v if v.ndim == 4 else v[None] for v in out_k[2]]), out_k[3])
         torch.cuda.synchronize()
         equal = bit_equal(out_k, out_t)
         drops = int(out_k[3])
@@ -306,10 +324,35 @@ def k1_pairs(q, s):
 def phase_kernels_dfsph(device, rec: Records, kind="dfsph_plane"):
     """K1's six DFSPH forms on the plane state of `kind` (f32 or bf16
     operands) and, in f32, the re-bucket K2."""
+    solver, boundary, carry = moving_state(kind, device, CONTACT_STEPS)
+    check_dfsph_plane(device, rec, solver, boundary, carry,
+                      rebucket=solver.grid.pair_dtype == "float32")
+
+
+def phase_kernels_1m(device, rec: Records):
+    """K1's six DFSPH bf16 forms and K2 on the 1M state of the roofline path
+    (tools.roofline.settle: ROOFLINE's particles and settle steps, bf16),
+    where the device sets the pace."""
+    from yasph2d_tpu_torch.tools.roofline import settle
+
+    t0 = time.perf_counter()
+    _, solver, boundary, carry, _ = settle(int(ROOFLINE[0]), int(ROOFLINE[1]), "bfloat16",
+                                           device)
+    torch.cuda.synchronize()
+    log(f"phase 3 kernels: 1M bf16 state settled in {time.perf_counter() - t0:.2f} s, "
+        f"grid {solver.grid.nx}x{solver.grid.ny}, {int(carry.ctx.mask.sum())} live")
+    check_dfsph_plane(device, rec, solver, boundary, carry, rebucket=True, size=SIZE_1M,
+                      paths={"roofline"})
+
+
+def check_dfsph_plane(device, rec: Records, solver, boundary, carry, rebucket,
+                      size="", paths=None):
+    """K1's six DFSPH forms on a DFSPH plane state (the operand mode is the
+    solver's) and, if `rebucket`, K2 with the step's payload; `size` and
+    `paths` as `Records.check_pair`."""
     from yasph2d_tpu_torch.ops import pair_reduce as pr
     from yasph2d_tpu_torch.ops import rebucket as rb
 
-    solver, boundary, carry = moving_state(kind, device, CONTACT_STEPS)
     variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
     ctx = carry.ctx
     geom = ctx.geom
@@ -357,25 +400,27 @@ def phase_kernels_dfsph(device, rec: Records, kind="dfsph_plane"):
                 form.term_fn, form.n_out, geom, src, solver._consts.radius_sq,
                 post_fn=form.post_fn, n_acc=form.n_acc, **kw),
             ctx.mask, 0, role_tensors(geom.pos, src.pos, kw), [geom.mask, src.mask],
-            k1_pairs(geom, src), solver._consts.radius_sq, variant)
-    rec.require_nonzero([f"pair_reduce_{n}{variant}" for n in DFSPH_FORMS]
-                        + [f"pair_reduce_ctx[boundary]{variant}"])
-    if variant:
+            k1_pairs(geom, src), solver._consts.radius_sq, variant, size, paths)
+    rec.require_nonzero([f"pair_reduce_{n}{variant}{size}" for n in DFSPH_FORMS]
+                        + [f"pair_reduce_ctx[boundary]{variant}{size}"])
+    if not rebucket:
         return  # K2 does not change with the operand mode
 
-    # re-bucket: the step's own advection, and a forced overflow in which every
-    # particle of an odd cell column moves one cell left
+    # re-bucket as the step calls it: the step's own advection, and a forced
+    # overflow in which every particle of an odd cell column moves one cell left
     grid = solver.grid
     pos = ctx.pos + carry.v * dt
+    parts = (carry.v, carry.kappa, carry.stiff)
     extra = torch.cat([carry.v, carry.kappa[None], carry.stiff[None]], dim=0)
     odd = (torch.arange(grid.nx, device=device) % 2 == 1).to(torch.float32)
     crowded = pos.clone()
     crowded[0] -= odd * grid.cell_size
     for label, p in (("advect", pos), ("overflow", crowded)):
-        rec.check_rebucket("rebucket", label,
-                           lambda: rb.rebucket(p, ctx.mask, extra, grid),
+        rec.check_rebucket("rebucket", label + size,
+                           lambda: rb.rebucket_planes(p, ctx.mask, parts, grid),
                            lambda: rb.rebucket_ref(p, ctx.mask, extra, grid),
-                           overflow=label == "overflow", inputs=[p, ctx.mask, extra])
+                           overflow=label == "overflow", inputs=[p, ctx.mask, extra],
+                           name="rebucket" + size, paths=paths)
 
 
 def noise(t, scale, rng):
@@ -788,6 +833,7 @@ def phase_main_path(device, kind) -> dict:
         iters = [(d.density_iterations, d.divergence_iterations) for d in diags]
         log(f"phase 5 main path [{kind}]: iterations per step (density, divergence) "
             f"{iters}")
+    log(f"phase 5 main path [{kind}]: drops per step {[d.neighbor_drops for d in diags]}")
     path = check_launches(kind, launches)
     if drops != 0 or live != N_FLUID or not finite:
         raise RuntimeError(f"{kind}: main path state wrong: drops {drops} live {live} "
@@ -843,6 +889,7 @@ def main():
     phase_kernels_dfsph(device, rec, "dfsph_plane_bf16")
     phase_kernels_wcsph_plane(device, rec, "wcsph_plane_bf16", np.random.default_rng(4))
     phase_kernels_probes(device, rec)
+    phase_kernels_1m(device, rec)
     phase_small_reference(device)
     path_launches = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}
     path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})

@@ -7,10 +7,10 @@ CPU-only test host). Imports no JAX, so it runs on a GPU host without it:
 
 The kernels perform the twins' float32 operations in the same order (built
 with -fmad=false; K5's twin sums each view's candidates with torch.sum), so
-pair outputs (K1 in both operand modes, K3, K5, K7) are compared to rtol 1e-5
-plus 1e-6 of the plane's scale and the re-buckets (K2, K4) bit for bit. The
-FMA probe of K6 rounds once per step where its twin rounds twice (rtol 1e-5);
-its mix probe is bit-equal to the twin."""
+K1 in both operand modes and the re-buckets (K2, K4) are compared bit for bit,
+the other pair kernels (K3, K5, K7) to rtol 1e-5 plus 1e-6 of the plane's
+scale. The FMA probe of K6 rounds once per step where its twin rounds twice
+(rtol 1e-5); its mix probe is bit-equal to the twin."""
 
 import dataclasses
 
@@ -37,6 +37,7 @@ from yasph2d_tpu_torch.ops.dense_grid import DenseGridConfig
 from yasph2d_tpu_torch.ops.planes import PlaneGeom, plane_geom, to_planes
 from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 from yasph2d_tpu_torch.tools import probe_pallas_slotmajor as pc
+from yasph2d_tpu_torch.tools import tile_sweep
 from yasph2d_tpu_torch.tools import vpu_probe as vp
 
 pytestmark = pytest.mark.cuda
@@ -131,12 +132,9 @@ def test_pair_kernel_matches_twin(device, case, form):
     ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, s, solver._consts.radius_sq,
                              post_fn=pform.post_fn, n_acc=pform.n_acc, **kw)
     torch.cuda.synchronize()
-    live = q.mask.expand_as(out)
-    a, b = out[live], ref[live]
-    scale = max(1.0, float(b.abs().max()))
-    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * scale)
-    assert (out[~live] == 0).all()
-    assert float(b.abs().sum()) > 0
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert (out[~q.mask.expand_as(out)] == 0).all()
+    assert float(ref.abs().sum()) > 0
 
 
 @pytest.mark.parametrize("shift", [0.0, 0.6])
@@ -220,10 +218,8 @@ def test_pair_kernel_wcsph_forms_match_twin(device, wcase, form):
     ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, s, plane._consts.radius_sq,
                              **kw)
     torch.cuda.synchronize()
-    live = q.mask.expand_as(out)
-    a, b = out[live], ref[live]
-    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * max(1.0, float(b.abs().max())))
-    assert float(b.abs().sum()) > 0
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert float(ref.abs().sum()) > 0
 
 
 @pytest.mark.parametrize("shift", [0.0, 0.6])
@@ -435,10 +431,8 @@ def test_pair_kernel_bf16_matches_twin(device, case, form):
     ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, s, solver._consts.radius_sq,
                              post_fn=pform.post_fn, n_acc=pform.n_acc, **kw)
     torch.cuda.synchronize()
-    live = q.mask.expand_as(out)
-    a, b = out[live], ref[live]
-    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * max(1.0, float(b.abs().max())))
-    assert float(b.abs().sum()) > 0
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert float(ref.abs().sum()) > 0
 
 
 @pytest.mark.parametrize("form", ["density", "stat", "forces"])
@@ -454,10 +448,8 @@ def test_pair_kernel_bf16_wcsph_forms_match_twin(device, wcase, form):
     ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, s, plane._consts.radius_sq,
                              **kw)
     torch.cuda.synchronize()
-    live = q.mask.expand_as(out)
-    a, b = out[live], ref[live]
-    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * max(1.0, float(b.abs().max())))
-    assert float(b.abs().sum()) > 0
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert float(ref.abs().sum()) > 0
 
 
 @pytest.mark.parametrize("spread", [False, True])
@@ -499,3 +491,180 @@ def test_probe_ctx_kernel_matches_twin(device):
                                        atol=1e-6 * max(1.0, float(ref[k].abs().max())))
         assert float(ref[4].sum()) > 0
     assert pc.agree(pc.ctx_pass(q, q, d["h"], d["m"]), pc.k1_ctx_call(q, q, d["h"], d["m"])())
+
+
+def _edge_slots(rng, ny, nx, pp, h, fill):
+    """Plane-form slots with random, non-compacted liveness (any slot of a cell
+    may be live); positions near their own cell."""
+    mask = rng.random((ny, nx, pp)) < fill
+    cy, cx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    cell = np.stack([cx, cy], axis=-1)[:, :, None, :] * h
+    pos = cell + (rng.random((ny, nx, pp, 2)) * 1.1 - 0.05) * h
+    return pos.astype(np.float32), mask
+
+
+@pytest.fixture(scope="module")
+def edge(device):
+    """K1's edge cases on one 23 x 37 grid (a multiple of no tile side), P 5:
+    random non-compacted masks; a cell whose only live slot is the last; a
+    fully live cell; the boundary space with Pb 3 != P; the 8 x 16 cell tile
+    at rows 8-15, cols 16-31 without a live query (an air tile of the default
+    shape, whose halo holds live sources)."""
+    rng = np.random.default_rng(7)
+    world = FluidParticleWorld(2.0, 400.0, 100.0)
+    h = world.properties.smoothing_length
+    ny, nx, p, pb = 23, 37, 5, 3
+    grid = DenseGridConfig(cell_size=h, origin=(0.0, 0.0), nx=nx, ny=ny, occupancy=p,
+                           use_pallas_slotmajor=True)
+    common = dict(viscosity_model=XSPHViscosityModel(h), properties=world.properties,
+                  grid=grid)
+    dfsph = DFSPHPlaneSolver(**common, step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 1.5))
+    wcsph = WCSPHPlaneSolver(**common, step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 0.2))
+    pos, mask = _edge_slots(rng, ny, nx, p, h, 0.5)
+    mask[3, 4] = [False] * (p - 1) + [True]
+    mask[5, 6] = True
+    mask[8:16, 16:32] = False
+    bpos, bmask = _edge_slots(rng, ny, nx, pb, h, 0.4)
+    fluid = PlaneGeom(to_planes(torch.as_tensor(pos)).to(device),
+                      to_planes(torch.as_tensor(mask)).to(device))
+    walls = PlaneGeom(to_planes(torch.as_tensor(bpos)).to(device),
+                      to_planes(torch.as_tensor(bmask)).to(device))
+    shape = (p, ny, nx)
+    vals = {k: _planes(rng, lead + shape, scale, offset).to(device)
+            for k, lead, scale, offset in (("v", (2,), 2.0, -1.0), ("k", (), 50.0, -25.0),
+                                           ("rho", (), 30.0, 100.0), ("pres", (), 500.0, 0.0),
+                                           ("sgs", (2,), 40.0, -20.0), ("dens", (), 5.0, 100.0),
+                                           ("alpha", (), 1e-3, 0.0), ("nt", (), 18.0, 0.0))}
+    vals["nt"] = torch.floor(vals["nt"])
+    return dfsph, wcsph, fluid, walls, vals
+
+
+def _edge_operands(edge, form, q):
+    """(solver, form, source geometry, keyword operands) of one K1 form on the
+    edge case; `q` is the fluid geometry in the operand mode under test."""
+    dfsph, wcsph, fluid, walls, vals = edge
+    s_walls = walls if q.rebase_cell is None else _bf16(walls, dfsph.grid)
+    f, w = dfsph._forms, wcsph._forms
+    v, k, rho, dt = vals["v"], vals["k"], vals["rho"], 1.0 / 2700.0
+    stat = pr.pair_reduce_ref(f.ctx.term_fn, 5, q, s_walls, dfsph._consts.radius_sq)
+    wv = (vals["pres"], rho, v)
+    return {
+        "ctx": (dfsph, f.ctx, s_walls, {}),
+        "ctx_post": (dfsph, f.ctx_post, q, dict(post_planes=(stat,))),
+        "visc_gravity": (dfsph, f.visc_gravity, q, dict(q_vals=(v,), s_vals=(v, rho),
+                                                        scalars=(dt,))),
+        "err_ki": (dfsph, f.err_ki, q, dict(q_vals=(v,), s_vals=(v,), scalars=(dt,),
+                                            post_planes=(v, vals["sgs"], vals["dens"],
+                                                         vals["alpha"]))),
+        "delta_ki": (dfsph, f.delta_ki, q, dict(q_vals=(v,), s_vals=(v,), post_planes=(
+            v, vals["sgs"], vals["nt"], vals["alpha"]))),
+        "corr_v": (dfsph, f.corr_v, q, dict(q_vals=(k,), s_vals=(k,), scalars=(1234.5,),
+                                            post_planes=(v, k, vals["sgs"]))),
+        "wcsph_density": (wcsph, w.density, q, {}),
+        "wcsph_stat": (wcsph, w.stat, s_walls, {}),
+        "wcsph_forces": (wcsph, w.forces, q, dict(q_vals=wv, s_vals=wv, scalars=(dt,))),
+    }[form]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", list(pr.LAUNCHES)[:len(pr.LAUNCHES) // 2])
+def test_pair_kernel_edge_cases_bit_equal(device, edge, form, bf16):
+    """Every K1 launcher on the edge case, bit-equal to its twin with the
+    chosen launch shape and with every shape the tile sweep times (each query
+    sums its live candidates in one order whatever the tile)."""
+    dfsph, _, fluid, _, _ = edge
+    q = _bf16(fluid, dfsph.grid) if bf16 else fluid
+    solver, pform, src, kw = _edge_operands(edge, form, q)
+    name = f"{pform.name}_bf16" if bf16 else pform.name
+    before = pr.LAUNCHES[name]
+    out = pr.pair_reduce(pform, q, src, solver._consts, **kw)
+    assert pr.LAUNCHES[name] == before + 1
+    ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, src, solver._consts.radius_sq,
+                             post_fn=pform.post_fn, n_acc=pform.n_acc, **kw)
+    outs = [pr.launch(pform, q, src, solver._consts, kw.get("q_vals", ()),
+                      kw.get("s_vals", ()), kw.get("scalars", ()),
+                      kw.get("post_planes", ()), tile) for tile in tile_sweep.K1_SHAPES]
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES[name] == before + 1  # `launch` counts nothing
+    for o in [out, *outs]:
+        assert torch.equal(o.view(torch.int32), ref.view(torch.int32))
+    live = q.mask.expand_as(out)
+    assert (out[~live] == 0).all() and float(ref[live].abs().sum()) > 0
+    assert (out[:, :, 8:16, 16:32] == 0).all()  # the air tile
+
+
+def test_pair_kernel_refuses_what_cannot_fit(device, edge):
+    """More than 32 source slots a cell (one live-list word) is refused before
+    any launch."""
+    dfsph, _, fluid, _, _ = edge
+    _, ny, nx = fluid.mask.shape
+    deep = PlaneGeom(torch.zeros((2, 33, ny, nx), device=device),
+                     torch.zeros((33, ny, nx), dtype=torch.bool, device=device))
+    before = dict(pr.LAUNCHES)
+    with pytest.raises(ValueError, match="32"):
+        pr.pair_reduce(dfsph._forms.ctx, fluid, deep, dfsph._consts)
+    assert pr.LAUNCHES == before
+
+
+def _bits(outs):
+    return [o.contiguous().view(torch.int32) if o.dtype == torch.float32 else o for o in outs]
+
+
+@pytest.mark.parametrize("label", ["outside", "borders", "negzero", "overflow"])
+@pytest.mark.parametrize("d", [2, 4])
+def test_rebucket_kernel_edge_cases_bit_equal(device, edge, label, d):
+    """K2 (one launch: move codes, scan, mask and drop count) bit-equal to its
+    twin: slots moved far outside the grid (clamped codes, negative
+    coordinates), positions exactly on cell borders, a -0.0 payload (written
+    as +0.0 by both), forced overflow with equal drop counts; payloads of
+    D = 2 and D = 4 value planes."""
+    dfsph, _, fluid, _, vals = edge
+    grid = dfsph.grid
+    h = grid.cell_size
+    p, ny, nx = fluid.mask.shape
+    rng = np.random.default_rng(11)
+    pos = fluid.pos.clone()
+    live = fluid.mask
+    if label == "outside":
+        far = torch.as_tensor(rng.uniform(-4.0, 4.0, (2, p, ny, nx)).astype(np.float32))
+        pos = pos + far.to(device) * h * (torch.rand((p, ny, nx)) < 0.3).to(device)
+        pos[:, :, :, 0] -= 3.0 * h  # negative x in the first column
+    elif label == "borders":
+        iy, ix = torch.meshgrid(torch.arange(ny), torch.arange(nx), indexing="ij")
+        step = torch.as_tensor(rng.integers(-1, 2, (2, p, ny, nx)))
+        pos = torch.stack([(ix + step[0]) * h, (iy + step[1]) * h]).to(torch.float32)
+        pos = pos.to(device)
+    elif label == "overflow":
+        pos[0] += 0.6 * h  # crowds cells
+    payload = torch.cat([vals["v"], vals["k"][None], vals["rho"][None]])[:d].clone()
+    if label == "negzero":
+        payload[0] = torch.where(live, -0.0, payload[0])
+    out = rb.rebucket(pos, live, payload, grid)
+    ref = rb.rebucket_ref(pos, live, payload, grid)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(_bits(out), _bits(ref)))
+    if label == "overflow":
+        assert int(out[3]) > 0
+    else:
+        assert int(out[1].sum()) + int(out[3]) == int(live.sum())
+    if label == "negzero":
+        assert not torch.signbit(out[2][0]).any()
+    if label == "outside":
+        assert int(out[1].sum()) > 0
+
+
+def test_rebucket_planes_is_one_launch_without_a_copy(device, case):
+    """The DFSPH step's payload passed by pointer gives the stacked call's
+    bits, in the parts' shapes, as one counted launch."""
+    solver, ctx, _, vals = case
+    pos, mask = ctx.pos.to(device), ctx.mask.to(device)
+    v, k, rho = vals["v"].to(device), vals["k"].to(device), vals["rho"].to(device)
+    before = rb.LAUNCHES["rebucket"]
+    new_pos, new_mask, (nv, nk, nr), drops = rb.rebucket_planes(pos, mask, (v, k, rho),
+                                                                 solver.grid)
+    assert rb.LAUNCHES["rebucket"] == before + 1
+    assert nv.shape == v.shape and nk.shape == k.shape and nr.shape == rho.shape
+    ref = rb.rebucket_ref(pos, mask, torch.cat([v, k[None], rho[None]]), solver.grid)
+    torch.cuda.synchronize()
+    got = (new_pos, new_mask, torch.cat([nv, nk[None], nr[None]]), drops)
+    assert all(torch.equal(a, b) for a, b in zip(_bits(got), _bits(ref)))

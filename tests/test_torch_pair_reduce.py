@@ -298,3 +298,34 @@ def test_wrapper_dispatch_is_by_device(case):
     meta = PlaneGeom(geom.pos.to("meta"), geom.mask.to("meta"))
     with pytest.raises(ValueError):
         tpr.pair_reduce(form, meta, meta, case.ts._consts)
+
+
+def test_tile_shape_bytes_and_refusal():
+    """K1's launch shape: the widest of TILES with at least MIN_BLOCKS blocks
+    on the grid (8 x 32 at the 1M scene's 1612 x 1010 cells, 8 x 8 at 100k's
+    515 x 325), its shared memory counted region by region (16-byte
+    aligned), bf16 operands staging half the bytes; a narrower tile where
+    the wider does not fit; refused beyond 32 source slots or when no tile
+    fits."""
+    # an 8 x 16 tile, P 7, Ps 7, three source values: (10 x 18) haloed cells
+    hc = 10 * 18
+    f32 = hc * 7 * 8 + hc * 7 * 3 * 4 + hc * 4 + 8 * 16 * 7 * 2 + 32 * 4
+    assert tpr.smem_bytes(8, 16, 7, 7, 3, False) == f32 == 27840
+    assert tpr.smem_bytes(8, 16, 7, 7, 3, True) == 5040 + 7568 + 720 + 1792 + 128
+    for bf16 in (False, True):
+        big = tpr.tile_shape(7, 8, 3, bf16, 1010, 1612)
+        small = tpr.tile_shape(7, 8, 3, bf16, 325, 515)
+        assert big[:3] == (8, 32, 256) and small[:3] == (8, 8, 256)
+        assert big[3] == tpr.smem_bytes(8, 32, 7, 8, 3, bf16)
+        assert -(-1010 // 8) * -(-1612 // 32) >= tpr.MIN_BLOCKS
+    for ty, tx, threads in tpr.TILES:
+        assert threads % 32 == 0 and threads <= 256
+        assert ty & (ty - 1) == 0 and tx & (tx - 1) == 0  # decoded by shifts
+    # a query space too deep for the wide tile's list takes a narrower one
+    shape = tpr.tile_shape(300, 8, 0, False, 1010, 1612)
+    assert shape[:3] != tpr.TILES[0] and shape[0] * shape[1] * 300 <= 65536
+    assert shape[3] <= tpr.cuda_build.SMEM_LIMIT
+    with pytest.raises(ValueError, match="32"):
+        tpr.tile_shape(7, 33, 0, False, 325, 515)
+    with pytest.raises(ValueError, match="no cell tile"):
+        tpr.tile_shape(5000, 8, 0, False, 325, 515)

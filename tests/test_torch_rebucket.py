@@ -24,10 +24,12 @@ BR = 4
 H = 0.1
 
 
-def make_case(seed, ny=11, nx=17, p=3, fill=0.5, shift=(0.0, 0.0), step=0.12):
+def make_case(seed, ny=11, nx=17, p=3, fill=0.5, shift=(0.0, 0.0), step=0.12,
+              borders=False):
     """Random live slots, advected by random sub-cell displacements (some cross
     cell borders, some leave the grid), plus a payload of value planes with a
-    -0.0 among them."""
+    -0.0 among them. `borders`: every live slot lands exactly on a cell corner
+    of its own or a neighbouring cell (origin + k h, rounded to f32)."""
     rng = np.random.default_rng(seed)
     base = dict(cell_size=H, origin=(-0.05, 0.02), nx=nx, ny=ny, occupancy=p)
     jgrid = JGrid(**base, use_pallas_slotmajor=True, pallas_sm_row_block=BR)
@@ -37,6 +39,8 @@ def make_case(seed, ny=11, nx=17, p=3, fill=0.5, shift=(0.0, 0.0), step=0.12):
     cell = np.stack([cx, cy], axis=-1)[:, :, None, :] * H + np.asarray(base["origin"])
     pos = cell + rng.random((ny, nx, p, 2)) * H
     disp = (rng.random((ny, nx, p, 2)) - 0.5) * step + np.asarray(shift) * H
+    if borders:
+        disp = rng.integers(-1, 2, (ny, nx, p, 2)) * H + (cell - pos)
     adv = np.where(mask[..., None], pos + disp, 0.0).astype(np.float32)
     vals = rng.standard_normal((ny, nx, p, 3)).astype(np.float32)
     vals[0, 0, 0, 0] = -0.0
@@ -63,6 +67,10 @@ CASES = {
     "dense": dict(seed=6, p=4, fill=0.8),
     # everything drifts one cell right/up into half-full cells: overflow
     "overflow": dict(seed=7, p=2, fill=0.9, shift=(0.6, 0.6), step=0.05),
+    # displacements up to 4 cells: clamped codes, negative and off-grid cells
+    "outside": dict(seed=8, fill=0.7, step=0.8),
+    # positions exactly on cell borders (the floor's edge)
+    "borders": dict(seed=9, fill=0.7, borders=True),
 }
 
 
@@ -103,3 +111,28 @@ def test_wrapper_dispatch_is_by_device():
     assert trb.LAUNCHES == before
     with pytest.raises(ValueError):
         trb.rebucket(pos.to("meta"), m.to("meta"), v.to("meta"), tgrid)
+
+
+def test_rebucket_planes_cpu_route_splits_the_payload():
+    """`rebucket_planes` with separate (L, P, ny, nx) and (P, ny, nx) parts is
+    the stacked call, returned in the parts' shapes; on the CPU it is the
+    twin and launches nothing."""
+    _, tgrid, adv, mask, vals = make_case(6, p=4, fill=0.8)
+    pos, m = to_planes(torch.as_tensor(adv)), to_planes(torch.as_tensor(mask))
+    v = torch.stack([to_planes(torch.as_tensor(vals[..., k])) for k in range(3)])
+    before = dict(trb.LAUNCHES)
+    new_pos, new_mask, (pair, last), drops = trb.rebucket_planes(pos, m, (v[:2], v[2]), tgrid)
+    ref = trb.rebucket_ref(pos, m, v, tgrid)
+    assert trb.LAUNCHES == before
+    assert pair.shape == v[:2].shape and last.shape == v[2].shape
+    for a, b in zip((new_pos, new_mask, torch.cat([pair, last[None]]), drops), ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert int(new_mask.sum()) + int(drops) == int(m.sum())
+
+
+def test_shared_memory_of_a_block():
+    """K2's block holds P int32 hits per target cell and the move codes of its
+    haloed tile, one byte per slot."""
+    threads, halo = trb.RB_TY * trb.RB_TX, (trb.RB_TY + 2) * (trb.RB_TX + 2)
+    assert trb.smem_bytes(7) == 7 * threads * 4 + 7 * halo
+    assert trb.smem_bytes(1) < trb.smem_bytes(7)

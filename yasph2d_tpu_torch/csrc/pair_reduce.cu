@@ -8,25 +8,55 @@
 // when the source is live and 1e-10 < r_sq <= h^2; a dead query writes zeros.
 // The term and post functors live in csrc/pair_terms.cuh, shared with K3.
 //
-// Layout: planes (L, P, ny, nx) f32 and masks (P, ny, nx) bool, unpadded. One
-// thread per query slot, x fastest, so a warp reads 32 neighbouring cells of
-// one slot plane and its loads coalesce.
+// Layout: planes (L, P, ny, nx) f32 and masks (P, ny, nx) bool, unpadded.
 //
 // Masking skips invalid candidates (a branch), never multiplies them by 0:
 // XSPH divides by rho_j * dt and a dead source slot may hold rho_j = 0 there,
 // and NaN * 0 is NaN (the same reason the TPU kernel selects with jnp.where).
-//
 // Source liveness comes from the source mask plane, not from a sentinel
-// position: the resident position planes keep whatever a dead slot last held,
-// so a sentinel would need a masked copy of both position planes per rebuild,
-// while the mask costs one byte per candidate and lets a dead candidate skip
-// its position loads.
+// position: the resident position planes keep whatever a dead slot last held.
 //
-// What bounds it on the H100: memory latency. Per live query it touches 9
-// cells x Ps source slots of mask bytes and the positions/values of the live
-// ones, a gather-and-FMA loop with little arithmetic per byte and no reuse
-// across threads beyond what L1/L2 catch. No shared-memory tiling, TMA or
-// wgmma yet: this is the simple, right first version.
+// Design (one block per TY x TX cell tile, both powers of two; TY, TX, the
+// block's threads and its dynamic shared memory come from ops/pair_reduce.py
+// tile_shape):
+//  1. Live queries on every lane. The block counts the live query slots of
+//     its tile (all P planes, slot order (p, ly, lx), x fastest; TY x TX a
+//     power of two each, so a slot index decodes by shifts) with warp ballots,
+//     every mask load of a thread issued together, and in the same pass each
+//     dead slot writes its zeros, coalesced; per-warp offsets from one barrier
+//     place the ascending list of live slots in shared memory. A tile without
+//     a live query (most of a dam-break grid is air) stops there and stages
+//     nothing.
+//  2. Cell tiles in shared memory. One thread per cell of the haloed
+//     (TY+2) x (TX+2) tile loads the cell's Ps mask bytes, positions (f32, or
+//     the bf16 geometry's) and source values (rounded to bf16 at load in bf16
+//     mode), with every load of a chunk of slots issued before the first is
+//     used, and stages them; cells off the grid stage as dead, so ragged tiles
+//     need no padded copy. One barrier.
+//  3. Per-cell live lists. The staging thread also forms the cell's live
+//     source slots as one 32-bit word (bit sp = slot sp is live, so Ps <= 32).
+//     Each live query thread walks its 9 cells' words, lowest bit first: the
+//     candidates are exactly the live ones, in (dyv, dxv, ascending sp) order,
+//     so dead candidates cost nothing and no result changes. This is the
+//     Hopper counterpart of the JAX kernel's per-view slot bounds.
+// Each query accumulates in one thread in the order above and applies the
+// same post, so the kernel stays bit-equal to its twin on the card in both
+// operand modes.
+//
+// What bounds it on the H100 (tools/k1_phases.py, which times copies cut
+// after each phase): at 100k, of ~24 us per loop form ~15 are the scan of all
+// P x ny x nx query slots and the dead slots' zeros, ~1 the staging and ~7
+// the candidate loops; the scan is bound by each block's mask-load latency
+// and barrier, not by its bytes, so it shrinks with fewer, wider tiles, while
+// the loops want more threads per busy tile: tile_shape widens the tile only
+// on large grids. The loops are issue-bound: each query sums its candidates
+// serially in one thread (the order the twin's bits require), the lanes of a
+// warp run as long as their longest list, and IEEE sqrt and division cost
+// tens of instructions a pair. The first version, one thread per query slot,
+// read 9 x Ps mask bytes and the live candidates' positions from L1/L2 per
+// live query and idled the lanes of the 91.5% dead slots at 100k; here dead
+// queries and dead candidates never reach the loop, air tiles stage nothing,
+// and the loop reads shared memory.
 //
 // Operand modes (template parameter Ops). F32Ops: positions and values f32,
 // read as they are. Bf16Ops, the TPU kernel's `rebase_cell` mode under
@@ -36,9 +66,9 @@
 // (-h, 0, +h) rounded to f32 once, added on every view as the TPU kernel does,
 // dy likewise. Value planes stay f32 in memory and are rounded to bf16 at load
 // (__float2bfloat16_rn, round to nearest even, the bits of JAX's
-// .astype(bfloat16)) and upcast: the step then needs no cast launch per pass,
-// which matters where it is host-bound. Epilogue planes stay exact f32. All
-// math and accumulation are f32 in both modes.
+// .astype(bfloat16)) and staged as bf16; the step then needs no cast launch per
+// pass. Epilogue planes stay exact f32. All math and accumulation are f32 in
+// both modes.
 //
 // Build: see yasph2d_tpu_torch/ops/cuda_build.py (sm_90a, -fmad=false, no fast
 // math): every f32 operation is rounded as in the plain PyTorch twin
@@ -51,6 +81,11 @@
 #include "pair_terms.cuh"
 
 #define MAX_PLANES 8
+#define K1_MAX_THREADS 256
+#define K1_MIN_BLOCKS 4         // blocks per SM the registers must allow (<= 64 each)
+#define K1_MAX_SOURCE_SLOTS 32  // a cell's live list is one 32-bit word
+#define K1_STAGE_CHUNK 4        // source slots whose loads are issued together
+#define K1_MASK_CHUNKS 8        // query-mask chunks whose loads are issued together
 
 struct Planes {
   const float* p[MAX_PLANES];
@@ -58,18 +93,33 @@ struct Planes {
 
 struct F32Ops {
   using Pos = float;
+  using Val = float;  // a staged source value
   static constexpr bool REBASED = false;
   __device__ static float pos(const float* p, int i) { return p[i]; }
   __device__ static float val(const float* p, int i) { return p[i]; }
+  __device__ static float load_pos(const float* p, int i) { return __ldg(p + i); }
+  __device__ static Val stage_val(float v) { return v; }
+  __device__ static float up(float v) { return v; }
 };
 
 struct Bf16Ops {
   using Pos = __nv_bfloat16;
+  using Val = __nv_bfloat16;
   static constexpr bool REBASED = true;
   __device__ static float pos(const __nv_bfloat16* p, int i) { return __bfloat162float(p[i]); }
   __device__ static float val(const float* p, int i) {
     return __bfloat162float(__float2bfloat16_rn(p[i]));
   }
+  __device__ static __nv_bfloat16 load_pos(const __nv_bfloat16* p, int i) {
+    return __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p) + i));
+  }
+  __device__ static Val stage_val(float v) { return __float2bfloat16_rn(v); }
+  __device__ static float up(__nv_bfloat16 v) { return __bfloat162float(v); }
+};
+
+template <class T>
+struct alignas(2 * sizeof(T)) Pos2 {
+  T x, y;
 };
 
 template <class Ops>
@@ -83,47 +133,196 @@ struct Args {
   Planes post;                     // epilogue planes, (P, ny, nx) each, exact f32
   float* out;                      // (n_out, P, ny, nx)
   int P, Ps, ny, nx;
+  int ty, tx;                      // cell tile, powers of two
+  int lg_ty, lg_tx;                // their log2: slot indices decode by shifts
   float scalar;                    // dt or the correction scale, as f32
   float cell;                      // Bf16Ops: the cell size h as f32
   PairConsts c;
 };
 
+// ---------------------------------------------------------------- shared memory
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Byte offsets of one block's shared-memory regions; ops/pair_reduce.py
+// smem_bytes computes the same total.
+struct SmemLayout {
+  size_t pos, val, bits, qlist, warps, total;
+  __host__ __device__ SmemLayout(int ty, int tx, int P, int Ps, int nsv, int operand_bytes) {
+    const size_t hc = (size_t)(ty + 2) * (tx + 2);
+    pos = 0;                                                      // Pos2 [Ps][hc]
+    val = pos + align16(hc * Ps * 2 * operand_bytes);             // Val [nsv][Ps][hc]
+    bits = val + align16(hc * Ps * nsv * operand_bytes);          // uint32 [hc]
+    qlist = bits + align16(hc * sizeof(unsigned));                // uint16 [ty tx P]
+    warps = qlist + align16((size_t)ty * tx * P * sizeof(uint16_t));  // int [32]
+    total = warps + 32 * sizeof(int);
+  }
+};
+
 // ---------------------------------------------------------------- kernel
 
 template <class Ops, class Term, class Post>
-__global__ void __launch_bounds__(256) pair_reduce_kernel(const Args<Ops> a) {
-  const int plane = a.ny * a.nx;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= a.P * plane) return;
+__global__ void __launch_bounds__(K1_MAX_THREADS, K1_MIN_BLOCKS)
+    pair_reduce_kernel(const Args<Ops> a) {
+  using Pos = typename Ops::Pos;
+  using Val = typename Ops::Val;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SmemLayout L(a.ty, a.tx, a.P, a.Ps, Term::NSV, (int)sizeof(Pos));
+  Pos2<Pos>* t_pos = reinterpret_cast<Pos2<Pos>*>(smem + L.pos);
+  Val* t_val = reinterpret_cast<Val*>(smem + L.val);
+  unsigned* t_bits = reinterpret_cast<unsigned*>(smem + L.bits);
+  uint16_t* t_q = reinterpret_cast<uint16_t*>(smem + L.qlist);
+  int* t_warp = reinterpret_cast<int*>(smem + L.warps);
 
-  float out[Post::NOUT];
-  if (!a.q_mask[idx]) {
-    for (int k = 0; k < Post::NOUT; ++k) out[k] = 0.0f;
-  } else {
-    const int cell = idx % plane;
-    const int y = cell / a.nx;
-    const int x = cell - y * a.nx;
+  const int plane = a.ny * a.nx;
+  const int n = a.P * plane;  // stride between output planes
+  const int y0 = blockIdx.y * a.ty;
+  const int x0 = blockIdx.x * a.tx;
+  const int hx = a.tx + 2;
+  const int hc = (a.ty + 2) * hx;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  // 1. live query slots of the tile: slot i = (p * ty + ly) * tx + lx; each
+  // warp takes a contiguous range of whole 32-slot chunks
+  const int n_tq = a.ty * a.tx * a.P;
+  const int span = (n_tq + n_warps * 32 - 1) / (n_warps * 32) * 32;
+  const int lo = warp * span;
+  auto slot_index = [&](int i) -> int {  // global index of slot i, -1 off the grid
+    const int lx = i & (a.tx - 1);
+    const int r = i >> a.lg_tx;
+    const int ly = r & (a.ty - 1);
+    const int p = r >> a.lg_ty;
+    const int y = y0 + ly;
+    const int x = x0 + lx;
+    return (i < n_tq && y < a.ny && x < a.nx) ? p * plane + y * a.nx + x : -1;
+  };
+  // the warp's slots in groups of K1_MASK_CHUNKS chunks, every mask load of
+  // a group issued before the first ballot
+  auto live_group = [&](int g, bool* live, int* idx) {
+#pragma unroll
+    for (int r = 0; r < K1_MASK_CHUNKS; ++r) {
+      const int i = lo + g + r * 32 + lane;
+      idx[r] = g + r * 32 < span ? slot_index(i) : -1;
+      live[r] = idx[r] >= 0 &&
+                __ldg(reinterpret_cast<const unsigned char*>(a.q_mask) + idx[r]) != 0;
+    }
+  };
+  // first pass: count the live slots and write the dead ones' zeros; the live
+  // bits of the first group stay in a register for the second pass
+  int count = 0;
+  unsigned first = 0u;
+  for (int g = 0; g < span; g += K1_MASK_CHUNKS * 32) {
+    bool live[K1_MASK_CHUNKS];
+    int idx[K1_MASK_CHUNKS];
+    live_group(g, live, idx);
+#pragma unroll
+    for (int r = 0; r < K1_MASK_CHUNKS; ++r) {
+      count += __popc(__ballot_sync(0xffffffffu, live[r]));
+      if (live[r]) {
+        if (g == 0) first |= 1u << r;
+      } else if (idx[r] >= 0) {
+        for (int k = 0; k < Post::NOUT; ++k) a.out[k * n + idx[r]] = 0.0f;
+      }
+    }
+  }
+  if (lane == 0) t_warp[warp] = count;
+  __syncthreads();
+  // exclusive offset of this warp and the tile's total, from the warp counts
+  const int mine = lane < n_warps ? t_warp[lane] : 0;
+  int incl = mine;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += up;
+  }
+  const int n_live = __shfl_sync(0xffffffffu, incl, 31);
+  // second pass: the ascending list of live slots
+  int next = __shfl_sync(0xffffffffu, incl - mine, warp);
+  for (int g = 0; g < span; g += K1_MASK_CHUNKS * 32) {
+    bool live[K1_MASK_CHUNKS];
+    int idx[K1_MASK_CHUNKS];
+    if (g == 0) {
+#pragma unroll
+      for (int r = 0; r < K1_MASK_CHUNKS; ++r) live[r] = (first >> r) & 1u;
+    } else {
+      live_group(g, live, idx);  // from L1
+    }
+#pragma unroll
+    for (int r = 0; r < K1_MASK_CHUNKS; ++r) {
+      const unsigned ballot = __ballot_sync(0xffffffffu, live[r]);
+      if (live[r])
+        t_q[next + __popc(ballot & ((1u << lane) - 1u))] = (uint16_t)(lo + g + r * 32 + lane);
+      next += __popc(ballot);
+    }
+  }
+  if (n_live == 0) return;  // uniform across the block: an air tile
+
+  // 2. stage the haloed source tile, one thread per cell, and 3. its live list
+
+  for (int c = tid; c < hc; c += blockDim.x) {
+    const int hy = c / hx;
+    const int gy = y0 + hy - 1;
+    const int gx = x0 + (c - hy * hx) - 1;
+    unsigned bits = 0u;
+    if (gy >= 0 && gy < a.ny && gx >= 0 && gx < a.nx) {
+      const int g0 = gy * a.nx + gx;
+      for (int sp0 = 0; sp0 < a.Ps; sp0 += K1_STAGE_CHUNK) {
+        unsigned char m[K1_STAGE_CHUNK];
+        Pos px[K1_STAGE_CHUNK], py[K1_STAGE_CHUNK];
+        float v[K1_STAGE_CHUNK][Term::NSV > 0 ? Term::NSV : 1];
+#pragma unroll
+        for (int u = 0; u < K1_STAGE_CHUNK; ++u) {
+          const int sp = sp0 + u;
+          if (sp < a.Ps) {
+            const int g = sp * plane + g0;
+            m[u] = __ldg(reinterpret_cast<const unsigned char*>(a.s_mask) + g);
+            px[u] = Ops::load_pos(a.s_pos, g);
+            py[u] = Ops::load_pos(a.s_pos, a.Ps * plane + g);
+#pragma unroll
+            for (int k = 0; k < Term::NSV; ++k) v[u][k] = __ldg(a.sv.p[k] + g);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < K1_STAGE_CHUNK; ++u) {
+          const int sp = sp0 + u;
+          if (sp < a.Ps) {
+            const int s = sp * hc + c;
+            t_pos[s] = Pos2<Pos>{px[u], py[u]};
+#pragma unroll
+            for (int k = 0; k < Term::NSV; ++k)
+              t_val[k * a.Ps * hc + s] = Ops::stage_val(v[u][k]);
+            bits |= (m[u] != 0 ? 1u : 0u) << sp;
+          }
+        }
+      }
+    }
+    t_bits[c] = bits;  // cells off the grid are dead
+  }
+  __syncthreads();
+
+  // the live queries, one per thread, in slot order
+  const float delta[3] = {-a.cell, 0.0f, a.cell};
+  for (int j = tid; j < n_live; j += blockDim.x) {
+    const int i = t_q[j];
+    const int lx = i & (a.tx - 1);
+    const int r = i >> a.lg_tx;
+    const int ly = r & (a.ty - 1);
+    const int idx = (r >> a.lg_ty) * plane + (y0 + ly) * a.nx + (x0 + lx);
     const float qx = Ops::pos(a.q_pos, idx);
-    const float qy = Ops::pos(a.q_pos, a.P * plane + idx);
+    const float qy = Ops::pos(a.q_pos, n + idx);
     float qv[Term::NQV > 0 ? Term::NQV : 1];
     for (int k = 0; k < Term::NQV; ++k) qv[k] = Ops::val(a.qv.p[k], idx);
     float acc[Term::NACC];
     for (int k = 0; k < Term::NACC; ++k) acc[k] = 0.0f;
-    const int s_comp = a.Ps * plane;  // offset of the source y plane
-    const float delta[3] = {-a.cell, 0.0f, a.cell};
-
     for (int dyv = 0; dyv < 3; ++dyv) {
-      const int sy = y + dyv - 1;
-      if (sy < 0 || sy >= a.ny) continue;
       for (int dxv = 0; dxv < 3; ++dxv) {
-        const int sx = x + dxv - 1;
-        if (sx < 0 || sx >= a.nx) continue;
-        const int scell = sy * a.nx + sx;
-        for (int sp = 0; sp < a.Ps; ++sp) {
-          const int sidx = sp * plane + scell;
-          if (!a.s_mask[sidx]) continue;
-          float dx = Ops::pos(a.s_pos, sidx) - qx;
-          float dy = Ops::pos(a.s_pos, s_comp + sidx) - qy;
+        const int c = (ly + dyv) * hx + (lx + dxv);
+        for (unsigned bits = t_bits[c]; bits != 0u; bits &= bits - 1u) {
+          const int s = (__ffs(bits) - 1) * hc + c;
+          const Pos2<Pos> src = t_pos[s];
+          float dx = Ops::up(src.x) - qx;
+          float dy = Ops::up(src.y) - qy;
           if (Ops::REBASED) {
             dx = dx + delta[dxv];
             dy = dy + delta[dyv];
@@ -131,26 +330,31 @@ __global__ void __launch_bounds__(256) pair_reduce_kernel(const Args<Ops> a) {
           const float r_sq = dx * dx + dy * dy;
           if (!(r_sq <= a.c.radius_sq && r_sq > MIN_DISTANCE_SQ)) continue;
           float sv[Term::NSV > 0 ? Term::NSV : 1];
-          for (int k = 0; k < Term::NSV; ++k) sv[k] = Ops::val(a.sv.p[k], sidx);
+          for (int k = 0; k < Term::NSV; ++k) sv[k] = Ops::up(t_val[k * a.Ps * hc + s]);
           Term::term(acc, dx, dy, r_sq, sqrtf(r_sq), qv, sv, a.c, a.scalar);
         }
       }
     }
     float pv[Post::NPOST > 0 ? Post::NPOST : 1];
     for (int k = 0; k < Post::NPOST; ++k) pv[k] = a.post.p[k][idx];
+    float out[Post::NOUT];
     Post::post(out, acc, pv, a.c, a.scalar);
+    for (int k = 0; k < Post::NOUT; ++k) a.out[k * n + idx] = out[k];
   }
-  const int n = a.P * plane;
-  for (int k = 0; k < Post::NOUT; ++k) a.out[k * n + idx] = out[k];
 }
 
 template <class Ops, class Term, class Post>
 static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
                   const void* s_mask, const void* const* planes, int n_planes,
-                  void* out, int P, int Ps, int ny, int nx, float scalar, float cell,
-                  const PairConsts* consts, void* stream) {
-  if (n_planes != Term::NQV + Term::NSV + Post::NPOST) return (int)cudaErrorInvalidValue;
+                  void* out, int P, int Ps, int ny, int nx, int ty, int tx, int threads,
+                  int smem, float scalar, float cell, const PairConsts* consts,
+                  void* stream) {
   using Pos = typename Ops::Pos;
+  if (n_planes != Term::NQV + Term::NSV + Post::NPOST || ty < 1 || tx < 1 ||
+      (ty & (ty - 1)) || (tx & (tx - 1)) || threads < 32 || threads > K1_MAX_THREADS ||
+      threads % 32 || Ps < 1 || Ps > K1_MAX_SOURCE_SLOTS || (long)ty * tx * P > 65536 ||
+      (size_t)smem != SmemLayout(ty, tx, P, Ps, Term::NSV, (int)sizeof(Pos)).total)
+    return (int)cudaErrorInvalidValue;
   Args<Ops> a;
   a.q_pos = static_cast<const Pos*>(q_pos);
   a.q_mask = static_cast<const bool*>(q_mask);
@@ -166,37 +370,46 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
   a.Ps = Ps;
   a.ny = ny;
   a.nx = nx;
+  a.ty = ty;
+  a.tx = tx;
+  a.lg_ty = __builtin_ctz(ty);
+  a.lg_tx = __builtin_ctz(tx);
   a.scalar = scalar;
   a.cell = cell;
   a.c = *consts;
-  const long n = (long)P * ny * nx;
-  if (n > 0) {
-    const int threads = 256;
-    const int blocks = (int)((n + threads - 1) / threads);
-    pair_reduce_kernel<Ops, Term, Post>
-        <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if ((long)P * ny * nx == 0) return (int)cudaSuccess;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(pair_reduce_kernel<Ops, Term, Post>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty);
+  pair_reduce_kernel<Ops, Term, Post>
+      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
 // one launcher per (form, operand mode): pair_reduce_NAME (f32) and
 // pair_reduce_NAME_bf16, which also takes the f32 cell size
-#define PAIR_LAUNCHER(NAME, TERM, POST)                                             \
-  extern "C" int pair_reduce_##NAME(                                                \
-      const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask, \
-      const void* const* planes, int n_planes, void* out, int P, int Ps, int ny,    \
-      int nx, float scalar, const PairConsts* consts, void* stream) {               \
-    return launch<F32Ops, TERM, POST>(q_pos, q_mask, s_pos, s_mask, planes,         \
-                                      n_planes, out, P, Ps, ny, nx, scalar, 0.0f,   \
-                                      consts, stream);                              \
-  }                                                                                 \
-  extern "C" int pair_reduce_##NAME##_bf16(                                         \
-      const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask, \
-      const void* const* planes, int n_planes, void* out, int P, int Ps, int ny,    \
-      int nx, float scalar, float cell, const PairConsts* consts, void* stream) {   \
-    return launch<Bf16Ops, TERM, POST>(q_pos, q_mask, s_pos, s_mask, planes,        \
-                                       n_planes, out, P, Ps, ny, nx, scalar, cell,  \
-                                       consts, stream);                             \
+#define PAIR_LAUNCHER(NAME, TERM, POST)                                               \
+  extern "C" int pair_reduce_##NAME(                                                  \
+      const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,   \
+      const void* const* planes, int n_planes, void* out, int P, int Ps, int ny,      \
+      int nx, int ty, int tx, int threads, int smem, float scalar,                    \
+      const PairConsts* consts, void* stream) {                                       \
+    return launch<F32Ops, TERM, POST>(q_pos, q_mask, s_pos, s_mask, planes,           \
+                                      n_planes, out, P, Ps, ny, nx, ty, tx, threads,  \
+                                      smem, scalar, 0.0f, consts, stream);            \
+  }                                                                                   \
+  extern "C" int pair_reduce_##NAME##_bf16(                                           \
+      const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,   \
+      const void* const* planes, int n_planes, void* out, int P, int Ps, int ny,      \
+      int nx, int ty, int tx, int threads, int smem, float scalar, float cell,        \
+      const PairConsts* consts, void* stream) {                                       \
+    return launch<Bf16Ops, TERM, POST>(q_pos, q_mask, s_pos, s_mask, planes,          \
+                                       n_planes, out, P, Ps, ny, nx, ty, tx, threads, \
+                                       smem, scalar, cell, consts, stream);           \
   }
 
 // the six call forms of the DFSPH plane step (models/dfsph_plane.py)

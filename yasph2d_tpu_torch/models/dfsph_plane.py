@@ -28,7 +28,7 @@ import torch
 
 from ..ops.pair_reduce import PairForm, pair_reduce
 from ..ops.planes import PlaneGeom, from_planes, plane_geom, to_planes
-from ..ops.rebucket import rebucket
+from ..ops.rebucket import rebucket_planes
 from ..timemanager import TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
@@ -349,9 +349,8 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
         # advect + re-bucket (dfsph.rs:499-512)
         pos = ctx.pos + pred * float(dt)
-        extra = torch.cat([pred, kappa[None], carry.stiff[None]], dim=0)
-        pos, mask, extra, drops = rebucket(pos, ctx.mask, extra, self.grid)
-        pred, kappa, stiff = extra[0:2], extra[2], extra[3]
+        pos, mask, (pred, kappa, stiff), drops = rebucket_planes(
+            pos, ctx.mask, (pred, kappa, carry.stiff), self.grid)
         ctx = self._ctx_pf(pos, mask, boundary, drops + boundary.dense.num_dropped)
 
         # divergence-free loop (dfsph.rs:521)

@@ -20,12 +20,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "yasph2d_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC",
 )
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into on sm_90
 
 
 def _nvcc() -> str:
@@ -128,12 +131,12 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     lib = ctypes.CDLL(str(build()))
     for form in PAIR_FORMS:
-        # q_pos, q_mask, s_pos, s_mask, planes, n_planes, out,
-        # P, Ps, ny, nx, scalar, [cell: bf16 operands only], consts, stream
+        # q_pos, q_mask, s_pos, s_mask, planes, n_planes, out, P, Ps, ny, nx,
+        # ty, tx, threads, smem, scalar, [cell: bf16 operands only], consts, stream
         for name, cell in ((form, []), (f"{form}_bf16", [ctypes.c_float])):
             fn = getattr(lib, f"pair_reduce_{name}")
             fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), _I, _P,
-                           _I, _I, _I, _I, ctypes.c_float, *cell,
+                           _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, *cell,
                            ctypes.POINTER(PairConsts), _P]
             fn.restype = _I
     for form in SM_PAIR_FORMS:
@@ -152,8 +155,10 @@ def library() -> ctypes.CDLL:
                        _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                        ctypes.POINTER(PairConsts), _P]
         fn.restype = _I
-    # code, payload planes, n_pay, out, total, P, ny, nx, stream
-    lib.rebucket.argtypes = [_P, ctypes.POINTER(_P), _I, _P, _P, _I, _I, _I, _P]
+    # mask, payload planes, n_pay, out, new mask, dropped, P, ny, nx,
+    # grid nx, grid ny, 1/cell size, origin x, origin y, stream
+    lib.rebucket.argtypes = [_P, ctypes.POINTER(_P), _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                             ctypes.c_float, ctypes.c_float, ctypes.c_float, _P]
     lib.rebucket.restype = _I
     # code, pos, vals, D, out_pos, out_vals, total, P, ny, nx, stream
     lib.sm_rebucket.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P]
@@ -183,6 +188,20 @@ def check_tensor(t, device, shape, dtype, what: str):
             f"{what} must be a contiguous {dtype} tensor on {device} of shape "
             f"{tuple(shape)}, got {t.device} {t.dtype} {tuple(t.shape)}"
         )
+
+
+def plane_pointers(vals, device, p, ny, nx, what) -> list:
+    """Data pointers of each (p, ny, nx) f32 plane of `vals`, whose entries
+    are (p, ny, nx) planes or (L, p, ny, nx) stacks (one pointer per plane,
+    no copy); raises on any other operand."""
+    ptrs = []
+    for v in vals:
+        lead = 1 if v.ndim == 3 else v.shape[0]
+        check_tensor(v, device, (p, ny, nx) if v.ndim == 3 else (lead, p, ny, nx),
+                     torch.float32, what)
+        step = p * ny * nx * v.element_size()
+        ptrs.extend(v.data_ptr() + k * step for k in range(lead))
+    return ptrs
 
 
 def pointer_array(ptrs) -> ctypes.Array:

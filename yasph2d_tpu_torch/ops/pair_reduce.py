@@ -20,6 +20,11 @@ is rounded to bf16 (round to nearest even) at load; both upcast to f32, and
 dx = (x_j - x_i) + f32((dxv - 1) * h) on every view, dy likewise. All math
 and accumulation stay f32 and post planes stay exact f32. The CUDA forms of
 this mode launch and count under `<form>_bf16`.
+
+Launch shape: one CUDA block per TY x TX cell tile (csrc/pair_reduce.cu), its
+threads and its dynamic shared memory from `tile_shape`, which widens the
+tile on large grids and refuses a source space of more than 32 slots (a
+cell's live list is one 32-bit word).
 """
 
 from dataclasses import dataclass
@@ -35,6 +40,16 @@ from .planes import PlaneGeom
 # bfloat16-operand forms count under "<form>_bf16"
 LAUNCHES = {f"{form}{suffix}": 0 for suffix in ("", "_bf16")
             for form in cuda_build.PAIR_FORMS}
+
+# (TY, TX, threads) launch shapes, widest first; TY and TX powers of two. A
+# busy tile (one with a live query) wants threads for its candidate loops,
+# every tile costs a scan of its query masks: the widest tile whose grid has
+# at least MIN_BLOCKS blocks, else the narrowest. On the H100
+# (tools/tile_sweep.py --kernel k1) the loop forms ran fastest on 8 x 8 at
+# 100k (2,665 blocks) and on 8 x 32 at 1M (6,477 blocks).
+TILES = ((8, 32, 256), (8, 16, 256), (8, 8, 256))
+MIN_BLOCKS = 4096  # ~31 blocks per SM of the H100
+MAX_SOURCE_SLOTS = 32  # a cell's live list is one 32-bit word
 
 
 def reset_launch_counts():
@@ -71,6 +86,42 @@ def _operand_mode(q: PlaneGeom, s: PlaneGeom):
     h = q.rebase_cell
     return ((f32_scalar(-h), 0.0, f32_scalar(h)),
             lambda a: a.to(torch.bfloat16).to(torch.float32))
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def smem_bytes(ty: int, tx: int, p: int, ps: int, n_source_vals: int, bf16: bool) -> int:
+    """Dynamic shared memory of one K1 block on a TY x TX cell tile
+    (csrc/pair_reduce.cu SmemLayout): the haloed tile's positions and source
+    values (f32, or bf16 with bf16 operands), one live-list word per haloed
+    cell, the tile's live query list (uint16 per query slot) and 32 warp
+    counts, each region rounded up to 16 bytes."""
+    hc = (ty + 2) * (tx + 2)
+    w = 2 if bf16 else 4
+    return (_align16(hc * ps * 2 * w) + _align16(hc * ps * n_source_vals * w)
+            + _align16(hc * 4) + _align16(ty * tx * p * 2) + 32 * 4)
+
+
+def tile_shape(p: int, ps: int, n_source_vals: int, bf16: bool, ny: int, nx: int) -> tuple:
+    """(TY, TX, threads, shared-memory bytes) of a K1 launch on a ny x nx
+    grid: of the TILES whose block fits (shared memory, at most 65,536 query
+    slots a tile), the widest with at least MIN_BLOCKS blocks, else the
+    narrowest. Raises for Ps > MAX_SOURCE_SLOTS or when none fits."""
+    if ps > MAX_SOURCE_SLOTS:
+        raise ValueError(
+            f"pair_reduce: Ps = {ps} source slots; K1's per-cell live list is one "
+            f"32-bit word, so at most {MAX_SOURCE_SLOTS} fit")
+    fits = [(ty, tx, threads, smem_bytes(ty, tx, p, ps, n_source_vals, bf16))
+            for ty, tx, threads in TILES if ty * tx * p <= 65536]
+    fits = [t for t in fits if t[3] <= cuda_build.SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"pair_reduce: no cell tile of {TILES} fits P = {p}, Ps = {ps} and "
+            f"{n_source_vals} source values in a block's {cuda_build.SMEM_LIMIT} bytes of "
+            f"shared memory")
+    return next((t for t in fits if -(-ny // t[0]) * -(-nx // t[1]) >= MIN_BLOCKS), fits[-1])
 
 
 def _planes(vals: Sequence[torch.Tensor]) -> list:
@@ -130,37 +181,13 @@ def pair_reduce_ref(term_fn, n_out: int, q: PlaneGeom, s: PlaneGeom,
     return torch.where(q.mask[None], out, 0.0)
 
 
-def _plane_ptrs(vals, device, p, ny, nx, what) -> list:
-    """Data pointers of each logical plane (vectors contribute one pointer per
-    component, no copy)."""
-    ptrs = []
-    for v in vals:
-        lead = 1 if v.ndim == 3 else v.shape[0]
-        cuda_build.check_tensor(v, device,
-                                (p, ny, nx) if v.ndim == 3 else (lead, p, ny, nx),
-                                torch.float32, f"pair_reduce: {what}")
-        step = p * ny * nx * v.element_size()
-        ptrs.extend(v.data_ptr() + k * step for k in range(lead))
-    return ptrs
-
-
-def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
-                consts: cuda_build.PairConsts, q_vals=(), s_vals=(),
-                scalars=(), post_planes=()) -> torch.Tensor:
-    """Run one K1 call form; returns the stacked (n_out, P, ny, nx) output.
-    `consts.radius_sq` is the pair cutoff for both routes. The geometries'
-    dtype picks the operand mode (float32, or bfloat16 from
-    `planes.plane_geom`); value and post planes are f32 in both."""
+def launch(form: PairForm, q: PlaneGeom, s: PlaneGeom, consts: cuda_build.PairConsts,
+           q_vals, s_vals, scalars, post_planes, tile) -> torch.Tensor:
+    """Launch K1's instantiation of `form` on CUDA tensors with the launch
+    shape `tile` = (TY, TX, threads); returns (n_out, P, ny, nx). Counts
+    nothing: `pair_reduce` is the solvers' entry (tools/tile_sweep.py times
+    other shapes through this)."""
     device = q.pos.device
-    _operand_mode(q, s)
-    if device.type == "cpu":
-        return pair_reduce_ref(
-            form.term_fn, form.n_out, q, s, consts.radius_sq, q_vals=q_vals,
-            s_vals=s_vals, scalars=scalars, post_fn=form.post_fn,
-            post_planes=post_planes, n_acc=form.n_acc,
-        )
-    if device.type != "cuda":
-        raise ValueError(f"pair_reduce: unsupported device {device}")
     p, ny, nx = q.mask.shape
     ps = s.mask.shape[0]
     for t, shape, dtype, what in (
@@ -171,11 +198,15 @@ def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
         cuda_build.check_tensor(t, device, shape, dtype, f"pair_reduce: {what}")
     if len(scalars) > 1:
         raise ValueError("pair_reduce: the CUDA forms take at most one scalar")
+    s_ptrs = cuda_build.plane_pointers(s_vals, device, ps, ny, nx,
+                                       "pair_reduce: source value")
     ptrs = (
-        _plane_ptrs(q_vals, device, p, ny, nx, "query value")
-        + _plane_ptrs(s_vals, device, ps, ny, nx, "source value")
-        + _plane_ptrs(post_planes, device, p, ny, nx, "post plane")
+        cuda_build.plane_pointers(q_vals, device, p, ny, nx, "pair_reduce: query value")
+        + s_ptrs
+        + cuda_build.plane_pointers(post_planes, device, p, ny, nx, "pair_reduce: post plane")
     )
+    ty, tx, threads = tile
+    smem = smem_bytes(ty, tx, p, ps, len(s_ptrs), q.rebase_cell is not None)
     out = torch.empty((form.n_out, p, ny, nx), dtype=torch.float32, device=device)
     # the bf16 launchers take the f32 rebase cell before the constants
     name, cell = (form.name, ()) if q.rebase_cell is None else (
@@ -184,9 +215,34 @@ def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
     err = fn(
         q.pos.data_ptr(), q.mask.data_ptr(), s.pos.data_ptr(), s.mask.data_ptr(),
         cuda_build.pointer_array(ptrs), len(ptrs), out.data_ptr(),
-        p, ps, ny, nx, float(scalars[0]) if scalars else 0.0, *cell,
-        consts, torch.cuda.current_stream(device).cuda_stream,
+        p, ps, ny, nx, ty, tx, threads, smem, float(scalars[0]) if scalars else 0.0,
+        *cell, consts, torch.cuda.current_stream(device).cuda_stream,
     )
     cuda_build.check(err, f"pair_reduce_{name}")
-    LAUNCHES[name] += 1
+    return out
+
+
+def pair_reduce(form: PairForm, q: PlaneGeom, s: PlaneGeom,
+                consts: cuda_build.PairConsts, q_vals=(), s_vals=(),
+                scalars=(), post_planes=()) -> torch.Tensor:
+    """Run one K1 call form; returns the stacked (n_out, P, ny, nx) output.
+    `consts.radius_sq` is the pair cutoff for both routes. The geometries'
+    dtype picks the operand mode (float32, or bfloat16 from
+    `planes.plane_geom`); value and post planes are f32 in both. The launch
+    shape is `tile_shape`'s."""
+    device = q.pos.device
+    _operand_mode(q, s)
+    if device.type == "cpu":
+        return pair_reduce_ref(
+            form.term_fn, form.n_out, q, s, consts.radius_sq, q_vals=q_vals,
+            s_vals=s_vals, scalars=scalars, post_fn=form.post_fn,
+            post_planes=post_planes, n_acc=form.n_acc,
+        )
+    if device.type != "cuda":
+        raise ValueError(f"pair_reduce: unsupported device {device}")
+    bf16 = q.rebase_cell is not None
+    p, ny, nx = q.mask.shape
+    tile = tile_shape(p, s.mask.shape[0], len(_planes(s_vals)), bf16, ny, nx)[:3]
+    out = launch(form, q, s, consts, q_vals, s_vals, scalars, post_planes, tile)
+    LAUNCHES[f"{form.name}_bf16" if bf16 else form.name] += 1
     return out

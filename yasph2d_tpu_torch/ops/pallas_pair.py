@@ -37,7 +37,7 @@ BLOCK_COLS = (32, 16, 8, 4, 2, 1)  # the widest tile that fits is taken
 # a block's threads: one per query slot of the tile, at most this many (at
 # 100k, 8 x 8 x 7 tiles of 448 threads beat 896 and 1024: tools/tile_sweep.py)
 MAX_THREADS = 512
-SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into on sm_90
+SMEM_LIMIT = cuda_build.SMEM_LIMIT
 
 
 def reset_launch_counts():

@@ -1,8 +1,9 @@
 """Where the time of a solver step goes on one GPU.
 
     python -m yasph2d_tpu_torch.tools.trace_step
-        [--solver dfsph_plane|dfsph_padded|dfsph_padded_k5|wcsph_padded|
-                  wcsph_padded_k5|wcsph_plane] [--particles 100000]
+        [--solver dfsph_plane|dfsph_plane_bf16|dfsph_padded|dfsph_padded_k5|
+                  wcsph_padded|wcsph_padded_k5|wcsph_plane|wcsph_plane_bf16]
+        [--particles 100000]
         [--settle 50] [--steps 20] [--trace out.json]
 
 Runs the double dam-break through the CUDA kernels, with the solver as
@@ -12,7 +13,8 @@ K3; adaptive CFL 1.5 for DFSPH, 0.2 for WCSPH): `--settle` steps first
 steps under torch.profiler. Reports the host-clock ms/step of the profiled
 window, the device time per kernel name (per step and per launch), and the
 device's busy and idle shares of the window (one stream, so busy = the sum of
-kernel and memcpy/memset times). Needs a CUDA device.
+kernel and memcpy/memset times) and its operations (kernels, memcpys and
+memsets) per step. Needs a CUDA device.
 """
 
 import argparse
@@ -87,8 +89,9 @@ def main():
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(us for _, us, _ in rows) / 1e3
     steps = args.steps
+    ops = sum(count for _, _, count in rows) / steps
     print(f"profiled {steps} steps: {wall_ms / steps:.3f} ms/step host clock, "
-          f"device busy {busy_ms / steps:.3f} ms/step "
+          f"{ops:.2f} device operations/step, device busy {busy_ms / steps:.3f} ms/step "
           f"({100.0 * busy_ms / wall_ms:.1f}% busy, "
           f"{100.0 - 100.0 * busy_ms / wall_ms:.1f}% idle), iterations/step density "
           f"{agg.density_iterations / steps:.2f} divergence "
@@ -98,7 +101,7 @@ def main():
               f"{us / count:9.2f} us/launch  {name[:90]}")
     print(json.dumps({
         "solver": args.solver, "particles": n, "steps": steps, "ms_per_step": wall_ms / steps,
-        "device_busy_ms_per_step": busy_ms / steps,
+        "device_busy_ms_per_step": busy_ms / steps, "device_ops_per_step": ops,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "kernels": [{"name": name, "ms_per_step": us / 1e3 / steps,
                      "launches_per_step": count / steps} for name, us, count in rows],
