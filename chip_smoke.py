@@ -23,11 +23,13 @@ Phases, each reported on its own line:
      inputs. K1's forms must be bit-equal to their twins (max_abs_err 0.0),
      the other pair forms agree to rtol 1e-5 plus 1e-6 of each output
      component's largest live magnitude; the re-buckets bit-equal, with and
-     without forced cell overflow (K2 timed as the DFSPH step calls it: one
-     launch, its payload planes by pointer). Then, where the device and not
-     the host sets the pace, K1's six DFSPH forms in bfloat16 and K2 on the
-     1M state that the roofline path settles (records `*_1m`, whose launches
-     are those of the roofline path). `ms` is the kernel's device time: 10
+     without forced cell overflow (each timed as its steps call it: one launch,
+     the payload planes (K2) or parts (K4, one record per payload width D) by
+     pointer). Then, where the device and not the host sets the pace, K1's
+     six DFSPH forms in bfloat16 and K2 on the 1M state that the roofline
+     path settles (records `*_1m`, whose launches are those of the roofline
+     path; every other record's are those of the 100k solver paths, never of
+     a tool's). `ms` is the kernel's device time: 10
      wrapper calls captured in a CUDA graph, each replay timed with CUDA
      events, median of 7, over 10; `plain_ms` the twin's, eager, CUDA events,
      median of 7. `bound_ms` is the larger of the bytes the call must move
@@ -179,7 +181,7 @@ class Records:
     """The per-kernel JSON records; a kernel checked in several calls keeps
     the first (main-path) call's times and bound, and the largest error. A
     record's launches are its counter's counts on the main paths it lists
-    (all paths when None)."""
+    (the 100k solver paths, SOLVER_PATHS, when None)."""
 
     def __init__(self):
         self.by_name = {}
@@ -249,11 +251,16 @@ class Records:
     def check_rebucket(self, kernel, label, run_kernel, run_twin, overflow, inputs,
                        name=None, paths=None):
         """`inputs`: the call's (positions, mask, payload); `run_kernel` may
-        return the payload as a tuple of parts (`rebucket_planes`)."""
+        return the payload as a tuple of parts (`rebucket_planes` of K2,
+        `sm_rebucket_parts` of K4), compared stacked as the twin's."""
         out_k, out_t = run_kernel(), run_twin()
         if isinstance(out_k[2], tuple):
-            out_k = (out_k[0], out_k[1],
-                     torch.cat([v if v.ndim == 4 else v[None] for v in out_k[2]]), out_k[3])
+            if kernel == "rebucket":  # planes: (D, P, ny, nx)
+                stacked = torch.cat([v if v.ndim == 4 else v[None] for v in out_k[2]])
+            else:  # slots: (ny, nx, P, D)
+                stacked = torch.cat([v if v.ndim == 4 else v[..., None] for v in out_k[2]],
+                                    dim=-1)
+            out_k = (out_k[0], out_k[1], stacked, out_k[3])
         torch.cuda.synchronize()
         equal = bit_equal(out_k, out_t)
         drops = int(out_k[3])
@@ -496,7 +503,7 @@ def phase_kernels_wcsph(device, rec: Records):
     crowded[..., 0] -= odd[None, :, None] * grid.cell_size
     for label, p in (("advect", adv), ("overflow", crowded)):
         rec.check_rebucket("sm_rebucket", label,
-                           lambda: smr.sm_rebucket(p, mask, carry.v_pad, grid),
+                           lambda: smr.sm_rebucket_parts(p, mask, (carry.v_pad,), grid),
                            lambda: smr.sm_rebucket_ref(p, mask, carry.v_pad, grid),
                            overflow=label == "overflow", inputs=[p, mask, carry.v_pad],
                            paths={"wcsph_padded", "wcsph_padded_k5"})
@@ -589,6 +596,7 @@ def phase_kernels_dfsph_padded(device, rec: Records):
                         + ["sm_pair_reduce_dfsph_stat[boundary]"])
     dt = float(carry.time.dt)
     adv = ctx.pos_pad + carry.v_pad * dt
+    parts = (carry.v_pad, carry.kappa_pad, carry.stiff_pad)
     extra = torch.cat([carry.v_pad, carry.kappa_pad[..., None],
                        carry.stiff_pad[..., None]], dim=-1)
     odd = (torch.arange(grid.nx, device=device) % 2 == 1).to(torch.float32)
@@ -596,7 +604,7 @@ def phase_kernels_dfsph_padded(device, rec: Records):
     crowded[..., 0] -= odd[None, :, None] * grid.cell_size
     for label, p in (("D=4 advect", adv), ("D=4 overflow", crowded)):
         rec.check_rebucket("sm_rebucket", label,
-                           lambda: smr.sm_rebucket(p, ctx.mask, extra, grid),
+                           lambda: smr.sm_rebucket_parts(p, ctx.mask, parts, grid),
                            lambda: smr.sm_rebucket_ref(p, ctx.mask, extra, grid),
                            overflow=label.endswith("overflow"),
                            inputs=[p, ctx.mask, extra], name="sm_rebucket_d4",
@@ -647,7 +655,7 @@ def phase_kernels_probes(device, rec: Records):
         log(f"phase 3 kernels: {name} kernel {ms:.5f} ms twin {plain_ms:.4f} ms, "
             f"{n_ops / (ms * 1e-3) / 1e12:.2f} T operations/s")
         rec.add(name, "vpu_probe", max(errs), ms, plain_ms, nbytes(x) + nbytes(out_k),
-                n_ops, replaces=replaces)
+                n_ops, paths={"vpu_probe", "roofline"}, replaces=replaces)
 
     d = pc.GPU_SHAPE
     pos, mask = pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"])
@@ -673,7 +681,7 @@ def phase_kernels_probes(device, rec: Records):
         f"{tuple(q.shape)}, {cand} live candidates, {valid} valid pairs")
     rec.add("probe_ctx", "probe_ctx", max(errs), ms, plain_ms,
             pair_bytes((pos_planes,), (pos_planes,), [q[2]], [out_k], slot_m, slot_m),
-            5 * cand + OPS_PER_PAIR["probe_ctx"] * valid)
+            5 * cand + OPS_PER_PAIR["probe_ctx"] * valid, paths={"probe_ctx"})
 
 
 def live_rows(state):
@@ -895,9 +903,11 @@ def main():
     path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})
     records = list(rec.by_name.values())
     for r in records:
-        counter, paths = r.pop("_counter"), r.pop("_paths")
+        # a record that names no path is one of the 100k solver states: it
+        # counts the solver paths (the probes name their tools)
+        counter, paths = r.pop("_counter"), r.pop("_paths") or SOLVER_PATHS
         r["launches"] = sum(counts.get(counter, 0) for kind, counts in path_launches.items()
-                            if paths is None or kind in paths)
+                            if kind in paths)
     missing = [r["name"] for r in records if r["launches"] <= 0]
     if missing:
         raise RuntimeError(f"kernels of the JSON record never launched on a main path: "

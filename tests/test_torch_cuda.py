@@ -668,3 +668,142 @@ def test_rebucket_planes_is_one_launch_without_a_copy(device, case):
     torch.cuda.synchronize()
     got = (new_pos, new_mask, torch.cat([nv, nk[None], nr[None]]), drops)
     assert all(torch.equal(a, b) for a, b in zip(_bits(got), _bits(ref)))
+
+
+def _k4_case(device, p, ny, nx, fill, seed, full=False):
+    """A ragged slot grid (ny, nx multiples of no K4 tile side) of occupancy
+    p: compacted live slots near their own cell (every slot of a `fill`
+    share of the cells if `full`), a velocity, kappa and stiffness payload
+    with -0.0 on some live slots."""
+    rng = np.random.default_rng(seed)
+    world = FluidParticleWorld(2.0, 400.0, 100.0)
+    h = world.properties.smoothing_length
+    grid = DenseGridConfig(cell_size=h, origin=(0.0, 0.0), nx=nx, ny=ny, occupancy=p)
+    count = (p if full else rng.integers(0, p + 1, (ny, nx))) * (rng.random((ny, nx)) < fill)
+    mask = np.arange(p)[None, None, :] < count[..., None]
+    cy, cx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    cell = np.stack([cx, cy], axis=-1)[:, :, None, :] * h
+    pos = np.where(mask[..., None], cell + rng.random((ny, nx, p, 2)) * h, 0.0)
+    vals = rng.standard_normal((ny, nx, p, 4)).astype(np.float32)
+    vals[..., 0] = np.where(rng.random((ny, nx, p)) < 0.1, -0.0, vals[..., 0])
+    t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    return grid, t(pos.astype(np.float32)), t(mask), t(vals)
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["advect", "overflow"])
+@pytest.mark.parametrize("widths", [(2,), (2, 1, 1)], ids=["d2", "d4"])
+@pytest.mark.parametrize("p,ny,nx", [(1, 23, 37), (6, 23, 37), (40, 11, 37),
+                                     (smr.STAGED_MAX_P + 8, 5, 7)],
+                         ids=["p1", "p6", "p40", "p_direct"])
+def test_sm_rebucket_parts_kernel_bit_equal(device, p, ny, nx, widths, overflow):
+    """K4 through the parts entry (one counted launch, the parts by pointer)
+    bit-equal to its twin on ragged grids: P = 1, P = 6, P = 40 (two live
+    words a staged cell) and P beyond the staged route (the one-thread-per-
+    cell route of the same launch); the WCSPH (D = 2) and DFSPH (D = 4)
+    payloads; with and without forced overflow; -0.0 comes out +0.0."""
+    grid, pos, mask, vals = _k4_case(device, p, ny, nx, 0.7, seed=20 + p, full=overflow)
+    h = grid.cell_size
+    noise = torch.rand(pos.shape, generator=torch.Generator().manual_seed(p)) - 0.5
+    adv = pos + noise.to(device) * 0.3 * h
+    if overflow:
+        adv[..., 0] += 0.6 * h  # crowds cells
+    k = 0
+    parts = []
+    for c in widths:
+        parts.append(vals[..., k].contiguous() if c == 1 else vals[..., k:k + c].contiguous())
+        k += c
+    values = vals[..., :k].contiguous()
+    before = smr.LAUNCHES["sm_rebucket"]
+    new_pos, new_mask, new_parts, drops = smr.sm_rebucket_parts(adv, mask, tuple(parts), grid)
+    assert smr.LAUNCHES["sm_rebucket"] == before + 1
+    assert [t.shape for t in new_parts] == [t.shape for t in parts]
+    ref = smr.sm_rebucket_ref(adv, mask, values, grid)
+    torch.cuda.synchronize()
+    stacked = torch.cat([v[..., None] if v.ndim == 3 else v for v in new_parts], dim=-1)
+    got = _bits((new_pos, new_mask, stacked, drops))
+    for what, a, b in zip(("positions", "mask", "payload", "drops"), got, _bits(ref)):
+        assert torch.equal(a, b), f"{what}: {int((a != b).sum())} elements differ"
+    if overflow:
+        assert int(drops) > 0
+    else:
+        assert int(new_mask.sum()) + int(drops) == int(mask.sum())
+    assert not torch.signbit(stacked[stacked == 0]).any()  # -0.0 comes out +0.0
+
+
+def test_sm_rebucket_steps_are_one_launch(device):
+    """The padded steps call K4 once per step through the parts entry: 20
+    steps of the WCSPH padded solver count 20 launches of it."""
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver("wcsph_padded_k5", world, device=device)
+    carry = solver.init_carry(world.initial_state(device=device), boundary)
+    before = smr.LAUNCHES["sm_rebucket"]
+    carry, _ = solver.simulate(carry, boundary, 20)
+    assert smr.LAUNCHES["sm_rebucket"] == before + 20
+
+
+@pytest.fixture(scope="module")
+def deep(device, dcase):
+    """A source space of Ps = 40 slots crowded into a few cells (more than 32
+    live slots a cell: two live words) on dcase's 23 x 37 grid, with source
+    values of its own shape, and the WCSPH padded solver on K5."""
+    solvers, (pos, mask), _, vals = dcase
+    ny, nx, _ = mask.shape
+    ps = 40
+    rng = np.random.default_rng(8)
+    h = solvers["k5"].grid.cell_size
+    count = np.zeros((ny, nx), dtype=np.int64)
+    count[9:12, 14:19] = rng.integers(30, ps + 1, (3, 5))
+    count[2:5, 30:35] = rng.integers(0, 20, (3, 5))
+    smask = np.arange(ps)[None, None, :] < count[..., None]
+    cy, cx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    cell = np.stack([cx, cy], axis=-1)[:, :, None, :] * h
+    spos = np.where(smask[..., None], cell + rng.random((ny, nx, ps, 2)) * h, 0.0)
+    t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    sv = dict(v=t((rng.random((ny, nx, ps, 2)) * 2 - 1).astype(np.float32)),
+              k=t((rng.random((ny, nx, ps)) * 50 - 25).astype(np.float32)),
+              rho=t(np.where(smask, 100 + 30 * rng.random((ny, nx, ps)), 0).astype(np.float32)),
+              pres=t((rng.random((ny, nx, ps)) * 500).astype(np.float32)))
+    k5 = solvers["k5"]
+    wcsph = WCSPHPaddedSolver(viscosity_model=k5.viscosity_model, properties=k5.properties,
+                              grid=k5.grid,
+                              step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 0.2))
+    qpres = torch.where(mask, torch.rand(mask.shape, generator=torch.Generator().manual_seed(3))
+                        .to(device) * 500.0, 0.0)
+    return k5, wcsph, (t(spos.astype(np.float32)), t(smask)), sv, dict(vals, pres=qpres)
+
+
+@pytest.mark.parametrize("form", ["dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc",
+                                  "wcsph_density", "wcsph_stat", "wcsph_forces"])
+def test_tile_pair_kernel_deep_sources_match_twin(device, dcase, deep, form):
+    """Every K5 form with Ps = 40 > 32 source slots (two live words a cell),
+    against its twin, and with every launch shape of the tile sweep bit-equal
+    to the chosen one (each query sums its live candidates in one order
+    whatever the tile)."""
+    _, (pos, mask), _, _ = dcase
+    k5, wcsph, src, sv, qv = deep
+    f, w = k5._padded_forms, wcsph._forms
+    dt = (1.0 / 2700.0,)
+    wq = (qv["pres"], qv["rho"], qv["v"])
+    ws = (sv["pres"], sv["rho"], sv["v"])
+    pform, kw, consts = {
+        "dfsph_ctx": (f.ctx, {}, k5._consts),
+        "dfsph_div": (f.div, dict(q_vals=(qv["v"],), s_vals=(sv["v"],)), k5._consts),
+        "dfsph_corr": (f.corr, dict(q_vals=(qv["k"],), s_vals=(sv["k"],)), k5._consts),
+        "dfsph_visc": (f.visc, dict(q_vals=(qv["v"],), s_vals=(sv["v"], sv["rho"]),
+                                    scalars=dt), k5._consts),
+        "wcsph_density": (w.density, {}, wcsph._consts),
+        "wcsph_stat": (w.stat, {}, wcsph._consts),
+        "wcsph_forces": (w.forces, dict(q_vals=wq, s_vals=ws, scalars=dt), wcsph._consts),
+    }[form]
+    assert pform.name == form
+    _check_slot_kernel(tpp, tpp.pallas_pair_reduce, tpp.pallas_pair_reduce_ref, pform, pos,
+                       mask, src, consts, kw)
+    out = tpp.pallas_pair_reduce(pform, pos, mask, *src, consts, **kw)
+    n_sv = len(smp._comps(kw.get("s_vals", ())))
+    outs = [tpp.launch(pform, pos, mask, *src, consts, kw.get("q_vals", ()),
+                       kw.get("s_vals", ()), kw.get("scalars", ()), tile)
+            for tile in tile_sweep.SHAPES
+            if tpp.smem_bytes(*tile[:2], mask.shape[2], src[1].shape[2], n_sv) <= tpp.SMEM_LIMIT]
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.equal(o.view(torch.int32), out.view(torch.int32))

@@ -212,19 +212,64 @@ def test_twin_matches_jax_xla_pair_reduce(case, form, boundary):
 
 
 def test_tile_width_fits_shared_memory():
-    """The launch's tile is the widest whose query slots take one thread each
-    (at most 512) and whose source tile fits in shared memory; a source space
-    that cannot fit one column is refused with a message, not shrunk."""
-    assert tpp.tile_shape(7, 7, 4) == (8, 8, 448)  # the 100k fluid pass, 4 values
-    assert tpp.tile_shape(7, 8, 0) == (8, 8, 448)  # the 100k boundary pass
-    assert tpp.tile_shape(3, 2, 0) == (8, 16, 384)
-    _, bc, threads = tpp.tile_shape(1, 100, 0)
-    assert (tpp.BLOCK_ROWS + 2) * (bc + 2) * 100 * 9 <= tpp.SMEM_LIMIT
-    assert (tpp.BLOCK_ROWS + 2) * (2 * bc + 2) * 100 * 9 > tpp.SMEM_LIMIT
-    assert threads % 32 == 0 and threads >= tpp.BLOCK_ROWS * bc
-    assert tpp.tile_shape(100, 7, 0)[1:] == (1, 512)  # more slots than threads: loops
+    """The launch's tile is TILE where its block fits in shared memory, else
+    TILE halved until it fits: every source space the first K5 took (a haloed
+    8 x 1 column of Ps slots, a float2, the source values and a mask byte
+    each, in one block) still fits; one that cannot fit even a 1 x 1 tile is
+    refused with a message, not shrunk further."""
+    assert tpp.tile_shape(7, 7, 4) == tpp.TILE  # the 100k fluid pass, 4 values
+    assert tpp.tile_shape(7, 8, 0) == tpp.TILE  # the 100k boundary pass
+    for ps, nsv in ((40, 4), (100, 0), (300, 4), (860, 0)):
+        ty, tx, threads = tpp.tile_shape(7, ps, nsv)
+        assert tpp.smem_bytes(ty, tx, 7, ps, nsv) <= tpp.SMEM_LIMIT
+        assert ty & (ty - 1) == 0 and tx & (tx - 1) == 0 and threads == tpp.TILE[2]
+        if (ty, tx) != tpp.TILE[:2]:  # shrunk: twice the tile would not fit
+            assert tpp.smem_bytes(2 * ty, tx, 7, ps, nsv) > tpp.SMEM_LIMIT
+    # the first K5's limit at 1 column: (8 + 2) x 3 x Ps x (8 + 4 nsv + 1) bytes
+    for nsv in (0, 4):
+        ps = tpp.SMEM_LIMIT // (30 * (9 + 4 * nsv))
+        tpp.tile_shape(100, ps, nsv)  # any P: more slots than a round takes rounds
+    assert tpp.query_round(8, 8, 7) == 8 * 8 * 8
+    assert tpp.query_round(8, 8, 5000) == tpp.MAX_ROUND
     with pytest.raises(ValueError, match="shared memory"):
         tpp.tile_shape(7, 5000, 4)
+
+
+# a source space deeper than one 32-bit live word (Ps > 32), crowded into a few
+# cells, on the 20 x 10 grid, a multiple of no tile side (ragged tiles)
+PS_DEEP = 40
+
+
+@functools.lru_cache(maxsize=None)
+def deep_sources():
+    """(positions, mask) of a (NY, NX, PS_DEEP) source space with cells of
+    more than 32 live slots."""
+    h, jgrid = solvers()[:2]
+    grid = dataclasses.replace(jgrid, occupancy=PS_DEEP)
+    rng = np.random.default_rng(9)
+    pos = (np.asarray([2.3, 11.6]) + rng.random((300, 2)) * [2.0, 1.5]) * h
+    pos = jnp.asarray(pos.astype(np.float32))
+    keys = cell_keys(pos, grid)
+    order = jnp.argsort(keys)
+    slots = build_slot_grid(keys[order], grid)
+    mask = np.array(slots.slot_mask).reshape(NY, NX, PS_DEEP)
+    return np.array(pad_to_slots(pos[order], slots, grid)), mask
+
+
+@pytest.mark.parametrize("form", ["dfsph_ctx", "wcsph_stat"])
+def test_twin_matches_jax_pallas_kernel_deep_sources(case, form):
+    """The two fluid -> other-space passes against a source space with more
+    than 32 live slots a cell (the live words K5 walks span two words)."""
+    spos, smask = deep_sources()
+    assert smask.sum(axis=-1).max() > 32
+    j, t = jnp.asarray, torch.as_tensor
+    ref = stack_outputs(j_pallas_pair_reduce(
+        case.closures[form], j(case.pos), j(case.mask), j(spos), j(smask), case.jgrid,
+        block_rows=BLOCK_ROWS, interpret=True))
+    out = tpp.pallas_pair_reduce(case.forms[form], t(case.pos), t(case.mask), t(spos),
+                                 t(smask), case.td._consts).numpy()
+    assert_live_close(out, ref, case.mask, form)
+    assert np.abs(out).sum() > 0
 
 
 def test_wrapper_dispatch_is_by_device(case):

@@ -1,8 +1,11 @@
 """K4 (slot-major re-bucket): the port's plain twin against the JAX sm_rebucket
 (interpret mode on the CPU) — bit-equal on positions, values, mask and drops,
 including cell overflow, with the WCSPH (D = 2, 3) and DFSPH (D = 4) payload
-widths — against the K2 twin on the same state through
-to_planes, and the slot-layout move codes bit-equal to the JAX move_codes."""
+widths, through the stacked entry `sm_rebucket` and the parts entry
+`sm_rebucket_parts` that the padded steps call — against the K2 twin on the
+same state through to_planes, and the slot-layout move codes bit-equal to the
+JAX move_codes. The two entries give the same bits for every split of the
+payload into parts, and a -0.0 payload comes out +0.0 from both."""
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +64,85 @@ def bits(a):
     return a.view(np.uint32) if a.dtype == np.float32 else a
 
 
+def parts_of(values, widths):
+    """The (ny, nx, P, D) payload cut into parts of the given widths: width 1
+    an (ny, nx, P) part, width C an (ny, nx, P, C) one."""
+    parts, k = [], 0
+    for c in widths:
+        piece = values[..., k:k + c]
+        parts.append(piece[..., 0].contiguous() if c == 1 else piece.contiguous())
+        k += c
+    return tuple(parts)
+
+
+def stack_parts(parts):
+    return torch.cat([v[..., None] if v.ndim == 3 else v for v in parts], dim=-1)
+
+
+# each JAX case's payload as the padded steps pass it: WCSPH's velocity part,
+# DFSPH's velocity, kappa and stiffness
+PART_WIDTHS = {"moves": (2,), "dense": (2, 1), "overflow": (2,), "dfsph_payload": (2, 1, 1),
+               "dfsph_overflow": (2, 1, 1)}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_sm_rebucket_parts_bit_equal_to_jax(name):
+    """The parts entry's CPU route (its twin) against the JAX kernel."""
+    jgrid, tgrid, adv, mask, vals = make_case(**CASES[name])
+    jpos, jmask, jv, jdrops = jax.jit(
+        lambda a, m, v: j_sm_rebucket(a, m, v, jgrid, br=BR, interpret=True)
+    )(jnp.asarray(adv), jnp.asarray(mask), jnp.asarray(vals))
+    parts = parts_of(torch.as_tensor(vals), PART_WIDTHS[name])
+    before = dict(tsr.LAUNCHES)
+    tpos, tmask, tparts, tdrops = tsr.sm_rebucket_parts(
+        torch.as_tensor(adv), torch.as_tensor(mask), parts, tgrid)
+    assert tsr.LAUNCHES == before
+    assert [t.shape for t in tparts] == [t.shape for t in parts]
+    assert all(t.is_contiguous() for t in tparts)
+    assert int(tdrops) == int(jdrops)
+    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
+    np.testing.assert_array_equal(bits(tpos.numpy()), bits(jpos))
+    np.testing.assert_array_equal(bits(stack_parts(tparts).numpy()), bits(jv))
+
+
+# (payload widths, number of values): D = 1, D = 2 as two scalars, D = 4 as
+# the DFSPH step's parts, and WCSPH's one (ny, nx, P, 2) velocity part
+SPLITS = {"d1": (1,), "d2": (1, 1), "d4": (2, 1, 1), "velocity": (2,)}
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["advect", "overflow"])
+@pytest.mark.parametrize("split", list(SPLITS))
+def test_parts_entry_equals_stacked_entry(split, overflow):
+    widths = SPLITS[split]
+    case = dict(seed=11, p=2, fill=0.9, shift=(0.6, 0.6), step=0.05) if overflow \
+        else dict(seed=13, p=3, fill=0.4)
+    _, tgrid, adv, mask, vals = make_case(**case, d=sum(widths))
+    pos, m, v = (torch.as_tensor(a) for a in (adv, mask, vals))
+    spos, smask, sv, sdrops = tsr.sm_rebucket(pos, m, v, tgrid)
+    ppos, pmask, pparts, pdrops = tsr.sm_rebucket_parts(pos, m, parts_of(v, widths), tgrid)
+    assert int(pdrops) == int(sdrops)
+    assert (int(sdrops) > 0) == overflow
+    np.testing.assert_array_equal(pmask.numpy(), smask.numpy())
+    np.testing.assert_array_equal(bits(ppos.numpy()), bits(spos.numpy()))
+    np.testing.assert_array_equal(bits(stack_parts(pparts).numpy()), bits(sv.numpy()))
+    for got, part in zip(pparts, parts_of(sv, widths)):
+        np.testing.assert_array_equal(bits(got.numpy()), bits(part.numpy()))
+
+
+def test_negative_zero_payload_comes_out_positive():
+    """Every live slot's payload is -0.0: both entries write +0.0, as the TPU
+    kernel, which adds each hit onto +0.0."""
+    _, tgrid, adv, mask, vals = make_case(13, p=3, fill=0.7, d=4)
+    pos, m = torch.as_tensor(adv), torch.as_tensor(mask)
+    neg = torch.full(vals.shape, -0.0)
+    assert torch.signbit(neg).all()
+    _, smask, sv, _ = tsr.sm_rebucket(pos, m, neg, tgrid)
+    _, pmask, pparts, _ = tsr.sm_rebucket_parts(pos, m, parts_of(neg, (2, 1, 1)), tgrid)
+    assert int(smask.sum()) > 0
+    assert not torch.signbit(sv).any()
+    assert not any(torch.signbit(p).any() for p in pparts)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_sm_rebucket_bit_equal_to_jax(name):
     jgrid, tgrid, adv, mask, vals = make_case(**CASES[name])
@@ -114,3 +196,7 @@ def test_wrapper_dispatch_is_by_device():
     assert tsr.LAUNCHES == before
     with pytest.raises(ValueError):
         tsr.sm_rebucket(pos.to("meta"), m.to("meta"), v.to("meta"), tgrid)
+    with pytest.raises(ValueError):
+        tsr.sm_rebucket_parts(pos.to("meta"), m.to("meta"), (v.to("meta"),), tgrid)
+    with pytest.raises(ValueError):
+        tsr.sm_rebucket_parts(pos, m, (), tgrid)

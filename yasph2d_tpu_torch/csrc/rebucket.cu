@@ -14,10 +14,7 @@
 // plain twin (ops/rebucket.py rebucket_ref) and the JAX kernel. The TPU kernel
 // accumulates each hit onto +0.0, which turns a -0.0 payload into +0.0; the
 // copy below adds +0.0 for the same reason. The move code is pf_move_codes
-// bit for bit: f32(pos - f32(origin)) * f32(1/cell_size), floorf, an int cast
-// (cvt.rzi, as torch's .to(int32) on the card), clamp to the grid, subtract
-// the slot's cell, clamp to +-1; the build's -fmad=false keeps the subtract
-// and the multiply apart.
+// bit for bit (csrc/move_code.cuh, shared with K4).
 //
 // Layout: mask (P, ny, nx) bool, payload planes (P, ny, nx) f32 by pointer
 // (x, y, then the values), out (n_pay, P, ny, nx) f32, new mask (P, ny, nx)
@@ -47,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "move_code.cuh"
+
 #define MAX_PAYLOAD 8
 #define RB_TY 8
 #define RB_TX 32
@@ -66,24 +65,11 @@ struct RebucketArgs {
   bool* new_mask;    // (P, ny, nx)
   int* dropped;      // (), zeroed by the launcher
   int P, ny, nx;
-  int grid_nx, grid_ny;  // the move codes' clamp range
-  float inv, ox, oy;     // f32(1/cell_size), f32(origin)
+  MoveGrid mg;       // the move codes' grid
 };
 
 __host__ __device__ inline size_t rebucket_smem_bytes(int P) {
   return (size_t)P * RB_THREADS * sizeof(int) + (size_t)P * RB_HC;
-}
-
-// pf_move_codes of one live slot of cell (gy, gx)
-__device__ __forceinline__ uint8_t move_code(float px, float py, int gy, int gx,
-                                             const RebucketArgs& a) {
-  int cx = (int)floorf((px - a.ox) * a.inv);
-  int cy = (int)floorf((py - a.oy) * a.inv);
-  cx = min(max(cx, 0), a.grid_nx - 1);
-  cy = min(max(cy, 0), a.grid_ny - 1);
-  const int dx = min(max(cx - gx, -1), 1);
-  const int dy = min(max(cy - gy, -1), 1);
-  return (uint8_t)((dy + 1) * 3 + (dx + 1) + 1);
 }
 
 template <int N_PAY>
@@ -126,7 +112,7 @@ __global__ void __launch_bounds__(RB_THREADS) rebucket_kernel(const RebucketArgs
       const int c = t % RB_HC;
       const int hy = c / RB_HX;
       if (t < n_stage)
-        codes[t] = m[u] ? move_code(px[u], py[u], y0 + hy - 1, x0 + (c - hy * RB_HX) - 1, a)
+        codes[t] = m[u] ? move_code(px[u], py[u], y0 + hy - 1, x0 + (c - hy * RB_HX) - 1, a.mg)
                         : 0;
     }
   }
@@ -201,11 +187,7 @@ extern "C" int rebucket(const void* mask, const void* const* payload, int n_pay,
   a.P = P;
   a.ny = ny;
   a.nx = nx;
-  a.grid_nx = grid_nx;
-  a.grid_ny = grid_ny;
-  a.inv = inv;
-  a.ox = ox;
-  a.oy = oy;
+  a.mg = MoveGrid{grid_nx, grid_ny, inv, ox, oy};
   if ((long)ny * nx == 0) return (int)cudaSuccess;
   const size_t smem = rebucket_smem_bytes(P);
   switch (n_pay) {

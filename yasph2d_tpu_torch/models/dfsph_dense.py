@@ -48,7 +48,7 @@ from ..ops.dense_grid import (
 from ..ops.pair_reduce import PairForm
 from ..ops.pallas_pair import pallas_pair_reduce
 from ..ops.sm_pair_reduce import sm_pair_reduce
-from ..ops.sm_rebucket import sm_rebucket
+from ..ops.sm_rebucket import sm_rebucket_parts
 from ..ops.smoothing_kernels import WendlandQuinticC2
 from ..timemanager import StepConfig, TimeState, update_simulation_step
 from ..units import INDEX, REAL, REAL_NP
@@ -452,11 +452,8 @@ class DFSPHPaddedSolver:
 
         # advect + re-bucket (dfsph.rs:499-512): [v*(2) | kappa | stiffness]
         pos = ctx.pos_pad + pred * float(dt)
-        extra = torch.cat([pred, kappa[..., None], carry.stiff_pad[..., None]], dim=-1)
-        pos, mask, extra, drops = sm_rebucket(pos, ctx.mask, extra, self.grid)
-        pred = extra[..., :2].contiguous()
-        kappa = extra[..., 2].contiguous()
-        stiff = extra[..., 3].contiguous()
+        pos, mask, (pred, kappa, stiff), drops = sm_rebucket_parts(
+            pos, ctx.mask, (pred, kappa, carry.stiff_pad), self.grid)
         ctx = self._ctx_from_padded(pos, mask, boundary, drops + boundary.num_dropped)
 
         # divergence-free loop (dfsph.rs:521)

@@ -41,7 +41,7 @@ from ..ops.dense_grid import (
 from ..ops.pair_reduce import PairForm
 from ..ops.pallas_pair import pallas_pair_reduce
 from ..ops.sm_pair_reduce import sm_pair_reduce
-from ..ops.sm_rebucket import sm_rebucket
+from ..ops.sm_rebucket import sm_rebucket_parts
 from ..ops.smoothing_kernels import Poly6, Spiky
 from ..timemanager import StepConfig, TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
@@ -252,7 +252,7 @@ class WCSPHPaddedSolver:
         pos = carry.pos_pad + v * float(dt)
 
         # neighbourhood rebuild = windowed re-bucket (wscsph.rs:153)
-        pos, mask, v, drops = sm_rebucket(pos, carry.mask, v, self.grid)
+        pos, mask, (v,), drops = sm_rebucket_parts(pos, carry.mask, (v,), self.grid)
 
         dens, accel = self._density_and_forces(pos, v, mask, boundary, dt)
         gvec = torch.tensor(self.gravity, dtype=REAL, device=pos.device)

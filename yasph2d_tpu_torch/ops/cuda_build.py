@@ -150,9 +150,9 @@ def library() -> ctypes.CDLL:
     for form in TILE_PAIR_FORMS:
         fn = getattr(lib, f"tile_pair_reduce_{form}")
         # q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out,
-        # P, Ps, ny, nx, br, bc, threads, scalar, consts, stream
+        # P, Ps, ny, nx, ty, tx, threads, query round, smem, scalar, consts, stream
         fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
-                       _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                        ctypes.POINTER(PairConsts), _P]
         fn.restype = _I
     # mask, payload planes, n_pay, out, new mask, dropped, P, ny, nx,
@@ -160,8 +160,11 @@ def library() -> ctypes.CDLL:
     lib.rebucket.argtypes = [_P, ctypes.POINTER(_P), _I, _P, _P, _P, _I, _I, _I, _I, _I,
                              ctypes.c_float, ctypes.c_float, ctypes.c_float, _P]
     lib.rebucket.restype = _I
-    # code, pos, vals, D, out_pos, out_vals, total, P, ny, nx, stream
-    lib.sm_rebucket.argtypes = [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P]
+    # mask, pos, part inputs, part outputs, part widths, n_parts, out_pos, new mask,
+    # dropped, P, ny, nx, grid nx, grid ny, 1/cell size, origin x, origin y, stream
+    lib.sm_rebucket.argtypes = [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                                ctypes.POINTER(_I), _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                                ctypes.c_float, ctypes.c_float, ctypes.c_float, _P]
     lib.sm_rebucket.restype = _I
     for probe in ("vpu_fma_probe", "vpu_mix_probe"):  # K6
         # x, out, n, chains, inner, trips, stream

@@ -32,11 +32,11 @@ from .sm_pair_reduce import _comps, slot_operands
 # kernel launches per call form, counted where the wrapper launches
 LAUNCHES = {form: 0 for form in cuda_build.TILE_PAIR_FORMS}
 
-BLOCK_ROWS = 8
-BLOCK_COLS = (32, 16, 8, 4, 2, 1)  # the widest tile that fits is taken
-# a block's threads: one per query slot of the tile, at most this many (at
-# 100k, 8 x 8 x 7 tiles of 448 threads beat 896 and 1024: tools/tile_sweep.py)
-MAX_THREADS = 512
+# (TY, TX, threads) of a launch, both sides powers of two, at most 256 threads
+# (csrc/tile_pair_reduce.cu K5_MAX_THREADS): tools/tile_sweep.py --kernel k5
+# on the 100k padded states; tile_shape halves it where it does not fit
+TILE = (8, 8, 256)
+MAX_ROUND = 8192  # query slots whose live list a block holds at once
 SMEM_LIMIT = cuda_build.SMEM_LIMIT
 
 
@@ -82,42 +82,66 @@ def pallas_pair_reduce_ref(term_fn, n_out: int, q_pos, q_mask, s_pos, s_mask,
     return torch.stack(accs, dim=-1)
 
 
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def query_round(ty: int, tx: int, p: int) -> int:
+    """Query slots a block scans per round: its tile's TY x TX x PP slots (PP
+    the power of two >= P), at most MAX_ROUND."""
+    return min(ty * tx * _pow2(p), MAX_ROUND)
+
+
+def smem_bytes(ty: int, tx: int, p: int, ps: int, n_source_comps: int) -> int:
+    """Dynamic shared memory of one K5 block (csrc/tile_pair_reduce.cu
+    TileSmem): the haloed source tile's float2 positions and source values,
+    its live words (ceil(Ps / 32) a cell), the round's live list (uint16) and
+    32 warp counts."""
+    hc = (ty + 2) * (tx + 2)
+    return (_align16(hc * ps * 8) + _align16(hc * ps * 4 * n_source_comps)
+            + _align16(hc * -(-ps // 32) * 4) + _align16(query_round(ty, tx, p) * 2) + 32 * 4)
+
+
 def tile_shape(p: int, ps: int, n_source_comps: int) -> tuple:
-    """(BR, BC, threads) of a launch: BR = BLOCK_ROWS and the widest BC of
-    BLOCK_COLS whose BR x BC x P query slots take at most MAX_THREADS threads
-    and whose haloed (BR + 2) x (BC + 2) x Ps source tile (float2 position,
-    the source values, a mask byte) fits in the shared memory of one block;
-    raises if not even one column fits."""
-    per_slot = 8 + 4 * n_source_comps + 1
-    fits = [bc for bc in BLOCK_COLS
-            if (BLOCK_ROWS + 2) * (bc + 2) * ps * per_slot <= SMEM_LIMIT]
-    if not fits:
-        need = (BLOCK_ROWS + 2) * 3 * ps * per_slot
-        raise ValueError(
-            f"pallas_pair_reduce: a {BLOCK_ROWS} x 1 cell tile with Ps = {ps} source "
-            f"slots and {n_source_comps} source values needs {need} bytes of shared "
-            f"memory; a block has {SMEM_LIMIT}"
-        )
-    bc = next((c for c in fits if BLOCK_ROWS * c * p <= MAX_THREADS), fits[-1])
-    threads = min(MAX_THREADS, -(-BLOCK_ROWS * bc * p // 32) * 32)
-    return BLOCK_ROWS, bc, threads
+    """(TY, TX, threads) of a launch: TILE, halved (the longer side, TY on a tie)
+    until its block fits in the shared memory of one block; raises if not
+    even a 1 x 1 tile fits."""
+    ty, tx, threads = TILE
+    while smem_bytes(ty, tx, p, ps, n_source_comps) > SMEM_LIMIT:
+        if ty == tx == 1:
+            raise ValueError(
+                f"pallas_pair_reduce: a 1 x 1 cell tile with Ps = {ps} source slots and "
+                f"{n_source_comps} source values needs "
+                f"{smem_bytes(1, 1, p, ps, n_source_comps)} bytes of shared memory; a "
+                f"block has {SMEM_LIMIT}")
+        if ty >= tx:
+            ty //= 2
+        else:
+            tx //= 2
+    return ty, tx, threads
 
 
 def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.PairConsts,
            q_vals, s_vals, scalars, tile) -> torch.Tensor:
     """Launch K5's instantiation of `form` on CUDA tensors with the launch shape
-    `tile` = (BR, BC, threads); returns (ny, nx, P, n_out). Counts nothing:
+    `tile` = (TY, TX, threads); returns (ny, nx, P, n_out). Counts nothing:
     `pallas_pair_reduce` is the solvers' entry (tools/tile_sweep.py times other
     shapes through this)."""
     (ny, nx, p, ps), ptrs, strides, scalar = slot_operands(
         "pallas_pair_reduce", q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars)
-    br, bc, threads = tile
+    ty, tx, threads = tile
+    n_sv = len(_comps(s_vals))
     out = torch.empty((ny, nx, p, form.n_out), dtype=torch.float32, device=q_pos.device)
     fn = getattr(cuda_build.library(), f"tile_pair_reduce_{form.name}")
     err = fn(
         q_pos.data_ptr(), q_mask.data_ptr(), s_pos.data_ptr(), s_mask.data_ptr(),
         cuda_build.pointer_array(ptrs), cuda_build.int_array(strides), len(ptrs),
-        out.data_ptr(), p, ps, ny, nx, br, bc, threads, scalar, consts,
+        out.data_ptr(), p, ps, ny, nx, ty, tx, threads, query_round(ty, tx, p),
+        smem_bytes(ty, tx, p, ps, n_sv), scalar, consts,
         torch.cuda.current_stream(q_pos.device).cuda_stream,
     )
     cuda_build.check(err, f"tile_pair_reduce_{form.name}")

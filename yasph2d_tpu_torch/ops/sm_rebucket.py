@@ -1,35 +1,39 @@
 """K4, the per-step neighbourhood rebuild in the padded slot-major layout
-(PyTorch port of yasph2d_tpu/ops/pallas_slotmajor.py sm_rebucket).
+(PyTorch port of yasph2d_tpu/ops/pallas_slotmajor.py sm_rebucket, with its
+move codes).
 
 The same re-bucket as K2 (ops/rebucket.py), on the solver carry's own layout:
 every live slot moves to the cell holding its advected position (clamped into
 its old 3x3 window by the move code); each target cell compacts the slots that
 arrive, in (dyv, dxv, sp) order, into its slots 0..P-1 and passes their
 position and values through exactly. Arrivals beyond P are dropped and
-counted. `sm_rebucket` launches csrc/sm_rebucket.cu for CUDA tensors and runs
-the plain twin `sm_rebucket_ref` for CPU tensors; both are bit-exact.
+counted. `sm_rebucket` and `sm_rebucket_parts` launch csrc/sm_rebucket.cu for
+CUDA tensors and run the plain twin `sm_rebucket_ref` for CPU tensors; both
+are bit-exact. On the card the whole re-bucket, move codes, new mask and drop
+count included, is one kernel launch after a 4-byte memset;
+`sm_rebucket_parts` takes the payload as separate parts, so a caller need not
+concatenate them first.
 """
+
+from typing import Sequence
 
 import torch
 
 from ..units import INDEX, REAL
 from . import cuda_build
-from .dense_grid import DenseGridConfig, move_codes
+from .dense_grid import DenseGridConfig, f32_scalar, move_codes
 
 # kernel launches, counted where the wrapper launches
 LAUNCHES = {"sm_rebucket": 0}
 
+MAX_PARTS = 8  # csrc/sm_rebucket.cu SR_MAX_PARTS
+# above this occupancy the kernel's words no longer fit one block's shared
+# memory and it scans in device memory, one thread per target cell
+STAGED_MAX_P = 32 * 18
+
 
 def reset_launch_counts():
     LAUNCHES["sm_rebucket"] = 0
-
-
-def _mask_and_drops(total: torch.Tensor, p: int):
-    """Slot mask and drop count from the per-cell incoming totals."""
-    lane = torch.arange(p, dtype=INDEX, device=total.device)
-    new_mask = lane < total[..., None]
-    num_dropped = torch.clamp(total - p, min=0).sum().to(INDEX)
-    return new_mask, num_dropped
 
 
 def sm_rebucket_ref(pos, mask, values, grid: DenseGridConfig):
@@ -61,33 +65,80 @@ def sm_rebucket_ref(pos, mask, values, grid: DenseGridConfig):
          for k in range(p)],
         dim=2,
     )
-    new_mask, num_dropped = _mask_and_drops(total, p)
-    return out[..., :2], new_mask, out[..., 2:], num_dropped
+    lane = torch.arange(p, dtype=INDEX, device=total.device)
+    num_dropped = torch.clamp(total - p, min=0).sum().to(INDEX)
+    return out[..., :2], lane < total[..., None], out[..., 2:], num_dropped
 
 
-def sm_rebucket(pos, mask, values, grid: DenseGridConfig):
-    """Windowed re-bucket of the padded slot-major state; dispatches on device."""
+def _split(stacked: torch.Tensor, parts: Sequence[torch.Tensor]) -> tuple:
+    """The (ny, nx, P, D) re-bucketed payload cut into tensors of the parts'
+    shapes: an (ny, nx, P) part takes one component, an (ny, nx, P, C) part C."""
+    out, k = [], 0
+    for part in parts:
+        c = 1 if part.ndim == 3 else part.shape[-1]
+        piece = stacked[..., k:k + c]
+        out.append((piece[..., 0] if part.ndim == 3 else piece).contiguous())
+        k += c
+    return tuple(out)
+
+
+def sm_rebucket_parts(pos, mask, parts: Sequence[torch.Tensor], grid: DenseGridConfig):
+    """Windowed re-bucket of the padded slot-major state with the payload given
+    as parts, each (ny, nx, P) or (ny, nx, P, C). Returns (new_pos, new_mask,
+    the new parts in the input's shapes, num_dropped); dispatches on device.
+    The CPU route concatenates the parts for `sm_rebucket_ref`; the CUDA route
+    passes one pointer per part and copies nothing."""
+    if not parts:
+        raise ValueError("sm_rebucket: the payload needs at least one part")
     device = pos.device
     if device.type == "cpu":
-        return sm_rebucket_ref(pos, mask, values, grid)
+        stacked = torch.cat([v[..., None] if v.ndim == 3 else v for v in parts], dim=-1)
+        new_pos, new_mask, new_values, drops = sm_rebucket_ref(pos, mask, stacked, grid)
+        return new_pos, new_mask, _split(new_values, parts), drops
     if device.type != "cuda":
         raise ValueError(f"sm_rebucket: unsupported device {device}")
     ny, nx, p = mask.shape
-    d = values.shape[-1]
-    for t, shape, dtype, what in ((pos, (ny, nx, p, 2), REAL, "positions"),
-                                  (mask, (ny, nx, p), torch.bool, "mask"),
-                                  (values, (ny, nx, p, d), REAL, "values")):
-        cuda_build.check_tensor(t, device, shape, dtype, f"sm_rebucket: {what}")
-    code = move_codes(pos, mask, grid)
-    new_pos = torch.empty((ny, nx, p, 2), dtype=REAL, device=device)
-    new_values = torch.empty((ny, nx, p, d), dtype=REAL, device=device)
-    total = torch.empty((ny, nx), dtype=INDEX, device=device)
+    cuda_build.check_tensor(pos, device, (ny, nx, p, 2), REAL, "sm_rebucket: positions")
+    cuda_build.check_tensor(mask, device, (ny, nx, p), torch.bool, "sm_rebucket: mask")
+    if pos.data_ptr() % 8:
+        raise ValueError("sm_rebucket: positions must be 8-byte aligned (float2)")
+    if len(parts) > MAX_PARTS:
+        raise ValueError(f"sm_rebucket: {len(parts)} payload parts; the kernel takes at "
+                         f"most {MAX_PARTS}")
+    widths, outs = [], []
+    for v in parts:
+        c = 1 if v.ndim == 3 else v.shape[-1]
+        cuda_build.check_tensor(v, device, (ny, nx, p) if v.ndim == 3 else (ny, nx, p, c),
+                                REAL, "sm_rebucket: payload part")
+        if c < 1:
+            raise ValueError("sm_rebucket: a payload part has no component")
+        widths.append(c)
+        outs.append(torch.empty_like(v))
+    new_pos = torch.empty_like(pos)
+    new_mask = torch.empty_like(mask)
+    dropped = torch.empty((), dtype=INDEX, device=device)
     err = cuda_build.library().sm_rebucket(
-        code.data_ptr(), pos.data_ptr(), values.data_ptr(), d, new_pos.data_ptr(),
-        new_values.data_ptr(), total.data_ptr(), p, ny, nx,
-        torch.cuda.current_stream(device).cuda_stream,
+        mask.data_ptr(), pos.data_ptr(),
+        cuda_build.pointer_array([v.data_ptr() for v in parts]),
+        cuda_build.pointer_array([o.data_ptr() for o in outs]),
+        cuda_build.int_array(widths), len(parts), new_pos.data_ptr(), new_mask.data_ptr(),
+        dropped.data_ptr(), p, ny, nx, grid.nx, grid.ny,
+        f32_scalar(1.0 / grid.cell_size), f32_scalar(grid.origin[0]),
+        f32_scalar(grid.origin[1]), torch.cuda.current_stream(device).cuda_stream,
     )
     cuda_build.check(err, "sm_rebucket")
     LAUNCHES["sm_rebucket"] += 1
-    new_mask, num_dropped = _mask_and_drops(total, p)
-    return new_pos, new_mask, new_values, num_dropped
+    return new_pos, new_mask, tuple(outs), dropped
+
+
+def sm_rebucket(pos, mask, values, grid: DenseGridConfig):
+    """Windowed re-bucket of the padded slot-major state; values (ny, nx, P, D).
+    Returns (new_pos, new_mask, new_values, num_dropped); dispatches on
+    device."""
+    if pos.device.type == "cpu":
+        return sm_rebucket_ref(pos, mask, values, grid)
+    if values.ndim != 4:
+        raise ValueError(f"sm_rebucket: values must be (ny, nx, P, D), got "
+                         f"{tuple(values.shape)}")
+    new_pos, new_mask, (new_values,), drops = sm_rebucket_parts(pos, mask, (values,), grid)
+    return new_pos, new_mask, new_values, drops

@@ -1,19 +1,26 @@
-"""Device times of the plane kernels K1 (every call form of a plane step) and
-K2 on a settled double dam-break state, through the public wrappers only.
+"""Device times of a solver step's kernels on a double dam-break state, through
+the public wrappers only.
 
     python -m yasph2d_tpu_torch.tools.kernel_times [--kind dfsph_plane_bf16]
-        [--particles 1000000] [--steps 100]
+        [--particles 1000000] [--steps 100] [--save out.pt]
 
-`--kind` is a plane solver of `scenes.SOLVERS` (dfsph_plane, dfsph_plane_bf16,
-wcsph_plane, wcsph_plane_bf16). The scene runs init_carry + `--steps` steps,
-then each of the step's K1 forms is timed on that state with seeded velocity,
-stiffness and density noise (as chip_smoke.py phase 3), and K2 on the step's
-own advection with the step's payload stacked as one (D, P, ny, nx) tensor.
-Times are device milliseconds per call: 10 calls in a CUDA graph, CUDA
-events, median of 7. It calls only `pair_reduce.pair_reduce`,
-`rebucket.rebucket` and the scene API, so the same file times two trees of
-the package in one run: put the other tree first on PYTHONPATH and run this
-file by its path. Needs a CUDA device; prints one JSON line.
+`--kind` is a solver of `scenes.SOLVERS`. The scene runs init_carry +
+`--steps` steps (the per-step iteration counts and drops are reported), then
+each of the step's pair calls is timed on that state with seeded velocity,
+stiffness and density noise (as chip_smoke.py phase 3), and the re-bucket on
+the step's own advection with the step's payload, as the step calls it:
+plane kinds K1's forms and K2 (`rebucket.rebucket`, the payload stacked as
+one (D, P, ny, nx) tensor); padded kinds (dfsph_padded, dfsph_padded_k5,
+wcsph_padded, wcsph_padded_k5) K3's or K5's forms (`sm_pair_reduce`,
+`pallas_pair_reduce`) and K4 with its glue: `sm_rebucket_parts` where the
+tree has it, else the concatenation, `sm_rebucket` and the splits that the
+step around it made. Times are device milliseconds per call: 10 calls in a
+CUDA graph, CUDA events, median of 7. It calls only wrappers and the scene
+API that every tree of the package since the padded K5 has, so the same file
+times two trees in one run: put the other tree first on PYTHONPATH and run
+this file by its path. `--save` writes each call's output (and the state's
+positions and mask) with torch.save, for a bitwise comparison of two trees.
+Needs a CUDA device; prints one JSON line.
 """
 
 import argparse
@@ -66,9 +73,76 @@ def plane_calls(solver, boundary, carry, rng) -> dict:
     }
 
 
+def padded_calls(solver, boundary, carry, rng) -> dict:
+    """{label: (form, (query pos, mask), (source pos, mask), keyword operands)}
+    of a padded step's pair calls (K3 or K5, by the solver's route) on
+    `carry`; `stat` is the fluid -> boundary pass (K3's dfsph_stat, K5's
+    dfsph_ctx)."""
+    from yasph2d_tpu_torch.models.wcsph import tait_pressure
+
+    dt = float(carry.time.dt)
+    walls = (boundary.pos_pad, boundary.mask)
+    if hasattr(carry, "ctx"):  # DFSPH
+        f, ctx = solver._padded_forms, carry.ctx
+        mask = ctx.mask
+        fluid = (ctx.pos_pad, mask)
+        v = torch.where(mask[..., None], carry.v_pad + noise(rng, carry.v_pad, 0.5),
+                        carry.v_pad)
+        k = torch.where(mask, noise(rng, carry.kappa_pad, 50.0), 0.0)
+        return {
+            "ctx": (f.ctx, fluid, fluid, {}),
+            "stat": (f.stat, fluid, walls, {}),
+            "div": (f.div, fluid, fluid, dict(q_vals=(v,), s_vals=(v,))),
+            "corr": (f.corr, fluid, fluid, dict(q_vals=(k,), s_vals=(k,))),
+            "visc": (f.visc, fluid, fluid, dict(q_vals=(v,), s_vals=(v, ctx.densities_pad),
+                                                scalars=(dt,))),
+        }
+    f, mask = solver._forms, carry.mask
+    fluid = (carry.pos_pad, mask)
+    dens = torch.where(mask, carry.dens_pad + noise(rng, carry.dens_pad, 5.0).abs(),
+                       carry.dens_pad)
+    v = torch.where(mask[..., None], carry.v_pad + noise(rng, carry.v_pad, 0.5), carry.v_pad)
+    wv = (tait_pressure(solver.stiffness, solver.properties.fluid_density, dens), dens, v)
+    return {
+        "wcsph_density": (f.density, fluid, fluid, {}),
+        "wcsph_stat": (f.stat, fluid, walls, {}),
+        "wcsph_forces": (f.forces, fluid, fluid, dict(q_vals=wv, s_vals=wv, scalars=(dt,))),
+    }
+
+
+def _cpu(x):
+    return x.cpu() if isinstance(x, torch.Tensor) else tuple(_cpu(y) for y in x)
+
+
+def padded_rebucket(solver, carry):
+    """K4 on the padded step's own advection and payload, with the glue the
+    step of this tree puts around it; returns a function of no argument."""
+    from yasph2d_tpu_torch.ops import sm_rebucket as smr
+
+    grid, dt = solver.grid, float(carry.time.dt)
+    if hasattr(carry, "ctx"):
+        pos, mask = carry.ctx.pos_pad, carry.ctx.mask
+        parts = (carry.v_pad, carry.kappa_pad, carry.stiff_pad)
+    else:
+        pos, mask, parts = carry.pos_pad, carry.mask, (carry.v_pad,)
+    adv = pos + carry.v_pad * dt
+    if hasattr(smr, "sm_rebucket_parts"):
+        return lambda: smr.sm_rebucket_parts(adv, mask, parts, grid)
+
+    def stacked():  # the step before the parts entry: concatenate, re-bucket, split
+        values = parts[0] if len(parts) == 1 else torch.cat(
+            [p if p.ndim == 4 else p[..., None] for p in parts], dim=-1)
+        out = smr.sm_rebucket(adv, mask, values, grid)
+        if len(parts) > 1:
+            out = (*out[:2], (out[2][..., :2].contiguous(), out[2][..., 2].contiguous(),
+                              out[2][..., 3].contiguous()), out[3])
+        return out
+
+    return stacked
+
+
 def main(argv=None):
     from yasph2d_tpu_torch.ops.pair_reduce import pair_reduce
-    from yasph2d_tpu_torch.ops.rebucket import rebucket
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
     from yasph2d_tpu_torch.utils.cuda_timing import graph_ms
 
@@ -76,6 +150,7 @@ def main(argv=None):
     ap.add_argument("--kind", default="dfsph_plane_bf16")
     ap.add_argument("--particles", type=int, default=1_000_000)
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--save", default=None, help="torch.save each call's output here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA device")
@@ -84,25 +159,45 @@ def main(argv=None):
     world = double_dam_break(args.particles)
     solver, boundary = bench_solver(args.kind, world, device=device)
     carry = solver.init_carry(world.initial_state(device=device), boundary)
-    carry, _ = solver.simulate(carry, boundary, args.steps)
+    per_step = []
+    for _ in range(args.steps):
+        carry, d = solver.simulate(carry, boundary, 1)
+        per_step.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
     torch.cuda.synchronize()
     c = solver._consts
-    times = {}
-    for label, (form, q, s, kw) in plane_calls(solver, boundary, carry,
-                                               np.random.default_rng(0)).items():
-        times[label] = graph_ms(lambda form=form, q=q, s=s, kw=kw:
-                                pair_reduce(form, q, s, c, **kw))
-    if hasattr(carry, "ctx"):
-        mask, pos, dt = carry.ctx.mask, carry.ctx.pos, float(carry.time.dt)
-        values = torch.cat([carry.v, carry.kappa[None], carry.stiff[None]])
+    rng = np.random.default_rng(0)
+    runs = {}
+    if "padded" in args.kind:
+        from yasph2d_tpu_torch.ops.pallas_pair import pallas_pair_reduce
+        from yasph2d_tpu_torch.ops.sm_pair_reduce import sm_pair_reduce
+
+        pair = sm_pair_reduce if solver.grid.use_pallas_slotmajor else pallas_pair_reduce
+        for label, (form, q, s, kw) in padded_calls(solver, boundary, carry, rng).items():
+            runs[label] = (lambda form=form, q=q, s=s, kw=kw: pair(form, *q, *s, c, **kw))
+        runs["sm_rebucket"] = padded_rebucket(solver, carry)
+        state = (carry.ctx.pos_pad, carry.ctx.mask) if hasattr(carry, "ctx") \
+            else (carry.pos_pad, carry.mask)
     else:
-        mask, pos, dt = carry.mask, carry.pos, float(carry.time.dt)
-        values = carry.v.contiguous()
-    adv = pos + carry.v * dt
-    times["rebucket"] = graph_ms(lambda: rebucket(adv, mask, values, solver.grid))
+        from yasph2d_tpu_torch.ops.rebucket import rebucket
+
+        for label, (form, q, s, kw) in plane_calls(solver, boundary, carry, rng).items():
+            runs[label] = (lambda form=form, q=q, s=s, kw=kw: pair_reduce(form, q, s, c, **kw))
+        if hasattr(carry, "ctx"):
+            mask, pos = carry.ctx.mask, carry.ctx.pos
+            values = torch.cat([carry.v, carry.kappa[None], carry.stiff[None]])
+        else:
+            mask, pos = carry.mask, carry.pos
+            values = carry.v.contiguous()
+        adv = pos + carry.v * float(carry.time.dt)
+        runs["rebucket"] = lambda: rebucket(adv, mask, values, solver.grid)
+        state = (pos, mask)
+    if args.save:
+        torch.save({"state": _cpu(state),
+                    "outputs": {label: _cpu(run()) for label, run in runs.items()}}, args.save)
+    times = {label: graph_ms(run) for label, run in runs.items()}
     print(json.dumps({"kind": args.kind, "particles": args.particles, "steps": args.steps,
-                      "live": int(mask.sum()), "device": torch.cuda.get_device_name(0),
-                      "ms": times}), flush=True)
+                      "live": int(state[1].sum()), "device": torch.cuda.get_device_name(0),
+                      "iterations_drops_per_step": per_step, "ms": times}), flush=True)
 
 
 if __name__ == "__main__":
