@@ -10,22 +10,26 @@ Phases, each reported on its own line:
      tensors, at the 100k double dam-break shapes: the nine call forms of the
      pair kernel K1, with float32 and with bfloat16 operands, and the
      re-bucket K2 on the plane states of the DFSPH and WCSPH steps; the eight
-     forms of the slot-major pair kernel K3 (three WCSPH, five DFSPH) and the
-     slot-major re-bucket K4 with the WCSPH (D = 2) and DFSPH (D = 4) payloads
-     on the padded states; the seven forms of the tiled pair kernel K5 (four
-     DFSPH, three WCSPH) on the padded states of its route. The WCSPH states
+     forms of the slot-major pair kernel K3 (three WCSPH, five DFSPH; K5's
+     tile kernel in K3's sum order) and the slot-major re-bucket K4 with the
+     WCSPH (D = 2) and DFSPH (D = 4) payloads on the padded states; the seven
+     forms of the tiled pair kernel K5 (four DFSPH, three WCSPH) on the
+     padded states of its route. The WCSPH states
      are taken after 3 steps, the DFSPH states after 60, when the columns
      touch the walls and every fluid -> boundary pass must sum something. Then,
      at the TPU probes' shapes, the speed probes K6 (FMA chains x4 and x8, the
      compare/select/add mix x8, 1,690,624 elements; rtol 1e-5 on the TPU
      probe's constant input and on a seeded input spread across 0.5) and the
-     ctx-pass probe K7 (64 x 1612 cells, P 7) beside K1's ctx form on the same
-     inputs. K1's forms must be bit-equal to their twins (max_abs_err 0.0),
-     the other pair forms agree to rtol 1e-5 plus 1e-6 of each output
-     component's largest live magnitude; the re-buckets bit-equal, with and
-     without forced cell overflow (each timed as its steps call it: one launch,
-     the payload planes (K2) or parts (K4, one record per payload width D) by
-     pointer). Then, where the device and not the host sets the pace, K1's
+     ctx-pass probe K7 (K1's kernel with the probe's statement; 64 x 1612
+     cells, P 7) beside K1's ctx form on the same inputs. Then K1's nine
+     forms in both operand modes, K3's eight and K7 with a source space of
+     40 slots a cell (more than 32 live: two live words), on a synthetic
+     ragged grid (checked only). K1's, K3's and K7's forms must be bit-equal
+     to their twins (max_abs_err 0.0), K5's agree to rtol 1e-5 plus 1e-6 of
+     each output component's largest live magnitude; the re-buckets
+     bit-equal, with and without forced cell overflow (each timed as its
+     steps call it: one launch, the payload planes (K2) or parts (K4, one
+     record per payload width D) by pointer). Then, where the device and not the host sets the pace, K1's
      six DFSPH forms in bfloat16 and K2 on the 1M state that the roofline
      path settles (records `*_1m`, whose launches are those of the roofline
      path; every other record's are those of the 100k solver paths, never of
@@ -34,9 +38,15 @@ Phases, each reported on its own line:
      events, median of 7, over 10; `plain_ms` the twin's, eager, CUDA events,
      median of 7. `bound_ms` is the larger of the bytes the call must move
      over 3.35 TB/s and its float32 operations (counted from the live
-     candidate and valid pair counts of these inputs; K6 as the TPU probe
-     counts them, an FMA as 2) over 67 TFLOP/s, the H100 SXM's data-sheet
-     rates (the counting rules live in yasph2d_tpu_torch/tools/roofline.py).
+     candidate and valid pair counts of these inputs; K6's FMA chains as the
+     TPU probe counts them, an FMA as 2) over 67 TFLOP/s, the H100 SXM's
+     data-sheet rates; K6's mix, whose compare and select are no FP32
+     arithmetic, by its SASS instructions (one FSETP, FSEL and FADD a step)
+     at each pipe's rate from NVIDIA's arithmetic instruction throughput
+     table for compute capability 9.0 (the counting rules live in
+     yasph2d_tpu_torch/tools/roofline.py). Every pair call is timed and its
+     bound logged (K5's pass to the walls too); a record keeps its form's
+     first call's.
      The bytes: every mask read once in full, positions and values only of
      the slots that can change the result (live queries; live sources in the
      3x3 cells of a live query; the live slots a re-bucket moves), K6's
@@ -66,6 +76,7 @@ reports them, the one before that the per-kernel JSON record; the last line is
 prints no result. Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -78,6 +89,7 @@ from yasph2d_tpu_torch.tools.roofline import (
     OPS_PER_QUERY,
     OPS_PER_SLOT_REBUCKET,
     bound,
+    instruction_bound,
     nbytes,
     pair_bytes,
     pair_counts,
@@ -93,15 +105,16 @@ CONTACT_STEPS = 60  # the DFSPH kernel states: the columns touch the walls
 CONTACT_STEPS_3K = 55  # the same on the 3k scene of phase 4
 ROOFLINE = ("1000000", "100")  # tools.roofline: particles, settle steps (bf16)
 SIZE_1M = "_1m"  # the suffix of the records on the roofline's 1M state
+DEEP_PS = 40  # source slots a cell of the deep-source checks: two live words
 CSRC = "yasph2d_tpu_torch/csrc/"
 SOURCES = {
     "pair_reduce": CSRC + "pair_reduce.cu",
     "rebucket": CSRC + "rebucket.cu",
-    "sm_pair_reduce": CSRC + "sm_pair_reduce.cu",
+    "sm_pair_reduce": CSRC + "tile_pair_reduce.cu",
     "sm_rebucket": CSRC + "sm_rebucket.cu",
     "tile_pair_reduce": CSRC + "tile_pair_reduce.cu",
     "vpu_probe": CSRC + "vpu_probe.cu",
-    "probe_ctx": CSRC + "probe_ctx.cu",
+    "probe_ctx": CSRC + "pair_reduce.cu",
 }
 REPLACES = {
     "pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:821",  # pf_pair_reduce
@@ -113,6 +126,7 @@ REPLACES = {
     "vpu_probe_mix": "tools/vpu_probe.py:76",  # mix_probe
     "probe_ctx": "tools/probe_pallas_slotmajor.py:113",  # ctx_pass_slotmajor
 }
+BIT_EQUAL = ("pair_reduce", "sm_pair_reduce")  # pair kernels whose twins sum in their order
 DFSPH_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v")
 WCSPH_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces")
 DFSPH_SM_FORMS = ("dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc")
@@ -177,6 +191,11 @@ def bit_equal(outs_k, outs_t) -> bool:
     return all(torch.equal(bits(a), bits(b)) for a, b in zip(outs_k, outs_t))
 
 
+def bound_line(name, bound_ms, bound_by, what, ms):
+    log(f"phase 3 kernels: {name} bound {bound_ms:.5f} ms by {bound_by} ({what}), "
+        f"kernel {ms:.5f} ms, {bound_ms / ms:.3f} of the bound")
+
+
 class Records:
     """The per-kernel JSON records; a kernel checked in several calls keeps
     the first (main-path) call's times and bound, and the largest error. A
@@ -187,16 +206,12 @@ class Records:
         self.by_name = {}
         self.nonzero = set()
 
-    def add(self, name, kernel, max_abs_err, ms, plain_ms, n_bytes, n_ops,
+    def add(self, name, kernel, max_abs_err, ms, plain_ms, bound_ms, bound_by,
             counter=None, paths=None, replaces=None):
         if name in self.by_name:
             rec = self.by_name[name]
             rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err)
             return
-        bound_ms, bound_by = bound(n_bytes, n_ops)
-        log(f"phase 3 kernels: {name} bound {bound_ms:.5f} ms by {bound_by} "
-            f"({n_bytes} bytes, {n_ops} float32 operations), kernel {ms:.5f} ms, "
-            f"{bound_ms / ms:.3f} of the bound")
         self.by_name[name] = dict(
             name=name, route="cuda", source=SOURCES[kernel],
             replaces=REPLACES[replaces or kernel],
@@ -213,12 +228,14 @@ class Records:
         operation count; `variant`: the operand mode's suffix of the launch
         name ("_bf16" for K1's bf16 operands, whose `pairs` are rebased);
         `size`: a suffix of the record's name for another state than the
-        100k one, whose launches are counted on `paths`. K1 must be bit-equal
-        to its twin, the other pair kernels within `pair_error`."""
+        100k one, whose launches are counted on `paths`. K1 and K3 must be
+        bit-equal to their twins, K5 within `pair_error`. Every call is timed
+        and its bound logged; the record keeps its form's first call's."""
         out_k, out_t = run_kernel(), run_twin()
         torch.cuda.synchronize()
         errs, ok = pair_error(out_k, out_t, live, comp_dim)
-        if kernel == "pair_reduce":
+        exact = kernel in BIT_EQUAL
+        if exact:
             ok = bit_equal([out_k], [out_t])
         err = max(errs)
         nonzero = bool(out_t.movedim(comp_dim, -1)[live].abs().sum() > 0)
@@ -229,13 +246,10 @@ class Records:
             self.nonzero.update((name, f"{kernel}_{label}"))
         log(f"phase 3 kernels: {kernel}_{label} max_abs_err {err!r} per component "
             f"{errs!r} {'ok' if ok else 'MISMATCH'}"
-            f"{' (bit-equal required)' if kernel == 'pair_reduce' else ''} nonzero {nonzero}")
+            f"{' (bit-equal required)' if exact else ''} nonzero {nonzero}")
         if not ok:
             raise RuntimeError(f"{kernel}_{label} disagrees with its twin "
                                f"(max_abs_err per component {errs})")
-        if name in self.by_name:
-            self.by_name[name]["max_abs_err"] = max(self.by_name[name]["max_abs_err"], err)
-            return
         ms, plain_ms = graph_ms(run_kernel), event_ms(run_twin)
         cand, valid = pair_counts(*pairs[:4], radius_sq,
                                   rebase_cell=pairs[4] if len(pairs) > 4 else None)
@@ -245,7 +259,10 @@ class Records:
         log(f"phase 3 kernels: {kernel}_{label} kernel {ms:.5f} ms twin {plain_ms:.4f} ms, "
             f"{n_live} live queries, {cand} live candidates, {valid} valid pairs")
         n_bytes = pair_bytes(*roles, masks, [out_k], pairs[1], pairs[3])
-        self.add(name, kernel, err, ms, plain_ms, n_bytes, n_ops, counter=counter,
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        bound_line(f"{kernel}_{label}", bound_ms, bound_by,
+                   f"{n_bytes} bytes, {n_ops} float32 operations", ms)
+        self.add(name, kernel, err, ms, plain_ms, bound_ms, bound_by, counter=counter,
                  paths=paths)
 
     def check_rebucket(self, kernel, label, run_kernel, run_twin, overflow, inputs,
@@ -277,8 +294,12 @@ class Records:
             log(f"phase 3 kernels: {kernel}[{label}] kernel {ms:.5f} ms twin "
                 f"{plain_ms:.4f} ms")
             n_ops = OPS_PER_SLOT_REBUCKET * int(inputs[1].sum())
-            self.add(name or kernel, kernel, 0.0, ms, plain_ms,
-                     rebucket_bytes(*inputs, out_k), n_ops, counter=kernel, paths=paths)
+            n_bytes = rebucket_bytes(*inputs, out_k)
+            bound_ms, bound_by = bound(n_bytes, n_ops)
+            bound_line(f"{kernel}[{label}]", bound_ms, bound_by,
+                       f"{n_bytes} bytes, {n_ops} float32 operations", ms)
+            self.add(name or kernel, kernel, 0.0, ms, plain_ms, bound_ms, bound_by,
+                     counter=kernel, paths=paths)
 
     def require_nonzero(self, names):
         """Each of `names` (a form, or a form's call by its label) produced a
@@ -631,12 +652,19 @@ def phase_kernels_probes(device, rec: Records):
     x = vp.probe_input(device)
     inputs = {"0.999": x, "spread": vp.spread_input(device)}
     n = x.numel()
+    # the bound: FMA chains by FP32 operations at the data-sheet rate; the mix
+    # by its SASS (one FSETP, one FSEL and one FADD a step) at each pipe's rate
+    steps = n * vp.K_OPS
+    mix_counts = {"FADD": steps, "FSETP": steps, "FSEL": steps}
     probes = [(f"vpu_probe_fma{c}", "vpu_probe_fma", (lambda a, c=c: vp.fma_probe(a, c)),
-               (lambda a, c=c: vp.fma_probe_ref(a, c)), vp.fma_ops(n, c))
+               (lambda a, c=c: vp.fma_probe_ref(a, c)), vp.fma_ops(n, c),
+               bound(nbytes(x) * 2, vp.fma_ops(n, c)) + ("FP32 operations",))
               for c in vp.FMA_CHAINS]
+    mix_ms, mix_pipe = instruction_bound(mix_counts)
     probes.append((f"vpu_probe_mix{vp.MIX_CHAINS}", "vpu_probe_mix", vp.mix_probe,
-                   vp.mix_probe_ref, vp.mix_ops(n)))
-    for name, replaces, run_kernel, run_twin, n_ops in probes:
+                   vp.mix_probe_ref, vp.mix_ops(n),
+                   (mix_ms, "operations", f"{mix_pipe}, SASS instructions {mix_counts}")))
+    for name, replaces, run_kernel, run_twin, n_ops, (bound_ms, bound_by, what) in probes:
         errs = []
         for label, a in inputs.items():
             out_k, out_t = run_kernel(a), run_twin(a)
@@ -654,8 +682,9 @@ def phase_kernels_probes(device, rec: Records):
         ms, plain_ms = graph_ms(lambda: run_kernel(x)), event_ms(lambda: run_twin(x))
         log(f"phase 3 kernels: {name} kernel {ms:.5f} ms twin {plain_ms:.4f} ms, "
             f"{n_ops / (ms * 1e-3) / 1e12:.2f} T operations/s")
-        rec.add(name, "vpu_probe", max(errs), ms, plain_ms, nbytes(x) + nbytes(out_k),
-                n_ops, paths={"vpu_probe", "roofline"}, replaces=replaces)
+        bound_line(name, bound_ms, bound_by, what, ms)
+        rec.add(name, "vpu_probe", max(errs), ms, plain_ms, bound_ms, bound_by,
+                paths={"vpu_probe", "roofline"}, replaces=replaces)
 
     d = pc.GPU_SHAPE
     pos, mask = pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"])
@@ -666,10 +695,12 @@ def phase_kernels_probes(device, rec: Records):
     out_k, out_t, out_k1 = run_kernel(), run_twin(), k1()
     torch.cuda.synchronize()
     live = q[2] > 0.0
-    errs, ok = pair_error(out_k, out_t, live, 0)
+    errs, _ = pair_error(out_k, out_t, live, 0)
+    ok = bit_equal([out_k], [out_t])
     beside = pc.agree(out_k, out_k1)
     log(f"phase 3 kernels: probe_ctx max_abs_err {max(errs)!r} per component {errs!r} "
-        f"{'ok' if ok else 'MISMATCH'}; agrees with K1 ctx (rtol 1e-4) {beside}")
+        f"{'ok' if ok else 'MISMATCH'} (bit-equal required); agrees with K1 ctx "
+        f"(rtol 1e-4) {beside}")
     if not (ok and beside):
         raise RuntimeError(f"probe_ctx disagrees with its twin or with K1 ctx ({errs})")
     ms, plain_ms, k1_ms = graph_ms(run_kernel), event_ms(run_twin), graph_ms(k1)
@@ -679,9 +710,117 @@ def phase_kernels_probes(device, rec: Records):
     log(f"phase 3 kernels: probe_ctx kernel {ms:.5f} ms twin {plain_ms:.4f} ms, K1 ctx "
         f"on the same inputs {k1_ms:.5f} ms ({k1_ms / ms:.2f}x K7), planes "
         f"{tuple(q.shape)}, {cand} live candidates, {valid} valid pairs")
-    rec.add("probe_ctx", "probe_ctx", max(errs), ms, plain_ms,
-            pair_bytes((pos_planes,), (pos_planes,), [q[2]], [out_k], slot_m, slot_m),
-            5 * cand + OPS_PER_PAIR["probe_ctx"] * valid, paths={"probe_ctx"})
+    n_bytes = pair_bytes((pos_planes,), (pos_planes,), [q[2]], [out_k], slot_m, slot_m)
+    n_ops = 5 * cand + OPS_PER_PAIR["probe_ctx"] * valid
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_line("probe_ctx", bound_ms, bound_by,
+               f"{n_bytes} bytes, {n_ops} float32 operations", ms)
+    rec.add("probe_ctx", "probe_ctx", max(errs), ms, plain_ms, bound_ms, bound_by,
+            paths={"probe_ctx"})
+
+
+def slot_space(rng, grid, pp, fill, dead_rho, device):
+    """A slot-layout space of `pp` slots a cell on `grid`: random liveness,
+    live positions near their own cell (dead ones 0), values v (.., 2), k,
+    rho (dead slots hold `dead_rho`) and pres, all on `device`."""
+    ny, nx, h = grid.ny, grid.nx, grid.cell_size
+    mask = rng.random((ny, nx, pp)) < fill
+    cy, cx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    cell = np.stack([cx, cy], axis=-1)[:, :, None, :] * h
+    pos = np.where(mask[..., None], cell + (rng.random((ny, nx, pp, 2)) * 1.1 - 0.05) * h,
+                   0.0)
+    f = lambda *tail: rng.random((ny, nx, pp) + tail)  # noqa: E731
+    vals = dict(v=f(2) * 2 - 1, k=f() * 50 - 25, rho=np.where(mask, 100 + 30 * f(), dead_rho),
+                pres=f() * 500)
+    t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float32)).to(device)  # noqa: E731
+    return (t(pos), torch.as_tensor(mask).to(device)), {k: t(v) for k, v in vals.items()}
+
+
+def phase_kernels_deep(device):
+    """K1 (nine forms, f32 and bf16 operands), K3 (eight forms) and K7 with a
+    source space of DEEP_PS slots, cells of more than 32 live ones (two live
+    words a cell), on a ragged grid of the 3k scene's cell size (query
+    spaces of P 7, K7 P 12, 60% live; sources 90% live, dead rho NaN),
+    bit-equal to their twins. Correctness only: not timed, no record."""
+    from yasph2d_tpu_torch.ops import pair_reduce as pr
+    from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
+    from yasph2d_tpu_torch.ops.planes import PlaneGeom, plane_geom, to_planes
+    from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
+    from yasph2d_tpu_torch.tools import probe_pallas_slotmajor as pc
+
+    world = double_dam_break(3_000)
+    sv = {kind: bench_solver(kind, world, device)[0] for kind in (
+        "dfsph_plane", "wcsph_plane", "dfsph_padded", "wcsph_padded")}
+    grid = dataclasses.replace(sv["dfsph_plane"].grid, ny=61, nx=97)
+    rng = np.random.default_rng(9)
+    (pos, mask), qv = slot_space(rng, grid, 7, 0.6, 0.0, device)
+    (spos, smask), dv = slot_space(rng, grid, DEEP_PS, 0.9, float("nan"), device)
+    most = int(smask.sum(-1).max())
+    dt = 1.0 / 2700.0
+    results = {}
+
+    def record(name, out, ref):
+        torch.cuda.synchronize()
+        equal = bit_equal([out], [ref])
+        results[name] = equal
+        if not equal:
+            raise RuntimeError(f"{name} at Ps = {DEEP_PS} is not bit-equal to its twin "
+                               f"(max |diff| {float((out - ref).abs().nan_to_num().max())!r})")
+
+    # K3: the slot layout in place
+    f, w = sv["dfsph_padded"]._padded_forms, sv["wcsph_padded"]._forms
+    wq, ws = (qv["pres"], qv["rho"], qv["v"]), (dv["pres"], dv["rho"], dv["v"])
+    k3 = [(f.ctx, {}), (f.stat, {}), (f.div, dict(q_vals=(qv["v"],), s_vals=(dv["v"],))),
+          (f.corr, dict(q_vals=(qv["k"],), s_vals=(dv["k"],))),
+          (f.visc, dict(q_vals=(qv["v"],), s_vals=(dv["v"], dv["rho"]), scalars=(dt,))),
+          (w.density, {}), (w.stat, {}), (w.forces, dict(q_vals=wq, s_vals=ws, scalars=(dt,)))]
+    for form, kw in k3:
+        c = (sv["dfsph_padded"] if form.name.startswith("dfsph") else sv["wcsph_padded"])._consts
+        record(f"sm_pair_reduce_{form.name}",
+               smp.sm_pair_reduce(form, pos, mask, spos, smask, c, **kw),
+               smp.sm_pair_reduce_ref(form.term_fn, form.n_out, pos, mask, spos, smask,
+                                      c.radius_sq, **kw))
+    # K1: the same spaces as planes, f32 and bf16 operands
+    planes = lambda a: to_planes(a).contiguous()  # noqa: E731
+    q32, s32 = PlaneGeom(planes(pos), planes(mask)), PlaneGeom(planes(spos), planes(smask))
+    qp, dp = ({k: planes(v) for k, v in d.items()} for d in (qv, dv))
+    shape = q32.mask.shape
+    sgs, dens = qp["v"] * 20.0, qp["rho"] * 0.05 + 95.0
+    alpha = torch.full(shape, 1e-3, device=device)
+    nt = torch.floor(qp["k"].abs() * 0.7)
+    fd, fw = sv["dfsph_plane"]._forms, sv["wcsph_plane"]._forms
+    for bf16 in (False, True):
+        g = dataclasses.replace(grid, pair_dtype="bfloat16")
+        q, src = (plane_geom(q32.pos, q32.mask, g), plane_geom(s32.pos, s32.mask, g)) \
+            if bf16 else (q32, s32)
+        stat = pr.pair_reduce_ref(fd.ctx.term_fn, 5, q, src, grid.radius_sq)
+        k1 = [(fd.ctx, {}), (fd.ctx_post, dict(post_planes=(stat,))),
+              (fd.visc_gravity, dict(q_vals=(qp["v"],), s_vals=(dp["v"], dp["rho"]),
+                                     scalars=(dt,))),
+              (fd.err_ki, dict(q_vals=(qp["v"],), s_vals=(dp["v"],), scalars=(dt,),
+                               post_planes=(qp["v"], sgs, dens, alpha))),
+              (fd.delta_ki, dict(q_vals=(qp["v"],), s_vals=(dp["v"],),
+                                 post_planes=(qp["v"], sgs, nt, alpha))),
+              (fd.corr_v, dict(q_vals=(qp["k"],), s_vals=(dp["k"],), scalars=(1234.5,),
+                               post_planes=(qp["v"], qp["k"], sgs))),
+              (fw.density, {}), (fw.stat, {}),
+              (fw.forces, dict(q_vals=(qp["pres"], qp["rho"], qp["v"]),
+                               s_vals=(dp["pres"], dp["rho"], dp["v"]), scalars=(dt,)))]
+        for form, kw in k1:
+            c = (sv["wcsph_plane"] if form.name.startswith("wcsph") else sv["dfsph_plane"])._consts
+            record(f"pair_reduce_{form.name}{'_bf16' if bf16 else ''}",
+                   pr.pair_reduce(form, q, src, c, **kw),
+                   pr.pair_reduce_ref(form.term_fn, form.n_out, q, src, c.radius_sq,
+                                      post_fn=form.post_fn, n_acc=form.n_acc, **kw))
+    # K7: the probe's planes, P 12 against Ps = DEEP_PS
+    d = pc.CHECK_SHAPE
+    pq = pc.probe_planes(*pc.probe_inputs(d["ny"], d["nx"], 12, d["h"]), device)
+    ps_ = pc.probe_planes(*pc.probe_inputs(d["ny"], d["nx"], DEEP_PS, d["h"], seed=1), device)
+    record("probe_ctx", pc.ctx_pass(pq, ps_, d["h"], d["m"]),
+           pc.ctx_pass_ref(pq, ps_, d["h"], d["m"]))
+    log(f"phase 3 kernels: Ps = {DEEP_PS} (at most {most} live slots a cell), grid "
+        f"{grid.nx}x{grid.ny}: {len(results)} launchers bit-equal to their twins: "
+        f"{sorted(results)}")
 
 
 def live_rows(state):
@@ -897,6 +1036,7 @@ def main():
     phase_kernels_dfsph(device, rec, "dfsph_plane_bf16")
     phase_kernels_wcsph_plane(device, rec, "wcsph_plane_bf16", np.random.default_rng(4))
     phase_kernels_probes(device, rec)
+    phase_kernels_deep(device)
     phase_kernels_1m(device, rec)
     phase_small_reference(device)
     path_launches = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}

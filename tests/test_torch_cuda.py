@@ -7,9 +7,8 @@ CPU-only test host). Imports no JAX, so it runs on a GPU host without it:
 
 The kernels perform the twins' float32 operations in the same order (built
 with -fmad=false; K5's twin sums each view's candidates with torch.sum), so
-K1 in both operand modes and the re-buckets (K2, K4) are compared bit for bit,
-the other pair kernels (K3, K5, K7) to rtol 1e-5 plus 1e-6 of the plane's
-scale. The FMA probe of K6 rounds once per step where its twin rounds twice
+K1 in both operand modes, K3, K7 and the re-buckets (K2, K4) are compared bit
+for bit, K5 to rtol 1e-5 plus 1e-6 of the plane's scale. The FMA probe of K6 rounds once per step where its twin rounds twice
 (rtol 1e-5); its mix probe is bit-equal to the twin."""
 
 import dataclasses
@@ -473,24 +472,27 @@ def test_vpu_probe_kernels_match_twins(device, probe, chains, spread):
         torch.testing.assert_close(out, twin, rtol=1e-5, atol=0.0)
 
 
-def test_probe_ctx_kernel_matches_twin(device):
-    """K7 at the probe's check shape and at a deeper source space (Ps != P)."""
+@pytest.mark.parametrize("p,ps", [(5, 5), (7, 3), (12, 12), (12, 40), (7, 40)])
+def test_probe_ctx_kernel_matches_twin(device, p, ps):
+    """K7 (K1's kernel with the probe's statement, masks read from plane 2)
+    at the probe's check shape: P 5 (the check), 7 and 12 (beyond the first
+    K7's P <= 8), sources of the same space or another of Ps 3 or 40 (two
+    live words a cell); bit-equal to its twin, one launch a call, and within
+    the probe's check of K1's ctx form (another statement of the same sums)."""
     d = pc.CHECK_SHAPE
-    pos, mask = pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"])
-    q = pc.probe_planes(pos, mask, device)
-    spos, smask = pc.probe_inputs(d["ny"], d["nx"], 3, d["h"], seed=1)
-    s = pc.probe_planes(spos, smask, device)
-    for src in (q, s):
-        before = pc.LAUNCHES["probe_ctx"]
-        out = pc.ctx_pass(q, src, d["h"], d["m"])
-        assert pc.LAUNCHES["probe_ctx"] == before + 1
-        ref = pc.ctx_pass_ref(q, src, d["h"], d["m"])
-        torch.cuda.synchronize()
-        for k in range(5):
-            torch.testing.assert_close(out[k], ref[k], rtol=1e-5,
-                                       atol=1e-6 * max(1.0, float(ref[k].abs().max())))
-        assert float(ref[4].sum()) > 0
-    assert pc.agree(pc.ctx_pass(q, q, d["h"], d["m"]), pc.k1_ctx_call(q, q, d["h"], d["m"])())
+    q = pc.probe_planes(*pc.probe_inputs(d["ny"], d["nx"], p, d["h"]), device)
+    s = q if ps == p else pc.probe_planes(
+        *pc.probe_inputs(d["ny"], d["nx"], ps, d["h"], seed=1), device)
+    before = pc.LAUNCHES["probe_ctx"]
+    out = pc.ctx_pass(q, s, d["h"], d["m"])
+    assert pc.LAUNCHES["probe_ctx"] == before + 1
+    ref = pc.ctx_pass_ref(q, s, d["h"], d["m"])
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert float(ref[4].sum()) > 0
+    if ps == 40:
+        assert int((s[2] > 0).sum(0).max()) > 32  # cells of two live words
+    assert pc.agree(out, pc.k1_ctx_call(q, s, d["h"], d["m"])())
 
 
 def _edge_slots(rng, ny, nx, pp, h, fill):
@@ -594,16 +596,25 @@ def test_pair_kernel_edge_cases_bit_equal(device, edge, form, bf16):
 
 
 def test_pair_kernel_refuses_what_cannot_fit(device, edge):
-    """More than 32 source slots a cell (one live-list word) is refused before
-    any launch."""
+    """A source space too deep for any cell tile's shared memory is refused
+    before any launch; 33 source slots (two live words a cell), refused
+    before K1 took several words, now run and equal the twin."""
     dfsph, _, fluid, _, _ = edge
     _, ny, nx = fluid.mask.shape
-    deep = PlaneGeom(torch.zeros((2, 33, ny, nx), device=device),
-                     torch.zeros((33, ny, nx), dtype=torch.bool, device=device))
+    deep = PlaneGeom(torch.zeros((2, 5000, ny, nx), device=device),
+                     torch.zeros((5000, ny, nx), dtype=torch.bool, device=device))
     before = dict(pr.LAUNCHES)
-    with pytest.raises(ValueError, match="32"):
+    with pytest.raises(ValueError, match="no cell tile"):
         pr.pair_reduce(dfsph._forms.ctx, fluid, deep, dfsph._consts)
     assert pr.LAUNCHES == before
+    pos = fluid.pos[:, :1].repeat(1, 33, 1, 1) + 0.01 * dfsph.grid.cell_size * torch.arange(
+        33, device=device)[None, :, None, None]
+    ok = PlaneGeom(pos.contiguous(), fluid.mask[:1].repeat(33, 1, 1).contiguous())
+    out = pr.pair_reduce(dfsph._forms.ctx, fluid, ok, dfsph._consts)
+    ref = pr.pair_reduce_ref(dfsph._forms.ctx.term_fn, 5, fluid, ok, dfsph._consts.radius_sq)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert pr.LAUNCHES["ctx"] == before["ctx"] + 1 and float(ref[4].sum()) > 0
 
 
 def _bits(outs):
@@ -807,3 +818,178 @@ def test_tile_pair_kernel_deep_sources_match_twin(device, dcase, deep, form):
     torch.cuda.synchronize()
     for o in outs:
         assert torch.equal(o.view(torch.int32), out.view(torch.int32))
+
+
+def _slot_space(rng, ny, nx, pp, h, fill, dead_rho):
+    """A slot-layout space (ny, nx, pp) with random non-compacted liveness,
+    live positions near their own cell (dead ones 0), and values: v (.., 2),
+    k, rho (dead slots hold `dead_rho`), pres."""
+    mask = rng.random((ny, nx, pp)) < fill
+    cy, cx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    cell = np.stack([cx, cy], axis=-1)[:, :, None, :] * h
+    pos = np.where(mask[..., None], cell + (rng.random((ny, nx, pp, 2)) * 1.1 - 0.05) * h,
+                   0.0)
+    f = lambda *tail: rng.random((ny, nx, pp) + tail)  # noqa: E731
+    vals = dict(v=f(2) * 2 - 1, k=f() * 50 - 25, rho=np.where(mask, 100 + 30 * f(), dead_rho),
+                pres=f() * 500)
+    return (pos.astype(np.float32), mask), {k: v.astype(np.float32) for k, v in vals.items()}
+
+
+@pytest.fixture(scope="module")
+def k3case(device):
+    """K3's synthetic cases on a ragged 23 x 37 grid (a multiple of no tile
+    side): query spaces of P = 1 and P = 40 whose 8 x 8 cell tile at rows
+    8-15, cols 8-15 holds no live query (an air tile of the chosen shape),
+    dead slots holding rho = 0; a source space of Ps = 40 (cells of more
+    than 32 live slots, two live words) whose dead slots hold rho = NaN; and
+    the WCSPH and DFSPH padded solvers on the K3 route."""
+    rng = np.random.default_rng(12)
+    world = FluidParticleWorld(2.0, 400.0, 100.0)
+    h = world.properties.smoothing_length
+    ny, nx = 23, 37
+    t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    spaces = {}
+    for name, pp, fill, dead in (("p1", 1, 0.7, 0.0), ("p40", 40, 0.5, 0.0),
+                                 ("deep", 40, 0.9, np.nan)):
+        (pos, mask), vals = _slot_space(rng, ny, nx, pp, h, fill, dead)
+        if name != "deep":
+            mask[8:16, 8:16] = False
+            pos[8:16, 8:16] = 0.0
+        spaces[name] = ((t(pos), t(mask)), {k: t(v) for k, v in vals.items()})
+    assert int(spaces["deep"][0][1].sum(-1).max()) > 32
+    grid = DenseGridConfig(cell_size=h, origin=(0.0, 0.0), nx=nx, ny=ny, occupancy=1,
+                           use_pallas_slotmajor=True)
+    common = dict(viscosity_model=XSPHViscosityModel(h), properties=world.properties,
+                  grid=grid)
+    dfsph = DFSPHPaddedSolver(**common, step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 1.5))
+    wcsph = WCSPHPaddedSolver(**common, step_config=AdaptiveTimeStep(1 / 360, 1 / 24000, 0.2))
+    return dfsph, wcsph, spaces
+
+
+def _k3_form(dfsph, wcsph, form, qv, sv):
+    """(form, consts, keyword operands) of one K3 form on query values `qv`
+    and source values `sv` (the _slot_space dicts)."""
+    f, w = dfsph._padded_forms, wcsph._forms
+    dt = (1.0 / 2700.0,)
+    wq, ws = (qv["pres"], qv["rho"], qv["v"]), (sv["pres"], sv["rho"], sv["v"])
+    return {
+        "dfsph_ctx": (f.ctx, dfsph._consts, {}),
+        "dfsph_stat": (f.stat, dfsph._consts, {}),
+        "dfsph_div": (f.div, dfsph._consts, dict(q_vals=(qv["v"],), s_vals=(sv["v"],))),
+        "dfsph_corr": (f.corr, dfsph._consts, dict(q_vals=(qv["k"],), s_vals=(sv["k"],))),
+        "dfsph_visc": (f.visc, dfsph._consts, dict(q_vals=(qv["v"],),
+                                                   s_vals=(sv["v"], sv["rho"]), scalars=dt)),
+        "wcsph_density": (w.density, wcsph._consts, {}),
+        "wcsph_stat": (w.stat, wcsph._consts, {}),
+        "wcsph_forces": (w.forces, wcsph._consts, dict(q_vals=wq, s_vals=ws, scalars=dt)),
+    }[form]
+
+
+def _check_k3(pform, consts, pos, mask, src, kw, shapes=()):
+    """K3 through its wrapper (one counted launch) bit-equal to its twin, dead
+    query slots zero, and through `launch` with every tile of `shapes` that
+    fits bit-equal to the chosen one."""
+    before = smp.LAUNCHES[pform.name]
+    out = smp.sm_pair_reduce(pform, pos, mask, *src, consts, **kw)
+    assert smp.LAUNCHES[pform.name] == before + 1
+    twin = smp.sm_pair_reduce_ref(pform.term_fn, pform.n_out, pos, mask, *src,
+                                  consts.radius_sq, **kw)
+    n_sv = len(smp._comps(kw.get("s_vals", ())))
+    outs = [smp.launch(pform, pos, mask, *src, consts, kw.get("q_vals", ()),
+                       kw.get("s_vals", ()), kw.get("scalars", ()), tile)
+            for tile in shapes
+            if tpp.smem_bytes(*tile[:2], mask.shape[2], src[1].shape[2], n_sv) <= tpp.SMEM_LIMIT]
+    torch.cuda.synchronize()
+    assert smp.LAUNCHES[pform.name] == before + 1  # `launch` counts nothing
+    assert torch.equal(out.view(torch.int32), twin.view(torch.int32))
+    assert (out[~mask] == 0).all() and bool(torch.isfinite(out).all())
+    for o in outs:
+        assert torch.equal(o.view(torch.int32), out.view(torch.int32))
+    return out
+
+
+@pytest.mark.parametrize("source", ["same", "deep"])
+@pytest.mark.parametrize("space", ["p1", "p40"])
+@pytest.mark.parametrize("form", list(smp.LAUNCHES))
+def test_sm_pair_kernel_edge_cases_bit_equal(device, k3case, form, space, source):
+    """Every K3 form on the synthetic cases: P = 1 and P = 40 query spaces
+    against their own space (dead rho = 0) and against the Ps = 40 source
+    space (two live words a cell, dead rho = NaN), bit-equal to the twin with
+    the chosen tile and with every tile the sweep times; the air tile writes
+    zeros."""
+    dfsph, wcsph, spaces = k3case
+    (pos, mask), qv = spaces[space]
+    src, sv = spaces[source] if source == "deep" else spaces[space]
+    pform, consts, kw = _k3_form(dfsph, wcsph, form, qv, sv)
+    assert pform.name == form
+    out = _check_k3(pform, consts, pos, mask, src, kw, tile_sweep.SHAPES)
+    assert (out[8:16, 8:16] == 0).all()  # the air tile
+    assert float(out.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("kind,steps", [("wcsph_padded", 3), ("dfsph_padded", 55)])
+def test_sm_pair_kernel_forms_bit_equal_on_3k_states(device, kind, steps):
+    """K3's forms as a padded step calls them (tools/kernel_times.py's calls,
+    seeded noise) on the 3k double dam-break state of its solver after
+    `steps` steps (DFSPH in wall contact), bit-equal to the twin, the step's
+    pass against the boundary summing something."""
+    from yasph2d_tpu_torch.tools.kernel_times import padded_calls
+
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver(kind, world, device=device)
+    carry = solver.init_carry(world.initial_state(device=device), boundary)
+    carry, _ = solver.simulate(carry, boundary, steps)
+    calls = padded_calls(solver, boundary, carry, np.random.default_rng(6))
+    for label, (form, q, src, kw) in calls.items():
+        out = _check_k3(form, solver._consts, *q, src, kw)
+        # the WCSPH columns reach the walls after step 3 (chip_smoke.py)
+        assert label == "wcsph_stat" or float(out.abs().sum()) > 0, label
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", list(pr.LAUNCHES)[:len(pr.LAUNCHES) // 2])
+def test_pair_kernel_deep_sources_bit_equal(device, edge, form, bf16):
+    """Every K1 launcher with a source space of Ps = 40 (cells of more than 32
+    live slots: two live words a cell) in both operand modes, bit-equal to its
+    twin with the chosen launch shape."""
+    dfsph, wcsph, fluid, _, vals = edge
+    p, ny, nx = fluid.mask.shape
+    rng = np.random.default_rng(13)
+    h = dfsph.grid.cell_size
+    (spos, smask), sv = _slot_space(rng, ny, nx, 40, h, 0.9, 0.0)
+    deep = PlaneGeom(to_planes(torch.as_tensor(spos)).to(device),
+                     to_planes(torch.as_tensor(smask)).to(device))
+    assert int(deep.mask.sum(0).max()) > 32
+    sv = {k: to_planes(torch.as_tensor(v)).to(device) for k, v in sv.items()}
+    q, src = (_bf16(fluid, dfsph.grid), _bf16(deep, dfsph.grid)) if bf16 else (fluid, deep)
+    f, w = dfsph._forms, wcsph._forms
+    v, k, rho, dt = vals["v"], vals["k"], vals["rho"], 1.0 / 2700.0
+    stat = pr.pair_reduce_ref(f.ctx.term_fn, 5, q, src, dfsph._consts.radius_sq)
+    solver, pform, kw = {
+        "ctx": (dfsph, f.ctx, {}),
+        "ctx_post": (dfsph, f.ctx_post, dict(post_planes=(stat,))),
+        "visc_gravity": (dfsph, f.visc_gravity, dict(q_vals=(v,), s_vals=(sv["v"], sv["rho"]),
+                                                     scalars=(dt,))),
+        "err_ki": (dfsph, f.err_ki, dict(q_vals=(v,), s_vals=(sv["v"],), scalars=(dt,),
+                                         post_planes=(v, vals["sgs"], vals["dens"],
+                                                      vals["alpha"]))),
+        "delta_ki": (dfsph, f.delta_ki, dict(q_vals=(v,), s_vals=(sv["v"],), post_planes=(
+            v, vals["sgs"], vals["nt"], vals["alpha"]))),
+        "corr_v": (dfsph, f.corr_v, dict(q_vals=(k,), s_vals=(sv["k"],), scalars=(1234.5,),
+                                         post_planes=(v, k, vals["sgs"]))),
+        "wcsph_density": (wcsph, w.density, {}),
+        "wcsph_stat": (wcsph, w.stat, {}),
+        "wcsph_forces": (wcsph, w.forces, dict(q_vals=(vals["pres"], rho, v),
+                                               s_vals=(sv["pres"], sv["rho"], sv["v"]),
+                                               scalars=(dt,))),
+    }[form]
+    name = f"{pform.name}_bf16" if bf16 else pform.name
+    before = pr.LAUNCHES[name]
+    out = pr.pair_reduce(pform, q, src, solver._consts, **kw)
+    assert pr.LAUNCHES[name] == before + 1
+    ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, src, solver._consts.radius_sq,
+                             post_fn=pform.post_fn, n_acc=pform.n_acc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    live = q.mask.expand_as(out)
+    assert (out[~live] == 0).all() and float(ref[live].abs().sum()) > 0

@@ -259,8 +259,8 @@ def case(request):
     return Case(seed=request.param)
 
 
-@pytest.mark.parametrize("form", FORMS)
-def test_twin_matches_jax(case, form):
+def check_form(case, form):
+    """One call form's port twin against the JAX pass on `case`, live slots."""
     out_j, out_t = run_form(case, form)
     live = case.t(case.mask).numpy()
     assert live.any() and (~live).any()
@@ -275,6 +275,26 @@ def test_twin_matches_jax(case, form):
         assert np.isfinite(b[live_k]).all()
     # the pass did real work: some live output differs from its no-neighbour value
     assert any(np.abs(b.numpy()).sum() > 0 for b in out_t)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_twin_matches_jax(case, form):
+    check_form(case, form)
+
+
+@pytest.fixture(scope="module")
+def deep_case():
+    """A boundary space of 40 slots a cell, 90% live: cells of more than 32
+    live source slots (K1's live list then takes two 32-bit words)."""
+    return Case(seed=3, pb=40, bfill=0.9)
+
+
+@pytest.mark.parametrize("form", ["ctx", "wcsph_stat"])
+def test_twin_matches_jax_deep_sources(deep_case, form):
+    """The two passes against the boundary space with Ps = 40 > 32 source
+    slots, against the JAX plane passes' pf_pair_reduce (interpret mode)."""
+    assert deep_case.bmask.shape[-1] == 40 and deep_case.bmask.sum(-1).max() > 32
+    check_form(deep_case, form)
 
 
 def test_dead_query_slots_are_zero(case):
@@ -305,8 +325,9 @@ def test_tile_shape_bytes_and_refusal():
     on the grid (8 x 32 at the 1M scene's 1612 x 1010 cells, 8 x 8 at 100k's
     515 x 325), its shared memory counted region by region (16-byte
     aligned), bf16 operands staging half the bytes; a narrower tile where
-    the wider does not fit; refused beyond 32 source slots or when no tile
-    fits."""
+    the wider does not fit; ceil(Ps / 32) live words a haloed cell, so 33
+    source slots (refused while a cell's list was one word) take a tile with
+    two; refused when no tile fits."""
     # an 8 x 16 tile, P 7, Ps 7, three source values: (10 x 18) haloed cells
     hc = 10 * 18
     f32 = hc * 7 * 8 + hc * 7 * 3 * 4 + hc * 4 + 8 * 16 * 7 * 2 + 32 * 4
@@ -325,7 +346,8 @@ def test_tile_shape_bytes_and_refusal():
     shape = tpr.tile_shape(300, 8, 0, False, 1010, 1612)
     assert shape[:3] != tpr.TILES[0] and shape[0] * shape[1] * 300 <= 65536
     assert shape[3] <= tpr.cuda_build.SMEM_LIMIT
-    with pytest.raises(ValueError, match="32"):
-        tpr.tile_shape(7, 33, 0, False, 325, 515)
+    deep = tpr.tile_shape(7, 33, 0, False, 325, 515)
+    assert deep == (8, 8, 256, 100 * 33 * 8 + 100 * 2 * 4 + 8 * 8 * 7 * 2 + 32 * 4)
+    assert tpr.smem_bytes(8, 8, 7, 32, 0, False) == 100 * 32 * 8 + 100 * 4 + 896 + 128
     with pytest.raises(ValueError, match="no cell tile"):
         tpr.tile_shape(5000, 8, 0, False, 325, 515)

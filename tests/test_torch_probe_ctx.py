@@ -24,17 +24,25 @@ from yasph2d_tpu_torch.tools import probe_pallas_slotmajor as pc
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def check_case():
-    """The run_check inputs and the JAX kernel's output in the port's
-    (5, P, ny, nx) layout."""
-    d = pc.CHECK_SHAPE
-    pos, mask = pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"])
+def jax_probe(d, pos, mask, spos=None, smask=None):
+    """The JAX probe kernel's output on queries (pos, mask) and sources
+    (spos, smask), by default the same, in the port's (5, P, ny, nx)
+    layout."""
     q_blocks, s_blocks, _ = make_blocks(jnp.asarray(pos), jnp.asarray(mask), br=4)
+    if spos is not None:
+        _, s_blocks, _ = make_blocks(jnp.asarray(spos), jnp.asarray(smask), br=4)
     out = jax.jit(functools.partial(ctx_pass_slotmajor, h=d["h"], m=d["m"],
                                     interpret=True))(q_blocks, s_blocks)
     out = np.concatenate([np.asarray(out[i]) for i in range(out.shape[0])], axis=2)
-    return d, pos, mask, out[:, :, :d["ny"], :d["nx"]]  # (5, P, ny, nx)
+    return out[:, :, :d["ny"], :d["nx"]]
+
+
+@pytest.fixture(scope="module")
+def check_case():
+    """The run_check inputs and the JAX kernel's output."""
+    d = pc.CHECK_SHAPE
+    pos, mask = pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"])
+    return d, pos, mask, jax_probe(d, pos, mask)
 
 
 def test_inputs_are_the_jax_probe_inputs():
@@ -49,11 +57,10 @@ def test_inputs_are_the_jax_probe_inputs():
     np.testing.assert_array_equal(ours[1], mask)
 
 
-def test_twin_matches_jax_kernel(check_case):
-    d, pos, mask, ref = check_case
+def check_twin(d, pos, mask, ref, s=None):
     q = pc.probe_planes(pos, mask, "cpu")
     before = dict(pc.LAUNCHES)
-    out = pc.ctx_pass(q, q, d["h"], d["m"]).numpy()
+    out = pc.ctx_pass(q, q if s is None else s, d["h"], d["m"]).numpy()
     assert pc.LAUNCHES == before  # CPU tensors run the twin
     assert out.shape == ref.shape == (5, d["p"], d["ny"], d["nx"])
     for k in range(4):
@@ -62,6 +69,22 @@ def test_twin_matches_jax_kernel(check_case):
     np.testing.assert_array_equal(out[4], ref[4])  # neighbour counts
     live = np.transpose(mask, (2, 0, 1))
     assert (out[:, ~live] == 0).all() and out[4][live].sum() > 0
+
+
+def test_twin_matches_jax_kernel(check_case):
+    check_twin(*check_case)
+
+
+def test_twin_matches_jax_kernel_twelve_slots():
+    """P = 12 query slots (the first CUDA K7 took at most 8) on the check
+    shape's cells against a source space of 3 slots (the JAX kernel unrolls
+    P x 9 x Ps candidate blocks: 12 x 12 takes its interpret mode too long):
+    the twin against the JAX probe kernel."""
+    d = dict(pc.CHECK_SHAPE, p=12)
+    pos, mask = pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"], seed=4)
+    spos, smask = pc.probe_inputs(d["ny"], d["nx"], 3, d["h"], seed=5)
+    check_twin(d, pos, mask, jax_probe(d, pos, mask, spos, smask),
+               s=pc.probe_planes(spos, smask, "cpu"))
 
 
 def test_twin_matches_k1_ctx(check_case):

@@ -90,3 +90,20 @@ def test_bound_and_form_ops():
     assert rl.bound(0, 67e9) == (1.0, "operations")
     assert rl.form_ops("corr_v", 10, 4, 3) == 5 * 10 + 13 * 4 + 8 * 3
     assert rl.form_ops("ctx", 10, 4, 3) == 5 * 10 + 26 * 4
+
+
+def test_instruction_bound():
+    """instruction_bound() takes the slowest of each pipe's instructions over
+    its rate a clock per SM (FP32 128, ALU 64) and all of them over the
+    dispatch rate (128), on 132 SMs at the clock of the data sheet's 67 TFLOP/s. The
+    K6 mix probe's step, one FADD, FSETP and FSEL, is bound by the ALU pipe
+    at 2 / 64 clocks per 32 steps: 0.827 ms at the probe's size, where
+    counting its three instructions as FP32 operations gave 0.310."""
+    clock = rl.SMS * rl.SM_HZ
+    assert rl.SM_HZ == pytest.approx(1.9827e9, rel=1e-4)
+    assert rl.instruction_bound({"FADD": 128 * clock}) == (pytest.approx(1e3), "fp32 pipe")
+    steps = 1_690_624 * 4096
+    ms, what = rl.instruction_bound({"FADD": steps, "FSETP": steps, "FSEL": steps})
+    assert what == "alu pipe" and ms == pytest.approx(2 * steps / (64 * clock) * 1e3)
+    assert ms == pytest.approx(0.8268, rel=1e-3)
+    assert rl.bound(0, 3 * steps)[0] == pytest.approx(0.3101, rel=1e-3)

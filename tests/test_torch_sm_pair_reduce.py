@@ -287,3 +287,27 @@ def test_wrapper_dispatch_is_by_device(case):
     with pytest.raises(ValueError):
         tsm.sm_pair_reduce(dataclasses.replace(form, post_fn=lambda *a: a),
                            pos, mask, pos, mask, case.ts._consts)
+
+
+def test_tile_shape_of_the_k3_route():
+    """K3 launches on K5's tile machinery: its wrapper takes K5's tile rule,
+    shared memory and query round (ops/pallas_pair.py). At the padded steps'
+    shapes (P 7; the boundary's Pb 8; up to four source components) the tile
+    is 8 x 8 x 256 and its shared memory, counted region by region (16-byte
+    aligned): float2 positions, source values, ceil(Ps / 32) live words a
+    haloed cell, the round's uint16 list and 32 warp counts. A query and
+    source space of 40 slots (two live words a cell, rounds of PP = 64 slots a
+    cell) still fits the same tile."""
+    from yasph2d_tpu_torch.ops import pallas_pair as tpp
+
+    assert tsm.tile_shape is tpp.tile_shape and tsm.tile_launch is tpp.tile_launch
+    for ps, n_comps in ((7, 0), (7, 2), (7, 3), (7, 4), (8, 0)):
+        assert tpp.tile_shape(7, ps, n_comps) == (8, 8, 256)
+    hc = 10 * 10
+    assert tpp.query_round(8, 8, 7) == 512
+    assert tpp.smem_bytes(8, 8, 7, 7, 3) == hc * 7 * 8 + hc * 7 * 3 * 4 + hc * 4 \
+        + 512 * 2 + 32 * 4 == 15552
+    assert tpp.query_round(8, 8, 40) == 64 * 64
+    assert tpp.smem_bytes(8, 8, 40, 40, 4) == hc * 40 * 8 + hc * 40 * 4 * 4 + hc * 2 * 4 \
+        + 4096 * 2 + 32 * 4
+    assert tpp.tile_shape(40, 40, 4) == (8, 8, 256)

@@ -11,10 +11,11 @@ never JAX. Its solvers so far:
 They run on five hand-written CUDA kernels: K1, the pair reduction in plane
 form (csrc/pair_reduce.cu, ops/pair_reduce.py), K2, the re-bucket in plane
 form (csrc/rebucket.cu, ops/rebucket.py), K3, the pair reduction in the
-slot-major layout (csrc/sm_pair_reduce.cu, ops/sm_pair_reduce.py), K4, the
-re-bucket in that layout (csrc/sm_rebucket.cu, ops/sm_rebucket.py), and K5,
-the pair reduction on shared-memory cell tiles in that layout
-(csrc/tile_pair_reduce.cu, ops/pallas_pair.py). The padded solvers run their
+slot-major layout in the TPU kernel's per-candidate order (ops/sm_pair_reduce.py),
+K4, the re-bucket in that layout (csrc/sm_rebucket.cu, ops/sm_rebucket.py),
+and K5, the pair reduction in that layout with per-view sums
+(ops/pallas_pair.py); K3 and K5 are one kernel on shared-memory cell tiles
+(csrc/tile_pair_reduce.cu) with the sum order as a template parameter. The padded solvers run their
 pair passes on K3 when `DenseGridConfig.use_pallas_slotmajor` is True and on
 K5 when it is False (the default); the plane solvers require True. CUDA
 tensors run the kernels, CPU tensors their plain PyTorch twins. The scene's

@@ -6,9 +6,18 @@
 // (y, x), in the TPU kernel's exact accumulation order (dyv, dxv, sp), then
 // maps the accumulators through an elementwise epilogue (post). A pair counts
 // when the source is live and 1e-10 < r_sq <= h^2; a dead query writes zeros.
-// The term and post functors live in csrc/pair_terms.cuh, shared with K3.
+// The term and post functors live in csrc/pair_terms.cuh, shared with K3/K5.
 //
 // Layout: planes (L, P, ny, nx) f32 and masks (P, ny, nx) bool, unpadded.
+//
+// K7, the ctx-pass probe, is this kernel too: it replaces the TPU kernel
+// tools/probe_pallas_slotmajor.py ctx_pass_slotmajor (body ctx_pass_kernel)
+// with the probe's own Wendland statement (pair_terms.cuh ProbeCtxTerm), no
+// post, and the probe's planes read in place (operand mode ProbeOps): query
+// (3, P, ny, nx) and source (3, Ps, ny, nx) f32 = x, y and the mask as 0/1,
+// the mask read from plane 2 as > 0; output (5, P, ny, nx). Cells off the
+// grid are absent (the TPU probe's zero halo ring adds +0.0, which leaves
+// every sum as it is).
 //
 // Masking skips invalid candidates (a branch), never multiplies them by 0:
 // XSPH divides by rho_j * dt and a dead source slot may hold rho_j = 0 there,
@@ -34,11 +43,13 @@
 //     used, and stages them; cells off the grid stage as dead, so ragged tiles
 //     need no padded copy. One barrier.
 //  3. Per-cell live lists. The staging thread also forms the cell's live
-//     source slots as one 32-bit word (bit sp = slot sp is live, so Ps <= 32).
-//     Each live query thread walks its 9 cells' words, lowest bit first: the
-//     candidates are exactly the live ones, in (dyv, dxv, ascending sp) order,
-//     so dead candidates cost nothing and no result changes. This is the
-//     Hopper counterpart of the JAX kernel's per-view slot bounds.
+//     source slots as W = ceil(Ps / 32) 32-bit words (bit sp % 32 of word
+//     sp / 32 is slot sp). Each live query thread walks its 9 cells' words,
+//     lowest bit first: the candidates are exactly the live ones, in (dyv,
+//     dxv, ascending sp) order, so dead candidates cost nothing and no result
+//     changes. This is the Hopper counterpart of the JAX kernel's per-view
+//     slot bounds. W = 1 (Ps <= 32, the bench scenes) is its own
+//     instantiation (template parameter WIDE false), with W a constant.
 // Each query accumulates in one thread in the order above and applies the
 // same post, so the kernel stays bit-equal to its twin on the card in both
 // operand modes.
@@ -59,7 +70,8 @@
 // and the loop reads shared memory.
 //
 // Operand modes (template parameter Ops). F32Ops: positions and values f32,
-// read as they are. Bf16Ops, the TPU kernel's `rebase_cell` mode under
+// read as they are, masks bool. ProbeOps (K7): F32Ops with f32 mask planes,
+// live where > 0. Bf16Ops, the TPU kernel's `rebase_cell` mode under
 // DenseGridConfig.pair_dtype = "bfloat16": positions are bf16 offsets from
 // the slot's cell centre (built once per rebuild, ops/planes.plane_geom), read
 // at half the bytes and upcast; dx = (x_j - x_i) + delta[dxv] with delta =
@@ -83,7 +95,6 @@
 #define MAX_PLANES 8
 #define K1_MAX_THREADS 256
 #define K1_MIN_BLOCKS 4         // blocks per SM the registers must allow (<= 64 each)
-#define K1_MAX_SOURCE_SLOTS 32  // a cell's live list is one 32-bit word
 #define K1_STAGE_CHUNK 4        // source slots whose loads are issued together
 #define K1_MASK_CHUNKS 8        // query-mask chunks whose loads are issued together
 
@@ -93,8 +104,10 @@ struct Planes {
 
 struct F32Ops {
   using Pos = float;
-  using Val = float;  // a staged source value
+  using Val = float;            // a staged source value
+  using Mask = unsigned char;   // a bool mask plane
   static constexpr bool REBASED = false;
+  __device__ static bool live(unsigned char m) { return m != 0; }
   __device__ static float pos(const float* p, int i) { return p[i]; }
   __device__ static float val(const float* p, int i) { return p[i]; }
   __device__ static float load_pos(const float* p, int i) { return __ldg(p + i); }
@@ -105,7 +118,9 @@ struct F32Ops {
 struct Bf16Ops {
   using Pos = __nv_bfloat16;
   using Val = __nv_bfloat16;
+  using Mask = unsigned char;
   static constexpr bool REBASED = true;
+  __device__ static bool live(unsigned char m) { return m != 0; }
   __device__ static float pos(const __nv_bfloat16* p, int i) { return __bfloat162float(p[i]); }
   __device__ static float val(const float* p, int i) {
     return __bfloat162float(__float2bfloat16_rn(p[i]));
@@ -117,6 +132,11 @@ struct Bf16Ops {
   __device__ static float up(__nv_bfloat16 v) { return __bfloat162float(v); }
 };
 
+struct ProbeOps : F32Ops {  // K7: the mask is plane 2 of the probe's planes, 0/1
+  using Mask = float;
+  __device__ static bool live(float m) { return m > 0.0f; }
+};
+
 template <class T>
 struct alignas(2 * sizeof(T)) Pos2 {
   T x, y;
@@ -124,10 +144,10 @@ struct alignas(2 * sizeof(T)) Pos2 {
 
 template <class Ops>
 struct Args {
-  const typename Ops::Pos* q_pos;  // (2, P, ny, nx)
-  const bool* q_mask;              // (P, ny, nx)
-  const typename Ops::Pos* s_pos;  // (2, Ps, ny, nx)
-  const bool* s_mask;              // (Ps, ny, nx)
+  const typename Ops::Pos* q_pos;    // (2, P, ny, nx)
+  const typename Ops::Mask* q_mask;  // (P, ny, nx)
+  const typename Ops::Pos* s_pos;    // (2, Ps, ny, nx)
+  const typename Ops::Mask* s_mask;  // (Ps, ny, nx)
   Planes qv;                       // query-side value planes, (P, ny, nx) each
   Planes sv;                       // source-side value planes, (Ps, ny, nx) each
   Planes post;                     // epilogue planes, (P, ny, nx) each, exact f32
@@ -138,6 +158,7 @@ struct Args {
   float scalar;                    // dt or the correction scale, as f32
   float cell;                      // Bf16Ops: the cell size h as f32
   PairConsts c;
+  int W;                           // live words per source cell, ceil(Ps / 32)
 };
 
 // ---------------------------------------------------------------- shared memory
@@ -148,12 +169,15 @@ __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t
 // smem_bytes computes the same total.
 struct SmemLayout {
   size_t pos, val, bits, qlist, warps, total;
-  __host__ __device__ SmemLayout(int ty, int tx, int P, int Ps, int nsv, int operand_bytes) {
+  // W: live words a cell, ceil(Ps / 32); the one-word kernel passes a
+  // constant 1, so that its offsets and code are those of a one-word layout
+  __host__ __device__ SmemLayout(int ty, int tx, int P, int Ps, int nsv, int operand_bytes,
+                                 int W) {
     const size_t hc = (size_t)(ty + 2) * (tx + 2);
     pos = 0;                                                      // Pos2 [Ps][hc]
     val = pos + align16(hc * Ps * 2 * operand_bytes);             // Val [nsv][Ps][hc]
-    bits = val + align16(hc * Ps * nsv * operand_bytes);          // uint32 [hc]
-    qlist = bits + align16(hc * sizeof(unsigned));                // uint16 [ty tx P]
+    bits = val + align16(hc * Ps * nsv * operand_bytes);          // uint32 [hc][W]
+    qlist = bits + align16(hc * W * sizeof(unsigned));            // uint16 [ty tx P]
     warps = qlist + align16((size_t)ty * tx * P * sizeof(uint16_t));  // int [32]
     total = warps + 32 * sizeof(int);
   }
@@ -161,13 +185,15 @@ struct SmemLayout {
 
 // ---------------------------------------------------------------- kernel
 
-template <class Ops, class Term, class Post>
+// WIDE: Ps > 32, W live words a cell; else one word (W = 1 a constant)
+template <class Ops, class Term, class Post, bool WIDE>
 __global__ void __launch_bounds__(K1_MAX_THREADS, K1_MIN_BLOCKS)
     pair_reduce_kernel(const Args<Ops> a) {
   using Pos = typename Ops::Pos;
   using Val = typename Ops::Val;
   extern __shared__ __align__(16) unsigned char smem[];
-  const SmemLayout L(a.ty, a.tx, a.P, a.Ps, Term::NSV, (int)sizeof(Pos));
+  const int W = WIDE ? a.W : 1;
+  const SmemLayout L(a.ty, a.tx, a.P, a.Ps, Term::NSV, (int)sizeof(Pos), W);
   Pos2<Pos>* t_pos = reinterpret_cast<Pos2<Pos>*>(smem + L.pos);
   Val* t_val = reinterpret_cast<Val*>(smem + L.val);
   unsigned* t_bits = reinterpret_cast<unsigned*>(smem + L.bits);
@@ -205,8 +231,7 @@ __global__ void __launch_bounds__(K1_MAX_THREADS, K1_MIN_BLOCKS)
     for (int r = 0; r < K1_MASK_CHUNKS; ++r) {
       const int i = lo + g + r * 32 + lane;
       idx[r] = g + r * 32 < span ? slot_index(i) : -1;
-      live[r] = idx[r] >= 0 &&
-                __ldg(reinterpret_cast<const unsigned char*>(a.q_mask) + idx[r]) != 0;
+      live[r] = idx[r] >= 0 && Ops::live(__ldg(a.q_mask + idx[r]));
     }
   };
   // first pass: count the live slots and write the dead ones' zeros; the live
@@ -264,11 +289,12 @@ __global__ void __launch_bounds__(K1_MAX_THREADS, K1_MIN_BLOCKS)
     const int hy = c / hx;
     const int gy = y0 + hy - 1;
     const int gx = x0 + (c - hy * hx) - 1;
+    const bool on_grid = gy >= 0 && gy < a.ny && gx >= 0 && gx < a.nx;
     unsigned bits = 0u;
-    if (gy >= 0 && gy < a.ny && gx >= 0 && gx < a.nx) {
+    if (on_grid) {
       const int g0 = gy * a.nx + gx;
       for (int sp0 = 0; sp0 < a.Ps; sp0 += K1_STAGE_CHUNK) {
-        unsigned char m[K1_STAGE_CHUNK];
+        typename Ops::Mask m[K1_STAGE_CHUNK];
         Pos px[K1_STAGE_CHUNK], py[K1_STAGE_CHUNK];
         float v[K1_STAGE_CHUNK][Term::NSV > 0 ? Term::NSV : 1];
 #pragma unroll
@@ -276,7 +302,7 @@ __global__ void __launch_bounds__(K1_MAX_THREADS, K1_MIN_BLOCKS)
           const int sp = sp0 + u;
           if (sp < a.Ps) {
             const int g = sp * plane + g0;
-            m[u] = __ldg(reinterpret_cast<const unsigned char*>(a.s_mask) + g);
+            m[u] = __ldg(a.s_mask + g);
             px[u] = Ops::load_pos(a.s_pos, g);
             py[u] = Ops::load_pos(a.s_pos, a.Ps * plane + g);
 #pragma unroll
@@ -292,12 +318,25 @@ __global__ void __launch_bounds__(K1_MAX_THREADS, K1_MIN_BLOCKS)
 #pragma unroll
             for (int k = 0; k < Term::NSV; ++k)
               t_val[k * a.Ps * hc + s] = Ops::stage_val(v[u][k]);
-            bits |= (m[u] != 0 ? 1u : 0u) << sp;
+            bits |= (Ops::live(m[u]) ? 1u : 0u) << (WIDE ? (sp & 31) : sp);
           }
+        }
+        // a full word (K1_STAGE_CHUNK divides 32)
+        if (WIDE && ((sp0 + K1_STAGE_CHUNK) & 31) == 0) {
+          t_bits[c * W + (sp0 >> 5)] = bits;
+          bits = 0u;
         }
       }
     }
-    t_bits[c] = bits;  // cells off the grid are dead
+    if (!WIDE) {
+      t_bits[c] = bits;  // cells off the grid are dead
+    } else {
+      // the last, partial word; every word of a cell off the grid is dead
+      for (int w = on_grid ? a.Ps >> 5 : 0; w < W; ++w) {
+        t_bits[c * W + w] = bits;
+        bits = 0u;
+      }
+    }
   }
   __syncthreads();
 
@@ -318,20 +357,22 @@ __global__ void __launch_bounds__(K1_MAX_THREADS, K1_MIN_BLOCKS)
     for (int dyv = 0; dyv < 3; ++dyv) {
       for (int dxv = 0; dxv < 3; ++dxv) {
         const int c = (ly + dyv) * hx + (lx + dxv);
-        for (unsigned bits = t_bits[c]; bits != 0u; bits &= bits - 1u) {
-          const int s = (__ffs(bits) - 1) * hc + c;
-          const Pos2<Pos> src = t_pos[s];
-          float dx = Ops::up(src.x) - qx;
-          float dy = Ops::up(src.y) - qy;
-          if (Ops::REBASED) {
-            dx = dx + delta[dxv];
-            dy = dy + delta[dyv];
+        for (int w = 0; w < W; ++w) {
+          for (unsigned bits = t_bits[c * W + w]; bits != 0u; bits &= bits - 1u) {
+            const int s = (32 * w + __ffs(bits) - 1) * hc + c;
+            const Pos2<Pos> src = t_pos[s];
+            float dx = Ops::up(src.x) - qx;
+            float dy = Ops::up(src.y) - qy;
+            if (Ops::REBASED) {
+              dx = dx + delta[dxv];
+              dy = dy + delta[dyv];
+            }
+            const float r_sq = dx * dx + dy * dy;
+            if (!(r_sq <= a.c.radius_sq && r_sq > MIN_DISTANCE_SQ)) continue;
+            float sv[Term::NSV > 0 ? Term::NSV : 1];
+            for (int k = 0; k < Term::NSV; ++k) sv[k] = Ops::up(t_val[k * a.Ps * hc + s]);
+            Term::term(acc, dx, dy, r_sq, sqrtf(r_sq), qv, sv, a.c, a.scalar);
           }
-          const float r_sq = dx * dx + dy * dy;
-          if (!(r_sq <= a.c.radius_sq && r_sq > MIN_DISTANCE_SQ)) continue;
-          float sv[Term::NSV > 0 ? Term::NSV : 1];
-          for (int k = 0; k < Term::NSV; ++k) sv[k] = Ops::up(t_val[k * a.Ps * hc + s]);
-          Term::term(acc, dx, dy, r_sq, sqrtf(r_sq), qv, sv, a.c, a.scalar);
         }
       }
     }
@@ -352,14 +393,15 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
   using Pos = typename Ops::Pos;
   if (n_planes != Term::NQV + Term::NSV + Post::NPOST || ty < 1 || tx < 1 ||
       (ty & (ty - 1)) || (tx & (tx - 1)) || threads < 32 || threads > K1_MAX_THREADS ||
-      threads % 32 || Ps < 1 || Ps > K1_MAX_SOURCE_SLOTS || (long)ty * tx * P > 65536 ||
-      (size_t)smem != SmemLayout(ty, tx, P, Ps, Term::NSV, (int)sizeof(Pos)).total)
+      threads % 32 || Ps < 1 || (long)ty * tx * P > 65536 ||
+      (size_t)smem !=
+          SmemLayout(ty, tx, P, Ps, Term::NSV, (int)sizeof(Pos), (Ps + 31) / 32).total)
     return (int)cudaErrorInvalidValue;
   Args<Ops> a;
   a.q_pos = static_cast<const Pos*>(q_pos);
-  a.q_mask = static_cast<const bool*>(q_mask);
+  a.q_mask = static_cast<const typename Ops::Mask*>(q_mask);
   a.s_pos = static_cast<const Pos*>(s_pos);
-  a.s_mask = static_cast<const bool*>(s_mask);
+  a.s_mask = static_cast<const typename Ops::Mask*>(s_mask);
   int j = 0;
   for (int k = 0; k < MAX_PLANES; ++k) a.qv.p[k] = a.sv.p[k] = a.post.p[k] = nullptr;
   for (int k = 0; k < Term::NQV; ++k) a.qv.p[k] = static_cast<const float*>(planes[j++]);
@@ -374,19 +416,20 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
   a.tx = tx;
   a.lg_ty = __builtin_ctz(ty);
   a.lg_tx = __builtin_ctz(tx);
+  a.W = (Ps + 31) / 32;
   a.scalar = scalar;
   a.cell = cell;
   a.c = *consts;
   if ((long)P * ny * nx == 0) return (int)cudaSuccess;
+  void (*kernel)(const Args<Ops>) = a.W == 1 ? pair_reduce_kernel<Ops, Term, Post, false>
+                                             : pair_reduce_kernel<Ops, Term, Post, true>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(pair_reduce_kernel<Ops, Term, Post>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           smem);
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty);
-  pair_reduce_kernel<Ops, Term, Post>
-      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -423,3 +466,17 @@ PAIR_LAUNCHER(corr_v, CorrTerm, VUpdatePost)
 PAIR_LAUNCHER(wcsph_density, WcsphDensityTerm, NoPost<1>)  // Poly6 density
 PAIR_LAUNCHER(wcsph_stat, WcsphStatTerm, NoPost<3>)        // boundary density + force
 PAIR_LAUNCHER(wcsph_forces, WcsphForcesTerm, NoPost<2>)    // pressure + XSPH
+
+// K7, the ctx-pass probe: its planes q (3, P, ny, nx) and s (3, Ps, ny, nx) =
+// x, y and the mask as 0/1, read in place; out (5, P, ny, nx); consts holds
+// the probe's constants (pair_terms.cuh ProbeCtxTerm)
+extern "C" int probe_ctx(const void* q, const void* s, void* out, int P, int Ps, int ny,
+                         int nx, int ty, int tx, int threads, int smem,
+                         const PairConsts* consts, void* stream) {
+  const float* qf = static_cast<const float*>(q);
+  const float* sf = static_cast<const float*>(s);
+  const long plane = (long)ny * nx;
+  return launch<ProbeOps, ProbeCtxTerm, NoPost<5>>(
+      qf, qf + 2 * P * plane, sf, sf + 2 * Ps * plane, nullptr, 0, out, P, Ps, ny, nx, ty,
+      tx, threads, smem, 0.0f, 0.0f, consts, stream);
+}

@@ -1,6 +1,6 @@
 // Pair terms and epilogues shared by the pair kernels K1 (csrc/pair_reduce.cu,
-// plane layout), K3 (csrc/sm_pair_reduce.cu, slot-major layout) and K5
-// (csrc/tile_pair_reduce.cu, slot-major layout, per-view sums).
+// plane layout; also K7, the ctx-pass probe) and K3 and K5
+// (csrc/tile_pair_reduce.cu, slot-major layout; K5 with per-view sums).
 //
 // A term functor adds one valid pair to its accumulators:
 //   Term::term(acc, dx, dy, r_sq, r, qv, sv, c, scalar)
@@ -227,6 +227,31 @@ struct WcsphForcesXlaTerm {  // coef grad W_spiky + XSPH; qv, sv = p rho vx vy; 
     const float vc = xsph_c(r_sq, sv[1], scalar, c);
     acc[0] += coef * (gc * dx) + vc * (sv[2] - qv[2]);
     acc[1] += coef * (gc * dy) + vc * (sv[3] - qv[3]);
+  }
+};
+
+// The ctx-pass probe's own statement (K7; tools/probe_pallas_slotmajor.py
+// :42-62 of the JAX package): q = r f32(1/h), (1-q)^4 = (x x)(x x) and
+// (1-q)^3 = x (x x) as lax.integer_pow multiplies, w = (norm_w x^4)(q + 0.25),
+// g = ((m norm_g x^3) dx, ...). c.w_h_inv, c.w_norm, c.w_norm_grad and c.mass
+// hold the probe's f32(1/h), f32(28/(pi h^2)), f32(140/(pi h^4)) and f32(m).
+struct ProbeCtxTerm {  // W, m grad W (x, y), |m grad W|^2, count
+  static constexpr int NQV = 0, NSV = 0, NACC = 5;
+  __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
+                              const float* qv, const float* sv, const PairConsts& c,
+                              float scalar) {
+    const float q = r * c.w_h_inv;
+    const float omq = jmax(1.0f - q, 0.0f);
+    const float omq2 = omq * omq;
+    const float w = (c.w_norm * (omq2 * omq2)) * (q + 0.25f);
+    const float mc = c.mass * (c.w_norm_grad * (omq * omq2));
+    const float gx = mc * dx;
+    const float gy = mc * dy;
+    acc[0] += w;
+    acc[1] += gx;
+    acc[2] += gy;
+    acc[3] += gx * gx + gy * gy;
+    acc[4] += 1.0f;
   }
 };
 

@@ -1,27 +1,41 @@
-// K5: masked pair reduction over each query slot's 3x3 cell neighbourhood, in
-// the padded slot-major layout, on cell tiles staged in shared memory.
+// K5 and K3: masked pair reduction over each query slot's 3x3 cell
+// neighbourhood, in the padded slot-major layout, on cell tiles staged in
+// shared memory. One kernel template, two sum orders (a template parameter):
 //
-// Replaces the TPU kernel yasph2d_tpu/ops/pallas_pair.py pallas_pair_reduce
-// (body _kernel), the first-generation pair kernel behind the JAX package's
-// DenseGridConfig.use_pallas and the drop-in for its XLA dense_grid.pair_reduce.
-// For every live query slot (y, x, p) it sums term(dx, dy, r_sq, r, ...) over
-// the source slots of the 3x3 cells around (y, x): each view's Ps candidates in
-// sp order into a view sum, then the view sums in (dyv, dxv) order, which is
-// the TPU kernel's grouping (a per-view jnp.sum over the candidate axis, then
-// accs + contribs). A pair counts when the query and the source are live and
-// 1e-10 < r_sq <= h^2; a dead query writes zeros. No epilogue. The term
-// functors are in csrc/pair_terms.cuh; the forms of the DFSPH and WCSPH
-// padded steps follow the JAX package's XLA closures.
+// K5 (per view) replaces the TPU kernel yasph2d_tpu/ops/pallas_pair.py
+// pallas_pair_reduce (body _kernel), the first-generation pair kernel behind
+// the JAX package's DenseGridConfig.use_pallas and the drop-in for its XLA
+// dense_grid.pair_reduce: each view's Ps candidates in sp order into a view
+// sum, then the view sums in (dyv, dxv) order, which is the TPU kernel's
+// grouping (a per-view jnp.sum over the candidate axis, then accs + contribs).
+// Its forms follow the JAX package's XLA closures (the *XlaTerm functors).
 //
-// Layout: positions (ny, nx, P, 2) f32 read as float2, masks (ny, nx, P) bool,
-// values as a pointer and an element stride per component (as K3), output
-// (ny, nx, P, n_out). The source space may have Ps != P slots (the boundary).
+// K3 (per candidate) replaces the TPU kernel
+// yasph2d_tpu/ops/pallas_slotmajor.py sm_pair_reduce (body _sm_kernel): every
+// candidate's term straight into the accumulators, in (dyv, dxv, sp) order,
+// which is the TPU kernel's accumulation order. Its forms follow the JAX
+// package's slot-major closures (K1's term functors), and its boundary ctx
+// pass (dfsph_stat, an XLA pair_reduce in the JAX package) the XLA order.
+// The TPU kernel's band blocking, source windows and skip flags exist for
+// Mosaic and are not needed here.
+//
+// For every live query slot (y, x, p) both sum term(dx, dy, r_sq, r, ...) over
+// the source slots of the 3x3 cells around (y, x). A pair counts when the
+// query and the source are live and 1e-10 < r_sq <= h^2; a dead query writes
+// zeros. No epilogue. The term functors are in csrc/pair_terms.cuh.
+//
+// Layout: the carry is read in place, with no transpose into planes:
+// positions (ny, nx, P, 2) f32 read as float2, masks (ny, nx, P) bool, and
+// each value as a pointer and an element stride, so that a scalar (ny, nx, P)
+// has stride 1 and the two components of an interleaved vector (ny, nx, P, 2)
+// are (base, 2) and (base + 1, 2); output (ny, nx, P, n_out), vector-last
+// like the carry. The source space may have Ps != P slots (the boundary).
 //
 // Design (one block per TY x TX cell tile, both powers of two; TY, TX and the
 // block's threads come from ops/pallas_pair.py tile_shape, which picks them
-// from a recorded sweep, tools/tile_sweep.py --kernel k5; the dynamic shared
-// memory from its smem_bytes). K1's design (csrc/pair_reduce.cu) on this
-// layout:
+// from a recorded sweep, tools/tile_sweep.py --kernel k5 and --kernel k3; the
+// dynamic shared memory from its smem_bytes). K1's design
+// (csrc/pair_reduce.cu) on this layout:
 //  1. Live queries on every lane. The tile's query slots are numbered
 //     i = ((ly * TX + lx) << lg PP) | p, PP the power of two >= P, so that a
 //     warp reads consecutive slots of consecutive cells (a row of the tile is
@@ -46,9 +60,11 @@
 //     its 9 cells' words, lowest bit first: the candidates are exactly the
 //     live ones, in (dyv, dxv, ascending sp) order, so dead candidates cost
 //     nothing and no sum changes.
-// Each query sums in one thread in the order above, so the kernel gives the
-// first K5's bits on the same inputs; its twin sums over Ps with torch.sum,
-// so kernel and twin agree to f32 summation order.
+// Each query sums in one thread in its order, so each kernel gives the bits of
+// its first design (one thread per query slot) on the same inputs. K3's twin
+// adds slot by slot in the same order, so K3 and its twin
+// are bit-equal on the card; K5's twin sums over Ps with torch.sum, so K5 and
+// its twin agree to f32 summation order.
 //
 // Masking skips invalid candidates (a branch), never multiplies them by 0:
 // dead sources may hold rho = 0, and the XSPH term divides by it.
@@ -59,13 +75,15 @@
 // Latency and issue bound it, as K1: the scan of every query slot (a mask
 // load and a ballot per 32 slots, the dead slots' zeros) scales with the
 // number of tiles, the candidate loops with the longest list in a warp. The
-// first K5 ran one thread per query slot: at 100k 91.5% of them idled
+// first designs ran one thread per query slot: at 100k 91.5% of them idled
 // through the candidate loop, every thread walked all 9 x Ps candidates past
-// the dead ones, and its decodes divided by runtime P, Ps and tile widths.
+// the dead ones, and K3 did 64-bit index arithmetic and a mask load per
+// candidate.
 //
 // Build: yasph2d_tpu_torch/ops/cuda_build.py (sm_90a, -fmad=false, no fast
-// math): each term is rounded as in the plain PyTorch twin
-// (yasph2d_tpu_torch/ops/pallas_pair.py pallas_pair_reduce_ref).
+// math): each term is rounded as in the plain PyTorch twins
+// (yasph2d_tpu_torch/ops/pallas_pair.py pallas_pair_reduce_ref,
+// yasph2d_tpu_torch/ops/sm_pair_reduce.py sm_pair_reduce_ref).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -125,7 +143,9 @@ struct TileSmem {
 
 // ---------------------------------------------------------------- kernel
 
-template <class Term>
+// PER_VIEW: K5's sum order (per-view sums, then the view sums), else K3's
+// (every candidate straight into the accumulators)
+template <class Term, bool PER_VIEW>
 __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
     tile_pair_reduce_kernel(const TileArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -319,7 +339,9 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
       for (int dyv = 0; dyv < 3; ++dyv) {
         for (int dxv = 0; dxv < 3; ++dxv) {
           float view[Term::NACC];
-          for (int k = 0; k < Term::NACC; ++k) view[k] = 0.0f;
+          float* sum = PER_VIEW ? view : acc;
+          if (PER_VIEW)
+            for (int k = 0; k < Term::NACC; ++k) view[k] = 0.0f;
           const int c = (ly + dyv) * hx + (lx + dxv);
           for (int w = 0; w < a.W; ++w) {
             for (unsigned bits = t_bits[c * a.W + w]; bits != 0u; bits &= bits - 1u) {
@@ -331,10 +353,11 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
               if (!(r_sq <= a.c.radius_sq && r_sq > MIN_DISTANCE_SQ)) continue;
               float sv[Term::NSV > 0 ? Term::NSV : 1];
               for (int k = 0; k < Term::NSV; ++k) sv[k] = t_val[k * n_src + s];
-              Term::term(view, dx, dy, r_sq, sqrtf(r_sq), qv, sv, a.c, a.scalar);
+              Term::term(sum, dx, dy, r_sq, sqrtf(r_sq), qv, sv, a.c, a.scalar);
             }
           }
-          for (int k = 0; k < Term::NACC; ++k) acc[k] += view[k];
+          if (PER_VIEW)
+            for (int k = 0; k < Term::NACC; ++k) acc[k] += view[k];
         }
       }
       for (int k = 0; k < Term::NACC; ++k) a.out[idx * Term::NACC + k] = acc[k];
@@ -346,7 +369,7 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
 static inline int log2_exact(int v) { return __builtin_ctz((unsigned)v); }
 static inline int log2_ceil(int v) { return v <= 1 ? 0 : 32 - __builtin_clz((unsigned)(v - 1)); }
 
-template <class Term>
+template <class Term, bool PER_VIEW>
 static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
                   const void* s_mask, const void* const* vals, const int* strides,
                   int n_vals, void* out, int P, int Ps, int ny, int nx, int ty, int tx,
@@ -394,33 +417,47 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
   a.c = *consts;
   if ((long)ny * nx * P == 0) return (int)cudaSuccess;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(tile_pair_reduce_kernel<Term>,
+    cudaError_t err = cudaFuncSetAttribute(tile_pair_reduce_kernel<Term, PER_VIEW>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty);
-  tile_pair_reduce_kernel<Term>
+  tile_pair_reduce_kernel<Term, PER_VIEW>
       <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-#define TILE_PAIR_LAUNCHER(NAME, TERM)                                                \
-  extern "C" int tile_pair_reduce_##NAME(                                             \
+// one launcher per form: PREFIX_NAME, K5 (tile_pair_reduce_) or K3
+// (sm_pair_reduce_), each with the same arguments
+#define TILE_PAIR_LAUNCHER(PREFIX, NAME, TERM, PER_VIEW)                              \
+  extern "C" int PREFIX##_##NAME(                                                     \
       const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,   \
       const void* const* vals, const int* strides, int n_vals, void* out, int P,      \
       int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,     \
       float scalar, const PairConsts* consts, void* stream) {                         \
-    return launch<TERM>(q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out, P,  \
-                        Ps, ny, nx, ty, tx, threads, q_round, smem, scalar, consts,   \
-                        stream);                                                      \
+    return launch<TERM, PER_VIEW>(q_pos, q_mask, s_pos, s_mask, vals, strides,        \
+                                  n_vals, out, P, Ps, ny, nx, ty, tx, threads,        \
+                                  q_round, smem, scalar, consts, stream);             \
   }
 
-// the DFSPH padded step's four forms (models/dfsph_dense.py, XLA closures)
-TILE_PAIR_LAUNCHER(dfsph_ctx, CtxXlaTerm)    // ctx sums, fluid and boundary
-TILE_PAIR_LAUNCHER(dfsph_div, DivXlaTerm)    // velocity divergence
-TILE_PAIR_LAUNCHER(dfsph_corr, CorrXlaTerm)  // k-correction
-TILE_PAIR_LAUNCHER(dfsph_visc, ViscTerm)     // XSPH viscosity
-// the WCSPH padded step's three forms (models/wcsph_dense.py, XLA closures)
-TILE_PAIR_LAUNCHER(wcsph_density, WcsphDensityTerm)    // Poly6 density
-TILE_PAIR_LAUNCHER(wcsph_stat, WcsphStatTerm)          // boundary density + force
-TILE_PAIR_LAUNCHER(wcsph_forces, WcsphForcesXlaTerm)   // pressure + XSPH
+// K5: the DFSPH padded step's four forms (models/dfsph_dense.py, XLA closures)
+TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_ctx, CtxXlaTerm, true)    // ctx, fluid and boundary
+TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_div, DivXlaTerm, true)    // velocity divergence
+TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_corr, CorrXlaTerm, true)  // k-correction
+TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_visc, ViscTerm, true)     // XSPH viscosity
+// K5: the WCSPH padded step's three forms (models/wcsph_dense.py, XLA closures)
+TILE_PAIR_LAUNCHER(tile_pair_reduce, wcsph_density, WcsphDensityTerm, true)   // Poly6
+TILE_PAIR_LAUNCHER(tile_pair_reduce, wcsph_stat, WcsphStatTerm, true)         // boundary
+TILE_PAIR_LAUNCHER(tile_pair_reduce, wcsph_forces, WcsphForcesXlaTerm, true)  // pressure + XSPH
+// K3: the WCSPH padded step's three forms (models/wcsph_dense.py)
+TILE_PAIR_LAUNCHER(sm_pair_reduce, wcsph_density, WcsphDensityTerm, false)  // Poly6 density
+TILE_PAIR_LAUNCHER(sm_pair_reduce, wcsph_stat, WcsphStatTerm, false)        // boundary
+TILE_PAIR_LAUNCHER(sm_pair_reduce, wcsph_forces, WcsphForcesTerm, false)    // pressure + XSPH
+// K3: the DFSPH padded step's five forms (models/dfsph_dense.py); the
+// boundary ctx pass is an XLA pair_reduce in the JAX package, so it takes the
+// XLA closure's operation order
+TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_ctx, CtxTerm, false)      // W, m grad W, |.|^2, count
+TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_stat, CtxXlaTerm, false)  // the same, to the boundary
+TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_div, DivTerm, false)      // velocity divergence
+TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_corr, CorrTerm, false)    // k-correction
+TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_visc, ViscTerm, false)    // XSPH viscosity

@@ -101,20 +101,12 @@ class PairConsts(ctypes.Structure):
     )]
 
 
-class ProbeConsts(ctypes.Structure):
-    """Float32 constants of the ctx-pass probe K7 (csrc/probe_ctx.cu
-    ProbeConsts); the field order is the C struct's."""
-
-    _fields_ = [(name, ctypes.c_float) for name in (
-        "radius_sq", "inv_h", "norm_w", "norm_g", "mass")]
-
-
 # K1's call forms (csrc/pair_reduce.cu): the DFSPH plane step's six, then the
 # WCSPH plane step's three
 PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
               "wcsph_density", "wcsph_stat", "wcsph_forces")
-# K3's call forms (csrc/sm_pair_reduce.cu): the WCSPH padded step's three,
-# then the DFSPH padded step's five
+# K3's call forms (csrc/tile_pair_reduce.cu, K3's sum order): the WCSPH padded
+# step's three, then the DFSPH padded step's five
 SM_PAIR_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces",
                  "dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc")
 # K5's call forms (csrc/tile_pair_reduce.cu): the DFSPH padded step's four, then
@@ -139,16 +131,9 @@ def library() -> ctypes.CDLL:
                            _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, *cell,
                            ctypes.POINTER(PairConsts), _P]
             fn.restype = _I
-    for form in SM_PAIR_FORMS:
-        fn = getattr(lib, f"sm_pair_reduce_{form}")
-        # q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out,
-        # P, Ps, ny, nx, scalar, consts, stream
-        fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
-                       _I, _I, _I, _I, ctypes.c_float,
-                       ctypes.POINTER(PairConsts), _P]
-        fn.restype = _I
-    for form in TILE_PAIR_FORMS:
-        fn = getattr(lib, f"tile_pair_reduce_{form}")
+    for name in ([f"sm_pair_reduce_{f}" for f in SM_PAIR_FORMS]
+                 + [f"tile_pair_reduce_{f}" for f in TILE_PAIR_FORMS]):
+        fn = getattr(lib, name)
         # q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out,
         # P, Ps, ny, nx, ty, tx, threads, query round, smem, scalar, consts, stream
         fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
@@ -170,8 +155,10 @@ def library() -> ctypes.CDLL:
         # x, out, n, chains, inner, trips, stream
         getattr(lib, probe).argtypes = [_P, _P, _I, _I, _I, _I, _P]
         getattr(lib, probe).restype = _I
-    # K7: q, s, out, P, Ps, ny, nx, consts, stream
-    lib.probe_ctx.argtypes = [_P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(ProbeConsts), _P]
+    # K7 (csrc/pair_reduce.cu): q, s, out, P, Ps, ny, nx, ty, tx, threads, smem,
+    # consts, stream
+    lib.probe_ctx.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              ctypes.POINTER(PairConsts), _P]
     lib.probe_ctx.restype = _I
     return lib
 

@@ -23,8 +23,8 @@ this mode launch and count under `<form>_bf16`.
 
 Launch shape: one CUDA block per TY x TX cell tile (csrc/pair_reduce.cu), its
 threads and its dynamic shared memory from `tile_shape`, which widens the
-tile on large grids and refuses a source space of more than 32 slots (a
-cell's live list is one 32-bit word).
+tile on large grids. Any source space whose tile fits a block: a cell's live
+list is ceil(Ps / 32) 32-bit words.
 """
 
 from dataclasses import dataclass
@@ -49,7 +49,6 @@ LAUNCHES = {f"{form}{suffix}": 0 for suffix in ("", "_bf16")
 # 100k (2,665 blocks) and on 8 x 32 at 1M (6,477 blocks).
 TILES = ((8, 32, 256), (8, 16, 256), (8, 8, 256))
 MIN_BLOCKS = 4096  # ~31 blocks per SM of the H100
-MAX_SOURCE_SLOTS = 32  # a cell's live list is one 32-bit word
 
 
 def reset_launch_counts():
@@ -95,24 +94,20 @@ def _align16(n: int) -> int:
 def smem_bytes(ty: int, tx: int, p: int, ps: int, n_source_vals: int, bf16: bool) -> int:
     """Dynamic shared memory of one K1 block on a TY x TX cell tile
     (csrc/pair_reduce.cu SmemLayout): the haloed tile's positions and source
-    values (f32, or bf16 with bf16 operands), one live-list word per haloed
-    cell, the tile's live query list (uint16 per query slot) and 32 warp
-    counts, each region rounded up to 16 bytes."""
+    values (f32, or bf16 with bf16 operands), ceil(Ps / 32) live-list words
+    per haloed cell, the tile's live query list (uint16 per query slot) and
+    32 warp counts, each region rounded up to 16 bytes."""
     hc = (ty + 2) * (tx + 2)
     w = 2 if bf16 else 4
     return (_align16(hc * ps * 2 * w) + _align16(hc * ps * n_source_vals * w)
-            + _align16(hc * 4) + _align16(ty * tx * p * 2) + 32 * 4)
+            + _align16(hc * -(-ps // 32) * 4) + _align16(ty * tx * p * 2) + 32 * 4)
 
 
 def tile_shape(p: int, ps: int, n_source_vals: int, bf16: bool, ny: int, nx: int) -> tuple:
     """(TY, TX, threads, shared-memory bytes) of a K1 launch on a ny x nx
     grid: of the TILES whose block fits (shared memory, at most 65,536 query
     slots a tile), the widest with at least MIN_BLOCKS blocks, else the
-    narrowest. Raises for Ps > MAX_SOURCE_SLOTS or when none fits."""
-    if ps > MAX_SOURCE_SLOTS:
-        raise ValueError(
-            f"pair_reduce: Ps = {ps} source slots; K1's per-cell live list is one "
-            f"32-bit word, so at most {MAX_SOURCE_SLOTS} fit")
+    narrowest. Raises when none fits."""
     fits = [(ty, tx, threads, smem_bytes(ty, tx, p, ps, n_source_vals, bf16))
             for ty, tx, threads in TILES if ty * tx * p <= 65536]
     fits = [t for t in fits if t[3] <= cuda_build.SMEM_LIMIT]

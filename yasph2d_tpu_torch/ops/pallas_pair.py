@@ -27,14 +27,14 @@ import torch
 from . import cuda_build
 from .dense_grid import MIN_DISTANCE_SQ
 from .pair_reduce import PairForm
-from .sm_pair_reduce import _comps, slot_operands
 
 # kernel launches per call form, counted where the wrapper launches
 LAUNCHES = {form: 0 for form in cuda_build.TILE_PAIR_FORMS}
 
 # (TY, TX, threads) of a launch, both sides powers of two, at most 256 threads
 # (csrc/tile_pair_reduce.cu K5_MAX_THREADS): tools/tile_sweep.py --kernel k5
-# on the 100k padded states; tile_shape halves it where it does not fit
+# on the 100k padded states, and for K3 --kernel k3 (within 1% of the best
+# shape on every loop form); tile_shape halves it where it does not fit
 TILE = (8, 8, 256)
 MAX_ROUND = 8192  # query slots whose live list a block holds at once
 SMEM_LIMIT = cuda_build.SMEM_LIMIT
@@ -43,6 +43,14 @@ SMEM_LIMIT = cuda_build.SMEM_LIMIT
 def reset_launch_counts():
     for form in LAUNCHES:
         LAUNCHES[form] = 0
+
+
+def _comps(vals) -> list:
+    """Logical (ny, nx, P) components of slot-layout values."""
+    out = []
+    for v in vals:
+        out.extend([v] if v.ndim == 3 else list(v.unbind(-1)))
+    return out
 
 
 def pallas_pair_reduce_ref(term_fn, n_out: int, q_pos, q_mask, s_pos, s_mask,
@@ -125,18 +133,54 @@ def tile_shape(p: int, ps: int, n_source_comps: int) -> tuple:
     return ty, tx, threads
 
 
-def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.PairConsts,
-           q_vals, s_vals, scalars, tile) -> torch.Tensor:
-    """Launch K5's instantiation of `form` on CUDA tensors with the launch shape
-    `tile` = (TY, TX, threads); returns (ny, nx, P, n_out). Counts nothing:
-    `pallas_pair_reduce` is the solvers' entry (tools/tile_sweep.py times other
-    shapes through this)."""
+def _value_ptrs(vals, device, shape, what):
+    """(pointer, element stride) of each logical component, no copy: a scalar
+    is (base, 1), component k of a (.., C) vector is (base + k, C)."""
+    ptrs, strides = [], []
+    for v in vals:
+        c = 1 if v.ndim == 3 else v.shape[-1]
+        cuda_build.check_tensor(v, device, shape if v.ndim == 3 else shape + (c,),
+                                torch.float32, what)
+        ptrs.extend(v.data_ptr() + k * v.element_size() for k in range(c))
+        strides.extend([c] * c)
+    return ptrs, strides
+
+
+def slot_operands(kernel: str, q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars):
+    """Check the operands of a slot-major pair kernel (K3, K5) and return
+    ((ny, nx, P, Ps), value pointers, value strides, the f32 scalar)."""
+    device = q_pos.device
+    ny, nx, p = q_mask.shape
+    ps = s_mask.shape[2]
+    for t, shape, dtype, what in (
+            (q_pos, (ny, nx, p, 2), torch.float32, "query positions"),
+            (q_mask, (ny, nx, p), torch.bool, "query mask"),
+            (s_pos, (ny, nx, ps, 2), torch.float32, "source positions"),
+            (s_mask, (ny, nx, ps), torch.bool, "source mask")):
+        cuda_build.check_tensor(t, device, shape, dtype, f"{kernel}: {what}")
+    if q_pos.data_ptr() % 8 or s_pos.data_ptr() % 8:
+        raise ValueError(f"{kernel}: positions must be 8-byte aligned (float2)")
+    if len(scalars) > 1:
+        raise ValueError(f"{kernel}: the CUDA forms take at most one scalar")
+    q_ptrs, q_strides = _value_ptrs(q_vals, device, (ny, nx, p), f"{kernel}: query value")
+    s_ptrs, s_strides = _value_ptrs(s_vals, device, (ny, nx, ps),
+                                    f"{kernel}: source value")
+    return ((ny, nx, p, ps), q_ptrs + s_ptrs, q_strides + s_strides,
+            float(scalars[0]) if scalars else 0.0)
+
+
+def tile_launch(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
+                consts: cuda_build.PairConsts, q_vals, s_vals, scalars, tile) -> torch.Tensor:
+    """Launch `kernel`'s instantiation of `form` (csrc/tile_pair_reduce.cu:
+    `tile_pair_reduce`, K5's sum order, or `sm_pair_reduce`, K3's) on CUDA
+    tensors with the launch shape `tile` = (TY, TX, threads); returns
+    (ny, nx, P, n_out). Counts nothing."""
     (ny, nx, p, ps), ptrs, strides, scalar = slot_operands(
-        "pallas_pair_reduce", q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars)
+        kernel, q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars)
     ty, tx, threads = tile
     n_sv = len(_comps(s_vals))
     out = torch.empty((ny, nx, p, form.n_out), dtype=torch.float32, device=q_pos.device)
-    fn = getattr(cuda_build.library(), f"tile_pair_reduce_{form.name}")
+    fn = getattr(cuda_build.library(), f"{kernel}_{form.name}")
     err = fn(
         q_pos.data_ptr(), q_mask.data_ptr(), s_pos.data_ptr(), s_mask.data_ptr(),
         cuda_build.pointer_array(ptrs), cuda_build.int_array(strides), len(ptrs),
@@ -144,8 +188,18 @@ def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.Pair
         smem_bytes(ty, tx, p, ps, n_sv), scalar, consts,
         torch.cuda.current_stream(q_pos.device).cuda_stream,
     )
-    cuda_build.check(err, f"tile_pair_reduce_{form.name}")
+    cuda_build.check(err, f"{kernel}_{form.name}")
     return out
+
+
+def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.PairConsts,
+           q_vals, s_vals, scalars, tile) -> torch.Tensor:
+    """Launch K5's instantiation of `form` on CUDA tensors with the launch shape
+    `tile` = (TY, TX, threads); returns (ny, nx, P, n_out). Counts nothing:
+    `pallas_pair_reduce` is the solvers' entry (tools/tile_sweep.py times other
+    shapes through this)."""
+    return tile_launch("tile_pair_reduce", form, q_pos, q_mask, s_pos, s_mask, consts,
+                       q_vals, s_vals, scalars, tile)
 
 
 def pallas_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,

@@ -3,9 +3,10 @@ in the padded slot-major layout (PyTorch port of
 yasph2d_tpu/ops/pallas_slotmajor.py sm_pair_reduce).
 
 `sm_pair_reduce` dispatches on the device of its tensors: a CUDA tensor
-launches the hand-written kernel of csrc/sm_pair_reduce.cu (one instantiation
-per call form, named by `PairForm.name`), a CPU tensor runs the plain PyTorch
-twin `sm_pair_reduce_ref`. There is no fallback from one to the other.
+launches the hand-written kernel of csrc/tile_pair_reduce.cu in K3's sum
+order (one instantiation per call form, `sm_pair_reduce_<PairForm.name>`), a
+CPU tensor runs the plain PyTorch twin `sm_pair_reduce_ref`. There is no
+fallback from one to the other.
 
 Contract (the JAX kernel's): for every live query slot (y, x, p), sum
 term_fn(dx, dy, r_sq, r, scalars, q_comps, s_comps) over the source slots of
@@ -15,6 +16,10 @@ Dead query slots output zeros. There is no epilogue. Positions are
 (ny, nx, P, 2), masks (ny, nx, P), values (ny, nx, P) or (ny, nx, P, C) (a
 vector contributes its C components, in order); the source space may have
 Ps != P slots. The output is (ny, nx, P, n_out), vector-last like the carry.
+
+Launch shape: K5's (ops/pallas_pair.py `tile_shape`, `smem_bytes`,
+`query_round`): K3 runs on K5's tile machinery, any P and any Ps whose
+haloed source tile fits a block.
 """
 
 import torch
@@ -22,6 +27,7 @@ import torch
 from . import cuda_build
 from .dense_grid import MIN_DISTANCE_SQ
 from .pair_reduce import PairForm
+from .pallas_pair import _comps, tile_launch, tile_shape
 
 # kernel launches per call form, counted where the wrapper launches
 LAUNCHES = {form: 0 for form in cuda_build.SM_PAIR_FORMS}
@@ -30,14 +36,6 @@ LAUNCHES = {form: 0 for form in cuda_build.SM_PAIR_FORMS}
 def reset_launch_counts():
     for form in LAUNCHES:
         LAUNCHES[form] = 0
-
-
-def _comps(vals) -> list:
-    """Logical (ny, nx, P) components of slot-layout values."""
-    out = []
-    for v in vals:
-        out.extend([v] if v.ndim == 3 else list(v.unbind(-1)))
-    return out
 
 
 def sm_pair_reduce_ref(term_fn, n_out: int, q_pos, q_mask, s_pos, s_mask,
@@ -79,47 +77,21 @@ def sm_pair_reduce_ref(term_fn, n_out: int, q_pos, q_mask, s_pos, s_mask,
     return torch.stack(accs, dim=-1)
 
 
-def _value_ptrs(vals, device, shape, what):
-    """(pointer, element stride) of each logical component, no copy: a scalar
-    is (base, 1), component k of a (.., C) vector is (base + k, C)."""
-    ptrs, strides = [], []
-    for v in vals:
-        c = 1 if v.ndim == 3 else v.shape[-1]
-        cuda_build.check_tensor(v, device, shape if v.ndim == 3 else shape + (c,),
-                                torch.float32, what)
-        ptrs.extend(v.data_ptr() + k * v.element_size() for k in range(c))
-        strides.extend([c] * c)
-    return ptrs, strides
-
-
-def slot_operands(kernel: str, q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars):
-    """Check the operands of a slot-major pair kernel (K3, K5) and return
-    ((ny, nx, P, Ps), value pointers, value strides, the f32 scalar)."""
-    device = q_pos.device
-    ny, nx, p = q_mask.shape
-    ps = s_mask.shape[2]
-    for t, shape, dtype, what in (
-            (q_pos, (ny, nx, p, 2), torch.float32, "query positions"),
-            (q_mask, (ny, nx, p), torch.bool, "query mask"),
-            (s_pos, (ny, nx, ps, 2), torch.float32, "source positions"),
-            (s_mask, (ny, nx, ps), torch.bool, "source mask")):
-        cuda_build.check_tensor(t, device, shape, dtype, f"{kernel}: {what}")
-    if q_pos.data_ptr() % 8 or s_pos.data_ptr() % 8:
-        raise ValueError(f"{kernel}: positions must be 8-byte aligned (float2)")
-    if len(scalars) > 1:
-        raise ValueError(f"{kernel}: the CUDA forms take at most one scalar")
-    q_ptrs, q_strides = _value_ptrs(q_vals, device, (ny, nx, p), f"{kernel}: query value")
-    s_ptrs, s_strides = _value_ptrs(s_vals, device, (ny, nx, ps),
-                                    f"{kernel}: source value")
-    return ((ny, nx, p, ps), q_ptrs + s_ptrs, q_strides + s_strides,
-            float(scalars[0]) if scalars else 0.0)
+def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.PairConsts,
+           q_vals, s_vals, scalars, tile) -> torch.Tensor:
+    """Launch K3's instantiation of `form` on CUDA tensors with the launch shape
+    `tile` = (TY, TX, threads); returns (ny, nx, P, n_out). Counts nothing:
+    `sm_pair_reduce` is the solvers' entry (tools/tile_sweep.py --kernel k3
+    times other shapes through this)."""
+    return tile_launch("sm_pair_reduce", form, q_pos, q_mask, s_pos, s_mask, consts,
+                       q_vals, s_vals, scalars, tile)
 
 
 def sm_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,
                    consts: cuda_build.PairConsts, q_vals=(), s_vals=(),
                    scalars=()) -> torch.Tensor:
     """Run one K3 call form; returns (ny, nx, P, n_out). `consts.radius_sq` is
-    the pair cutoff for both routes."""
+    the pair cutoff for both routes; the launch shape is K5's `tile_shape`."""
     if form.post_fn is not None:
         raise ValueError("sm_pair_reduce: K3 forms have no epilogue")
     device = q_pos.device
@@ -129,16 +101,7 @@ def sm_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,
                                   s_vals=s_vals, scalars=scalars)
     if device.type != "cuda":
         raise ValueError(f"sm_pair_reduce: unsupported device {device}")
-    (ny, nx, p, ps), ptrs, strides, scalar = slot_operands(
-        "sm_pair_reduce", q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars)
-    out = torch.empty((ny, nx, p, form.n_out), dtype=torch.float32, device=device)
-    fn = getattr(cuda_build.library(), f"sm_pair_reduce_{form.name}")
-    err = fn(
-        q_pos.data_ptr(), q_mask.data_ptr(), s_pos.data_ptr(), s_mask.data_ptr(),
-        cuda_build.pointer_array(ptrs), cuda_build.int_array(strides), len(ptrs),
-        out.data_ptr(), p, ps, ny, nx, scalar, consts,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    cuda_build.check(err, f"sm_pair_reduce_{form.name}")
+    tile = tile_shape(q_mask.shape[2], s_mask.shape[2], len(_comps(s_vals)))
+    out = launch(form, q_pos, q_mask, s_pos, s_mask, consts, q_vals, s_vals, scalars, tile)
     LAUNCHES[form.name] += 1
     return out

@@ -4,7 +4,9 @@ the public wrappers only.
     python -m yasph2d_tpu_torch.tools.kernel_times [--kind dfsph_plane_bf16]
         [--particles 1000000] [--steps 100] [--save out.pt]
 
-`--kind` is a solver of `scenes.SOLVERS`. The scene runs init_carry +
+`--kind` is a solver of `scenes.SOLVERS`, or `probe_ctx`: K7 on the probe's
+planes at its check shape and at its gpu shape, and K1's ctx form beside it
+(tools/probe_pallas_slotmajor.py), with no scene. The scene runs init_carry +
 `--steps` steps (the per-step iteration counts and drops are reported), then
 each of the step's pair calls is timed on that state with seeded velocity,
 stiffness and density noise (as chip_smoke.py phase 3), and the re-bucket on
@@ -141,6 +143,21 @@ def padded_rebucket(solver, carry):
     return stacked
 
 
+def probe_runs(device) -> tuple:
+    """({label: function of no argument}, the planes) of K7 at the probe's
+    check and gpu shapes and of K1 ctx at the gpu shape."""
+    from yasph2d_tpu_torch.tools import probe_pallas_slotmajor as pc
+
+    runs, planes = {}, {}
+    for label, d in (("probe_ctx_check", pc.CHECK_SHAPE), ("probe_ctx", pc.GPU_SHAPE)):
+        q = pc.probe_planes(*pc.probe_inputs(d["ny"], d["nx"], d["p"], d["h"]), device)
+        runs[label] = (lambda q=q, d=d: pc.ctx_pass(q, q, d["h"], d["m"]))
+        planes[label] = q
+    d = pc.GPU_SHAPE
+    runs["k1_ctx"] = pc.k1_ctx_call(planes["probe_ctx"], planes["probe_ctx"], d["h"], d["m"])
+    return runs, planes["probe_ctx"]
+
+
 def main(argv=None):
     from yasph2d_tpu_torch.ops.pair_reduce import pair_reduce
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
@@ -156,6 +173,16 @@ def main(argv=None):
         raise SystemExit("kernel_times needs a CUDA device")
     device = torch.device("cuda", 0)
 
+    if args.kind == "probe_ctx":
+        runs, q = probe_runs(device)
+        if args.save:
+            torch.save({"state": _cpu((q,)),
+                        "outputs": {label: _cpu(run()) for label, run in runs.items()}},
+                       args.save)
+        times = {label: graph_ms(run) for label, run in runs.items()}
+        print(json.dumps({"kind": args.kind, "live": int((q[2] > 0).sum()),
+                          "device": torch.cuda.get_device_name(0), "ms": times}), flush=True)
+        return
     world = double_dam_break(args.particles)
     solver, boundary = bench_solver(args.kind, world, device=device)
     carry = solver.init_carry(world.initial_state(device=device), boundary)

@@ -5,18 +5,23 @@
 
 The probe computes the ctx pass (W, m grad W, |m grad W|^2 and the neighbour
 count for every query slot, over its 3x3 cells x Ps source slots) as one kernel,
-K7 (csrc/probe_ctx.cu): one thread per cell, the source candidates outside and
-the P query slots inside. Its layout is the port's: query and source planes
-(3, P, ny, nx) = x, y and the mask as 0/1, output (5, P, ny, nx); the TPU
-probe's row bands, haloed windows and 128-lane padding are not ported.
+K7: K1's kernel (csrc/pair_reduce.cu, its launch shape from
+ops/pair_reduce.py `tile_shape`) with the probe's own Wendland statement
+(csrc/pair_terms.cuh ProbeCtxTerm), no epilogue, and the probe's planes read
+in place, the masks as plane 2 > 0; any P and Ps whose cell tile fits a block.
+Its layout is the port's: query and source planes (3, P, ny, nx) = x, y and
+the mask as 0/1, output (5, P, ny, nx); the TPU probe's row bands, haloed
+windows and 128-lane padding are not ported.
 
 `check` holds K7 against the pair kernel K1's `ctx` form, which computes the
 same five sums with the solver's Wendland statement, on the TPU probe's check
 inputs (12 x 40 cells, P 5, h 0.1, m 0.07, a 60% mask, seed 0). `gpu` times
 K7 and K1 `ctx` on the same inputs at the TPU probe's 1M band shape (64 x 1612
 cells, P 7, h 0.004, m 0.001); K1 `ctx` takes the place of the TPU probe's
-XLA pair_reduce yardstick. Both run on the card unless `--device cpu` is
-given; a CPU tensor runs the plain twin `ctx_pass_ref`.
+XLA pair_reduce yardstick; both now run one kernel design, so their ratio
+measures the probe's statement against K1's ctx term. Both run on the card
+unless `--device cpu` is given; a CPU tensor runs the plain twin
+`ctx_pass_ref`.
 """
 
 import argparse
@@ -26,13 +31,12 @@ import torch
 
 from ..ops import cuda_build
 from ..ops.dense_grid import MIN_DISTANCE_SQ, f32_scalar
-from ..ops.pair_reduce import PairForm, pair_reduce
+from ..ops.pair_reduce import PairForm, pair_reduce, tile_shape
 from ..ops.planes import PlaneGeom
 from ..ops.smoothing_kernels import WendlandQuinticC2
 
 CHECK_SHAPE = dict(ny=12, nx=40, p=5, h=0.1, m=0.07)
 GPU_SHAPE = dict(ny=64, nx=1612, p=7, h=0.004, m=0.001)
-MAX_P = 8
 
 # K7 launches, counted where the wrapper launches
 LAUNCHES = {"probe_ctx": 0}
@@ -42,12 +46,13 @@ def reset_launch_counts():
     LAUNCHES["probe_ctx"] = 0
 
 
-def probe_consts(h: float, m: float) -> cuda_build.ProbeConsts:
+def probe_consts(h: float, m: float) -> cuda_build.PairConsts:
     """The probe's Python-float constants (:48-53), each rounded to f32 once
-    where it meets an f32 plane."""
-    return cuda_build.ProbeConsts(
-        radius_sq=h * h, inv_h=1.0 / h, norm_w=28.0 / (np.pi * h * h),
-        norm_g=140.0 / (np.pi * h ** 4), mass=m)
+    where it meets an f32 plane, in the pair kernels' constants: h^2, 1/h,
+    28/(pi h^2), 140/(pi h^4) and m (csrc/pair_terms.cuh ProbeCtxTerm)."""
+    return cuda_build.PairConsts(
+        radius_sq=h * h, w_h_inv=1.0 / h, w_norm=28.0 / (np.pi * h * h),
+        w_norm_grad=140.0 / (np.pi * h ** 4), mass=m)
 
 
 def probe_inputs(ny: int, nx: int, p: int, h: float, seed: int = 0):
@@ -77,7 +82,8 @@ def ctx_pass_ref(q: torch.Tensor, s: torch.Tensor, h: float, m: float) -> torch.
     _, p, ny, nx = q.shape
     ps = s.shape[1]
     c = probe_consts(h, m)
-    f = {k: f32_scalar(getattr(c, k)) for k, _ in cuda_build.ProbeConsts._fields_}
+    f = {k: f32_scalar(getattr(c, k))
+         for k in ("radius_sq", "w_h_inv", "w_norm", "w_norm_grad", "mass")}
     sp_ = torch.nn.functional.pad(s, (1, 1, 1, 1))
     qx, qy, qm = q[0], q[1], q[2] > 0.0
     accs = [torch.zeros_like(qx) for _ in range(5)]
@@ -89,11 +95,11 @@ def ctx_pass_ref(q: torch.Tensor, s: torch.Tensor, h: float, m: float) -> torch.
                 dx, dy = cx - qx, cy - qy
                 r_sq = dx * dx + dy * dy
                 valid = qm & (cm > 0.0) & (r_sq <= f["radius_sq"]) & (r_sq > MIN_DISTANCE_SQ)
-                qq = torch.sqrt(r_sq) * f["inv_h"]
+                qq = torch.sqrt(r_sq) * f["w_h_inv"]
                 omq = torch.clamp(1.0 - qq, min=0.0)
                 omq2 = omq * omq
-                w = (f["norm_w"] * (omq2 * omq2)) * (qq + 0.25)
-                mc = f["mass"] * (f["norm_g"] * (omq * omq2))
+                w = (f["w_norm"] * (omq2 * omq2)) * (qq + 0.25)
+                mc = f["mass"] * (f["w_norm_grad"] * (omq * omq2))
                 gx = torch.where(valid, mc * dx, 0.0)
                 gy = torch.where(valid, mc * dy, 0.0)
                 terms = (torch.where(valid, w, 0.0), gx, gy, gx * gx + gy * gy,
@@ -104,21 +110,20 @@ def ctx_pass_ref(q: torch.Tensor, s: torch.Tensor, h: float, m: float) -> torch.
 
 def ctx_pass(q: torch.Tensor, s: torch.Tensor, h: float, m: float) -> torch.Tensor:
     """The probe's ctx pass: (5, P, ny, nx) sums W, m grad W (x, y),
-    |m grad W|^2, count. K7 on CUDA tensors (P <= 8), the twin on CPU ones."""
+    |m grad W|^2, count. K7 on CUDA tensors, the twin on CPU ones."""
     if q.device.type == "cpu":
         return ctx_pass_ref(q, s, h, m)
     if q.device.type != "cuda":
         raise ValueError(f"ctx_pass: unsupported device {q.device}")
     _, p, ny, nx = q.shape
     ps = s.shape[1]
-    if not 1 <= p <= MAX_P:
-        raise ValueError(f"ctx_pass: the kernel takes 1..{MAX_P} query slots, got {p}")
     cuda_build.check_tensor(q, q.device, (3, p, ny, nx), torch.float32, "ctx_pass: q")
     cuda_build.check_tensor(s, q.device, (3, ps, ny, nx), torch.float32, "ctx_pass: s")
+    ty, tx, threads, smem = tile_shape(p, ps, 0, False, ny, nx)
     out = torch.empty((5, p, ny, nx), dtype=torch.float32, device=q.device)
     err = cuda_build.library().probe_ctx(
-        q.data_ptr(), s.data_ptr(), out.data_ptr(), p, ps, ny, nx, probe_consts(h, m),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), s.data_ptr(), out.data_ptr(), p, ps, ny, nx, ty, tx, threads, smem,
+        probe_consts(h, m), torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(err, "probe_ctx")
     LAUNCHES["probe_ctx"] += 1
     return out

@@ -32,10 +32,24 @@ from . import vpu_probe
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside the tensor cores (FMA = 2)
+SMS = 132  # streaming multiprocessors of the H100 SXM
+# the SM clock at which the data-sheet FP32 rate holds: 128 FP32 lanes x 2
+# (an FMA) x 132 SMs x 1.98 GHz = 67 TFLOP/s
+SM_HZ = FP32_OPS_PER_S / (2 * 128 * SMS)
+# thread instructions per clock per SM of each pipe, from NVIDIA's CUDA C++
+# documentation, its table of arithmetic instruction throughput for compute
+# capability 9.0: "32-bit floating-point add, multiply, multiply-add" 128
+# (FADD), "compare, minimum, maximum" 64 (FSETP; FSEL, a select, has no row
+# of its own and goes to the same ALU pipe); every SM dispatches one warp
+# instruction a clock from each of its four schedulers, 128 thread
+# instructions in all
+PIPE_PER_CLOCK = {"fp32": 128, "alu": 64}
+DISPATCH_PER_CLOCK = 128
+SASS_PIPE = {"FADD": "fp32", "FSETP": "alu", "FSEL": "alu"}
 # float32 operations per valid pair of each call form, counted from its term
-# functor in csrc/pair_terms.cuh (sqrt included; probe_ctx from
-# csrc/probe_ctx.cu), and per live query of its epilogue (K1); every live
-# candidate adds 5 (dx, dy, r_sq)
+# functor in csrc/pair_terms.cuh (sqrt included; probe_ctx from ProbeCtxTerm),
+# and per live query of its epilogue (K1); every live candidate adds 5 (dx,
+# dy, r_sq)
 OPS_PER_PAIR = {
     "ctx": 26, "ctx_post": 26, "visc_gravity": 15, "err_ki": 14, "delta_ki": 14,
     "corr_v": 13, "wcsph_density": 7, "wcsph_stat": 18, "wcsph_forces": 31,
@@ -89,6 +103,22 @@ def bound(n_bytes, n_ops):
     data-sheet rates."""
     mem_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
+def instruction_bound(counts: dict) -> tuple:
+    """(bound_ms, what bounds it) of a kernel that executes `counts` thread
+    instructions by SASS opcode: the larger of each pipe's instructions over
+    its rate (PIPE_PER_CLOCK) and all of them over the dispatch rate, on SMS SMs
+    at SM_HZ. The K6 mix probe's bound (its SASS: one FSETP, one FSEL and one
+    FADD a step, tools/vpu_probe.py --sass)."""
+    per_pipe = {}
+    for op, n in counts.items():
+        per_pipe[SASS_PIPE[op]] = per_pipe.get(SASS_PIPE[op], 0) + n
+    times = {f"{pipe} pipe": n / (PIPE_PER_CLOCK[pipe] * SMS * SM_HZ)
+             for pipe, n in per_pipe.items()}
+    times["dispatch"] = sum(counts.values()) / (DISPATCH_PER_CLOCK * SMS * SM_HZ)
+    what = max(times, key=times.get)
+    return times[what] * 1e3, what
 
 
 def pair_counts(q_pos, q_mask, s_pos, s_mask, radius_sq, rebase_cell=None):

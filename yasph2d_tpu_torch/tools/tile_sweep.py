@@ -1,12 +1,14 @@
-"""Launch shapes of the tiled pair kernels K5 (csrc/tile_pair_reduce.cu) and
-K1 (csrc/pair_reduce.cu) on one GPU.
+"""Launch shapes of the tiled pair kernels K5 and K3 (csrc/tile_pair_reduce.cu)
+and K1 (csrc/pair_reduce.cu) on one GPU.
 
-    python -m yasph2d_tpu_torch.tools.tile_sweep [--kernel k5|k1]
+    python -m yasph2d_tpu_torch.tools.tile_sweep [--kernel k5|k3|k1]
         [--particles 100000] [--steps 3] [--kinds dfsph_padded_k5,...]
 
 K5: steps the double dam-break through the DFSPH and WCSPH padded solvers on
 their K5 route, then times K5's call forms on those states (seeded noise, as
 chip_smoke.py phase 3) for every (TY, TX, threads) shape of SHAPES.
+K3: the same on the padded solvers' K3 route, K3's call forms; K3 takes
+K5's launch shape (ops/pallas_pair.py tile_shape) unless this shows another.
 K1: steps the scene through the DFSPH plane solver in float32 and in bfloat16
 operands and the WCSPH plane solver, then times K1's nine call forms on those
 states (seeded noise as above) for every (TY, TX, threads) shape of K1_SHAPES.
@@ -32,7 +34,8 @@ K1_SHAPES = ((8, 16, 256), (8, 8, 256), (4, 16, 256), (8, 32, 256), (8, 8, 128),
              (4, 16, 128), (4, 8, 128), (2, 16, 128), (4, 8, 64), (2, 8, 32))
 
 K1_KINDS = "dfsph_plane,dfsph_plane_bf16,wcsph_plane,wcsph_plane_bf16"
-K5_KINDS = "dfsph_padded_k5,wcsph_padded_k5"
+KINDS = {"k1": K1_KINDS, "k5": "dfsph_padded_k5,wcsph_padded_k5",
+         "k3": "dfsph_padded,wcsph_padded"}
 
 
 def _time_shapes(label, run, default, shapes, results, extra=None):
@@ -86,11 +89,12 @@ def sweep_k1(args, device) -> list:
     return results
 
 
-def sweep_k5(args, device) -> list:
-    """K5's forms on the padded states of `--kinds` (the step's calls as
-    tools/kernel_times.py builds them), every shape of SHAPES."""
+def sweep_tiles(args, device) -> list:
+    """K5's or K3's forms (by the solvers' route) on the padded states of
+    `--kinds` (the step's calls as tools/kernel_times.py builds them), every
+    shape of SHAPES."""
     from yasph2d_tpu_torch.ops import pallas_pair as tpp
-    from yasph2d_tpu_torch.ops.sm_pair_reduce import _comps
+    from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
     from yasph2d_tpu_torch.tools.kernel_times import padded_calls
 
@@ -100,6 +104,9 @@ def sweep_k5(args, device) -> list:
         solver, boundary = bench_solver(kind, world, device=device)
         carry = solver.init_carry(world.initial_state(device=device), boundary)
         carry, _ = solver.simulate(carry, boundary, args.steps)
+        if solver.grid.use_pallas_slotmajor != (args.kernel == "k3"):
+            raise SystemExit(f"tile_sweep: {kind} is not on the {args.kernel} route")
+        launch = smp.launch if args.kernel == "k3" else tpp.launch
         calls = padded_calls(solver, boundary, carry, np.random.default_rng(2))
         q_pos, q_mask = next(iter(calls.values()))[1]
         print(f"state: {kind}, {int(q_mask.sum())} live, grid {solver.grid.nx}x"
@@ -107,11 +114,11 @@ def sweep_k5(args, device) -> list:
               f"{boundary.mask.shape[2]}, {args.steps} steps", flush=True)
         for label, (form, q, src, kw) in calls.items():
             default = tpp.tile_shape(q[1].shape[2], src[1].shape[2],
-                                     len(_comps(kw.get("s_vals", ()))))
+                                     len(tpp._comps(kw.get("s_vals", ()))))
 
-            def run(tile, form=form, q=q, src=src, kw=kw):
-                return tpp.launch(form, *q, *src, solver._consts, kw.get("q_vals", ()),
-                                  kw.get("s_vals", ()), kw.get("scalars", ()), tile)
+            def run(tile, form=form, q=q, src=src, kw=kw, launch=launch):
+                return launch(form, *q, *src, solver._consts, kw.get("q_vals", ()),
+                              kw.get("s_vals", ()), kw.get("scalars", ()), tile)
 
             _time_shapes(f"{kind}:{label}", run, default, SHAPES, results)
     return results
@@ -119,19 +126,19 @@ def sweep_k5(args, device) -> list:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", choices=("k5", "k1"), default="k5")
+    ap.add_argument("--kernel", choices=("k5", "k3", "k1"), default="k5")
     ap.add_argument("--particles", type=int, default=100_000)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--kinds", default=None,
-                    help="the solvers whose states are swept (K1: plane solvers, default "
-                         f"{K1_KINDS}; K5: padded solvers on K5, default {K5_KINDS})")
+                    help="the solvers whose states are swept (default, by kernel: "
+                         f"{KINDS})")
     args = ap.parse_args()
-    args.kinds = args.kinds or (K1_KINDS if args.kernel == "k1" else K5_KINDS)
+    args.kinds = args.kinds or KINDS[args.kernel]
     if not torch.cuda.is_available():
         raise SystemExit("tile_sweep needs a CUDA device")
     device = torch.device("cuda", 0)
     print(f"{args.kernel} on {torch.cuda.get_device_name(0)}", flush=True)
-    results = (sweep_k1 if args.kernel == "k1" else sweep_k5)(args, device)
+    results = (sweep_k1 if args.kernel == "k1" else sweep_tiles)(args, device)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "kernel": args.kernel,
                       "results": results}))
 
