@@ -8,21 +8,26 @@ Phases, each reported on its own line:
      process per source, all started together;
   3. kernels: each kernel against its plain PyTorch twin on the same CUDA
      tensors, at the 100k double dam-break shapes: the nine call forms of the
-     pair kernel K1, with float32 and with bfloat16 operands, and the
+     pair kernel K1, with float32 and with bfloat16 operands, and its two
+     physical viscosity forms (visc_gravity_phys, wcsph_forces_phys: the
+     XSPH forms' operands with PhysicalViscosityModel, mu = 0.01), and the
      re-bucket K2 on the plane states of the DFSPH and WCSPH steps; the eight
      forms of the slot-major pair kernel K3 (three WCSPH, five DFSPH; K5's
      tile kernel in K3's sum order) and the slot-major re-bucket K4 with the
      WCSPH (D = 2) and DFSPH (D = 4) payloads on the padded states; the seven
      forms of the tiled pair kernel K5 (four DFSPH, three WCSPH) on the
-     padded states of its route. The WCSPH states
+     padded states of its route; and K3's and K5's physical forms
+     (dfsph_visc_phys, wcsph_forces_phys). The physical forms are checked
+     and timed here beside their XSPH forms on the same operands, but their
+     records come from phase 5, where they launch. The WCSPH states
      are taken after 3 steps, the DFSPH states after 60, when the columns
      touch the walls and every fluid -> boundary pass must sum something. Then,
      at the TPU probes' shapes, the speed probes K6 (FMA chains x4 and x8, the
      compare/select/add mix x8, 1,690,624 elements; rtol 1e-5 on the TPU
      probe's constant input and on a seeded input spread across 0.5) and the
      ctx-pass probe K7 (K1's kernel with the probe's statement; 64 x 1612
-     cells, P 7) beside K1's ctx form on the same inputs. Then K1's nine
-     forms in both operand modes, K3's eight and K7 with a source space of
+     cells, P 7) beside K1's ctx form on the same inputs. Then K1's eleven
+     forms in both operand modes, K3's ten and K7 with a source space of
      40 slots a cell (more than 32 live: two live words), on a synthetic
      ragged grid (checked only). K1's, K3's and K7's forms must be bit-equal
      to their twins (max_abs_err 0.0), K5's agree to rtol 1e-5 plus 1e-6 of
@@ -54,8 +59,9 @@ Phases, each reported on its own line:
      computes any of these functions, so `library_ms` is null;
   4. small reference: a 3k-particle scene stepped through the kernels on the
      GPU and through the twins on the CPU must agree, for every solver path:
-     5 steps from rest, and for the DFSPH paths 5 more from the GPU's state
-     after 55 steps, where the columns touch the walls, the divergence loop
+     5 steps from rest with XSPH and with physical viscosity, and for the
+     DFSPH paths, with either viscosity, 5 more from the GPU's state after
+     55 steps, where the columns touch the walls, the divergence loop
      iterates and warm-starts, and the fluid -> boundary pass sums something;
   5. main paths: init_carry + 20 steps of the 100k double dam-break through the
      kernels, for each solver, route and operand dtype of SOLVER_PATHS, with
@@ -68,7 +74,20 @@ Phases, each reported on its own line:
      rates (FMA, mix, HBM stream), the K7 probe beside K1 ctx, and the
      roofline at 1M particles in bfloat16 after 100 settle steps, whose state
      must have no drop, every particle live and finite values (no density
-     gate: the columns have hit the floor).
+     gate: the columns have hit the floor). Then the configured entry point,
+     CONFIG_PATHS: BASELINE config 3 (bench.py:353-361: the reference
+     dam-break, here at ~100k fluid particles, physical viscosity mu = 0.01)
+     written as a SimulationConfig JSON for each config kind and operand
+     mode and run by `python -m yasph2d_tpu_torch run` in-process
+     (`__main__.main`), each with its kernels' launch counts > 0, no drop,
+     every fluid particle live, finite state and densities in [rho0,
+     1.3 rho0] at its end. Eight paths take 10-20 steps, in free fall; the
+     rebuild_every 3 path takes CONTACT_CONFIG (150) steps, through the
+     impact on the ramp, with one K4 launch per block of 3 steps and per
+     leftover step, and must end in wall contact. After each such run,
+     every pair form of the path is held against its twin on the run's
+     final state, with phase 3's seeded noise; the physical forms' records
+     are these calls' (times, bound) and their launches on these paths.
 
 The line before the last is the GPU's name and power limit as nvidia-smi
 reports them, the one before that the per-kernel JSON record; the last line is
@@ -80,6 +99,7 @@ import dataclasses
 import json
 import subprocess
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -149,7 +169,52 @@ TOOL_PATHS = {
     "probe_ctx": ["probe_ctx", "pair_reduce_ctx"],
     "roofline": [f"pair_reduce_{f}_bf16" for f in DFSPH_FORMS] + ["rebucket"] + VPU_PROBES,
 }
-PATHS = {**SOLVER_PATHS, **TOOL_PATHS}
+# the physical viscosity forms (PhysicalViscosityModel) of each kernel
+PHYS = "_phys"
+DFSPH_PHYS_FORMS = tuple(f + PHYS if f == "visc_gravity" else f for f in DFSPH_FORMS)
+WCSPH_PHYS_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces" + PHYS)
+DFSPH_SM_PHYS_FORMS = DFSPH_SM_FORMS[:-1] + ("dfsph_visc" + PHYS,)
+DFSPH_TILE_PHYS_FORMS = DFSPH_TILE_FORMS[:-1] + ("dfsph_visc" + PHYS,)
+# what a check does with its pair call: RECORD checks it against its twin,
+# times it, logs its bound and keeps its record; TIME all but keep it; CHECK
+# only checks it
+RECORD, TIME, CHECK = "record", "time", "check"
+CONFIG_PARTICLES = 100_000
+CONFIG_DIR = "build/chip_smoke"  # git-ignored: the paths' config files
+# steps of the config path that runs through contact: the fluid falls onto the
+# ramp at ~step 100 (densities up to ~1.64 rho0 at the impact) and has settled
+# to under 1.03 rho0 by step 150, with stale steps all the while
+CONTACT_CONFIG = 150
+# BASELINE config 3 (dfsph_high_viscosity) through `python -m yasph2d_tpu_torch
+# run`, per solver kind: (config kind, solver knobs, steps, kernels launched)
+CONFIG_PATHS = {
+    "config_dfsph_plane": ("dfsph_plane", {}, STEPS,
+                           [f"pair_reduce_{f}" for f in DFSPH_PHYS_FORMS] + ["rebucket"]),
+    "config_dfsph_plane_bf16": ("dfsph_plane", {"pair_dtype": "bfloat16"}, 10,
+                                [f"pair_reduce_{f}_bf16" for f in DFSPH_PHYS_FORMS]
+                                + ["rebucket"]),
+    "config_dfsph_padded": ("dfsph_padded", {"use_pallas_slotmajor": True}, 10,
+                            [f"sm_pair_reduce_{f}" for f in DFSPH_SM_PHYS_FORMS]
+                            + ["sm_rebucket"]),
+    "config_dfsph_padded_k5": ("dfsph_padded", {}, 10,
+                               [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS]
+                               + ["sm_rebucket"]),
+    "config_wcsph_plane": ("wcsph_plane", {}, 10,
+                           [f"pair_reduce_{f}" for f in WCSPH_PHYS_FORMS] + ["rebucket"]),
+    "config_wcsph_plane_bf16": ("wcsph_plane", {"pair_dtype": "bfloat16"}, 10,
+                                [f"pair_reduce_{f}_bf16" for f in WCSPH_PHYS_FORMS]
+                                + ["rebucket"]),
+    "config_wcsph_padded": ("wcsph_padded", {"use_pallas_slotmajor": True}, 10,
+                            [f"sm_pair_reduce_{f}" for f in WCSPH_PHYS_FORMS]
+                            + ["sm_rebucket"]),
+    "config_wcsph_padded_k5": ("wcsph_padded", {}, 10,
+                               [f"tile_pair_reduce_{f}" for f in WCSPH_PHYS_FORMS]
+                               + ["sm_rebucket"]),
+    "config_dfsph_padded_k5_rebuild3": (
+        "dfsph_padded", {"rebuild_every": 3}, CONTACT_CONFIG,
+        [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]),
+}
+PATHS = {**SOLVER_PATHS, **TOOL_PATHS, **{k: v[3] for k, v in CONFIG_PATHS.items()}}
 
 
 def log(msg):
@@ -198,19 +263,20 @@ def bound_line(name, bound_ms, bound_by, what, ms):
 
 class Records:
     """The per-kernel JSON records; a kernel checked in several calls keeps
-    the first (main-path) call's times and bound, and the largest error. A
-    record's launches are its counter's counts on the main paths it lists
-    (the 100k solver paths, SOLVER_PATHS, when None)."""
+    the first recorded call's times and bound, and the largest error of all
+    its calls. A record's launches are its counter's counts on the main paths
+    it lists (the 100k solver paths, SOLVER_PATHS, when None)."""
 
     def __init__(self):
         self.by_name = {}
         self.nonzero = set()
+        self.worst = {}  # the largest error of each name's calls so far
 
     def add(self, name, kernel, max_abs_err, ms, plain_ms, bound_ms, bound_by,
             counter=None, paths=None, replaces=None):
+        max_abs_err = self.worst[name] = max(self.worst.get(name, 0.0), max_abs_err)
         if name in self.by_name:
-            rec = self.by_name[name]
-            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err)
+            self.by_name[name]["max_abs_err"] = max_abs_err
             return
         self.by_name[name] = dict(
             name=name, route="cuda", source=SOURCES[kernel],
@@ -220,7 +286,8 @@ class Records:
             _counter=counter or name, _paths=paths)
 
     def check_pair(self, kernel, label, form, run_kernel, run_twin, live, comp_dim,
-                   roles, masks, pairs, radius_sq, variant="", size="", paths=None):
+                   roles, masks, pairs, radius_sq, variant="", size="", paths=None,
+                   mode=RECORD, where=""):
         """`live`: the query slot mask, `comp_dim` the output's component
         axis; `roles`: the (query-side, source-side) input tensors and `masks`
         the input masks, for its bytes; `pairs`: (q_pos, q_mask, s_pos,
@@ -228,9 +295,10 @@ class Records:
         operation count; `variant`: the operand mode's suffix of the launch
         name ("_bf16" for K1's bf16 operands, whose `pairs` are rebased);
         `size`: a suffix of the record's name for another state than the
-        100k one, whose launches are counted on `paths`. K1 and K3 must be
-        bit-equal to their twins, K5 within `pair_error`. Every call is timed
-        and its bound logged; the record keeps its form's first call's."""
+        100k one, whose launches are counted on `paths`; `mode` RECORD, TIME
+        or CHECK; `where` names the state in the log. K1 and K3 must be
+        bit-equal to their twins, K5 within `pair_error`. The record keeps its
+        form's first RECORD call's times and bound."""
         out_k, out_t = run_kernel(), run_twin()
         torch.cuda.synchronize()
         errs, ok = pair_error(out_k, out_t, live, comp_dim)
@@ -241,7 +309,7 @@ class Records:
         nonzero = bool(out_t.movedim(comp_dim, -1)[live].abs().sum() > 0)
         counter = f"{kernel}_{form.name}{variant}"
         name = counter + size
-        label = f"{label}{variant}{size}"
+        label = f"{label}{variant}{size}{where}"
         if nonzero:
             self.nonzero.update((name, f"{kernel}_{label}"))
         log(f"phase 3 kernels: {kernel}_{label} max_abs_err {err!r} per component "
@@ -250,6 +318,12 @@ class Records:
         if not ok:
             raise RuntimeError(f"{kernel}_{label} disagrees with its twin "
                                f"(max_abs_err per component {errs})")
+        if mode != RECORD:  # the error counts all the same
+            self.worst[name] = max(self.worst.get(name, 0.0), err)
+            if name in self.by_name:
+                self.by_name[name]["max_abs_err"] = self.worst[name]
+        if mode == CHECK:
+            return
         ms, plain_ms = graph_ms(run_kernel), event_ms(run_twin)
         cand, valid = pair_counts(*pairs[:4], radius_sq,
                                   rebase_cell=pairs[4] if len(pairs) > 4 else None)
@@ -262,8 +336,9 @@ class Records:
         bound_ms, bound_by = bound(n_bytes, n_ops)
         bound_line(f"{kernel}_{label}", bound_ms, bound_by,
                    f"{n_bytes} bytes, {n_ops} float32 operations", ms)
-        self.add(name, kernel, err, ms, plain_ms, bound_ms, bound_by, counter=counter,
-                 paths=paths)
+        if mode == RECORD:
+            self.add(name, kernel, err, ms, plain_ms, bound_ms, bound_by, counter=counter,
+                     paths=paths)
 
     def check_rebucket(self, kernel, label, run_kernel, run_twin, overflow, inputs,
                        name=None, paths=None):
@@ -343,18 +418,74 @@ def phase_build():
         f"{t_build:.2f} s, load {time.perf_counter() - t0 - t_build:.2f} s")
 
 
+def physical(solver):
+    """`solver` with BASELINE config 3's viscosity (PhysicalViscosityModel, mu =
+    0.01, reference main.rs:95-96): its viscosity forms are the *_phys ones."""
+    from yasph2d_tpu_torch import PhysicalViscosityModel
+
+    return dataclasses.replace(solver, viscosity_model=PhysicalViscosityModel(
+        solver.properties.smoothing_length, fluid_viscosity=0.01))
+
+
 def k1_pairs(q, s):
     """A K1 call's geometry in the slot layout for its operation count, and
     its rebase cell in bf16 mode."""
     return (*plane_pairs(q, s), q.rebase_cell)
 
 
+# A pair call to check: (label suffix, form, source geometry, keyword
+# operands, the solver's PairConsts, mode). The builders below list a step's
+# calls on a state: `solver`'s forms with `mode`, its viscosity form with
+# `visc_mode`, and, with `phys` (the same solver with physical viscosity),
+# also that solver's viscosity form on the same operands, TIME (phase 3: its
+# record is taken on the config paths, the shapes it launches at). Each
+# returns (query geometry, live query slots, calls).
+
+
+def check_k1_calls(rec: Records, geom, live, calls, variant="", size="", paths=None,
+                   where=""):
+    """K1 calls with `geom` as the query side; arguments as `check_pair`."""
+    from yasph2d_tpu_torch.ops import pair_reduce as pr
+
+    for suffix, form, src, kw, c, mode in calls:
+        rec.check_pair(
+            "pair_reduce", form.name + suffix, form,
+            lambda: pr.pair_reduce(form, geom, src, c, **kw),
+            lambda: pr.pair_reduce_ref(form.term_fn, form.n_out, geom, src, c.radius_sq,
+                                       post_fn=form.post_fn, n_acc=form.n_acc, **kw),
+            live, 0, role_tensors(geom.pos, src.pos, kw), [geom.mask, src.mask],
+            k1_pairs(geom, src), c.radius_sq, variant, size, paths, mode, where)
+
+
+def check_slot_calls(rec: Records, kernel, pos, mask, calls, paths=None, where=""):
+    """K3 or K5 calls on one padded state against their twins."""
+    from yasph2d_tpu_torch.ops import pallas_pair as tpp
+    from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
+
+    run, ref = {"sm_pair_reduce": (smp.sm_pair_reduce, smp.sm_pair_reduce_ref),
+                "tile_pair_reduce": (tpp.pallas_pair_reduce,
+                                     tpp.pallas_pair_reduce_ref)}[kernel]
+    for suffix, form, (s_pos, s_mask), kw, c, mode in calls:
+        rec.check_pair(
+            kernel, form.name + suffix, form,
+            lambda: run(form, pos, mask, s_pos, s_mask, c, **kw),
+            lambda: ref(form.term_fn, form.n_out, pos, mask, s_pos, s_mask,
+                        c.radius_sq, **kw),
+            mask, -1, role_tensors(pos, s_pos, kw), [mask, s_mask],
+            (pos, mask, s_pos, s_mask), c.radius_sq, paths=paths, mode=mode, where=where)
+
+
 def phase_kernels_dfsph(device, rec: Records, kind="dfsph_plane"):
-    """K1's six DFSPH forms on the plane state of `kind` (f32 or bf16
-    operands) and, in f32, the re-bucket K2."""
+    """K1's six DFSPH forms and visc_gravity_phys on the plane state of `kind`
+    (f32 or bf16 operands) and, in f32, the re-bucket K2."""
     solver, boundary, carry = moving_state(kind, device, CONTACT_STEPS)
-    check_dfsph_plane(device, rec, solver, boundary, carry,
-                      rebucket=solver.grid.pair_dtype == "float32")
+    variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
+    geom, live, calls = dfsph_plane_calls(solver, boundary, carry, phys=physical(solver))
+    check_k1_calls(rec, geom, live, calls, variant)
+    rec.require_nonzero([f"pair_reduce_{n}{variant}" for n in DFSPH_PHYS_FORMS + DFSPH_FORMS]
+                        + [f"pair_reduce_ctx[boundary]{variant}"])
+    if not variant:  # K2 does not change with the operand mode
+        check_plane_rebucket(device, rec, solver, carry)
 
 
 def phase_kernels_1m(device, rec: Records):
@@ -369,29 +500,27 @@ def phase_kernels_1m(device, rec: Records):
     torch.cuda.synchronize()
     log(f"phase 3 kernels: 1M bf16 state settled in {time.perf_counter() - t0:.2f} s, "
         f"grid {solver.grid.nx}x{solver.grid.ny}, {int(carry.ctx.mask.sum())} live")
-    check_dfsph_plane(device, rec, solver, boundary, carry, rebucket=True, size=SIZE_1M,
-                      paths={"roofline"})
+    geom, live, calls = dfsph_plane_calls(solver, boundary, carry)
+    check_k1_calls(rec, geom, live, calls, "_bf16", SIZE_1M, {"roofline"})
+    rec.require_nonzero([f"pair_reduce_{n}_bf16{SIZE_1M}" for n in DFSPH_FORMS]
+                        + [f"pair_reduce_ctx[boundary]_bf16{SIZE_1M}"])
+    check_plane_rebucket(device, rec, solver, carry, SIZE_1M, {"roofline"})
 
 
-def check_dfsph_plane(device, rec: Records, solver, boundary, carry, rebucket,
-                      size="", paths=None):
-    """K1's six DFSPH forms on a DFSPH plane state (the operand mode is the
-    solver's) and, if `rebucket`, K2 with the step's payload; `size` and
-    `paths` as `Records.check_pair`."""
+def dfsph_plane_calls(solver, boundary, carry, mode=RECORD, visc_mode=RECORD, phys=None):
+    """The DFSPH plane step's K1 calls on a DFSPH plane state (the operand
+    mode is the solver's); the ctx instantiation also fluid -> fluid, where
+    every live slot has neighbours."""
     from yasph2d_tpu_torch.ops import pair_reduce as pr
-    from yasph2d_tpu_torch.ops import rebucket as rb
 
-    variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
     ctx = carry.ctx
     geom = ctx.geom
+    device = ctx.mask.device
     dt = float(carry.time.dt)
     m = np.float32(solver.properties.particle_mass)
     scale = float((np.float32(1.0) / np.float32(dt)) * m)
-    f = solver._forms
-    # (label, form, source geometry, keyword operands) as the step calls them;
-    # the ctx instantiation is also checked fluid -> fluid, where every live
-    # slot has neighbours.
-    stat = pr.pair_reduce(f.ctx, geom, boundary.geom, solver._consts)
+    f, c = solver._forms, solver._consts
+    stat = pr.pair_reduce(f.ctx, geom, boundary.geom, c)
     # most of the fluid is still a barely compressed lattice whose slots have
     # fewer than the 9 neighbours the divergence guard asks for: seeded
     # velocity, stiffness and neighbour-count noise makes the loop forms do
@@ -404,40 +533,35 @@ def check_dfsph_plane(device, rec: Records, solver, boundary, carry, rebucket,
         rng.normal(0.0, 0.5, tuple(carry.v.shape)).astype(np.float32), device=device)
     k = torch.as_tensor(
         rng.normal(0.0, 50.0, tuple(carry.kappa.shape)).astype(np.float32), device=device)
+    visc_kw = dict(q_vals=(v,), s_vals=(v, ctx.densities), scalars=(dt,))
     calls = [
-        ("ctx[boundary]", f.ctx, boundary.geom, {}),
-        ("ctx[fluid->fluid]", f.ctx, geom, {}),
-        ("ctx_post", f.ctx_post, geom, dict(post_planes=(stat,))),
-        ("visc_gravity", f.visc_gravity, geom, dict(
-            q_vals=(v,), s_vals=(v, ctx.densities), scalars=(dt,))),
-        ("err_ki", f.err_ki, geom, dict(
+        ("[boundary]", f.ctx, boundary.geom, {}, c, mode),
+        ("[fluid->fluid]", f.ctx, geom, {}, c, mode),
+        ("", f.ctx_post, geom, dict(post_planes=(stat,)), c, mode),
+        ("", f.visc_gravity, geom, visc_kw, c, visc_mode),
+        ("", f.err_ki, geom, dict(
             q_vals=(v,), s_vals=(v,), scalars=(dt,),
-            post_planes=(v, ctx.sum_grad_stat, ctx.densities, ctx.alpha))),
-        ("delta_ki", f.delta_ki, geom, dict(
+            post_planes=(v, ctx.sum_grad_stat, ctx.densities, ctx.alpha)), c, mode),
+        ("", f.delta_ki, geom, dict(
             q_vals=(v,), s_vals=(v,),
-            post_planes=(v, ctx.sum_grad_stat, nt, ctx.alpha))),
-        ("corr_v", f.corr_v, geom, dict(
+            post_planes=(v, ctx.sum_grad_stat, nt, ctx.alpha)), c, mode),
+        ("", f.corr_v, geom, dict(
             q_vals=(k,), s_vals=(k,), scalars=(scale,),
-            post_planes=(v, k, ctx.sum_grad_stat))),
+            post_planes=(v, k, ctx.sum_grad_stat)), c, mode),
     ]
-    for label, form, src, kw in calls:
-        rec.check_pair(
-            "pair_reduce", label, form,
-            lambda: pr.pair_reduce(form, geom, src, solver._consts, **kw),
-            lambda: pr.pair_reduce_ref(
-                form.term_fn, form.n_out, geom, src, solver._consts.radius_sq,
-                post_fn=form.post_fn, n_acc=form.n_acc, **kw),
-            ctx.mask, 0, role_tensors(geom.pos, src.pos, kw), [geom.mask, src.mask],
-            k1_pairs(geom, src), solver._consts.radius_sq, variant, size, paths)
-    rec.require_nonzero([f"pair_reduce_{n}{variant}{size}" for n in DFSPH_FORMS]
-                        + [f"pair_reduce_ctx[boundary]{variant}{size}"])
-    if not rebucket:
-        return  # K2 does not change with the operand mode
+    if phys is not None:
+        calls.append(("", phys._forms.visc_gravity, geom, visc_kw, phys._consts, TIME))
+    return geom, ctx.mask, calls
 
-    # re-bucket as the step calls it: the step's own advection, and a forced
-    # overflow in which every particle of an odd cell column moves one cell left
-    grid = solver.grid
-    pos = ctx.pos + carry.v * dt
+
+def check_plane_rebucket(device, rec: Records, solver, carry, size="", paths=None):
+    """K2 with the DFSPH plane step's payload as the step calls it: the
+    step's own advection, and a forced overflow in which every particle of an
+    odd cell column moves one cell left."""
+    from yasph2d_tpu_torch.ops import rebucket as rb
+
+    grid, ctx = solver.grid, carry.ctx
+    pos = ctx.pos + carry.v * float(carry.time.dt)
     parts = (carry.v, carry.kappa, carry.stiff)
     extra = torch.cat([carry.v, carry.kappa[None], carry.stiff[None]], dim=0)
     odd = (torch.arange(grid.nx, device=device) % 2 == 1).to(torch.float32)
@@ -468,41 +592,42 @@ def wcsph_operands(solver, live, v_live, v, dens, rng):
     return tait_pressure(solver.stiffness, rho0, dens), dens, v
 
 
-def check_slot_calls(rec, kernel, calls, pos, mask, consts):
-    """K3 or K5 call forms on one padded state against their twins."""
-    from yasph2d_tpu_torch.ops import pallas_pair as tpp
-    from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
-
-    run, ref = {"sm_pair_reduce": (smp.sm_pair_reduce, smp.sm_pair_reduce_ref),
-                "tile_pair_reduce": (tpp.pallas_pair_reduce,
-                                     tpp.pallas_pair_reduce_ref)}[kernel]
-    for label, form, (s_pos, s_mask), kw in calls:
-        rec.check_pair(
-            kernel, label, form,
-            lambda: run(form, pos, mask, s_pos, s_mask, consts, **kw),
-            lambda: ref(form.term_fn, form.n_out, pos, mask, s_pos, s_mask,
-                        consts.radius_sq, **kw),
-            mask, -1, role_tensors(pos, s_pos, kw), [mask, s_mask],
-            (pos, mask, s_pos, s_mask), consts.radius_sq)
-
-
-def wcsph_slot_calls(solver, boundary, carry, rng):
-    f = solver._forms
-    dt = float(carry.time.dt)
-    pos, mask = carry.pos_pad, carry.mask
-    pres, dens, v = wcsph_operands(solver, mask, mask[..., None], carry.v_pad,
-                                   carry.dens_pad, rng)
-    fluid = (pos, mask)
-    walls = (boundary.pos_pad, boundary.mask)
-    return [
-        ("wcsph_density", f.density, fluid, {}),
-        ("wcsph_stat", f.stat, walls, {}),
-        # the fluid -> boundary pass sums nothing before the columns reach the
-        # walls: the same instantiation fluid -> fluid
-        ("wcsph_stat[fluid->fluid]", f.stat, fluid, {}),
-        ("wcsph_forces", f.forces, fluid, dict(
-            q_vals=(pres, dens, v), s_vals=(pres, dens, v), scalars=(dt,))),
+def wcsph_calls(solver, fluid, walls, operands, dt, mode, visc_mode, phys):
+    """The WCSPH step's calls against the `fluid` and `walls` sources, the
+    forces pass on `operands` (pres, dens, v); the fluid -> boundary pass
+    sums nothing before the columns reach the walls, so its instantiation
+    also runs fluid -> fluid."""
+    f, c = solver._forms, solver._consts
+    forces_kw = dict(q_vals=operands, s_vals=operands, scalars=(dt,))
+    calls = [
+        ("", f.density, fluid, {}, c, mode),
+        ("", f.stat, walls, {}, c, mode),
+        ("[fluid->fluid]", f.stat, fluid, {}, c, mode),
+        ("", f.forces, fluid, forces_kw, c, visc_mode),
     ]
+    if phys is not None:
+        calls.append(("", phys._forms.forces, fluid, forces_kw, phys._consts, TIME))
+    return calls
+
+
+def wcsph_slot_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD, phys=None):
+    """The WCSPH padded step's K3 or K5 calls on a padded state."""
+    pos, mask = carry.pos_pad, carry.mask
+    operands = wcsph_operands(solver, mask, mask[..., None], carry.v_pad, carry.dens_pad, rng)
+    return (pos, mask), mask, wcsph_calls(
+        solver, (pos, mask), (boundary.pos_pad, boundary.mask), operands,
+        float(carry.time.dt), mode, visc_mode, phys)
+
+
+def wcsph_plane_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD, phys=None):
+    """The WCSPH plane step's K1 calls on a plane state (the operand mode is
+    the solver's)."""
+    from yasph2d_tpu_torch.ops.planes import plane_geom
+
+    geom = plane_geom(carry.pos, carry.mask, solver.grid)
+    operands = wcsph_operands(solver, carry.mask, carry.mask[None], carry.v, carry.dens, rng)
+    return geom, carry.mask, wcsph_calls(solver, geom, boundary.geom, operands,
+                                         float(carry.time.dt), mode, visc_mode, phys)
 
 
 def phase_kernels_wcsph(device, rec: Records):
@@ -514,10 +639,10 @@ def phase_kernels_wcsph(device, rec: Records):
     solver, boundary, carry = moving_state("wcsph_padded", device, WARMUP_STEPS)
     grid = solver.grid
     dt = float(carry.time.dt)
-    pos, mask = carry.pos_pad, carry.mask
-    check_slot_calls(rec, "sm_pair_reduce", wcsph_slot_calls(solver, boundary, carry, rng),
-                     pos, mask, solver._consts)
-    rec.require_nonzero([f"sm_pair_reduce_{n}" for n in WCSPH_FORMS])
+    (pos, mask), _, calls = wcsph_slot_calls(solver, boundary, carry, rng,
+                                             phys=physical(solver))
+    check_slot_calls(rec, "sm_pair_reduce", pos, mask, calls)
+    rec.require_nonzero([f"sm_pair_reduce_{n}" for n in WCSPH_FORMS + WCSPH_PHYS_FORMS])
     adv = pos + carry.v_pad * dt
     odd = (torch.arange(grid.nx, device=device) % 2 == 1).to(torch.float32)
     crowded = adv.clone()
@@ -531,58 +656,39 @@ def phase_kernels_wcsph(device, rec: Records):
 
     # K5's WCSPH forms on the padded state of the K5 route
     solver, boundary, carry = moving_state("wcsph_padded_k5", device, WARMUP_STEPS)
-    check_slot_calls(rec, "tile_pair_reduce",
-                     wcsph_slot_calls(solver, boundary, carry, rng),
-                     carry.pos_pad, carry.mask, solver._consts)
-    rec.require_nonzero([f"tile_pair_reduce_{n}" for n in WCSPH_FORMS])
+    (pos, mask), _, calls = wcsph_slot_calls(solver, boundary, carry, rng,
+                                             phys=physical(solver))
+    check_slot_calls(rec, "tile_pair_reduce", pos, mask, calls)
+    rec.require_nonzero([f"tile_pair_reduce_{n}" for n in WCSPH_FORMS + WCSPH_PHYS_FORMS])
 
     phase_kernels_wcsph_plane(device, rec, "wcsph_plane", rng)
 
 
 def phase_kernels_wcsph_plane(device, rec: Records, kind, rng):
-    """K1's WCSPH forms on the plane state of `kind` (f32 or bf16 operands)
-    and, in f32, K2 with the velocity payload."""
-    from yasph2d_tpu_torch.ops import pair_reduce as pr
+    """K1's WCSPH forms and wcsph_forces_phys on the plane state of `kind`
+    (f32 or bf16 operands) and, in f32, K2 with the velocity payload."""
     from yasph2d_tpu_torch.ops import rebucket as rb
-    from yasph2d_tpu_torch.ops.planes import plane_geom
 
     solver, boundary, carry = moving_state(kind, device, WARMUP_STEPS)
     variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
-    f, c = solver._forms, solver._consts
-    dt = float(carry.time.dt)
-    geom = plane_geom(carry.pos, carry.mask, solver.grid)
-    pres, dens, v = wcsph_operands(solver, carry.mask, carry.mask[None], carry.v,
-                                   carry.dens, rng)
-    calls = [
-        ("wcsph_density", f.density, geom, {}),
-        ("wcsph_stat", f.stat, boundary.geom, {}),
-        ("wcsph_stat[fluid->fluid]", f.stat, geom, {}),
-        ("wcsph_forces", f.forces, geom, dict(
-            q_vals=(pres, dens, v), s_vals=(pres, dens, v), scalars=(dt,))),
-    ]
-    for label, form, src, kw in calls:
-        rec.check_pair(
-            "pair_reduce", label, form,
-            lambda: pr.pair_reduce(form, geom, src, c, **kw),
-            lambda: pr.pair_reduce_ref(form.term_fn, form.n_out, geom, src,
-                                       c.radius_sq, **kw),
-            carry.mask, 0, role_tensors(geom.pos, src.pos, kw), [geom.mask, src.mask],
-            k1_pairs(geom, src), c.radius_sq, variant)
-    rec.require_nonzero([f"pair_reduce_{n}{variant}" for n in WCSPH_FORMS])
+    geom, live, calls = wcsph_plane_calls(solver, boundary, carry, rng, phys=physical(solver))
+    check_k1_calls(rec, geom, live, calls, variant)
+    rec.require_nonzero([f"pair_reduce_{n}{variant}" for n in WCSPH_FORMS + WCSPH_PHYS_FORMS])
     if variant:
         return  # K2 does not change with the operand mode
-    adv = carry.pos + carry.v * dt
+    adv = carry.pos + carry.v * float(carry.time.dt)
     rec.check_rebucket("rebucket", "wcsph advect",
                        lambda: rb.rebucket(adv, carry.mask, carry.v, solver.grid),
                        lambda: rb.rebucket_ref(adv, carry.mask, carry.v, solver.grid),
                        overflow=False, inputs=[adv, carry.mask, carry.v])
 
 
-def dfsph_slot_calls(solver, boundary, carry, rng):
-    """The DFSPH padded step's pair calls on a state in wall contact, with
-    seeded velocity and stiffness noise (most of the lattice barely
-    compresses yet)."""
-    f, ctx = solver._padded_forms, carry.ctx
+def dfsph_slot_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD, phys=None):
+    """The DFSPH padded step's K3 or K5 calls on a padded state, with seeded
+    velocity and stiffness noise (most of the lattice barely compresses
+    yet); the boundary pass's instantiation (dfsph_stat on K3, dfsph_ctx on
+    K5) also on the many more fluid -> fluid pairs."""
+    f, c, ctx = solver._padded_forms, solver._consts, carry.ctx
     dt = float(carry.time.dt)
     mask = ctx.mask
     v = torch.where(mask[..., None], carry.v_pad + noise(carry.v_pad, 0.5, rng),
@@ -590,17 +696,18 @@ def dfsph_slot_calls(solver, boundary, carry, rng):
     k = torch.where(mask, noise(carry.kappa_pad, 50.0, rng), 0.0)
     fluid = (ctx.pos_pad, mask)
     walls = (boundary.pos_pad, boundary.mask)
-    stat = f.stat.name  # dfsph_stat on K3; K5 runs the boundary pass as dfsph_ctx
-    return [
-        ("dfsph_ctx", f.ctx, fluid, {}),
-        (stat + "[boundary]", f.stat, walls, {}),
-        # the boundary pass's instantiation on many more pairs
-        (stat + "[fluid->fluid]", f.stat, fluid, {}),
-        ("dfsph_div", f.div, fluid, dict(q_vals=(v,), s_vals=(v,))),
-        ("dfsph_corr", f.corr, fluid, dict(q_vals=(k,), s_vals=(k,))),
-        ("dfsph_visc", f.visc, fluid, dict(q_vals=(v,), s_vals=(v, ctx.densities_pad),
-                                           scalars=(dt,))),
+    visc_kw = dict(q_vals=(v,), s_vals=(v, ctx.densities_pad), scalars=(dt,))
+    calls = [
+        ("", f.ctx, fluid, {}, c, mode),
+        ("[boundary]", f.stat, walls, {}, c, mode),
+        ("[fluid->fluid]", f.stat, fluid, {}, c, mode),
+        ("", f.div, fluid, dict(q_vals=(v,), s_vals=(v,)), c, mode),
+        ("", f.corr, fluid, dict(q_vals=(k,), s_vals=(k,)), c, mode),
+        ("", f.visc, fluid, visc_kw, c, visc_mode),
     ]
+    if phys is not None:
+        calls.append(("", phys._padded_forms.visc, fluid, visc_kw, phys._consts, TIME))
+    return fluid, mask, calls
 
 
 def phase_kernels_dfsph_padded(device, rec: Records):
@@ -611,9 +718,10 @@ def phase_kernels_dfsph_padded(device, rec: Records):
     # K3's five DFSPH forms and K4 (D = 4) on the padded state
     solver, boundary, carry = moving_state("dfsph_padded", device, CONTACT_STEPS)
     ctx, grid = carry.ctx, solver.grid
-    check_slot_calls(rec, "sm_pair_reduce", dfsph_slot_calls(solver, boundary, carry, rng),
-                     ctx.pos_pad, ctx.mask, solver._consts)
-    rec.require_nonzero([f"sm_pair_reduce_{n}" for n in DFSPH_SM_FORMS]
+    (pos, mask), _, calls = dfsph_slot_calls(solver, boundary, carry, rng,
+                                             phys=physical(solver))
+    check_slot_calls(rec, "sm_pair_reduce", pos, mask, calls)
+    rec.require_nonzero([f"sm_pair_reduce_{n}" for n in DFSPH_SM_FORMS + DFSPH_SM_PHYS_FORMS]
                         + ["sm_pair_reduce_dfsph_stat[boundary]"])
     dt = float(carry.time.dt)
     adv = ctx.pos_pad + carry.v_pad * dt
@@ -633,11 +741,11 @@ def phase_kernels_dfsph_padded(device, rec: Records):
 
     # K5's four DFSPH forms on the padded state of the K5 route
     solver, boundary, carry = moving_state("dfsph_padded_k5", device, CONTACT_STEPS)
-    check_slot_calls(rec, "tile_pair_reduce",
-                     dfsph_slot_calls(solver, boundary, carry, rng),
-                     carry.ctx.pos_pad, carry.ctx.mask, solver._consts)
-    rec.require_nonzero([f"tile_pair_reduce_{n}" for n in DFSPH_TILE_FORMS]
-                        + ["tile_pair_reduce_dfsph_ctx[boundary]"])
+    (pos, mask), _, calls = dfsph_slot_calls(solver, boundary, carry, rng,
+                                             phys=physical(solver))
+    check_slot_calls(rec, "tile_pair_reduce", pos, mask, calls)
+    rec.require_nonzero([f"tile_pair_reduce_{n}" for n in DFSPH_TILE_FORMS
+                         + DFSPH_TILE_PHYS_FORMS] + ["tile_pair_reduce_dfsph_ctx[boundary]"])
 
 
 def phase_kernels_probes(device, rec: Records):
@@ -737,7 +845,7 @@ def slot_space(rng, grid, pp, fill, dead_rho, device):
 
 
 def phase_kernels_deep(device):
-    """K1 (nine forms, f32 and bf16 operands), K3 (eight forms) and K7 with a
+    """K1 (eleven forms, f32 and bf16 operands), K3 (ten forms) and K7 with a
     source space of DEEP_PS slots, cells of more than 32 live ones (two live
     words a cell), on a ragged grid of the 3k scene's cell size (query
     spaces of P 7, K7 P 12, 60% live; sources 90% live, dead rho NaN),
@@ -751,6 +859,7 @@ def phase_kernels_deep(device):
     world = double_dam_break(3_000)
     sv = {kind: bench_solver(kind, world, device)[0] for kind in (
         "dfsph_plane", "wcsph_plane", "dfsph_padded", "wcsph_padded")}
+    phys = {kind: physical(solver) for kind, solver in sv.items()}
     grid = dataclasses.replace(sv["dfsph_plane"].grid, ny=61, nx=97)
     rng = np.random.default_rng(9)
     (pos, mask), qv = slot_space(rng, grid, 7, 0.6, 0.0, device)
@@ -767,15 +876,21 @@ def phase_kernels_deep(device):
             raise RuntimeError(f"{name} at Ps = {DEEP_PS} is not bit-equal to its twin "
                                f"(max |diff| {float((out - ref).abs().nan_to_num().max())!r})")
 
-    # K3: the slot layout in place
-    f, w = sv["dfsph_padded"]._padded_forms, sv["wcsph_padded"]._forms
+    # K3: the slot layout in place; (form, keyword operands, PairConsts)
+    d, w = sv["dfsph_padded"], sv["wcsph_padded"]
+    dphys, wphys = phys["dfsph_padded"], phys["wcsph_padded"]
+    f, fw = d._padded_forms, w._forms
     wq, ws = (qv["pres"], qv["rho"], qv["v"]), (dv["pres"], dv["rho"], dv["v"])
+    visc_kw = dict(q_vals=(qv["v"],), s_vals=(dv["v"], dv["rho"]), scalars=(dt,))
+    forces_kw = dict(q_vals=wq, s_vals=ws, scalars=(dt,))
     k3 = [(f.ctx, {}), (f.stat, {}), (f.div, dict(q_vals=(qv["v"],), s_vals=(dv["v"],))),
-          (f.corr, dict(q_vals=(qv["k"],), s_vals=(dv["k"],))),
-          (f.visc, dict(q_vals=(qv["v"],), s_vals=(dv["v"], dv["rho"]), scalars=(dt,))),
-          (w.density, {}), (w.stat, {}), (w.forces, dict(q_vals=wq, s_vals=ws, scalars=(dt,)))]
-    for form, kw in k3:
-        c = (sv["dfsph_padded"] if form.name.startswith("dfsph") else sv["wcsph_padded"])._consts
+          (f.corr, dict(q_vals=(qv["k"],), s_vals=(dv["k"],))), (f.visc, visc_kw)]
+    k3 = [(form, kw, d._consts) for form, kw in k3] + [
+        (fw.density, {}, w._consts), (fw.stat, {}, w._consts),
+        (fw.forces, forces_kw, w._consts),
+        (dphys._padded_forms.visc, visc_kw, dphys._consts),
+        (wphys._forms.forces, forces_kw, wphys._consts)]
+    for form, kw, c in k3:
         record(f"sm_pair_reduce_{form.name}",
                smp.sm_pair_reduce(form, pos, mask, spos, smask, c, **kw),
                smp.sm_pair_reduce_ref(form.term_fn, form.n_out, pos, mask, spos, smask,
@@ -788,26 +903,31 @@ def phase_kernels_deep(device):
     sgs, dens = qp["v"] * 20.0, qp["rho"] * 0.05 + 95.0
     alpha = torch.full(shape, 1e-3, device=device)
     nt = torch.floor(qp["k"].abs() * 0.7)
-    fd, fw = sv["dfsph_plane"]._forms, sv["wcsph_plane"]._forms
+    d, w = sv["dfsph_plane"], sv["wcsph_plane"]
+    dphys, wphys = phys["dfsph_plane"], phys["wcsph_plane"]
+    fd, fw = d._forms, w._forms
     for bf16 in (False, True):
         g = dataclasses.replace(grid, pair_dtype="bfloat16")
         q, src = (plane_geom(q32.pos, q32.mask, g), plane_geom(s32.pos, s32.mask, g)) \
             if bf16 else (q32, s32)
         stat = pr.pair_reduce_ref(fd.ctx.term_fn, 5, q, src, grid.radius_sq)
+        visc_kw = dict(q_vals=(qp["v"],), s_vals=(dp["v"], dp["rho"]), scalars=(dt,))
+        forces_kw = dict(q_vals=(qp["pres"], qp["rho"], qp["v"]),
+                         s_vals=(dp["pres"], dp["rho"], dp["v"]), scalars=(dt,))
         k1 = [(fd.ctx, {}), (fd.ctx_post, dict(post_planes=(stat,))),
-              (fd.visc_gravity, dict(q_vals=(qp["v"],), s_vals=(dp["v"], dp["rho"]),
-                                     scalars=(dt,))),
+              (fd.visc_gravity, visc_kw),
               (fd.err_ki, dict(q_vals=(qp["v"],), s_vals=(dp["v"],), scalars=(dt,),
                                post_planes=(qp["v"], sgs, dens, alpha))),
               (fd.delta_ki, dict(q_vals=(qp["v"],), s_vals=(dp["v"],),
                                  post_planes=(qp["v"], sgs, nt, alpha))),
               (fd.corr_v, dict(q_vals=(qp["k"],), s_vals=(dp["k"],), scalars=(1234.5,),
-                               post_planes=(qp["v"], qp["k"], sgs))),
-              (fw.density, {}), (fw.stat, {}),
-              (fw.forces, dict(q_vals=(qp["pres"], qp["rho"], qp["v"]),
-                               s_vals=(dp["pres"], dp["rho"], dp["v"]), scalars=(dt,)))]
-        for form, kw in k1:
-            c = (sv["wcsph_plane"] if form.name.startswith("wcsph") else sv["dfsph_plane"])._consts
+                               post_planes=(qp["v"], qp["k"], sgs)))]
+        k1 = [(form, kw, d._consts) for form, kw in k1] + [
+            (fw.density, {}, w._consts), (fw.stat, {}, w._consts),
+            (fw.forces, forces_kw, w._consts),
+            (dphys._forms.visc_gravity, visc_kw, dphys._consts),
+            (wphys._forms.forces, forces_kw, wphys._consts)]
+        for form, kw, c in k1:
             record(f"pair_reduce_{form.name}{'_bf16' if bf16 else ''}",
                    pr.pair_reduce(form, q, src, c, **kw),
                    pr.pair_reduce_ref(form.term_fn, form.n_out, q, src, c.radius_sq,
@@ -862,14 +982,18 @@ def run_steps(solver, carry, boundary, n):
 
 def phase_small_reference(device):
     """Kernels on the GPU against the twins on the CPU on a 3k scene: 5 steps
-    from rest for every path, and for the DFSPH paths 5 more from the GPU's
-    state in wall contact, copied to the CPU."""
+    from rest for every path, with XSPH and with physical viscosity (the
+    *_phys forms), and for the DFSPH paths 5 more from the GPU's state in
+    wall contact, copied to the CPU, with either viscosity."""
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 
     sides = {"gpu": device, "cpu": torch.device("cpu")}
-    for kind in SOLVER_PATHS:
+    for kind, phys in [(k, p) for k in SOLVER_PATHS for p in (False, True)]:
         solvers = {side: bench_solver(kind, double_dam_break(3_000), dev)
                    for side, dev in sides.items()}
+        if phys:
+            solvers = {side: (physical(s), b) for side, (s, b) in solvers.items()}
+            kind = kind + PHYS
         starts = {"rest": {side: solvers[side][0].init_carry(
             double_dam_break(3_000).initial_state(device=dev), solvers[side][1])
             for side, dev in sides.items()}}
@@ -999,6 +1123,104 @@ def check_launches(kind, launches) -> dict:
     return path
 
 
+def baseline_config(kind, **solver):
+    """BASELINE config 3, dfsph_high_viscosity (bench.py:353-361), as a
+    config of `kind`: the reference dam-break (default_scene) at
+    CONFIG_PARTICLES fluid particles, physical viscosity mu = 0.01, adaptive
+    steps in [1/24000, 1/360] s with the kind's CFL (1.5 DFSPH, 0.2 WCSPH)."""
+    from yasph2d_tpu_torch import config as C
+    from yasph2d_tpu_torch.scenes import reference_particle_density
+
+    return C.SimulationConfig(
+        fluid=C.FluidConfig(particle_density=reference_particle_density(CONFIG_PARTICLES)),
+        viscosity=C.ViscosityConfig(kind="physical", fluid_viscosity=0.01),
+        timestep=C.TimestepConfig(timestep_max=1.0 / 360.0, timestep_min=1.0 / 24000.0),
+        solver=C.SolverConfig(kind=kind, **solver))
+
+
+def phase_config_path(device, rec: Records, name) -> dict:
+    """One of CONFIG_PATHS through the CLI, in-process: its config written to
+    a JSON file, `python -m yasph2d_tpu_torch run --config <file> --steps N`
+    on the card; the run's drops 0, every fluid particle live, finite state,
+    densities in [rho0, 1.3 rho0] at its end, and with rebuild_every k the
+    re-bucket launched once per block of k steps plus once per leftover step;
+    then `check_config_state` on its final state."""
+    from pathlib import Path
+
+    from yasph2d_tpu_torch.__main__ import main as cli
+
+    kind, knobs, steps, _ = CONFIG_PATHS[name]
+    path = Path(CONFIG_DIR) / f"{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    baseline_config(kind, **knobs).to_json(str(path))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = cli(["run", "--config", str(path), "--steps", str(steps), "--device", str(device)])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = launch_counts()
+    out, world, solver = run.record, run.world, run.solver
+    s = solver.export_state(run.carry)
+    live = int(s.alive.sum())
+    rho0 = solver.properties.fluid_density
+    dens = s.densities[s.alive]
+    finite = bool(torch.isfinite(s.positions[s.alive]).all()
+                  and torch.isfinite(s.velocities[s.alive]).all()
+                  and torch.isfinite(dens).all())
+    dmin, dmax = float(dens.min()), float(dens.max())
+    grid = solver.grid
+    log(f"phase 5 main path [{name}]: {kind} {knobs}, grid {grid.nx}x{grid.ny} P "
+        f"{grid.occupancy}, {live} live of {world.num_dynamic_particles} fluid / "
+        f"{world.num_boundary_particles} boundary, {steps} steps in {elapsed:.3f} s "
+        f"(build included), density [{dmin!r}, {dmax!r}], record {json.dumps(out)}")
+    path_launches = check_launches(name, launches)
+    k = int(getattr(solver, "rebuild_every", 1))
+    rebuilds = steps // k + steps % k
+    if k > 1 and launches["sm_rebucket"] != rebuilds:
+        raise RuntimeError(f"{name}: {launches['sm_rebucket']} re-bucket launches in "
+                           f"{steps} steps with rebuild_every {k}; expected {rebuilds}")
+    if out["neighbor_drops"] != 0 or live != world.num_dynamic_particles or not finite \
+            or not out["finite"]:
+        raise RuntimeError(f"{name}: state wrong: drops {out['neighbor_drops']} live {live} "
+                           f"of {world.num_dynamic_particles} finite {finite}")
+    if not (rho0 <= dmin and dmax <= 1.3 * rho0):
+        raise RuntimeError(f"{name}: densities outside [rho0, 1.3 rho0]: [{dmin}, {dmax}]")
+    check_config_state(rec, name, run)
+    return path_launches
+
+
+def check_config_state(rec: Records, name, run):
+    """The pair calls of a config path's step against their twins on the
+    path's final state, at the shapes the path launches them at, with phase
+    3's seeded noise (the fluid is falling freely: no shear, rho = rho0):
+    the viscosity form (a *_phys form) RECORD, so its record's times, bound
+    and launches all come from the config paths; the other forms CHECK."""
+    kind = CONFIG_PATHS[name][0]
+    solver, boundary, carry = run.solver, run.boundary, run.carry
+    where, paths = f" on {name}", set(CONFIG_PATHS)
+    rng = np.random.default_rng(5)
+    if kind.endswith("plane"):
+        kernel = "pair_reduce"
+        variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
+        builder = dfsph_plane_calls if kind.startswith("dfsph") else partial(
+            wcsph_plane_calls, rng=rng)
+        geom, live, calls = builder(solver, boundary, carry, mode=CHECK)
+        check_k1_calls(rec, geom, live, calls, variant, paths=paths, where=where)
+    else:
+        kernel = "sm_pair_reduce" if solver.grid.use_pallas_slotmajor else "tile_pair_reduce"
+        variant = ""
+        builder = dfsph_slot_calls if kind.startswith("dfsph") else wcsph_slot_calls
+        (pos, mask), _, calls = builder(solver, boundary, carry, rng, mode=CHECK)
+        check_slot_calls(rec, kernel, pos, mask, calls, paths, where)
+    # the path that runs through contact ends with fluid on the ramp: its
+    # boundary pass sums something
+    contact = CONFIG_PATHS[name][2] >= CONTACT_CONFIG
+    rec.require_nonzero([f"{kernel}_{form.name}{sfx}{variant}{where}"
+                         for sfx, form, _, _, _, mode in calls
+                         if mode == RECORD or (contact and sfx == "[boundary]")])
+
+
 def phase_tool_path(device, kind) -> dict:
     """One of TOOL_PATHS through the tool's entry point, as a user runs it:
     the K6 rates (FMA, mix, HBM), the K7 probe beside K1 ctx, and the 1M bf16
@@ -1025,6 +1247,7 @@ def phase_tool_path(device, kind) -> dict:
 
 
 def main():
+    t0 = time.perf_counter()
     phase_environment()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -1041,6 +1264,8 @@ def main():
     phase_small_reference(device)
     path_launches = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}
     path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})
+    path_launches.update({name: phase_config_path(device, rec, name)
+                          for name in CONFIG_PATHS})
     records = list(rec.by_name.values())
     for r in records:
         # a record that names no path is one of the 100k solver states: it
@@ -1052,6 +1277,7 @@ def main():
     if missing:
         raise RuntimeError(f"kernels of the JSON record never launched on a main path: "
                            f"{missing}")
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ CPU-only test host). Imports no JAX, so it runs on a GPU host without it:
 The kernels perform the twins' float32 operations in the same order (built
 with -fmad=false; K5's twin sums each view's candidates with torch.sum), so
 K1 in both operand modes, K3, K7 and the re-buckets (K2, K4) are compared bit
-for bit, K5 to rtol 1e-5 plus 1e-6 of the plane's scale. The FMA probe of K6 rounds once per step where its twin rounds twice
+for bit, K5 to rtol 1e-5 plus 1e-6 of the plane's scale. The physical
+viscosity forms (PhysicalViscosityModel, mu = 0.01) are held as the XSPH
+ones, also on sources whose dead slots hold rho = 0 or NaN. The FMA probe of K6 rounds once per step where its twin rounds twice
 (rtol 1e-5); its mix probe is bit-equal to the twin."""
 
 import dataclasses
@@ -22,6 +24,7 @@ from yasph2d_tpu_torch import (
     DFSPHPaddedSolver,
     DFSPHPlaneSolver,
     FluidParticleWorld,
+    PhysicalViscosityModel,
     WCSPHPaddedSolver,
     WCSPHPlaneSolver,
     XSPHViscosityModel,
@@ -47,6 +50,14 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+def _physical(solver):
+    """`solver` with the reference's high-viscosity model (physical, mu =
+    0.01, main.rs:95-96): its viscosity forms are the *_phys launchers."""
+    h = solver.properties.smoothing_length
+    return dataclasses.replace(
+        solver, viscosity_model=PhysicalViscosityModel(h, fluid_viscosity=0.01))
 
 
 def _planes(rng, shape, scale=1.0, offset=0.0):
@@ -543,8 +554,11 @@ def edge(device):
 
 def _edge_operands(edge, form, q):
     """(solver, form, source geometry, keyword operands) of one K1 form on the
-    edge case; `q` is the fluid geometry in the operand mode under test."""
+    edge case; `q` is the fluid geometry in the operand mode under test. A
+    *_phys form takes the solvers with physical viscosity."""
     dfsph, wcsph, fluid, walls, vals = edge
+    if form.endswith("_phys"):
+        dfsph, wcsph, form = _physical(dfsph), _physical(wcsph), form.removesuffix("_phys")
     s_walls = walls if q.rebase_cell is None else _bf16(walls, dfsph.grid)
     f, w = dfsph._forms, wcsph._forms
     v, k, rho, dt = vals["v"], vals["k"], vals["rho"], 1.0 / 2700.0
@@ -867,8 +881,11 @@ def k3case(device):
 
 
 def _k3_form(dfsph, wcsph, form, qv, sv):
-    """(form, consts, keyword operands) of one K3 form on query values `qv`
-    and source values `sv` (the _slot_space dicts)."""
+    """(form, consts, keyword operands) of one K3 or K5 form on query values
+    `qv` and source values `sv` (the _slot_space dicts); a *_phys form takes
+    the solvers with physical viscosity."""
+    if form.endswith("_phys"):
+        dfsph, wcsph, form = _physical(dfsph), _physical(wcsph), form.removesuffix("_phys")
     f, w = dfsph._padded_forms, wcsph._forms
     dt = (1.0 / 2700.0,)
     wq, ws = (qv["pres"], qv["rho"], qv["v"]), (sv["pres"], sv["rho"], sv["v"])
@@ -953,6 +970,8 @@ def test_pair_kernel_deep_sources_bit_equal(device, edge, form, bf16):
     live slots: two live words a cell) in both operand modes, bit-equal to its
     twin with the chosen launch shape."""
     dfsph, wcsph, fluid, _, vals = edge
+    if form.endswith("_phys"):
+        dfsph, wcsph = _physical(dfsph), _physical(wcsph)
     p, ny, nx = fluid.mask.shape
     rng = np.random.default_rng(13)
     h = dfsph.grid.cell_size
@@ -982,7 +1001,8 @@ def test_pair_kernel_deep_sources_bit_equal(device, edge, form, bf16):
         "wcsph_forces": (wcsph, w.forces, dict(q_vals=(vals["pres"], rho, v),
                                                s_vals=(sv["pres"], sv["rho"], sv["v"]),
                                                scalars=(dt,))),
-    }[form]
+    }[form.removesuffix("_phys")]
+    assert pform.name == form
     name = f"{pform.name}_bf16" if bf16 else pform.name
     before = pr.LAUNCHES[name]
     out = pr.pair_reduce(pform, q, src, solver._consts, **kw)
@@ -993,3 +1013,112 @@ def test_pair_kernel_deep_sources_bit_equal(device, edge, form, bf16):
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     live = q.mask.expand_as(out)
     assert (out[~live] == 0).all() and float(ref[live].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("source", ["same", "deep"])
+@pytest.mark.parametrize("space", ["p1", "p40"])
+@pytest.mark.parametrize("form", ["dfsph_visc_phys", "wcsph_forces_phys"])
+def test_tile_pair_kernel_physical_forms_edge_cases(device, k3case, form, space, source):
+    """K5's physical viscosity forms on K3's synthetic cases (P = 1 and
+    P = 40 queries, dead rho = 0; the Ps = 40 source space, dead rho = NaN),
+    against the twin at K5's tolerance, dead queries zero."""
+    dfsph, wcsph, spaces = k3case
+    k5 = [dataclasses.replace(s, grid=dataclasses.replace(s.grid, use_pallas_slotmajor=False))
+          for s in (dfsph, wcsph)]
+    (pos, mask), qv = spaces[space]
+    src, sv = spaces[source] if source == "deep" else spaces[space]
+    pform, consts, kw = _k3_form(*k5, form, qv, sv)
+    assert pform.name == form
+    _check_slot_kernel(tpp, tpp.pallas_pair_reduce, tpp.pallas_pair_reduce_ref, pform, pos,
+                       mask, src, consts, kw)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("space", ["p1", "p40"])
+@pytest.mark.parametrize("form", ["visc_gravity_phys", "wcsph_forces_phys"])
+def test_pair_kernel_physical_forms_nan_sources_bit_equal(device, k3case, form, space, bf16):
+    """K1's physical viscosity forms in both operand modes, P = 1 and P = 40
+    query planes against the Ps = 40 source space whose dead slots hold
+    rho = NaN (skipped, never multiplied by 0), bit-equal to the twin."""
+    dfsph, wcsph, spaces = k3case
+    grid = dfsph.grid
+    plane = [_physical(cls(viscosity_model=dfsph.viscosity_model, properties=dfsph.properties,
+                           grid=grid, step_config=s.step_config))
+             for cls, s in ((DFSPHPlaneSolver, dfsph), (WCSPHPlaneSolver, wcsph))]
+    (pos, mask), qv = spaces[space]
+    (spos, smask), sv = spaces["deep"]
+    assert bool(torch.isnan(sv["rho"][~smask]).all())
+    planes = lambda a: to_planes(a).contiguous()  # noqa: E731
+    q, src = PlaneGeom(planes(pos), planes(mask)), PlaneGeom(planes(spos), planes(smask))
+    if bf16:
+        q, src = _bf16(q, grid), _bf16(src, grid)
+    qp, sp = ({k: planes(v) for k, v in d.items()} for d in (qv, sv))
+    dt = (1.0 / 2700.0,)
+    solver, pform, kw = {
+        "visc_gravity_phys": (plane[0], plane[0]._forms.visc_gravity, dict(
+            q_vals=(qp["v"],), s_vals=(sp["v"], sp["rho"]), scalars=dt)),
+        "wcsph_forces_phys": (plane[1], plane[1]._forms.forces, dict(
+            q_vals=(qp["pres"], qp["rho"], qp["v"]), s_vals=(sp["pres"], sp["rho"], sp["v"]),
+            scalars=dt)),
+    }[form]
+    assert pform.name == form
+    name = f"{form}_bf16" if bf16 else form
+    before = pr.LAUNCHES[name]
+    out = pr.pair_reduce(pform, q, src, solver._consts, **kw)
+    assert pr.LAUNCHES[name] == before + 1
+    ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, q, src, solver._consts.radius_sq,
+                             post_fn=pform.post_fn, n_acc=pform.n_acc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    live = q.mask.expand_as(out)
+    assert bool(torch.isfinite(out).all()) and (out[~live] == 0).all()
+    assert float(ref[live].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_padded", "dfsph_padded_k5",
+                                  "dfsph_plane_bf16", "wcsph_padded", "wcsph_plane",
+                                  "wcsph_padded_k5", "wcsph_plane_bf16"])
+def test_physical_solver_gpu_matches_cpu(device, kind):
+    """Five adaptive steps of a 3k double dam-break with physical viscosity:
+    the *_phys kernels on the GPU, twins on the CPU; equal iteration and drop
+    counts and live rows (the tolerances of test_solver_gpu_matches_cpu)."""
+    rows, iters = {}, {}
+    for dev in (device, torch.device("cpu")):
+        world = double_dam_break(3_000)
+        solver, boundary = bench_solver(kind, world, device=dev)
+        solver = _physical(solver)
+        carry = solver.init_carry(world.initial_state(device=dev), boundary)
+        it = []
+        for _ in range(5):
+            carry, d = solver.simulate(carry, boundary, 1)
+            it.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
+        s = solver.export_state(carry)
+        r = torch.cat([s.positions, s.densities[:, None]], 1)[s.alive].cpu().numpy()
+        rows[dev.type], iters[dev.type] = r[np.lexsort(r.T)], it
+    assert iters["cuda"] == iters["cpu"]
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_padded", "dfsph_padded_k5"])
+def test_rebuild_every_on_the_card(device, kind):
+    """rebuild_every = 3: simulate(10) re-buckets 4 times (three blocks of a
+    rebuild and two stale steps, one leftover rebuild), counted at K2 (plane)
+    or K4 (padded), and agrees with the CPU twins (test_solver_gpu_matches_cpu's
+    tolerances, summed iteration counts)."""
+    mod, key = (rb, "rebucket") if kind.startswith("dfsph_plane") else (smr, "sm_rebucket")
+    rows, counts = {}, {}
+    for dev in (device, torch.device("cpu")):
+        world = double_dam_break(3_000)
+        solver, boundary = bench_solver(kind, world, device=dev)
+        solver = dataclasses.replace(solver, rebuild_every=3)
+        carry = solver.init_carry(world.initial_state(device=dev), boundary)
+        before = mod.LAUNCHES[key]
+        carry, d = solver.simulate(carry, boundary, 10)
+        if dev.type == "cuda":
+            assert mod.LAUNCHES[key] == before + 4
+        counts[dev.type] = (d.density_iterations, d.divergence_iterations, d.neighbor_drops)
+        s = solver.export_state(carry)
+        r = torch.cat([s.positions, s.densities[:, None]], 1)[s.alive].cpu().numpy()
+        rows[dev.type] = r[np.lexsort(r.T)]
+    assert counts["cuda"] == counts["cpu"]
+    np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-5, atol=1e-5)

@@ -23,6 +23,7 @@ from yasph2d_tpu.models.dfsph_plane import (
     DFSPHPlaneSolver as JSolver,
     PlaneCtx as JCtx,
 )
+from yasph2d_tpu.models.viscosity import PhysicalViscosityModel as JPhys
 from yasph2d_tpu.models.viscosity import XSPHViscosityModel as JXSPH
 from yasph2d_tpu.models.wcsph_plane import WCSPHPlaneSolver as JWSolver
 from yasph2d_tpu.ops.dense_grid import DenseGridConfig as JGrid
@@ -39,6 +40,7 @@ from yasph2d_tpu_torch.models.dfsph_plane import (
     DFSPHPlaneSolver as TSolver,
     PlaneCtx as TCtx,
 )
+from yasph2d_tpu_torch.models.viscosity import PhysicalViscosityModel as TPhys
 from yasph2d_tpu_torch.models.viscosity import XSPHViscosityModel as TXSPH
 from yasph2d_tpu_torch.models.wcsph_plane import WCSPHPlaneSolver as TWSolver
 from yasph2d_tpu_torch.ops import pair_reduce as tpr
@@ -56,26 +58,33 @@ FORMS = ["ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
 
 
 NY, NX, P, PB = 11, 17, 3, 2
+# the viscosity models of both packages, by config kind (physical: the
+# reference's high-viscosity mu, main.rs:95-96)
+VISCOSITY = {"xsph": (JXSPH, TXSPH),
+             "physical": (lambda h: JPhys(h, fluid_viscosity=0.01),
+                          lambda h: TPhys(h, fluid_viscosity=0.01))}
 
 
 @functools.lru_cache(maxsize=None)
-def solvers():
-    """Both solvers on one random-grid configuration, and the JAX passes jitted
-    once for every seed (the interpret-mode compiles dominate the test time)."""
+def solvers(visc="xsph"):
+    """Both solvers on one random-grid configuration with the `visc` model,
+    and the JAX passes jitted once for every seed (the interpret-mode compiles
+    dominate the test time)."""
     props = dict(smoothing_factor=1.0, particle_density=60.0, fluid_density=100.0)
     jp, tp = JProps(**props), TProps(**props)
     h = jp.smoothing_length
+    jvisc, tvisc = (model(h) for model in VISCOSITY[visc])
     base = dict(cell_size=h, origin=(0.0, 0.0), nx=NX, ny=NY, occupancy=P)
     jgrid = JGrid(**base, use_pallas_slotmajor=True, pallas_sm_row_block=BR,
                   pallas_pf_unroll=False)
-    js = JSolver(viscosity_model=JXSPH(h), properties=jp, grid=jgrid,
+    js = JSolver(viscosity_model=jvisc, properties=jp, grid=jgrid,
                  step_config=JFixed(1.0 / 3000.0))
     tgrid = TGrid(**base, use_pallas_slotmajor=True)
-    ts = TSolver(viscosity_model=TXSPH(h), properties=tp, grid=tgrid,
+    ts = TSolver(viscosity_model=tvisc, properties=tp, grid=tgrid,
                  step_config=TFixed(1.0 / 3000.0))
-    jws = JWSolver(viscosity_model=JXSPH(h), properties=jp, grid=jgrid,
+    jws = JWSolver(viscosity_model=jvisc, properties=jp, grid=jgrid,
                    step_config=JFixed(1.0 / 3000.0))
-    tws = TWSolver(viscosity_model=TXSPH(h), properties=tp, grid=tgrid,
+    tws = TWSolver(viscosity_model=tvisc, properties=tp, grid=tgrid,
                    step_config=TFixed(1.0 / 3000.0))
     wcsph = {
         form: jax.jit(lambda q, s, qv, sv, sc, terms=terms, n_out=n_out: pf_pair_reduce(
@@ -101,9 +110,9 @@ class Case:
     inputs. Live positions lie inside (or near) their own cell, so neighbours
     sit in the 3x3 window as after a re-bucket."""
 
-    def __init__(self, seed, ny=NY, nx=NX, p=P, pb=PB, fill=0.6, bfill=0.3):
+    def __init__(self, seed, ny=NY, nx=NX, p=P, pb=PB, fill=0.6, bfill=0.3, visc="xsph"):
         rng = np.random.default_rng(seed)
-        h, self.jgrid, self.js, self.ts, self.tws, self.jitted = solvers()
+        h, self.jgrid, self.js, self.ts, self.tws, self.jitted = solvers(visc)
         self.ny, self.nx = ny, nx
 
         def slots(pp, fill_):
@@ -280,6 +289,20 @@ def check_form(case, form):
 @pytest.mark.parametrize("form", FORMS)
 def test_twin_matches_jax(case, form):
     check_form(case, form)
+
+
+@pytest.fixture(scope="module", params=[0, 1], ids=["seed0", "seed1"])
+def physical_case(request):
+    return Case(seed=request.param, visc="physical")
+
+
+@pytest.mark.parametrize("form", ["visc_gravity", "wcsph_forces"])
+def test_physical_twin_matches_jax(physical_case, form):
+    """The physical viscosity forms (PhysicalViscosityModel, mu = 0.01) of
+    both plane steps against the JAX plane passes, as the XSPH forms."""
+    assert physical_case.ts._forms.visc_gravity.name == "visc_gravity_phys"
+    assert physical_case.tws._forms.forces.name == "wcsph_forces_phys"
+    check_form(physical_case, form)
 
 
 @pytest.fixture(scope="module")

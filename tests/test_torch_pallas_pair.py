@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from yasph2d_tpu.models.dfsph_dense import DFSPHPaddedSolver as JDFSPH
+from yasph2d_tpu.models.viscosity import PhysicalViscosityModel as JPhys
 from yasph2d_tpu.models.viscosity import XSPHViscosityModel as JXSPH
 from yasph2d_tpu.models.wcsph_dense import WCSPHPaddedSolver as JWCSPH
 from yasph2d_tpu.ops.dense_grid import DenseGridConfig as JGrid
@@ -32,6 +33,7 @@ from yasph2d_tpu.ops.pallas_pair import pallas_pair_reduce as j_pallas_pair_redu
 from yasph2d_tpu.timemanager import FixedTimeStep as JFixed
 from yasph2d_tpu.world import FluidProperties as JProps
 from yasph2d_tpu_torch.models.dfsph_dense import DFSPHPaddedSolver as TDFSPH
+from yasph2d_tpu_torch.models.viscosity import PhysicalViscosityModel as TPhys
 from yasph2d_tpu_torch.models.viscosity import XSPHViscosityModel as TXSPH
 from yasph2d_tpu_torch.models.wcsph_dense import WCSPHPaddedSolver as TWCSPH
 from yasph2d_tpu_torch.ops import pallas_pair as tpp
@@ -51,25 +53,32 @@ FORMS = ["dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc",
 # passes also against the boundary space
 CASES = [(f, False) for f in FORMS] + [("dfsph_ctx", True), ("wcsph_stat", True)]
 IDS = FORMS + ["dfsph_ctx[boundary]", "wcsph_stat[boundary]"]
+# the viscosity models of both packages, by config kind (physical: the
+# reference's high-viscosity mu, main.rs:95-96)
+VISCOSITY = {"xsph": (JXSPH, TXSPH),
+             "physical": (lambda h: JPhys(h, fluid_viscosity=0.01),
+                          lambda h: TPhys(h, fluid_viscosity=0.01))}
 
 
 @functools.lru_cache(maxsize=None)
-def solvers():
+def solvers(visc="xsph"):
     """Both packages' DFSPH and WCSPH padded solvers on the K5 route (the JAX
-    ones on their XLA route: use_pallas and use_pallas_slotmajor off)."""
+    ones on their XLA route: use_pallas and use_pallas_slotmajor off) with
+    the `visc` model; the port's forms keyed by their XSPH names (a physical
+    form's name ends in "_phys")."""
     props = dict(smoothing_factor=2.0, particle_density=400.0, fluid_density=100.0)
     jp, tp = JProps(**props), TProps(**props)
     h = jp.smoothing_length
+    jvisc, tvisc = (model(h) for model in VISCOSITY[visc])
     base = dict(cell_size=h, origin=(0.0, 0.0), nx=NX, ny=NY, occupancy=P)
     jgrid, tgrid = JGrid(**base, row_block=6), TGrid(**base)
     common = dict(step_config=JFixed(1.0 / 3000.0), grid=jgrid, properties=jp,
-                  viscosity_model=JXSPH(h))
+                  viscosity_model=jvisc)
     jd, jw = JDFSPH(**common), JWCSPH(**common)
     common = dict(step_config=TFixed(1.0 / 3000.0), grid=tgrid, properties=tp,
-                  viscosity_model=TXSPH(h))
+                  viscosity_model=tvisc)
     td, tw = TDFSPH(**common), TWCSPH(**common)
-    forms = {f.name: f for f in td._padded_forms}
-    forms.update({f.name: f for f in tw._forms})
+    forms = {f.name.removesuffix("_phys"): f for f in (*td._padded_forms, *tw._forms)}
     return h, jgrid, jd, jw, td, tw, forms
 
 
@@ -123,8 +132,8 @@ class Case:
     """tests/test_pallas_pair.py's setup (random positions over the grid, cell
     sort, slot grid) for the fluid, and a 60-particle boundary space."""
 
-    def __init__(self, seed):
-        h, self.jgrid, self.jd, self.jw, self.td, self.tw, self.forms = solvers()
+    def __init__(self, seed, visc="xsph"):
+        h, self.jgrid, self.jd, self.jw, self.td, self.tw, self.forms = solvers(visc)
         self.closures = jax_closures(self.jd, self.jw)
         rng = np.random.default_rng(seed)
 
@@ -209,6 +218,24 @@ def test_twin_matches_jax_pallas_kernel(case, form, boundary):
 def test_twin_matches_jax_xla_pair_reduce(case, form, boundary):
     assert_live_close(case.port(form, boundary), case.jax(form, boundary, pallas=False),
                       case.mask, form)
+
+
+@pytest.fixture(scope="module", params=[0, 3], ids=["seed0", "seed3"])
+def physical_case(request):
+    return Case(seed=request.param, visc="physical")
+
+
+@pytest.mark.parametrize("pallas", [True, False], ids=["pallas", "xla"])
+@pytest.mark.parametrize("form", ["dfsph_visc", "wcsph_forces"])
+def test_physical_twin_matches_jax(physical_case, form, pallas):
+    """The physical viscosity forms (mu = 0.01; dead sources hold rho = 0)
+    against the JAX gen-1 kernel and the XLA pair_reduce with the XLA
+    closures of PhysicalViscosityModel solvers."""
+    assert physical_case.forms[form].name == form + "_phys"
+    out = physical_case.port(form, False)
+    assert_live_close(out, physical_case.jax(form, False, pallas=pallas),
+                      physical_case.mask, form)
+    assert np.abs(out).sum() > 0
 
 
 def test_tile_width_fits_shared_memory():

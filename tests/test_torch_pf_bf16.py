@@ -32,6 +32,7 @@ from test_torch_pair_reduce import jax_ctx_terms, jax_wcsph_terms
 from yasph2d_tpu.models.dfsph_plane import BoundaryPlanes as JBoundaryPlanes
 from yasph2d_tpu.models.dfsph_plane import DFSPHPlaneSolver as JSolver
 from yasph2d_tpu.models.dfsph_plane import PlaneCtx as JCtx
+from yasph2d_tpu.models.viscosity import PhysicalViscosityModel as JPhys
 from yasph2d_tpu.models.viscosity import XSPHViscosityModel as JXSPH
 from yasph2d_tpu.models.wcsph_plane import WCSPHPlaneSolver as JWSolver
 from yasph2d_tpu.ops.dense_grid import DenseGridConfig as JGrid
@@ -49,6 +50,7 @@ from yasph2d_tpu_torch.models.dfsph_dense import DFSPHPaddedSolver as TPadded
 from yasph2d_tpu_torch.models.dfsph_plane import BoundaryPlanes as TBoundaryPlanes
 from yasph2d_tpu_torch.models.dfsph_plane import DFSPHPlaneSolver as TSolver
 from yasph2d_tpu_torch.models.dfsph_plane import PlaneCtx as TCtx
+from yasph2d_tpu_torch.models.viscosity import PhysicalViscosityModel as TPhys
 from yasph2d_tpu_torch.models.viscosity import XSPHViscosityModel as TXSPH
 from yasph2d_tpu_torch.models.wcsph_dense import WCSPHPaddedSolver as TWPadded
 from yasph2d_tpu_torch.models.wcsph_plane import WCSPHPlaneSolver as TWSolver
@@ -69,23 +71,29 @@ FORMS = ["ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
          "wcsph_density", "wcsph_stat", "wcsph_forces"]
 NY, NX, P, PB = 11, 17, 3, 2
 ORIGIN = (-0.37, 0.21)  # not a multiple of h: the rebase must add it
+# the viscosity models of both packages, by config kind (physical: the
+# reference's high-viscosity mu, main.rs:95-96)
+VISCOSITY = {"xsph": (JXSPH, TXSPH),
+             "physical": (lambda h: JPhys(h, fluid_viscosity=0.01),
+                          lambda h: TPhys(h, fluid_viscosity=0.01))}
 
 
 @functools.lru_cache(maxsize=None)
-def solvers():
-    """The four plane solvers on one bf16 random-grid configuration and the
-    JAX passes, jitted once."""
+def solvers(visc="xsph"):
+    """The four plane solvers on one bf16 random-grid configuration with the
+    `visc` model and the JAX passes, jitted once."""
     props = dict(smoothing_factor=1.0, particle_density=60.0, fluid_density=100.0)
     jp, tp = JProps(**props), TProps(**props)
     h = jp.smoothing_length
+    jvisc, tvisc = (model(h) for model in VISCOSITY[visc])
     base = dict(cell_size=h, origin=ORIGIN, nx=NX, ny=NY, occupancy=P,
                 use_pallas_slotmajor=True, pair_dtype="bfloat16")
     jgrid = JGrid(**base, pallas_sm_row_block=BR, pallas_pf_unroll=False)
     tgrid = TGrid(**base)
     common = dict(step_config=JFixed(1.0 / 3000.0))
-    js = JSolver(viscosity_model=JXSPH(h), properties=jp, grid=jgrid, **common)
-    jws = JWSolver(viscosity_model=JXSPH(h), properties=jp, grid=jgrid, **common)
-    tcommon = dict(viscosity_model=TXSPH(h), properties=tp, grid=tgrid,
+    js = JSolver(viscosity_model=jvisc, properties=jp, grid=jgrid, **common)
+    jws = JWSolver(viscosity_model=jvisc, properties=jp, grid=jgrid, **common)
+    tcommon = dict(viscosity_model=tvisc, properties=tp, grid=tgrid,
                    step_config=TFixed(1.0 / 3000.0))
     ts, tws = TSolver(**tcommon), TWSolver(**tcommon)
     wcsph = {
@@ -111,9 +119,9 @@ class Case:
     """Random fluid and boundary slot grids with positions in (or just
     outside) their own cell, and every pass's value planes."""
 
-    def __init__(self, seed):
+    def __init__(self, seed, visc="xsph"):
         rng = np.random.default_rng(seed)
-        h, self.jgrid, self.tgrid, self.js, self.ts, self.tws, self.jitted = solvers()
+        h, self.jgrid, self.tgrid, self.js, self.ts, self.tws, self.jitted = solvers(visc)
 
         def slots(pp, fill):
             mask = rng.random((NY, NX, pp)) < fill
@@ -234,8 +242,7 @@ def run_form(case, form):
     return list(out_j), list(out_t)
 
 
-@pytest.mark.parametrize("form", FORMS)
-def test_bf16_form_matches_jax(case, form):
+def check_form(case, form):
     before = dict(tpr.LAUNCHES)
     out_j, out_t = run_form(case, form)
     assert tpr.LAUNCHES == before  # CPU tensors run the twin
@@ -249,6 +256,24 @@ def test_bf16_form_matches_jax(case, form):
         np.testing.assert_allclose(b[live_k], a[live_k], rtol=RTOL, atol=atol,
                                    err_msg=f"{form} output {k}")
     assert any(np.abs(b.numpy()).sum() > 0 for b in out_t)
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_bf16_form_matches_jax(case, form):
+    check_form(case, form)
+
+
+@pytest.fixture(scope="module")
+def physical_case():
+    return Case(seed=0, visc="physical")
+
+
+@pytest.mark.parametrize("form", ["visc_gravity", "wcsph_forces"])
+def test_bf16_physical_form_matches_jax(physical_case, form):
+    """The physical viscosity forms (mu = 0.01) with bf16 operands against the
+    JAX plane passes in bf16, as the XSPH forms."""
+    assert physical_case.ts._forms.visc_gravity.name == "visc_gravity_phys"
+    check_form(physical_case, form)
 
 
 def test_bf16_operands_differ_from_f32(case):

@@ -136,3 +136,21 @@ def test_shared_memory_of_a_block():
     threads, halo = trb.RB_TY * trb.RB_TX, (trb.RB_TY + 2) * (trb.RB_TX + 2)
     assert trb.smem_bytes(7) == 7 * threads * 4 + 7 * halo
     assert trb.smem_bytes(1) < trb.smem_bytes(7)
+
+
+def test_launch_refusals():
+    """K2's two refusals, raised before a launch: more than six value planes,
+    and an occupancy whose block needs more shared memory than the card's
+    (P = 171 and up: 1,364 bytes a slot). No config path reaches them: its
+    payloads are at most four planes (DFSPH [v(2), kappa, stiffness]) and its
+    default dense_occupancy is 8."""
+    from yasph2d_tpu_torch.config import SolverConfig
+
+    trb.check_launch(6, 8)
+    with pytest.raises(ValueError, match="7 value planes; the kernel takes at most 6"):
+        trb.check_launch(7, 8)
+    trb.check_launch(4, 170)
+    assert trb.smem_bytes(170) <= trb.cuda_build.SMEM_LIMIT < trb.smem_bytes(171)
+    with pytest.raises(ValueError, match="occupancy 171 needs 233244 bytes"):
+        trb.check_launch(4, 171)
+    trb.check_launch(4, SolverConfig().dense_occupancy)

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from yasph2d_tpu.models.dfsph_dense import DFSPHPaddedSolver as JDFSPH
+from yasph2d_tpu.models.viscosity import PhysicalViscosityModel as JPhys
 from yasph2d_tpu.models.viscosity import XSPHViscosityModel as JXSPH
 from yasph2d_tpu.models.wcsph_dense import WCSPHPaddedSolver as JSolver
 from yasph2d_tpu.ops.dense_grid import DenseGridConfig as JGrid
@@ -30,6 +31,7 @@ from yasph2d_tpu.ops.pallas_slotmajor import build_geom, pass_flags, sm_pair_red
 from yasph2d_tpu.timemanager import FixedTimeStep as JFixed
 from yasph2d_tpu.world import FluidProperties as JProps
 from yasph2d_tpu_torch.models.dfsph_dense import DFSPHPaddedSolver as TDFSPH
+from yasph2d_tpu_torch.models.viscosity import PhysicalViscosityModel as TPhys
 from yasph2d_tpu_torch.models.viscosity import XSPHViscosityModel as TXSPH
 from yasph2d_tpu_torch.models.wcsph_dense import WCSPHPaddedSolver as TSolver
 from yasph2d_tpu_torch.ops import sm_pair_reduce as tsm
@@ -43,33 +45,40 @@ BR = 4
 RTOL, ATOL = 1e-5, 1e-6
 NY, NX, P, PB = 9, 7, 3, 2
 DT = np.float32(1.0 / 2700.0)
+# the viscosity models of both packages, by config kind (physical: the
+# reference's high-viscosity mu, main.rs:95-96)
+VISCOSITY = {"xsph": (JXSPH, TXSPH),
+             "physical": (lambda h: JPhys(h, fluid_viscosity=0.01),
+                          lambda h: TPhys(h, fluid_viscosity=0.01))}
 
 
 @functools.lru_cache(maxsize=None)
-def solvers():
-    """The WCSPH and DFSPH padded solvers of both packages on one grid, and the
-    JAX passes jitted once per form (the interpret-mode compiles dominate the
-    test time)."""
+def solvers(visc="xsph"):
+    """The WCSPH and DFSPH padded solvers of both packages on one grid with
+    the `visc` model, and the JAX passes jitted once per form (the
+    interpret-mode compiles dominate the test time). The port's forms are
+    keyed by the JAX closures' names (a physical form's name ends in
+    "_phys")."""
     props = dict(smoothing_factor=2.0, particle_density=400.0, fluid_density=100.0)
     jp, tp = JProps(**props), TProps(**props)
     h = jp.smoothing_length
+    jvisc, tvisc = (model(h) for model in VISCOSITY[visc])
     base = dict(cell_size=h, origin=(0.0, 0.0), nx=NX, ny=NY, occupancy=P)
     jgrid = JGrid(**base, use_pallas_slotmajor=True, pallas_sm_row_block=BR)
-    js = JSolver(viscosity_model=JXSPH(h), properties=jp, grid=jgrid,
+    js = JSolver(viscosity_model=jvisc, properties=jp, grid=jgrid,
                  step_config=JFixed(1.0 / 3000.0))
     tgrid = TGrid(**base, use_pallas_slotmajor=True)
-    ts = TSolver(viscosity_model=TXSPH(h), properties=tp, grid=tgrid,
+    ts = TSolver(viscosity_model=tvisc, properties=tp, grid=tgrid,
                  step_config=TFixed(1.0 / 3000.0))
-    jd = JDFSPH(viscosity_model=JXSPH(h), properties=jp, grid=jgrid,
+    jd = JDFSPH(viscosity_model=jvisc, properties=jp, grid=jgrid,
                 step_config=JFixed(1.0 / 3000.0))
-    td = TDFSPH(viscosity_model=TXSPH(h), properties=tp, grid=tgrid,
+    td = TDFSPH(viscosity_model=tvisc, properties=tp, grid=tgrid,
                 step_config=TFixed(1.0 / 3000.0))
     terms, n_out = jax_terms(js)
     dterms, dn_out = jax_dfsph_terms(jd)
     terms.update(dterms)
     n_out.update(dn_out)
-    forms = {f.name: f for f in ts._forms}
-    forms.update({f.name: f for f in td._padded_forms})
+    forms = {f.name.removesuffix("_phys"): f for f in (*ts._forms, *td._padded_forms)}
 
     def run(form, qp, qm, sp, sm, q_vals=(), s_vals=(), scalars=()):
         q, s = build_geom(qp, qm, BR), build_geom(sp, sm, BR)
@@ -147,9 +156,9 @@ class Case:
     cell_size = h grid, live positions in or near their own cell, and seeded
     pressure, density and velocity values."""
 
-    def __init__(self, seed):
+    def __init__(self, seed, visc="xsph"):
         rng = np.random.default_rng(seed)
-        h, self.jgrid, self.js, self.jd, self.ts, self.forms, self.jitted = solvers()
+        h, self.jgrid, self.js, self.jd, self.ts, self.forms, self.jitted = solvers(visc)
 
         def slots(pp, fill):
             mask = rng.random((NY, NX, pp)) < fill
@@ -227,6 +236,22 @@ def test_twin_matches_jax_kernel(case, form, boundary):
     assert case.mask.any() and (~case.mask).any()
     assert_live_close(out_t, out_j, case.mask, form)
     assert np.abs(out_t).sum() > 0  # the pass did real work
+
+
+@pytest.fixture(scope="module", params=[0, 1], ids=["seed0", "seed1"])
+def physical_case(request):
+    return Case(seed=request.param, visc="physical")
+
+
+@pytest.mark.parametrize("form", ["dfsph_visc", "wcsph_forces"])
+def test_physical_twin_matches_jax_kernel(physical_case, form):
+    """The physical viscosity forms (mu = 0.01; dead sources hold rho = 0 in
+    the DFSPH form) against the JAX sm_pair_reduce with the JAX slot-major
+    closures of a PhysicalViscosityModel solver."""
+    assert physical_case.forms[form].name == form + "_phys"
+    out_j, out_t = physical_case.run(form)
+    assert_live_close(out_t, out_j, physical_case.mask, form)
+    assert np.abs(out_t).sum() > 0
 
 
 def test_stat_twin_matches_jax_xla_pair_reduce(case):

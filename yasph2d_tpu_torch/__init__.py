@@ -20,15 +20,24 @@ pair passes on K3 when `DenseGridConfig.use_pallas_slotmajor` is True and on
 K5 when it is False (the default); the plane solvers require True. CUDA
 tensors run the kernels, CPU tensors their plain PyTorch twins. The scene's
 tensors (`FluidParticleWorld.initial_state`, `boundary_dense`) are made on the
-card unless `device="cpu"` is asked for.
+card unless `device="cpu"` is asked for. Both viscosity models of the JAX
+package run on every kernel that sums viscosity (the `*_phys` call forms for
+PhysicalViscosityModel).
+
+The configured entry point is the JAX package's: a `SimulationConfig` JSON
+(config.py, the same schema), built by `cfg.build(device)` and run by
+`python -m yasph2d_tpu_torch run --config cfg.json` (__main__.py);
+utils/checkpoint.py saves and loads carries in the JAX package's .npz layout.
 """
 
+from .config import SimulationConfig
 from .models.dfsph_dense import DFSPHPaddedSolver
 from .models.dfsph_plane import DFSPHPlaneSolver
 from .models.viscosity import PhysicalViscosityModel, XSPHViscosityModel
 from .models.wcsph_dense import WCSPHPaddedSolver
 from .models.wcsph_plane import WCSPHPlaneSolver
 from .timemanager import AdaptiveTimeStep, FixedTimeStep
+from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .world import FluidParticleWorld
 
 __all__ = [
@@ -38,7 +47,10 @@ __all__ = [
     "FixedTimeStep",
     "FluidParticleWorld",
     "PhysicalViscosityModel",
+    "SimulationConfig",
     "WCSPHPaddedSolver",
     "WCSPHPlaneSolver",
     "XSPHViscosityModel",
+    "load_checkpoint",
+    "save_checkpoint",
 ]

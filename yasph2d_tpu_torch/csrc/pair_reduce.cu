@@ -20,7 +20,8 @@
 // every sum as it is).
 //
 // Masking skips invalid candidates (a branch), never multiplies them by 0:
-// XSPH divides by rho_j * dt and a dead source slot may hold rho_j = 0 there,
+// both viscosity coefficients divide by rho_j (XSPH by rho_j * dt) and a dead
+// source slot may hold rho_j = 0 there,
 // and NaN * 0 is NaN (the same reason the TPU kernel selects with jnp.where).
 // Source liveness comes from the source mask plane, not from a sentinel
 // position: the resident position planes keep whatever a dead slot last held.
@@ -458,14 +459,17 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
 // the six call forms of the DFSPH plane step (models/dfsph_plane.py)
 PAIR_LAUNCHER(ctx, CtxTerm, NoPost<5>)            // fluid -> boundary ctx sums
 PAIR_LAUNCHER(ctx_post, CtxTerm, CtxPost)         // fused fluid ctx pass
-PAIR_LAUNCHER(visc_gravity, ViscTerm, GravityPost)
+PAIR_LAUNCHER(visc_gravity, ViscTerm<XsphCoef>, GravityPost)
 PAIR_LAUNCHER(err_ki, DivTerm, ErrKiPost)
 PAIR_LAUNCHER(delta_ki, DivTerm, DeltaKiPost)
 PAIR_LAUNCHER(corr_v, CorrTerm, VUpdatePost)
 // the three call forms of the WCSPH plane step (models/wcsph_plane.py)
 PAIR_LAUNCHER(wcsph_density, WcsphDensityTerm, NoPost<1>)  // Poly6 density
 PAIR_LAUNCHER(wcsph_stat, WcsphStatTerm, NoPost<3>)        // boundary density + force
-PAIR_LAUNCHER(wcsph_forces, WcsphForcesTerm, NoPost<2>)    // pressure + XSPH
+PAIR_LAUNCHER(wcsph_forces, WcsphForcesTerm<XsphCoef>, NoPost<2>)  // pressure + XSPH
+// the physical viscosity forms of both plane steps (PhysicalViscosityModel)
+PAIR_LAUNCHER(visc_gravity_phys, ViscTerm<PhysCoef>, GravityPost)
+PAIR_LAUNCHER(wcsph_forces_phys, WcsphForcesTerm<PhysCoef>, NoPost<2>)
 
 // K7, the ctx-pass probe: its planes q (3, P, ny, nx) and s (3, Ps, ny, nx) =
 // x, y and the mask as 0/1, read in place; out (5, P, ny, nx); consts holds

@@ -18,7 +18,9 @@
 // package has two orders: its slot-major closures scale the gradient
 // coefficient first ((dvx dx + dvy dy) gc), its XLA closures form the gradient
 // vector gc * (dx, dy) first (dvx (gc dx) + dvy (gc dy), (gc dx) m). The
-// *XlaTerm functors follow the second.
+// *XlaTerm functors follow the second. The terms that carry viscosity
+// (ViscTerm, WcsphForcesTerm, WcsphForcesXlaTerm) take its coefficient as a
+// template parameter: XsphCoef or PhysCoef, one statement each.
 
 #pragma once
 
@@ -43,6 +45,9 @@ struct PairConsts {
   float sp_norm;
   float sp_norm_grad;
   float bff;          // Monaghan-Kajtar boundary force factor (WCSPH)
+  float mu_m;         // physical viscosity: f32(mu * m), and the Viscosity
+  float vl_h;         // kernel's laplacian h and 360/(29 pi h^5), each f32
+  float vl_norm;
 };
 
 static constexpr float MIN_DISTANCE_SQ = 1.0e-10f;
@@ -83,11 +88,23 @@ __device__ __forceinline__ float spiky_gc(float r, const PairConsts& c) {
   const float hsubr = jmax(c.sp_h - r, 0.0f);
   return ((c.sp_norm_grad * hsubr) * hsubr) / (r + DIVISION_EPSILON);
 }
-// XSPHViscosityModel.viscous_coefficient: eps m W_poly6 / (rho_j dt)
-__device__ __forceinline__ float xsph_c(float r_sq, float rho_j, float dt,
-                                        const PairConsts& c) {
-  return (c.xsph_coef * poly6_w(r_sq, c.p6_hsq, c.p6_norm)) / (rho_j * dt);
-}
+
+// The viscosity coefficients c of a pair (acceleration c (v_j - v_i)), the
+// template parameter of the terms that carry viscosity.
+struct XsphCoef {  // XSPHViscosityModel.viscous_coefficient: eps m W_poly6 / (rho_j dt)
+  __device__ static float coef(float r_sq, float r, float rho_j, float dt,
+                            const PairConsts& c) {
+    return (c.xsph_coef * poly6_w(r_sq, c.p6_hsq, c.p6_norm)) / (rho_j * dt);
+  }
+};
+// PhysicalViscosityModel.viscous_coefficient: f32(mu m) lap W_visc(r) / rho_j,
+// lap W_visc(r) = norm_lapl (h - r), no clamp (the pair test bounds r)
+struct PhysCoef {
+  __device__ static float coef(float r_sq, float r, float rho_j, float dt,
+                            const PairConsts& c) {
+    return (c.mu_m * (c.vl_norm * (c.vl_h - r))) / rho_j;
+  }
+};
 
 // ---------------------------------------------------------------- terms
 
@@ -108,12 +125,13 @@ struct CtxTerm {  // W, m grad W (x, y), |m grad W|^2, count
   }
 };
 
-struct ViscTerm {  // XSPH: c (v_j - v_i); qv vx vy, sv vx vy rho, scalar dt
+template <class Coef>
+struct ViscTerm {  // c (v_j - v_i); qv vx vy, sv vx vy rho, scalar dt
   static constexpr int NQV = 2, NSV = 3, NACC = 2;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
-    const float vc = xsph_c(r_sq, sv[2], scalar, c);
+    const float vc = Coef::coef(r_sq, r, sv[2], scalar, c);
     acc[0] += vc * (sv[0] - qv[0]);
     acc[1] += vc * (sv[1] - qv[1]);
   }
@@ -162,14 +180,15 @@ struct WcsphStatTerm {  // boundary pass: Poly6 W, Monaghan-Kajtar c (dx, dy)
   }
 };
 
-struct WcsphForcesTerm {  // symmetric pressure + XSPH; qv, sv = p rho vx vy; dt
+template <class Coef>
+struct WcsphForcesTerm {  // symmetric pressure + viscosity; qv, sv = p rho vx vy; dt
   static constexpr int NQV = 4, NSV = 4, NACC = 2;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
     const float coef = (-c.mass * (qv[0] + sv[0])) / ((2.0f * qv[1]) * sv[1]);
     const float gc = coef * spiky_gc(r, c);
-    const float vc = xsph_c(r_sq, sv[1], scalar, c);
+    const float vc = Coef::coef(r_sq, r, sv[1], scalar, c);
     acc[0] += gc * dx + vc * (sv[2] - qv[2]);
     acc[1] += gc * dy + vc * (sv[3] - qv[3]);
   }
@@ -217,14 +236,15 @@ struct CorrXlaTerm {  // (k_i + k_j) grad W
   }
 };
 
-struct WcsphForcesXlaTerm {  // coef grad W_spiky + XSPH; qv, sv = p rho vx vy; dt
+template <class Coef>
+struct WcsphForcesXlaTerm {  // coef grad W_spiky + viscosity; qv, sv = p rho vx vy; dt
   static constexpr int NQV = 4, NSV = 4, NACC = 2;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
     const float coef = (-c.mass * (qv[0] + sv[0])) / ((2.0f * qv[1]) * sv[1]);
     const float gc = spiky_gc(r, c);
-    const float vc = xsph_c(r_sq, sv[1], scalar, c);
+    const float vc = Coef::coef(r_sq, r, sv[1], scalar, c);
     acc[0] += coef * (gc * dx) + vc * (sv[2] - qv[2]);
     acc[1] += coef * (gc * dy) + vc * (sv[3] - qv[3]);
   }

@@ -67,7 +67,7 @@
 // its twin agree to f32 summation order.
 //
 // Masking skips invalid candidates (a branch), never multiplies them by 0:
-// dead sources may hold rho = 0, and the XSPH term divides by it.
+// dead sources may hold rho = 0, and both viscosity coefficients divide by it.
 //
 // What bounds it on the H100: device-memory bytes are far away (each input is
 // read once per tile plus a one-cell halo, each output written once, and per
@@ -444,15 +444,18 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
 TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_ctx, CtxXlaTerm, true)    // ctx, fluid and boundary
 TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_div, DivXlaTerm, true)    // velocity divergence
 TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_corr, CorrXlaTerm, true)  // k-correction
-TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_visc, ViscTerm, true)     // XSPH viscosity
+TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_visc, ViscTerm<XsphCoef>, true)  // XSPH viscosity
 // K5: the WCSPH padded step's three forms (models/wcsph_dense.py, XLA closures)
 TILE_PAIR_LAUNCHER(tile_pair_reduce, wcsph_density, WcsphDensityTerm, true)   // Poly6
 TILE_PAIR_LAUNCHER(tile_pair_reduce, wcsph_stat, WcsphStatTerm, true)         // boundary
-TILE_PAIR_LAUNCHER(tile_pair_reduce, wcsph_forces, WcsphForcesXlaTerm, true)  // pressure + XSPH
+TILE_PAIR_LAUNCHER(tile_pair_reduce, wcsph_forces, WcsphForcesXlaTerm<XsphCoef>, true)  // + XSPH
+// K5: the physical viscosity forms of both padded steps (PhysicalViscosityModel)
+TILE_PAIR_LAUNCHER(tile_pair_reduce, dfsph_visc_phys, ViscTerm<PhysCoef>, true)
+TILE_PAIR_LAUNCHER(tile_pair_reduce, wcsph_forces_phys, WcsphForcesXlaTerm<PhysCoef>, true)
 // K3: the WCSPH padded step's three forms (models/wcsph_dense.py)
 TILE_PAIR_LAUNCHER(sm_pair_reduce, wcsph_density, WcsphDensityTerm, false)  // Poly6 density
 TILE_PAIR_LAUNCHER(sm_pair_reduce, wcsph_stat, WcsphStatTerm, false)        // boundary
-TILE_PAIR_LAUNCHER(sm_pair_reduce, wcsph_forces, WcsphForcesTerm, false)    // pressure + XSPH
+TILE_PAIR_LAUNCHER(sm_pair_reduce, wcsph_forces, WcsphForcesTerm<XsphCoef>, false)  // + XSPH
 // K3: the DFSPH padded step's five forms (models/dfsph_dense.py); the
 // boundary ctx pass is an XLA pair_reduce in the JAX package, so it takes the
 // XLA closure's operation order
@@ -460,4 +463,7 @@ TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_ctx, CtxTerm, false)      // W, m grad 
 TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_stat, CtxXlaTerm, false)  // the same, to the boundary
 TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_div, DivTerm, false)      // velocity divergence
 TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_corr, CorrTerm, false)    // k-correction
-TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_visc, ViscTerm, false)    // XSPH viscosity
+TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_visc, ViscTerm<XsphCoef>, false)  // XSPH viscosity
+// K3: the physical viscosity forms of both padded steps (PhysicalViscosityModel)
+TILE_PAIR_LAUNCHER(sm_pair_reduce, dfsph_visc_phys, ViscTerm<PhysCoef>, false)
+TILE_PAIR_LAUNCHER(sm_pair_reduce, wcsph_forces_phys, WcsphForcesTerm<PhysCoef>, false)

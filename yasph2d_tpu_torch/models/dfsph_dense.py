@@ -18,15 +18,21 @@ which one:
 
 and the rebuild is K4 (ops/sm_rebucket.py) with the payload
 [v*(2) | kappa | stiffness] on both (the JAX package's XLA rebucket is
-bit-equal to it). The JAX `lax.while_loop`s become host loops that read one
+bit-equal to it). The viscosity form is the model's: dfsph_visc (XSPH) or
+dfsph_visc_phys (PhysicalViscosityModel) on either kernel; any other model
+is refused. The JAX `lax.while_loop`s become host loops that read one
 residual back per iteration, with the JAX exit test (a loop may run max + 1
 times).
+
+`rebuild_every = k > 1` is the JAX package's opt-in stale steps: `simulate`
+runs blocks of one rebuilding step and k - 1 stale ones, which keep the slot
+layout (no K4) and refresh the pair context from the advected positions with
+the carry's drop count; leftover steps rebuild.
 
 Also here: the static boundary index space (`build_boundary_dense`), the
 padded initial layout (`_padded_init`) and `simulate`, which the plane solver
 (models/dfsph_plane.py) builds on. Not ported: the sorted-carry
-`DFSPHDenseSolver`, its cached / MXU loop gradients, and the stale steps of
-`rebuild_every > 1`.
+`DFSPHDenseSolver` and its cached / MXU loop gradients.
 """
 
 import dataclasses
@@ -54,7 +60,7 @@ from ..timemanager import StepConfig, TimeState, update_simulation_step
 from ..units import INDEX, REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
 from ..world import GRAVITY, FluidProperties, ParticleState
-from .viscosity import ViscosityModel, XSPHViscosityModel
+from .viscosity import ViscosityModel, kernel_coefficient
 
 f32 = REAL_NP
 
@@ -136,7 +142,7 @@ class PaddedForms(NamedTuple):
     stat: PairForm  # fluid -> boundary ctx sums
     div: PairForm  # velocity divergence
     corr: PairForm  # k-correction
-    visc: PairForm  # XSPH viscosity
+    visc: PairForm  # viscosity (XSPH or physical)
 
 
 @dataclass(frozen=True)
@@ -152,6 +158,9 @@ class DFSPHPaddedSolver:
     max_divergence_error: float = 0.1 / 100.0
     max_divergence_iterations: int = 400
     gravity: tuple = GRAVITY
+    # rebuild the neighbourhood every k-th step only (the JAX field; 1, the
+    # default, rebuilds every step as the reference does): `simulate`
+    rebuild_every: int = 1
 
     # the padded kernels K3 / K5 take float32 operands only; the plane
     # solver's K1 takes bf16 too
@@ -167,20 +176,17 @@ class DFSPHPaddedSolver:
         # W(0), the density self-contribution, evaluated in f32
         zero = torch.zeros((), dtype=REAL)
         w0 = float(kernel.evaluate(zero, zero))
-        visc = self.viscosity_model
-        xsph = isinstance(visc, XSPHViscosityModel)
+        visc_suffix, visc_consts = kernel_coefficient(self.viscosity_model, m)
         object.__setattr__(self, "_w0", w0)
-        object.__setattr__(self, "_xsph", xsph)
+        object.__setattr__(self, "_visc_suffix", visc_suffix)
         object.__setattr__(self, "_consts", PairConsts(
             radius_sq=self.grid.radius_sq,
             w_h_inv=kernel._h_inv, w_norm=kernel._norm,
             w_norm_grad=kernel._norm_grad,
-            p6_hsq=visc.kernel._hsq if xsph else 0.0,
-            p6_norm=visc.kernel._norm if xsph else 0.0,
-            xsph_coef=float(visc.epsilon * m) if xsph else 0.0,
             mass=m, w0=w0, rho0=float(self.properties.fluid_density),
             alpha_eps=ALPHA_EPSILON,
             gx=float(self.gravity[0]), gy=float(self.gravity[1]),
+            **visc_consts,
         ))
         slotmajor = self.grid.use_pallas_slotmajor
         object.__setattr__(self, "_reduce",
@@ -230,7 +236,7 @@ class DFSPHPaddedSolver:
             c = visc_model.viscous_coefficient(scalars[0], r_sq, r, m, s[2])
             return (c * (s[0] - q[0]), c * (s[1] - q[1]))
 
-        visc_form = PairForm("dfsph_visc", 2, visc)
+        visc_form = PairForm("dfsph_visc" + self._visc_suffix, 2, visc)
         if slotmajor:
             return PaddedForms(
                 ctx=PairForm("dfsph_ctx", 5, ctx_sm),
@@ -272,11 +278,19 @@ class DFSPHPaddedSolver:
 
     def simulate(self, carry, boundary, num_steps: int):
         """Run `num_steps` steps; the returned Diagnostics aggregates all of them
-        (Diagnostics.accumulate). Each step's dt is accounted before it runs."""
+        (Diagnostics.accumulate). Each step's dt is accounted before it runs.
+        With `rebuild_every` = k > 1 the steps run in blocks of one rebuilding
+        step and k - 1 stale ones; the num_steps % k leftover steps rebuild
+        (JAX dfsph_dense.py simulate)."""
+        k = max(int(getattr(self, "rebuild_every", 1)), 1)
+        blocked = num_steps - num_steps % k
         agg = Diagnostics.zeros()
-        for _ in range(num_steps):
+        for i in range(num_steps):
             carry = carry._replace(time=carry.time.account_step())
-            carry, diag = self.step(carry, boundary)
+            if i < blocked and i % k:
+                carry, diag = self.step(carry, boundary, rebuild=False)
+            else:
+                carry, diag = self.step(carry, boundary)
             agg = agg.accumulate(diag)
         return carry, agg
 
@@ -326,8 +340,6 @@ class DFSPHPaddedSolver:
 
     def _viscosity_pass(self, ctx: DenseCtx, v_pad, rho_pad, dt):
         """Viscous acceleration over fluid neighbours, (ny, nx, P, 2)."""
-        if ctx.pos_pad.is_cuda and not self._xsph:
-            raise NotImplementedError("the CUDA pair kernels implement XSPH viscosity only")
         return self._reduce(self._padded_forms.visc, ctx.pos_pad, ctx.mask, ctx.pos_pad,
                             ctx.mask, self._consts, q_vals=(v_pad,),
                             s_vals=(v_pad, rho_pad), scalars=(float(dt),))
@@ -421,9 +433,11 @@ class DFSPHPaddedSolver:
 
     # -------------------------------------------------------------------- step
 
-    def step(self, carry: DFSPHPaddedCarry, boundary: BoundaryDense):
-        """One simulation step in the JAX step's order (dfsph.rs:414-525), with
-        the neighbourhood rebuilt every step."""
+    def step(self, carry: DFSPHPaddedCarry, boundary: BoundaryDense,
+             rebuild: bool = True):
+        """One simulation step in the JAX step's order (dfsph.rs:414-525). A
+        stale step (`rebuild` False) keeps the slot layout and refreshes the
+        pair context from the advected positions, its drop count the carry's."""
         ctx = carry.ctx
         time_state = carry.time
         dt = time_state.dt
@@ -452,9 +466,13 @@ class DFSPHPaddedSolver:
 
         # advect + re-bucket (dfsph.rs:499-512): [v*(2) | kappa | stiffness]
         pos = ctx.pos_pad + pred * float(dt)
-        pos, mask, (pred, kappa, stiff), drops = sm_rebucket_parts(
-            pos, ctx.mask, (pred, kappa, carry.stiff_pad), self.grid)
-        ctx = self._ctx_from_padded(pos, mask, boundary, drops + boundary.num_dropped)
+        if rebuild:
+            pos, mask, (pred, kappa, stiff), drops = sm_rebucket_parts(
+                pos, ctx.mask, (pred, kappa, carry.stiff_pad), self.grid)
+            ctx = self._ctx_from_padded(pos, mask, boundary, drops + boundary.num_dropped)
+        else:
+            stiff = carry.stiff_pad
+            ctx = self._ctx_from_padded(pos, ctx.mask, boundary, ctx.num_dropped)
 
         # divergence-free loop (dfsph.rs:521)
         pred, stiff, divergence_iters, avg_divergence = self._correct_divergence_error(

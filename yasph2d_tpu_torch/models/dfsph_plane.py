@@ -9,7 +9,8 @@ re-bucket kernel K2 (ops/rebucket.py):
 
     ctx          fluid -> boundary sums (W, m grad W, |m grad W|^2, count)
     ctx_post     fluid -> fluid sums, epilogue: density, alpha, neighbour total
-    visc_gravity XSPH viscosity + gravity
+    visc_gravity viscosity + gravity (XSPH; visc_gravity_phys for the
+                 physical model)
     err_ki       velocity divergence, epilogue: density error and k_i
     delta_ki     velocity divergence, epilogue: divergence and k_i
     corr_v       k-correction, epilogue: velocity update (warm starts + loops)
@@ -17,7 +18,9 @@ re-bucket kernel K2 (ops/rebucket.py):
 The JAX `lax.while_loop`s become Python loops that read one residual back per
 iteration; the exit test is the JAX one, so a loop may run max + 1 times. The
 f32 scalars that reach the kernels (dt, 1/dt * m) are computed in np.float32
-exactly as JAX computes them on device.
+exactly as JAX computes them on device. A stale step of `rebuild_every` > 1
+skips K2 and rebuilds the ctx (and K1's geometry) from the advected
+positions in the old layout, as the padded solver does.
 """
 
 from dataclasses import dataclass
@@ -160,7 +163,8 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         return _Forms(
             ctx=PairForm("ctx", 5, ctx_terms),
             ctx_post=PairForm("ctx_post", 3, ctx_terms, ctx_post, n_acc=5),
-            visc_gravity=PairForm("visc_gravity", 2, visc_terms, gravity_post),
+            visc_gravity=PairForm("visc_gravity" + self._visc_suffix, 2, visc_terms,
+                                  gravity_post),
             err_ki=PairForm("err_ki", 2, div_terms, err_post, n_acc=1),
             delta_ki=PairForm("delta_ki", 2, div_terms, delta_post, n_acc=1),
             corr_v=PairForm("corr_v", 2, corr_terms, v_post, n_acc=2),
@@ -205,10 +209,6 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
     def _viscosity_gravity_pf(self, ctx: PlaneCtx, v, rho, dt):
         """Viscous acceleration + gravity, (2, P, ny, nx)."""
-        if ctx.pos.is_cuda and not self._xsph:
-            raise NotImplementedError(
-                "the CUDA pair kernel implements XSPH viscosity only"
-            )
         return pair_reduce(self._forms.visc_gravity, ctx.geom, ctx.geom, self._consts,
                            q_vals=(v,), s_vals=(v, rho), scalars=(float(dt),))
 
@@ -320,8 +320,10 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
     # -------------------------------------------------------------------- step
 
-    def step(self, carry: DFSPHPlaneCarry, boundary: BoundaryPlanes):
-        """One simulation step in the JAX step's order (dfsph.rs:414-525)."""
+    def step(self, carry: DFSPHPlaneCarry, boundary: BoundaryPlanes,
+             rebuild: bool = True):
+        """One simulation step in the JAX step's order (dfsph.rs:414-525); a
+        stale step (`rebuild` False) as the padded solver's."""
         ctx = carry.ctx
         time_state = carry.time
         dt = time_state.dt
@@ -349,9 +351,13 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
         # advect + re-bucket (dfsph.rs:499-512)
         pos = ctx.pos + pred * float(dt)
-        pos, mask, (pred, kappa, stiff), drops = rebucket_planes(
-            pos, ctx.mask, (pred, kappa, carry.stiff), self.grid)
-        ctx = self._ctx_pf(pos, mask, boundary, drops + boundary.dense.num_dropped)
+        if rebuild:
+            pos, mask, (pred, kappa, stiff), drops = rebucket_planes(
+                pos, ctx.mask, (pred, kappa, carry.stiff), self.grid)
+            ctx = self._ctx_pf(pos, mask, boundary, drops + boundary.dense.num_dropped)
+        else:
+            stiff = carry.stiff
+            ctx = self._ctx_pf(pos, ctx.mask, boundary, ctx.num_dropped)
 
         # divergence-free loop (dfsph.rs:521)
         pred, stiff, divergence_iters, avg_divergence = (

@@ -2,8 +2,10 @@
 yasph2d_tpu/models/viscosity.py; reference: src/sph/viscositymodel/).
 
 Both models have the form acceleration = c * (v_j - v_i); `viscous_coefficient`
-returns c and is what the plane-form pair passes consume. The CUDA pair kernel
-implements the XSPH coefficient (the model the DFSPH plane step runs with).
+returns c and is what the pair passes' twins consume. The CUDA pair kernels
+(csrc/pair_terms.cuh XsphCoef, PhysCoef) compute both coefficients in the same
+operation order; `kernel_coefficient` names a model's call forms and
+constants. Any other model is refused by every solver, on every device.
 """
 
 from dataclasses import dataclass
@@ -55,3 +57,20 @@ class PhysicalViscosityModel(ViscosityModel):
             * self.kernel.laplacian(r_sq, r)
             / rho_j
         )
+
+
+def kernel_coefficient(model: ViscosityModel, mass: float):
+    """(form suffix, PairConsts fields) of the CUDA kernels' viscosity
+    coefficient for `model` and particle mass `mass`: XSPH forms have no
+    suffix, the physical ones "_phys". Each constant is rounded to f32 where
+    the twin's tensor operation rounds it. Raises NotImplementedError for any
+    other model."""
+    if isinstance(model, XSPHViscosityModel):
+        return "", dict(p6_hsq=model.kernel._hsq, p6_norm=model.kernel._norm,
+                        xsph_coef=float(model.epsilon * mass))
+    if isinstance(model, PhysicalViscosityModel):
+        return "_phys", dict(mu_m=float(model.fluid_viscosity * mass),
+                             vl_h=float(model.kernel.h), vl_norm=model.kernel._norm_lapl)
+    raise NotImplementedError(
+        f"{type(model).__name__}: the pair kernels implement XSPHViscosityModel and "
+        "PhysicalViscosityModel only")

@@ -3,17 +3,20 @@ yasph2d_tpu/models/wcsph_dense.py; algorithm: Becker & Teschner 2007,
 reference src/sph/solver/wscsph.rs:126-179).
 
 Leapfrog, Tait EOS (gamma 7), symmetric pressure forces with the Spiky kernel,
-Poly6 density, XSPH viscosity, Monaghan-Kajtar boundary penalty. The state
-stays in the (ny, nx, P[, 2]) slot layout between steps, and every pass runs
-on a kernel that reads it in place. The rebuild is K4 sm_rebucket
+Poly6 density, XSPH or physical viscosity, Monaghan-Kajtar boundary penalty.
+The state stays in the (ny, nx, P[, 2]) slot layout between steps, and every
+pass runs on a kernel that reads it in place. The rebuild is K4 sm_rebucket
 (ops/sm_rebucket.py); `DenseGridConfig.use_pallas_slotmajor` picks the pair
 kernel of the three passes (fluid Poly6 density, boundary density + penalty
-force against the boundary, symmetric pressure + XSPH viscosity):
+force against the boundary, symmetric pressure + viscosity):
 
     True   K3 (ops/sm_pair_reduce.py) wcsph_density, wcsph_stat, wcsph_forces,
            in the JAX slot-major closures' order
     False  K5 (ops/pallas_pair.py), the same three forms in the JAX XLA
            closures' order (wcsph_dense.py:141-150, 189-197)
+
+The forces form of PhysicalViscosityModel is wcsph_forces_phys on either
+kernel (and on K1, models/wcsph_plane.py); any other model is refused.
 
 The JAX package runs the boundary pass through the XLA dense_grid.pair_reduce
 on both of its routes; here it is the route's kernel, so its f32 sums come in
@@ -48,7 +51,7 @@ from ..units import REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
 from ..world import GRAVITY, FluidProperties, ParticleState
 from .dfsph_dense import BoundaryDense, DFSPHPaddedSolver
-from .viscosity import ViscosityModel, XSPHViscosityModel
+from .viscosity import ViscosityModel, kernel_coefficient
 from .wcsph import compute_stiffness, tait_pressure
 
 f32 = REAL_NP
@@ -108,14 +111,11 @@ class WCSPHPaddedSolver:
         # W(0), the density self-contribution, evaluated in f32
         zero = torch.zeros((), dtype=REAL)
         object.__setattr__(self, "_w0", float(density_kernel.evaluate(zero, zero)))
-        visc = self.viscosity_model
-        xsph = isinstance(visc, XSPHViscosityModel)
-        object.__setattr__(self, "_xsph", xsph)
+        visc_suffix, visc_consts = kernel_coefficient(self.viscosity_model, m)
+        object.__setattr__(self, "_visc_suffix", visc_suffix)
         object.__setattr__(self, "_consts", PairConsts(
             radius_sq=self.grid.radius_sq,
-            p6_hsq=visc.kernel._hsq if xsph else 0.0,
-            p6_norm=visc.kernel._norm if xsph else 0.0,
-            xsph_coef=float(visc.epsilon * m) if xsph else 0.0,
+            **visc_consts,
             mass=m, rho0=self.properties.fluid_density,
             gx=float(self.gravity[0]), gy=float(self.gravity[1]),
             d6_hsq=density_kernel._hsq, d6_norm=density_kernel._norm,
@@ -164,13 +164,9 @@ class WCSPHPaddedSolver:
         return WCSPHForms(
             density=PairForm("wcsph_density", 1, density_terms),
             stat=PairForm("wcsph_stat", 3, stat_terms),
-            forces=PairForm("wcsph_forces", 2,
+            forces=PairForm("wcsph_forces" + self._visc_suffix, 2,
                             force_terms if slotmajor else force_terms_xla),
         )
-
-    def _check_viscosity(self, t: torch.Tensor):
-        if t.is_cuda and not self._xsph:
-            raise NotImplementedError("the CUDA pair kernels implement XSPH viscosity only")
 
     def _density(self, dyn_w, stat_w):
         """m (W(0) + dyn + stat), clamped to rho0 (fluidparticleworld.rs:197-231)."""
@@ -191,7 +187,6 @@ class WCSPHPaddedSolver:
         (wscsph.rs:59-105). Returns (dens (ny, nx, P), accel (ny, nx, P, 2))
         with accel EXCLUDING gravity."""
         f, c, reduce = self._forms, self._consts, self._reduce
-        self._check_viscosity(pos)
         dyn_w = reduce(f.density, pos, mask, pos, mask, c)[..., 0]
         stat = reduce(f.stat, pos, mask, boundary.pos_pad, boundary.mask, c)
         dens = self._density(dyn_w, stat[..., 0])

@@ -10,7 +10,8 @@ and the rebuild is K2 (ops/rebucket.py) with the velocity as its payload:
     wcsph_density   fluid Poly6 density sums
     wcsph_stat      boundary density + Monaghan-Kajtar force, against the
                     boundary's plane geometry
-    wcsph_forces    symmetric pressure + XSPH viscosity
+    wcsph_forces    symmetric pressure + XSPH viscosity (wcsph_forces_phys
+                    with PhysicalViscosityModel)
 
 The TPU-only stat-pass column chunking (pf_stat_chunk_kw) is not ported: the
 kernel has no column chunks.
@@ -104,7 +105,6 @@ class WCSPHPlaneSolver(WCSPHPaddedSolver):
         # density passes (fluidparticleworld.rs:197-231 + wscsph.rs:108-116)
         # on K1's geometry of this rebuild
         geom = plane_geom(pos, mask, self.grid)
-        self._check_viscosity(pos)
         dyn_w = pair_reduce(f.density, geom, geom, c)[0]
         stat = pair_reduce(f.stat, geom, boundary.geom, c)
         dens = self._density(dyn_w, stat[0])

@@ -98,21 +98,26 @@ class PairConsts(ctypes.Structure):
         "radius_sq", "w_h_inv", "w_norm", "w_norm_grad", "p6_hsq", "p6_norm",
         "xsph_coef", "mass", "w0", "rho0", "alpha_eps", "gx", "gy",
         "d6_hsq", "d6_norm", "sp_h", "sp_norm", "sp_norm_grad", "bff",
+        "mu_m", "vl_h", "vl_norm",
     )]
 
 
 # K1's call forms (csrc/pair_reduce.cu): the DFSPH plane step's six, then the
-# WCSPH plane step's three
+# WCSPH plane step's three, then the physical viscosity forms of both steps
 PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
-              "wcsph_density", "wcsph_stat", "wcsph_forces")
+              "wcsph_density", "wcsph_stat", "wcsph_forces",
+              "visc_gravity_phys", "wcsph_forces_phys")
 # K3's call forms (csrc/tile_pair_reduce.cu, K3's sum order): the WCSPH padded
-# step's three, then the DFSPH padded step's five
+# step's three, then the DFSPH padded step's five, then the physical viscosity
+# forms of both steps
 SM_PAIR_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces",
-                 "dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc")
+                 "dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc",
+                 "dfsph_visc_phys", "wcsph_forces_phys")
 # K5's call forms (csrc/tile_pair_reduce.cu): the DFSPH padded step's four, then
-# the WCSPH padded step's three
+# the WCSPH padded step's three, then the physical viscosity forms of both
 TILE_PAIR_FORMS = ("dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc",
-                   "wcsph_density", "wcsph_stat", "wcsph_forces")
+                   "wcsph_density", "wcsph_stat", "wcsph_forces",
+                   "dfsph_visc_phys", "wcsph_forces_phys")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

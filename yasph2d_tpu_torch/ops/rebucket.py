@@ -39,6 +39,18 @@ def smem_bytes(p: int) -> int:
     return p * RB_TY * RB_TX * 4 + p * (RB_TY + 2) * (RB_TX + 2)
 
 
+def check_launch(n_values: int, p: int):
+    """Raise unless the kernel takes `n_values` value planes at occupancy
+    `p`: at most six planes, and a block's shared memory (`smem_bytes`)
+    within the card's."""
+    if n_values + 2 > MAX_PAYLOAD:
+        raise ValueError(f"rebucket: {n_values} value planes; the kernel takes at "
+                         f"most {MAX_PAYLOAD - 2}")
+    if smem_bytes(p) > cuda_build.SMEM_LIMIT:
+        raise ValueError(f"rebucket: occupancy {p} needs {smem_bytes(p)} bytes of shared "
+                         f"memory; a block has {cuda_build.SMEM_LIMIT}")
+
+
 def rebucket_ref(pos, mask, values, grid: DenseGridConfig):
     """Plain PyTorch twin of K2. pos (2, P, ny, nx), mask (P, ny, nx), values
     (D, P, ny, nx). Returns (new_pos, new_mask, new_values, num_dropped)."""
@@ -103,12 +115,7 @@ def rebucket_planes(pos, mask, payload: Sequence[torch.Tensor], grid: DenseGridC
     cuda_build.check_tensor(pos, device, (2, p, ny, nx), REAL, "rebucket: positions")
     cuda_build.check_tensor(mask, device, (p, ny, nx), torch.bool, "rebucket: mask")
     ptrs = cuda_build.plane_pointers([pos, *payload], device, p, ny, nx, "rebucket: payload")
-    if len(ptrs) > MAX_PAYLOAD:
-        raise ValueError(f"rebucket: {len(ptrs) - 2} value planes; the kernel takes at "
-                         f"most {MAX_PAYLOAD - 2}")
-    if smem_bytes(p) > cuda_build.SMEM_LIMIT:
-        raise ValueError(f"rebucket: occupancy {p} needs {smem_bytes(p)} bytes of shared "
-                         f"memory; a block has {cuda_build.SMEM_LIMIT}")
+    check_launch(len(ptrs) - 2, p)
     out = torch.empty((len(ptrs), p, ny, nx), dtype=REAL, device=device)
     new_mask = torch.empty((p, ny, nx), dtype=torch.bool, device=device)
     dropped = torch.empty((), dtype=INDEX, device=device)

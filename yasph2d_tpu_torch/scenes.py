@@ -28,6 +28,23 @@ def double_dam_break(target_particles: int) -> FluidParticleWorld:
     return world
 
 
+def reference_particle_density(target_particles: int) -> float:
+    """The particle density (per m^2) that fills the reference dam-break's
+    0.5 x 1.0 m^2 fluid rect with ~target particles on the derated (0.81)
+    lattice (bench.py:310-324)."""
+    return target_particles / (0.5 * 1.0 * 0.81)
+
+
+def reference_dam_break(target_particles: int = 10_000) -> FluidParticleWorld:
+    """The reference app's default dam-break scene (main.rs:177-196: fluid rect +
+    tank + ramp; config.default_scene), scaled to ~target fluid particles
+    (BASELINE configs 1-3)."""
+    from .config import FluidConfig, SimulationConfig
+
+    fluid = FluidConfig(particle_density=reference_particle_density(target_particles))
+    return SimulationConfig(fluid=fluid).build_world()
+
+
 class SolverSpec(NamedTuple):
     """One of the bench's solver configurations."""
 

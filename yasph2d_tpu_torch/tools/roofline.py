@@ -47,17 +47,24 @@ PIPE_PER_CLOCK = {"fp32": 128, "alu": 64}
 DISPATCH_PER_CLOCK = 128
 SASS_PIPE = {"FADD": "fp32", "FSETP": "alu", "FSEL": "alu"}
 # float32 operations per valid pair of each call form, counted from its term
-# functor in csrc/pair_terms.cuh (sqrt included; probe_ctx from ProbeCtxTerm),
-# and per live query of its epilogue (K1); every live candidate adds 5 (dx,
-# dy, r_sq)
+# functor in csrc/pair_terms.cuh (probe_ctx from ProbeCtxTerm): every add,
+# subtract, multiply, divide, min, max and select of the statement as one,
+# and r = sqrt(r_sq) as one where the term reads r (ptxas drops it where it
+# does not: ViscTerm with XsphCoef); per live query of its epilogue (K1);
+# every live candidate adds 5 (dx, dy, r_sq)
 OPS_PER_PAIR = {
-    "ctx": 26, "ctx_post": 26, "visc_gravity": 15, "err_ki": 14, "delta_ki": 14,
+    "ctx": 26, "ctx_post": 26, "visc_gravity": 14, "err_ki": 14, "delta_ki": 14,
     "corr_v": 13, "wcsph_density": 7, "wcsph_stat": 18, "wcsph_forces": 31,
     "dfsph_ctx": 27, "dfsph_stat": 27, "dfsph_div": 14, "dfsph_corr": 13,
-    "dfsph_visc": 15, "probe_ctx": 22,
+    "dfsph_visc": 14, "probe_ctx": 22,
+    # the physical viscosity forms: PhysCoef's 4 operations where XsphCoef has
+    # 8; the viscosity terms (ViscTerm's 6 and the coefficient) read r for
+    # lap W_visc(r) = norm_lapl (h - r), one sqrt more than with XSPH; the
+    # forces terms read r for the pressure gradient with either coefficient
+    "visc_gravity_phys": 11, "wcsph_forces_phys": 27, "dfsph_visc_phys": 11,
 }
-OPS_PER_QUERY = {"ctx_post": 15, "visc_gravity": 2, "err_ki": 8, "delta_ki": 8,
-                 "corr_v": 8}
+OPS_PER_QUERY = {"ctx_post": 15, "visc_gravity": 2, "visc_gravity_phys": 2, "err_ki": 8,
+                 "delta_ki": 8, "corr_v": 8}
 OPS_PER_SLOT_REBUCKET = 10  # cell coordinates and the move code of a live slot
 DFSPH_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v")
 
