@@ -87,7 +87,33 @@ Phases, each reported on its own line:
      leftover step, and must end in wall contact. After each such run,
      every pair form of the path is held against its twin on the run's
      final state, with phase 3's seeded noise; the physical forms' records
-     are these calls' (times, bound) and their launches on these paths.
+     are these calls' (times, bound) and their launches on these paths;
+  6. sharded: the spatially sharded plane solvers (yasph2d_tpu_torch/parallel/)
+     on the 100k double dam-break on a grid whose rows split over two shards
+     (515 x 326, P 7), every fluid particle kicked SHARD_KICK m/s upward so
+     that the columns' tops, a cell under the seam, cross it; SHARD_STEPS
+     steps, against the one-device solver on the same grid and state: one
+     NCCL rank in this process (DFSPH f32; host ms/step beside the one-device
+     solver's), two gloo ranks sharing the card, spawned (DFSPH f32, DFSPH
+     bf16, WCSPH f32; halo rows staged through the host), and two NCCL ranks
+     on two cards where the machine has two (else a line says why not). Each
+     run must give the one-device per-step iterations and drops, every fluid
+     particle live, the live rows bit-equal, and with two shards a net seam
+     crossing above 0; the largest relative difference of the residual
+     averages (sums of per-shard sums) is logged. The two-rank runs' launches
+     are the halo forms' (K1 `<form>[_bf16]_halo`, K2 `rebucket_halo`),
+     summed over the ranks; the one-rank mesh has no halo and launches the
+     one-device kernels, whose records count the 100k solver paths only.
+     Then K1's halo forms and K2's halo form (records `rebucket_halo`, the
+     DFSPH payload, and `rebucket_halo_wcsph`, the WCSPH one) against their
+     twins on the two shards' states (the one-device final state, bit-equal
+     to the gathered sharded one, cut at the seam), bit-equal, RECORD on
+     shard 0:
+     their bounds add the halo rows' bytes (masks in full; positions and
+     values of the live halo slots next to a live query of the edge row; for
+     K2 the live halo slots' positions and the arrivals' payload) and count
+     candidates and pairs across the seam; the two shards' K2 outputs must
+     be the one-device re-bucket's rows, forced overflow included.
 
 The line before the last is the GPU's name and power limit as nvidia-smi
 reports them, the one before that the per-kernel JSON record; the last line is
@@ -129,7 +155,9 @@ DEEP_PS = 40  # source slots a cell of the deep-source checks: two live words
 CSRC = "yasph2d_tpu_torch/csrc/"
 SOURCES = {
     "pair_reduce": CSRC + "pair_reduce.cu",
+    "pair_reduce_halo": CSRC + "pair_reduce_halo.cu",
     "rebucket": CSRC + "rebucket.cu",
+    "rebucket_halo": CSRC + "rebucket.cu",
     "sm_pair_reduce": CSRC + "tile_pair_reduce.cu",
     "sm_rebucket": CSRC + "sm_rebucket.cu",
     "tile_pair_reduce": CSRC + "tile_pair_reduce.cu",
@@ -138,7 +166,11 @@ SOURCES = {
 }
 REPLACES = {
     "pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:821",  # pf_pair_reduce
+    # under sharding: its source windows' rows from the neighbours (_pf_halo)
+    "pair_reduce_halo": "yasph2d_tpu/ops/pallas_slotmajor.py:821",
     "rebucket": "yasph2d_tpu/ops/pallas_slotmajor.py:1120",  # pf_rebucket
+    # under sharding (row0): its halo rows are the migration
+    "rebucket_halo": "yasph2d_tpu/ops/pallas_slotmajor.py:1120",
     "sm_pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:252",  # sm_pair_reduce
     "sm_rebucket": "yasph2d_tpu/ops/pallas_slotmajor.py:1263",  # sm_rebucket
     "tile_pair_reduce": "yasph2d_tpu/ops/pallas_pair.py:97",  # pallas_pair_reduce
@@ -214,7 +246,35 @@ CONFIG_PATHS = {
         "dfsph_padded", {"rebuild_every": 3}, CONTACT_CONFIG,
         [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]),
 }
-PATHS = {**SOLVER_PATHS, **TOOL_PATHS, **{k: v[3] for k, v in CONFIG_PATHS.items()}}
+# the sharded phase: the 100k double dam-break on a grid whose rows split over
+# two shards (515 x 326, P 7), every fluid particle kicked SHARD_KICK m/s
+# upward so that the columns' tops, a cell under the seam, cross it;
+# SHARD_STEPS steps of each kind, against the one-device solver on that grid
+SHARD_PARTICLES = 100_000
+SHARD_STEPS = 40
+SHARD_KICK = 1.5
+SHARD_RANKS = 2
+SHARD_KINDS = ("dfsph_plane", "dfsph_plane_bf16", "wcsph_plane")
+HALO = "_halo"
+
+
+def halo_path(kind):
+    forms = DFSPH_FORMS if kind.startswith("dfsph") else WCSPH_FORMS
+    variant = "_bf16" if kind.endswith("_bf16") else ""
+    return [f"pair_reduce_{f}{variant}{HALO}" for f in forms] + ["rebucket" + HALO]
+
+
+# one rank over NCCL (a one-shard mesh has no halo: the one-device kernels,
+# whose records count the 100k solver paths only), two gloo ranks sharing the
+# card, and two NCCL ranks on two cards where there are two
+ONE_RANK = "sharded1_nccl_dfsph_plane"
+SHARDED_PATHS = {
+    ONE_RANK: SOLVER_PATHS["dfsph_plane"],
+    **{f"sharded2_gloo_{kind}": halo_path(kind) for kind in SHARD_KINDS},
+    "sharded2_nccl_dfsph_plane": halo_path("dfsph_plane"),
+}
+PATHS = {**SOLVER_PATHS, **TOOL_PATHS, **{k: v[3] for k, v in CONFIG_PATHS.items()},
+         **SHARDED_PATHS}
 
 
 def log(msg):
@@ -273,21 +333,21 @@ class Records:
         self.worst = {}  # the largest error of each name's calls so far
 
     def add(self, name, kernel, max_abs_err, ms, plain_ms, bound_ms, bound_by,
-            counter=None, paths=None, replaces=None):
+            counter=None, paths=None, replaces=None, source=None):
         max_abs_err = self.worst[name] = max(self.worst.get(name, 0.0), max_abs_err)
         if name in self.by_name:
             self.by_name[name]["max_abs_err"] = max_abs_err
             return
         self.by_name[name] = dict(
-            name=name, route="cuda", source=SOURCES[kernel],
-            replaces=REPLACES[replaces or kernel],
+            name=name, route="cuda", source=SOURCES[source or kernel],
+            replaces=REPLACES[replaces or source or kernel],
             launches=0, max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             _counter=counter or name, _paths=paths)
 
     def check_pair(self, kernel, label, form, run_kernel, run_twin, live, comp_dim,
                    roles, masks, pairs, radius_sq, variant="", size="", paths=None,
-                   mode=RECORD, where=""):
+                   mode=RECORD, where="", halo=None):
         """`live`: the query slot mask, `comp_dim` the output's component
         axis; `roles`: the (query-side, source-side) input tensors and `masks`
         the input masks, for its bytes; `pairs`: (q_pos, q_mask, s_pos,
@@ -296,9 +356,11 @@ class Records:
         name ("_bf16" for K1's bf16 operands, whose `pairs` are rebased);
         `size`: a suffix of the record's name for another state than the
         100k one, whose launches are counted on `paths`; `mode` RECORD, TIME
-        or CHECK; `where` names the state in the log. K1 and K3 must be
-        bit-equal to their twins, K5 within `pair_error`. The record keeps its
-        form's first RECORD call's times and bound."""
+        or CHECK; `where` names the state in the log; `halo`, for K1's halo
+        forms: (the call's `pairs` with the source's halo rows, the bytes
+        it reads from them). K1 and K3 must be bit-equal to their twins, K5
+        within `pair_error`. The record keeps its form's first RECORD call's
+        times and bound."""
         out_k, out_t = run_kernel(), run_twin()
         torch.cuda.synchronize()
         errs, ok = pair_error(out_k, out_t, live, comp_dim)
@@ -325,26 +387,31 @@ class Records:
         if mode == CHECK:
             return
         ms, plain_ms = graph_ms(run_kernel), event_ms(run_twin)
-        cand, valid = pair_counts(*pairs[:4], radius_sq,
-                                  rebase_cell=pairs[4] if len(pairs) > 4 else None)
+        counted = pairs if halo is None else halo[0]
+        cand, valid = pair_counts(*counted[:4], radius_sq,
+                                  rebase_cell=counted[4] if len(counted) > 4 else None)
         n_live = int(pairs[1].sum())
         n_ops = 5 * cand + OPS_PER_PAIR[form.name] * valid \
             + OPS_PER_QUERY.get(form.name, 0) * n_live
         log(f"phase 3 kernels: {kernel}_{label} kernel {ms:.5f} ms twin {plain_ms:.4f} ms, "
             f"{n_live} live queries, {cand} live candidates, {valid} valid pairs")
-        n_bytes = pair_bytes(*roles, masks, [out_k], pairs[1], pairs[3])
+        n_bytes = pair_bytes(*roles, masks, [out_k], pairs[1], pairs[3]) + (
+            0 if halo is None else halo[1])
         bound_ms, bound_by = bound(n_bytes, n_ops)
         bound_line(f"{kernel}_{label}", bound_ms, bound_by,
                    f"{n_bytes} bytes, {n_ops} float32 operations", ms)
         if mode == RECORD:
             self.add(name, kernel, err, ms, plain_ms, bound_ms, bound_by, counter=counter,
-                     paths=paths)
+                     paths=paths, source=None if halo is None else kernel + HALO)
 
     def check_rebucket(self, kernel, label, run_kernel, run_twin, overflow, inputs,
-                       name=None, paths=None):
+                       name=None, paths=None, halo=None):
         """`inputs`: the call's (positions, mask, payload); `run_kernel` may
         return the payload as a tuple of parts (`rebucket_planes` of K2,
-        `sm_rebucket_parts` of K4), compared stacked as the twin's."""
+        `sm_rebucket_parts` of K4), compared stacked as the twin's.
+        `halo`: K2's halo form, (the bytes it reads from its halo rows, their
+        live slots, whose codes it computes); its launches count under
+        rebucket_halo."""
         out_k, out_t = run_kernel(), run_twin()
         if isinstance(out_k[2], tuple):
             if kernel == "rebucket":  # planes: (D, P, ny, nx)
@@ -368,13 +435,15 @@ class Records:
             ms, plain_ms = graph_ms(run_kernel), event_ms(run_twin)
             log(f"phase 3 kernels: {kernel}[{label}] kernel {ms:.5f} ms twin "
                 f"{plain_ms:.4f} ms")
-            n_ops = OPS_PER_SLOT_REBUCKET * int(inputs[1].sum())
-            n_bytes = rebucket_bytes(*inputs, out_k)
+            extra_bytes, extra_slots = (0, 0) if halo is None else halo
+            n_ops = OPS_PER_SLOT_REBUCKET * (int(inputs[1].sum()) + extra_slots)
+            n_bytes = rebucket_bytes(*inputs, out_k) + extra_bytes
             bound_ms, bound_by = bound(n_bytes, n_ops)
             bound_line(f"{kernel}[{label}]", bound_ms, bound_by,
                        f"{n_bytes} bytes, {n_ops} float32 operations", ms)
+            counter = kernel if halo is None else kernel + HALO
             self.add(name or kernel, kernel, 0.0, ms, plain_ms, bound_ms, bound_by,
-                     counter=kernel, paths=paths)
+                     counter=counter, paths=paths, source=counter)
 
     def require_nonzero(self, names):
         """Each of `names` (a form, or a form's call by its label) produced a
@@ -1058,7 +1127,7 @@ def launch_counts() -> dict:
     counts = {}
     for kernel, mod in _kernel_modules().items():
         for k, v in mod.LAUNCHES.items():
-            counts[k if k == kernel else f"{kernel}_{k}"] = v
+            counts[k if k.startswith(kernel) else f"{kernel}_{k}"] = v
     return counts
 
 
@@ -1246,6 +1315,343 @@ def phase_tool_path(device, kind) -> dict:
     return check_launches(kind, launches)
 
 
+# ---------------------------------------------------------------- sharded phase
+
+
+def shard_setup(kind, device, particles):
+    """(world, the one-device solver of `kind` on the grid whose rows split
+    over SHARD_RANKS shards, its full-grid BoundaryDense) of the double
+    dam-break of ~`particles`."""
+    from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
+
+    world = double_dam_break(particles)
+    solver, _ = bench_solver(kind, world, device, ny_multiple=SHARD_RANKS)
+    return world, solver, world.boundary_dense(solver.grid, device=device)
+
+
+def kicked_state(world, device, kick):
+    """The scene's initial state with every fluid particle moving `kick` m/s
+    upward."""
+    state = world.initial_state(device=device)
+    return state._replace(velocities=state.velocities
+                          + torch.tensor([0.0, kick], device=device))
+
+
+def fluid_mask(carry):
+    return carry.ctx.mask if hasattr(carry, "ctx") else carry.mask
+
+
+def step_run(solver, boundary, carry, steps):
+    """`steps` steps, each by `simulate(.., 1)` (so each step's diagnostics
+    are read); (carry, per-step (density its, divergence its, drops),
+    per-step (avg density error, avg divergence), live slots before and after
+    each step, host ms/step)."""
+    counts, avgs, live = [], [], [int(fluid_mask(carry).sum())]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        carry, d = solver.simulate(carry, boundary, 1)
+        counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
+        avgs.append((float(d.avg_density_error), float(d.avg_divergence)))
+        live.append(int(fluid_mask(carry).sum()))
+    torch.cuda.synchronize()
+    return carry, counts, avgs, live, (time.perf_counter() - t0) / steps * 1e3
+
+
+def sharded_rank(group, kinds, scene):
+    """One shard's share of a sharded run, for each of `kinds`: the driver
+    (ShardedDFSPHPlane / ShardedWCSPHPlane) on its rows of the kicked scene
+    (`scene` = (particles, steps, kick)), init + its steps; returns per kind the per-step counts and
+    averages, this shard's live slots per step, host ms/step, the launches
+    of the run and the gathered live rows (x, y, vx, vy, density)."""
+    from yasph2d_tpu_torch.parallel.shard_plane import ShardedDFSPHPlane, ShardedWCSPHPlane
+
+    particles, steps, kick = scene
+    out = {}
+    for kind in kinds:
+        world, solver, boundary = shard_setup(kind, group.device, particles)
+        cls = ShardedDFSPHPlane if kind.startswith("dfsph") else ShardedWCSPHPlane
+        sharded = cls(group, viscosity_model=solver.viscosity_model,
+                      properties=solver.properties, full_grid=solver.grid,
+                      step_config=solver.step_config)
+        state = kicked_state(world, group.device, kick)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        carry, bpl = sharded.init(state, boundary)
+        carry, counts, avgs, live, ms = step_run(sharded, bpl, carry, steps)
+        launches = launch_counts()
+        rows = sharded.gather_live_rows(carry).cpu()
+        out[kind] = dict(counts=counts, avgs=avgs, live=live, ms=ms, launches=launches,
+                         rows=rows, shard_rows=sharded.solver.grid.ny)
+    return out
+
+
+def one_device_reference(kind, device, scene):
+    """The one-device solver on the sharded runs' grid and state."""
+    particles, steps, kick = scene
+    world, solver, boundary = shard_setup(kind, device, particles)
+    boundary = solver.boundary_planes(boundary)
+    carry = solver.init_carry(kicked_state(world, device, kick), boundary)
+    carry, counts, avgs, live, ms = step_run(solver, boundary, carry, steps)
+    s = solver.export_state(carry)
+    rows = torch.cat([s.positions, s.velocities, s.densities[:, None]], 1)[s.alive].cpu()
+    return dict(solver=solver, boundary=boundary, carry=carry, counts=counts, avgs=avgs,
+                ms=ms, rows=rows, grid=solver.grid)
+
+
+def compare_sharded(name, kind, ref, run, ranks) -> dict:
+    """A sharded run against the one-device reference: equal per-step
+    iterations and drops, live rows bit-equal, every fluid particle live, a
+    net seam crossing above 0 with two shards; logs the largest relative
+    difference of the residual averages (sums of per-shard sums)."""
+    rel = max((abs(a - b) / max(abs(b), 1e-30) for sa, sb in zip(run[0]["avgs"], ref["avgs"])
+               for a, b in zip(sa, sb)), default=0.0)
+    crossed = [abs(b - a) for a, b in zip(run[0]["live"], run[0]["live"][1:])]
+    equal_rows = all(r["rows"].shape == ref["rows"].shape
+                     and torch.equal(r["rows"].view(torch.int32), ref["rows"].view(torch.int32))
+                     for r in run)
+    log(f"phase 6 sharded [{name}]: {ranks} rank(s), {run[0]['shard_rows']} rows a shard, "
+        f"{ref['rows'].shape[0]} live; host ms/step sharded "
+        f"{[round(r['ms'], 3) for r in run]} one-device {ref['ms']:.3f}; iterations "
+        f"equal {all(r['counts'] == ref['counts'] for r in run)}, live rows bit-equal "
+        f"{equal_rows}; largest relative difference of the residual averages {rel!r}; "
+        f"net particles across the seam per step (shard 0) {crossed}")
+    if kind.startswith("dfsph"):
+        log(f"phase 6 sharded [{name}]: (iterations, drops) per step {run[0]['counts']}")
+    if any(r["counts"] != ref["counts"] for r in run) or not equal_rows:
+        raise RuntimeError(f"{name}: the sharded run differs from the one-device run")
+    if ref["rows"].shape[0] != N_FLUID or any(c[2] for c in ref["counts"]):
+        raise RuntimeError(f"{name}: particles dropped")
+    if ranks > 1 and sum(crossed) == 0:
+        raise RuntimeError(f"{name}: no particle crossed the seam")
+    launches = {k: sum(r["launches"].get(k, 0) for r in run) for k in run[0]["launches"]}
+    return check_launches(name, launches)
+
+
+def nccl_one_rank(device, kinds, scene) -> dict:
+    """The sharded driver on a one-rank NCCL group in this process (its halo
+    rows are the mesh's dead edges)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from yasph2d_tpu_torch.parallel.comm import SpaceGroup
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/store", world_size=1,
+                            rank=0)
+    try:
+        return sharded_rank(SpaceGroup.world(device, "nccl"), kinds, scene)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def band_rows(t, r0, r1):
+    return t[..., r0:r1, :].contiguous()
+
+
+def halo_of(t, r0, r1):
+    """Rows r0 - 1 and r1 of (..., ny, nx) planes as (..., 2, nx), zero off the
+    grid: the rows a shard of rows [r0, r1) receives."""
+    ny = t.shape[-2]
+    rows = [t[..., r:r + 1, :] if 0 <= r < ny else torch.zeros_like(t[..., :1, :])
+            for r in (r0 - 1, r1)]
+    return torch.cat(rows, dim=-2).contiguous()
+
+
+def band_call(call, r0, r1, ny, mode):
+    """A K1 call of the whole grid as the shard of rows [r0, r1) makes it: its
+    source geometry's and values' rows -1 and ny from the neighbours."""
+    from yasph2d_tpu_torch.ops.planes import Halo
+
+    suffix, form, src, kw, c, _ = call
+    halo = Halo((halo_of(src.pos, r0, r1), halo_of(src.mask, r0, r1)), r0, ny)
+    src = src._replace(pos=band_rows(src.pos, r0, r1), mask=band_rows(src.mask, r0, r1),
+                       halo=halo)
+    kb = {k: tuple(band_rows(t, r0, r1) for t in kw[k])
+          for k in ("q_vals", "s_vals", "post_planes") if k in kw}
+    kb["scalars"] = kw.get("scalars", ())
+    kb["s_halo"] = tuple(halo_of(t, r0, r1) for t in kw.get("s_vals", ()))
+    return suffix, form, src, kb, c, mode
+
+
+def halo_extras(q, src, kw):
+    """(`check_pair`'s `halo`) of a K1 halo call: its geometry with the
+    source's halo rows (the query between two dead rows), and the bytes it
+    reads from them: the halo masks in full, positions and values of the
+    live halo slots next to a live query of the band's edge rows (row -1
+    feeds row 0 only, row ny row ny - 1)."""
+    from yasph2d_tpu_torch.ops.planes import PlaneGeom
+
+    h_pos, h_mask = src.halo.planes
+
+    def ext(t, rows):
+        return torch.cat([rows[..., :1, :], t, rows[..., 1:, :]], dim=-2)
+
+    def dead(t):
+        return torch.zeros_like(t[..., :2, :])
+
+    pairs = k1_pairs(PlaneGeom(ext(q.pos, dead(q.pos)), ext(q.mask, dead(q.mask)),
+                               q.rebase_cell),
+                     PlaneGeom(ext(src.pos, h_pos), ext(src.mask, h_mask), src.rebase_cell))
+    edge = torch.stack([q.mask[:, 0].any(0), q.mask[:, -1].any(0)]).to(torch.float32)
+    near = torch.nn.functional.max_pool1d(edge[:, None], 3, stride=1, padding=1)[:, 0] > 0
+    need = int((h_mask & near[None]).sum())
+    per_slot = sum(nbytes(t) // h_mask.numel() for t in (h_pos, *kw["s_halo"]))
+    return pairs, nbytes(h_mask) + per_slot * need
+
+
+def check_halo_k1(rec: Records, kind, ref, paths):
+    """K1's halo forms on the two shards' states (the one-device final state,
+    bit-equal to the gathered sharded state, cut at the seam): each call of
+    the step against its twin, bit-equal, RECORD on shard 0 (times, bound
+    with the halo rows), CHECK on shard 1."""
+    from yasph2d_tpu_torch.ops import pair_reduce as pr
+
+    solver, boundary, carry = ref["solver"], ref["boundary"], ref["carry"]
+    if kind.startswith("dfsph"):
+        geom, live, calls = dfsph_plane_calls(solver, boundary, carry)
+    else:
+        geom, live, calls = wcsph_plane_calls(solver, boundary, carry,
+                                              np.random.default_rng(6))
+    variant = ("_bf16" if kind.endswith("_bf16") else "") + HALO
+    ny = solver.grid.ny
+    for k, (r0, r1) in enumerate(((0, ny // SHARD_RANKS), (ny // SHARD_RANKS, ny))):
+        q = geom._replace(pos=band_rows(geom.pos, r0, r1), mask=band_rows(geom.mask, r0, r1))
+        where = f" on shard {k} of {kind}"
+        for call in calls:
+            suffix, form, src, kw, c, mode = band_call(call, r0, r1, ny, RECORD if k == 0
+                                                       else CHECK)
+            rec.check_pair(
+                "pair_reduce", form.name + suffix, form,
+                lambda: pr.pair_reduce(form, q, src, c, **kw),
+                lambda: pr.pair_reduce_ref(form.term_fn, form.n_out, q, src, c.radius_sq,
+                                           post_fn=form.post_fn, n_acc=form.n_acc, **kw),
+                band_rows(live, r0, r1), 0, role_tensors(q.pos, src.pos, kw),
+                [q.mask, src.mask], k1_pairs(q, src), c.radius_sq, variant, paths=paths,
+                mode=mode, where=where, halo=halo_extras(q, src, kw))
+    forms = DFSPH_FORMS if kind.startswith("dfsph") else WCSPH_FORMS
+    rec.require_nonzero([f"pair_reduce_{f}{variant}" for f in forms])
+
+
+def k2_operands(kind, carry):
+    """(advected positions, mask, payload parts) of the re-bucket of `kind`'s
+    plane step on `carry`: DFSPH (v, kappa, stiff), WCSPH the half-kicked v."""
+    dt = carry.time.dt
+    if kind.startswith("dfsph"):
+        ctx = carry.ctx
+        return ctx.pos + carry.v * float(dt), ctx.mask, (carry.v, carry.kappa, carry.stiff)
+    v = carry.v + float(np.float32(0.5) * dt) * carry.accel
+    return carry.pos + v * float(dt), carry.mask, (v,)
+
+
+def check_halo_k2(rec: Records, kind, ref, name, paths):
+    """K2's halo form with the payload of `kind`'s step on the two shards of
+    its final state: the step's own advection (RECORD `name` on shard 0, the
+    bound with the halo rows) and a forced overflow, each bit-equal to its
+    twin, and the two shards' outputs the one-device re-bucket's rows."""
+    from yasph2d_tpu_torch.ops import rebucket as rb
+    from yasph2d_tpu_torch.ops.planes import Halo, pf_move_codes
+
+    grid = ref["solver"].grid
+    pos, mask, whole = k2_operands(kind, ref["carry"])
+    extra = torch.cat([t if t.ndim == 4 else t[None] for t in whole], dim=0)
+    odd = (torch.arange(grid.nx, device=pos.device) % 2 == 1).to(torch.float32)
+    crowded = pos.clone()
+    crowded[0] -= odd * grid.cell_size
+    ny, half = grid.ny, grid.ny // SHARD_RANKS
+    band_grid = dataclasses.replace(grid, ny=half)
+    for label, p in (("advect", pos), ("overflow", crowded)):
+        full = rb.rebucket_ref(p, mask, extra, grid)
+        drops = 0
+        for k, (r0, r1) in enumerate(((0, half), (half, ny))):
+            bp, bm = band_rows(p, r0, r1), band_rows(mask, r0, r1)
+            parts = tuple(band_rows(t, r0, r1) for t in whole)
+            bx = band_rows(extra, r0, r1)
+            h_mask, h_pos = halo_of(mask, r0, r1), halo_of(p, r0, r1)
+            halo = Halo((h_mask, h_pos, *(halo_of(t, r0, r1) for t in whole)), r0, ny)
+            twin_halo = Halo((h_mask, h_pos, halo_of(extra, r0, r1)), r0, ny)
+            # halo bytes: the mask rows, the live halo slots' positions (their
+            # codes), the payload of those that move into this shard
+            codes = [pf_move_codes(h_pos[..., i:i + 1, :], h_mask[:, i:i + 1], band_grid,
+                                   r0 - 1 if i == 0 else r1, ny) for i in (0, 1)]
+            arrive = int(((codes[0] >= 7) & h_mask[:, :1]).sum()
+                         + ((codes[1] >= 1) & (codes[1] <= 3) & h_mask[:, 1:]).sum())
+            n_live = int(h_mask.sum())
+            halo_bytes = (nbytes(h_mask) + nbytes(h_pos) // h_mask.numel() * n_live
+                          + nbytes(extra) // mask.numel() * arrive)
+            run_kernel = partial(rb.rebucket_planes, bp, bm, parts, band_grid, halo=halo)
+            run_twin = partial(rb.rebucket_ref, bp, bm, bx, band_grid, halo=twin_halo)
+            if k == 0:  # the fluid's shard: the advection's record, the forced drops
+                rec.check_rebucket("rebucket", f"halo {kind} {label} shard {k}", run_kernel,
+                                   run_twin, overflow=label == "overflow",
+                                   inputs=[bp, bm, bx], name=name, paths=paths,
+                                   halo=(halo_bytes, n_live))
+            out = run_kernel()
+            stacked = torch.cat([v if v.ndim == 4 else v[None] for v in out[2]])
+            if not bit_equal([out[0], out[1], stacked, out[3]], run_twin()):
+                raise RuntimeError(f"rebucket_halo [{kind} {label} shard {k}] is not "
+                                   "bit-equal to its twin")
+            same = bit_equal([out[0], out[1], stacked],
+                             [band_rows(t, r0, r1) for t in full[:3]])
+            drops += int(out[3])
+            if not same:
+                raise RuntimeError(f"rebucket_halo [{kind} {label} shard {k}] differs from "
+                                   "the one-device re-bucket's rows")
+        log(f"phase 6 sharded: rebucket_halo [{kind} {label}] both shards = the one-device "
+            f"rows, drops {drops} (one device {int(full[3])})")
+        if drops != int(full[3]) or (label == "overflow") != (drops > 0):
+            raise RuntimeError(f"rebucket_halo [{kind} {label}]: drops {drops}, one device "
+                               f"{int(full[3])}")
+
+
+def phase_sharded(device, rec: Records) -> dict:
+    """The sharded plane solvers (yasph2d_tpu_torch/parallel/) on the kicked
+    100k double dam-break, SHARD_STEPS steps each, against the one-device
+    solver on the same grid: one NCCL rank in this process (DFSPH f32; host
+    ms/step beside the one-device solver's), two gloo ranks sharing the card
+    (halo rows staged through the host; DFSPH f32 and bf16, WCSPH f32), and
+    two NCCL ranks on two cards where the machine has two. Then K1's and
+    K2's halo forms against their twins on the two shards' states."""
+    from yasph2d_tpu_torch.parallel import comm
+
+    t0 = time.perf_counter()
+    scene = (SHARD_PARTICLES, SHARD_STEPS, SHARD_KICK)
+    refs = {kind: one_device_reference(kind, device, scene) for kind in SHARD_KINDS}
+    path_launches = {}
+    name = ONE_RANK
+    run = nccl_one_rank(device, ["dfsph_plane"], scene)["dfsph_plane"]
+    path_launches[name] = compare_sharded(name, "dfsph_plane", refs["dfsph_plane"], [run], 1)
+    runs = comm.spawn(sharded_rank, SHARD_RANKS, "gloo", [device] * SHARD_RANKS, SHARD_KINDS,
+                      scene)
+    for kind in SHARD_KINDS:
+        name = f"sharded2_gloo_{kind}"
+        path_launches[name] = compare_sharded(name, kind, refs[kind],
+                                              [r[kind] for r in runs], SHARD_RANKS)
+    name = "sharded2_nccl_dfsph_plane"
+    if torch.cuda.device_count() >= SHARD_RANKS:
+        devices = [torch.device("cuda", i) for i in range(SHARD_RANKS)]
+        runs = comm.spawn(sharded_rank, SHARD_RANKS, "nccl", devices, ["dfsph_plane"], scene)
+        path_launches[name] = compare_sharded(name, "dfsph_plane", refs["dfsph_plane"],
+                                              [r["dfsph_plane"] for r in runs], SHARD_RANKS)
+    else:
+        log(f"phase 6 sharded [{name}]: not run: {torch.cuda.device_count()} card(s); NCCL "
+            f"takes one card a rank")
+    # the halo forms' records count the paths with two shards; K2's payload
+    # is the solver's (one record each), not the operand mode's
+    paths = set(path_launches) - {ONE_RANK}
+    for kind in SHARD_KINDS:
+        check_halo_k1(rec, kind, refs[kind], paths)
+    check_halo_k2(rec, "dfsph_plane", refs["dfsph_plane"], "rebucket" + HALO,
+                  {p for p in paths if "dfsph" in p})
+    check_halo_k2(rec, "wcsph_plane", refs["wcsph_plane"], "rebucket" + HALO + "_wcsph",
+                  {p for p in paths if "wcsph" in p})
+    log(f"phase 6 sharded: {time.perf_counter() - t0:.1f} s")
+    return path_launches
+
+
 def main():
     t0 = time.perf_counter()
     phase_environment()
@@ -1266,6 +1672,7 @@ def main():
     path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})
     path_launches.update({name: phase_config_path(device, rec, name)
                           for name in CONFIG_PATHS})
+    path_launches.update(phase_sharded(device, rec))
     records = list(rec.by_name.values())
     for r in records:
         # a record that names no path is one of the 100k solver states: it

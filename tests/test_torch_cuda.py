@@ -11,7 +11,10 @@ K1 in both operand modes, K3, K7 and the re-buckets (K2, K4) are compared bit
 for bit, K5 to rtol 1e-5 plus 1e-6 of the plane's scale. The physical
 viscosity forms (PhysicalViscosityModel, mu = 0.01) are held as the XSPH
 ones, also on sources whose dead slots hold rho = 0 or NaN. The FMA probe of K6 rounds once per step where its twin rounds twice
-(rtol 1e-5); its mix probe is bit-equal to the twin."""
+(rtol 1e-5); its mix probe is bit-equal to the twin. The halo forms of K1 and
+K2 (spatial sharding) are bit-equal to their twins and, band by band, to the
+one-device kernels on the whole grid; the sharded plane steps on two gloo
+ranks sharing the card equal the one-device step."""
 
 import dataclasses
 
@@ -36,7 +39,7 @@ from yasph2d_tpu_torch.ops import rebucket as rb
 from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
 from yasph2d_tpu_torch.ops import sm_rebucket as smr
 from yasph2d_tpu_torch.ops.dense_grid import DenseGridConfig
-from yasph2d_tpu_torch.ops.planes import PlaneGeom, plane_geom, to_planes
+from yasph2d_tpu_torch.ops.planes import Halo, PlaneGeom, plane_geom, to_planes
 from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 from yasph2d_tpu_torch.tools import probe_pallas_slotmajor as pc
 from yasph2d_tpu_torch.tools import tile_sweep
@@ -583,7 +586,7 @@ def _edge_operands(edge, form, q):
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("form", list(pr.LAUNCHES)[:len(pr.LAUNCHES) // 2])
+@pytest.mark.parametrize("form", list(pr.cuda_build.PAIR_FORMS))
 def test_pair_kernel_edge_cases_bit_equal(device, edge, form, bf16):
     """Every K1 launcher on the edge case, bit-equal to its twin with the
     chosen launch shape and with every shape the tile sweep times (each query
@@ -964,7 +967,7 @@ def test_sm_pair_kernel_forms_bit_equal_on_3k_states(device, kind, steps):
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-@pytest.mark.parametrize("form", list(pr.LAUNCHES)[:len(pr.LAUNCHES) // 2])
+@pytest.mark.parametrize("form", list(pr.cuda_build.PAIR_FORMS))
 def test_pair_kernel_deep_sources_bit_equal(device, edge, form, bf16):
     """Every K1 launcher with a source space of Ps = 40 (cells of more than 32
     live slots: two live words a cell) in both operand modes, bit-equal to its
@@ -1122,3 +1125,169 @@ def test_rebuild_every_on_the_card(device, kind):
         rows[dev.type] = r[np.lexsort(r.T)]
     assert counts["cuda"] == counts["cpu"]
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------ halo forms (sharding)
+
+BANDS = ((0, 8), (8, 16), (16, 23))  # row bands of the 23-row edge grid
+
+
+def _band(t, r0, r1):
+    return t[..., r0:r1, :].contiguous()
+
+
+def _halo_rows(t, r0, r1):
+    """Rows r0 - 1 and r1 of (..., ny, nx) planes stacked as (..., 2, nx);
+    zero (dead) where off the grid, as the ends of a mesh receive them."""
+    ny = t.shape[-2]
+    rows = [t[..., r:r + 1, :] if 0 <= r < ny else torch.zeros_like(t[..., :1, :])
+            for r in (r0 - 1, r1)]
+    return torch.cat(rows, dim=-2).contiguous()
+
+
+def _band_geom(g, r0, r1):
+    ny = g.mask.shape[-2]
+    halo = Halo((_halo_rows(g.pos, r0, r1), _halo_rows(g.mask, r0, r1)), r0, ny)
+    return PlaneGeom(_band(g.pos, r0, r1), _band(g.mask, r0, r1), g.rebase_cell, halo)
+
+
+def _band_kw(kw, r0, r1):
+    """A pass's keyword operands on rows [r0, r1), with the source values' halo."""
+    out = {k: tuple(_band(t, r0, r1) for t in kw.get(k, ()))
+           for k in ("q_vals", "s_vals", "post_planes")}
+    out["scalars"] = kw.get("scalars", ())
+    out["s_halo"] = tuple(_halo_rows(t, r0, r1) for t in kw.get("s_vals", ()))
+    return out
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", list(pr.cuda_build.PAIR_FORMS))
+def test_pair_kernel_halo_forms_bit_equal(device, edge, form, bf16):
+    """Every K1 halo launcher on three row bands of the edge case (the first
+    and last with a dead halo row, as at the ends of a mesh): bit-equal to
+    its twin with the chosen launch shape and every shape the tile sweep
+    times, and to the one-device kernel's rows of the whole grid; each call
+    counted under <form>[_bf16]_halo."""
+    dfsph, _, fluid, _, _ = edge
+    q = _bf16(fluid, dfsph.grid) if bf16 else fluid
+    solver, pform, src, kw = _edge_operands(edge, form, q)
+    full = pr.pair_reduce(pform, q, src, solver._consts, **kw)
+    name = pform.name + ("_bf16" if bf16 else "") + "_halo"
+    for r0, r1 in BANDS:
+        qb, sb, kb = _band_geom(q, r0, r1)._replace(halo=None), _band_geom(src, r0, r1), \
+            _band_kw(kw, r0, r1)
+        before = pr.LAUNCHES[name]
+        out = pr.pair_reduce(pform, qb, sb, solver._consts, **kb)
+        assert pr.LAUNCHES[name] == before + 1
+        ref = pr.pair_reduce_ref(pform.term_fn, pform.n_out, qb, sb, solver._consts.radius_sq,
+                                 post_fn=pform.post_fn, n_acc=pform.n_acc, **kb)
+        outs = [pr.launch(pform, qb, sb, solver._consts, kb["q_vals"], kb["s_vals"],
+                          kb["scalars"], kb["post_planes"], tile, kb["s_halo"])
+                for tile in tile_sweep.K1_SHAPES]
+        torch.cuda.synchronize()
+        for o in [out, *outs]:
+            assert torch.equal(o.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(out.view(torch.int32), _band(full, r0, r1).view(torch.int32))
+    assert float(full.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("label", ["outside", "seams", "overflow"])
+@pytest.mark.parametrize("d", [2, 4])
+def test_rebucket_kernel_halo_form_bit_equal(device, edge, label, d):
+    """K2's halo form on three row bands: bit-equal to its twin, and the bands'
+    outputs are the one-device re-bucket's rows of the whole grid, with the
+    same total drops: slots moved far (clamped codes), slots moved one row
+    across each seam, forced overflow."""
+    dfsph, _, fluid, _, vals = edge
+    grid, h = dfsph.grid, dfsph.grid.cell_size
+    p, ny, nx = fluid.mask.shape
+    rng = np.random.default_rng(13)
+    pos, live = fluid.pos.clone(), fluid.mask
+    if label == "outside":
+        far = torch.as_tensor(rng.uniform(-4.0, 4.0, (2, p, ny, nx)).astype(np.float32))
+        pos = pos + far.to(device) * h * (torch.rand((p, ny, nx)) < 0.3).to(device)
+    elif label == "seams":
+        step = torch.as_tensor(rng.integers(-1, 2, (p, ny, nx)).astype(np.float32))
+        pos[1] += step.to(device) * h
+    else:
+        pos[1] += 0.6 * h  # crowds cells
+    payload = torch.cat([vals["v"], vals["k"][None], vals["rho"][None]])[:d].clone()
+    full = rb.rebucket(pos, live, payload, grid)
+    drops = 0
+    for r0, r1 in BANDS:
+        band = dataclasses.replace(grid, ny=r1 - r0)
+        halo = Halo((_halo_rows(live, r0, r1), _halo_rows(pos, r0, r1),
+                     _halo_rows(payload, r0, r1)), r0, ny)
+        args = (_band(pos, r0, r1), _band(live, r0, r1), _band(payload, r0, r1), band)
+        before = rb.LAUNCHES["rebucket_halo"]
+        out = rb.rebucket(*args, halo=halo)
+        assert rb.LAUNCHES["rebucket_halo"] == before + 1
+        ref = rb.rebucket_ref(*args, halo=halo)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(_bits(out), _bits(ref)))
+        assert all(torch.equal(a, _band(b, r0, r1))
+                   for a, b in zip(_bits(out[:3]), _bits(full[:3])))
+        drops += int(out[3])
+    assert drops == int(full[3])
+    if label == "overflow":
+        assert drops > 0
+
+
+def _sharded_rank(group, kind, steps, kick):
+    """One gloo rank of test_sharded_plane_steps_equal_one_device: the 3k
+    double dam-break, fluid kicked upward by `kick` m/s, `steps` sharded
+    steps; (per-step counts, this rank's live slots per step, gathered live
+    rows, the launches of the run)."""
+    from yasph2d_tpu_torch.parallel.shard_plane import ShardedDFSPHPlane, ShardedWCSPHPlane
+
+    world = double_dam_break(3_000)
+    solver, _ = bench_solver(kind, world, device=group.device, ny_multiple=group.size)
+    cls = ShardedDFSPHPlane if kind.startswith("dfsph") else ShardedWCSPHPlane
+    sharded = cls(group, viscosity_model=solver.viscosity_model,
+                  properties=solver.properties, full_grid=solver.grid,
+                  step_config=solver.step_config)
+    state = world.initial_state(device=group.device)
+    state = state._replace(velocities=state.velocities + torch.tensor(
+        [0.0, kick], device=group.device))
+    carry, bpl = sharded.init(state, world.boundary_dense(solver.grid, device=group.device))
+    pr.reset_launch_counts()
+    rb.reset_launch_counts()
+    counts, live = [], []
+    for _ in range(steps):
+        carry, d = sharded.simulate(carry, bpl, 1)
+        counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
+        live.append(int((carry.ctx.mask if kind.startswith("dfsph") else carry.mask).sum()))
+    launches = {k: v for k, v in {**pr.LAUNCHES, **rb.LAUNCHES}.items() if v}
+    return counts, live, sharded.gather_live_rows(carry).cpu(), launches
+
+
+@pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_plane_bf16", "wcsph_plane"])
+def test_sharded_plane_steps_equal_one_device(device, kind):
+    """Two gloo ranks sharing the card (halo rows staged through the host):
+    40 steps of the 3k double dam-break kicked 3 m/s upward, so that the
+    columns' tops cross the seam, give the one-device solver's per-step
+    iterations and drops and its live rows bit for bit, through the halo
+    launchers only."""
+    from yasph2d_tpu_torch.parallel import comm
+
+    steps, kick = 40, 3.0
+    world = double_dam_break(3_000)
+    solver, _ = bench_solver(kind, world, device=device, ny_multiple=2)
+    boundary = solver.boundary_planes(world.boundary_dense(solver.grid, device=device))
+    state = world.initial_state(device=device)
+    state = state._replace(velocities=state.velocities + torch.tensor([0.0, kick],
+                                                                        device=device))
+    carry = solver.init_carry(state, boundary)
+    counts = []
+    for _ in range(steps):
+        carry, d = solver.simulate(carry, boundary, 1)
+        counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
+    s = solver.export_state(carry)
+    rows = torch.cat([s.positions, s.velocities, s.densities[:, None]], 1)[s.alive].cpu()
+    results = comm.spawn(_sharded_rank, 2, "gloo", [device, device], kind, steps, kick)
+    for got_counts, _, got_rows, launches in results:
+        assert got_counts == counts
+        assert torch.equal(got_rows.view(torch.int32), rows.view(torch.int32))
+        assert launches and all(k.endswith("_halo") for k in launches)
+    upper = results[1][1]
+    assert upper[-1] > upper[0]  # particles crossed the seam into the upper shard

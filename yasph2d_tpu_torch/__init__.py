@@ -28,6 +28,10 @@ The configured entry point is the JAX package's: a `SimulationConfig` JSON
 (config.py, the same schema), built by `cfg.build(device)` and run by
 `python -m yasph2d_tpu_torch run --config cfg.json` (__main__.py);
 utils/checkpoint.py saves and loads carries in the JAX package's .npz layout.
+
+parallel/ is the JAX package's spatial decomposition of the plane solvers
+over `torch.distributed`: one process a band of cell rows, the halo forms of
+K1 and K2, and the one-device result (parallel/shard_plane.py).
 """
 
 from .config import SimulationConfig

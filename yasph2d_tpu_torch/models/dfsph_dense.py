@@ -253,8 +253,8 @@ class DFSPHPaddedSolver:
         """DFSPHPaddedSolver.init_carry's layout (via DFSPHDenseSolver.init_carry):
         cell-sort, slot grid, padded positions/velocities, zero warm starts."""
         g = self.grid
-        (positions, velocities), sorted_keys = sort_by_dense_keys(
-            (state.positions, state.velocities), state.positions, g, state.alive
+        (positions, velocities), sorted_keys = self._sort(
+            (state.positions, state.velocities), state.positions, state.alive
         )
         slots = build_slot_grid(sorted_keys, g)
         zeros = torch.zeros((g.ny, g.nx, g.occupancy), dtype=REAL,
@@ -265,11 +265,25 @@ class DFSPHPaddedSolver:
             v_pad=pad_to_slots(velocities, slots, g),
             kappa_pad=zeros,
             stiff_pad=zeros.clone(),
-            num_dropped=(slots.num_dropped + boundary.num_dropped).to(INDEX),
+            num_dropped=(self._sum_counts(slots.num_dropped)
+                         + boundary.num_dropped).to(INDEX),
             prev_density_iterations=1,
             prev_divergence_iterations=0,
             time=TimeState.initial(self.step_config),
         )
+
+    # --- single-device reduction hooks; the shard solvers
+    # --- (parallel/shard_dense.py) reduce them over the shards
+
+    def _sort(self, tensors, positions, alive):
+        """Init-time cell sort of per-particle tensors (sort_by_dense_keys);
+        a shard sorts on its band of rows."""
+        return sort_by_dense_keys(tensors, positions, self.grid, alive)
+
+    def _sum_counts(self, count: torch.Tensor) -> torch.Tensor:
+        """Sum of a per-shard counter (drops) over the shards: the count itself
+        on one device."""
+        return count
 
     def _count_live(self, mask: torch.Tensor) -> np.float32:
         """Live-particle count, the residual-average denominator (the reference

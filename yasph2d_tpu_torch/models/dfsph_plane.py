@@ -21,6 +21,12 @@ f32 scalars that reach the kernels (dt, 1/dt * m) are computed in np.float32
 exactly as JAX computes them on device. A stale step of `rebuild_every` > 1
 skips K2 and rebuilds the ctx (and K1's geometry) from the advected
 positions in the old layout, as the padded solver does.
+
+Spatial sharding (parallel/shard_plane.py) overrides the hooks `_halo` (the
+neighbour shards' rows -1 and ny of a set of planes, None here), which makes
+every geometry, pass and re-bucket take the kernels' halo forms, and the
+reductions over live slots (`_count_live`, `_mean_live`, `_max_vel_from_sq`,
+`_sum_counts`); their defaults here are the one-device code.
 """
 
 from dataclasses import dataclass
@@ -170,6 +176,32 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
             corr_v=PairForm("corr_v", 2, corr_terms, v_post, n_acc=2),
         )
 
+    # ------------------------------------------------- hooks of the shard solvers
+
+    def _rebucket_row0(self) -> int:
+        """This shard's first global cell row: 0 on one device."""
+        return 0
+
+    def _halo(self, planes):
+        """The neighbour shards' rows -1 and ny of `planes` as a Halo, under
+        spatial sharding; None on one device (the kernels' one-device forms)."""
+        return None
+
+    def _geom(self, pos, mask) -> PlaneGeom:
+        """K1's geometry of one index space (planes.plane_geom), with the
+        neighbours' rows of its positions and mask under sharding."""
+        geom = plane_geom(pos, mask, self.grid, self._rebucket_row0())
+        halo = self._halo((geom.pos, geom.mask))
+        return geom if halo is None else geom._replace(halo=halo)
+
+    def _pair(self, form: PairForm, q: PlaneGeom, s: PlaneGeom, q_vals=(), s_vals=(),
+              scalars=(), post_planes=()):
+        """One K1 pass; a source geometry with a halo takes its value planes'
+        rows from the neighbours too, one exchange per pass."""
+        s_halo = () if s.halo is None or not s_vals else self._halo(s_vals).planes
+        return pair_reduce(form, q, s, self._consts, q_vals=q_vals, s_vals=s_vals,
+                           scalars=scalars, post_planes=post_planes, s_halo=s_halo)
+
     # ------------------------------------------------------------- boundaries
 
     def boundary_planes(self, boundary: BoundaryDense) -> BoundaryPlanes:
@@ -177,8 +209,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         boundary change."""
         return BoundaryPlanes(
             dense=boundary,
-            geom=plane_geom(to_planes(boundary.pos_pad), to_planes(boundary.mask),
-                            self.grid),
+            geom=self._geom(to_planes(boundary.pos_pad), to_planes(boundary.mask)),
         )
 
     # ------------------------------------------------------------ pair context
@@ -187,10 +218,10 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         """Fluid-boundary and fused fluid-fluid ctx passes: density, alpha and
         neighbour totals, plus the boundary gradient sums the loops reuse. K1's
         geometry is built here, once per rebuild, and kept in the ctx."""
-        geom = plane_geom(pos, mask, self.grid)
+        geom = self._geom(pos, mask)
         f = self._forms
-        stat = pair_reduce(f.ctx, geom, boundary.geom, self._consts)
-        fused = pair_reduce(f.ctx_post, geom, geom, self._consts, post_planes=(stat,))
+        stat = self._pair(f.ctx, geom, boundary.geom)
+        fused = self._pair(f.ctx_post, geom, geom, post_planes=(stat,))
         m = torch.tensor(self.properties.particle_mass, dtype=REAL, device=pos.device)
         return PlaneCtx(
             pos=pos,
@@ -209,34 +240,38 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
     def _viscosity_gravity_pf(self, ctx: PlaneCtx, v, rho, dt):
         """Viscous acceleration + gravity, (2, P, ny, nx)."""
-        return pair_reduce(self._forms.visc_gravity, ctx.geom, ctx.geom, self._consts,
-                           q_vals=(v,), s_vals=(v, rho), scalars=(float(dt),))
+        return self._pair(self._forms.visc_gravity, ctx.geom, ctx.geom,
+                          q_vals=(v,), s_vals=(v, rho), scalars=(float(dt),))
 
     def _density_err_ki_pf(self, ctx: PlaneCtx, v, dens, alpha, dt):
         """Velocity divergence -> (density error, k_i) planes (dfsph.rs:99-161)."""
-        out = pair_reduce(self._forms.err_ki, ctx.geom, ctx.geom, self._consts,
-                          q_vals=(v,), s_vals=(v,), scalars=(float(dt),),
-                          post_planes=(v, ctx.sum_grad_stat, dens, alpha))
+        out = self._pair(self._forms.err_ki, ctx.geom, ctx.geom,
+                         q_vals=(v,), s_vals=(v,), scalars=(float(dt),),
+                         post_planes=(v, ctx.sum_grad_stat, dens, alpha))
         return out[0], out[1]
 
     def _divergence_delta_ki_pf(self, ctx: PlaneCtx, v):
         """Velocity divergence -> (divergence, k_i) planes (dfsph.rs:249-280)."""
-        out = pair_reduce(self._forms.delta_ki, ctx.geom, ctx.geom, self._consts,
-                          q_vals=(v,), s_vals=(v,),
-                          post_planes=(v, ctx.sum_grad_stat, ctx.neighbor_total,
-                                       ctx.alpha))
+        out = self._pair(self._forms.delta_ki, ctx.geom, ctx.geom,
+                         q_vals=(v,), s_vals=(v,),
+                         post_planes=(v, ctx.sum_grad_stat, ctx.neighbor_total,
+                                      ctx.alpha))
         return out[0], out[1]
 
     def _apply_correction_pf(self, ctx: PlaneCtx, k, v, scale):
         """k-correction -> updated velocity planes (dfsph.rs:128-161)."""
-        return pair_reduce(self._forms.corr_v, ctx.geom, ctx.geom, self._consts,
-                           q_vals=(k,), s_vals=(k,), scalars=(float(scale),),
-                           post_planes=(v, k, ctx.sum_grad_stat))
+        return self._pair(self._forms.corr_v, ctx.geom, ctx.geom,
+                          q_vals=(k,), s_vals=(k,), scalars=(float(scale),),
+                          post_planes=(v, k, ctx.sum_grad_stat))
 
     # ------------------------------------------------------------- reductions
 
     def _max_velocity_pf(self, vstar, mask) -> np.float32:
-        v_est_sq = torch.where(mask, (vstar * vstar).sum(dim=0), 0.0)
+        return self._max_vel_from_sq(torch.where(mask, (vstar * vstar).sum(dim=0), 0.0))
+
+    def _max_vel_from_sq(self, v_est_sq) -> np.float32:
+        """CFL velocity from the live slots' squared speeds (dead slots 0); the
+        one hook of the CFL max that the shard solvers override."""
         return f32(float(torch.sqrt(v_est_sq.max())))
 
     # ---------------------------------------------------------- pressure loops
@@ -352,8 +387,11 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         # advect + re-bucket (dfsph.rs:499-512)
         pos = ctx.pos + pred * float(dt)
         if rebuild:
+            payload = (pred, kappa, carry.stiff)
             pos, mask, (pred, kappa, stiff), drops = rebucket_planes(
-                pos, ctx.mask, (pred, kappa, carry.stiff), self.grid)
+                pos, ctx.mask, payload, self.grid,
+                halo=self._halo((ctx.mask, pos, *payload)))
+            drops = self._sum_counts(drops)
             ctx = self._ctx_pf(pos, mask, boundary, drops + boundary.dense.num_dropped)
         else:
             stiff = carry.stiff

@@ -39,7 +39,6 @@ from ..ops.dense_grid import (
     build_slot_grid,
     pad_to_slots,
     require_float32_pairs,
-    sort_by_dense_keys,
 )
 from ..ops.pair_reduce import PairForm
 from ..ops.pallas_pair import pallas_pair_reduce
@@ -204,8 +203,8 @@ class WCSPHPaddedSolver:
         accepted so that every solver's init_carry takes the same arguments,
         and ignored."""
         g = self.grid
-        (positions, velocities), sorted_keys = sort_by_dense_keys(
-            (state.positions, state.velocities), state.positions, g, state.alive
+        (positions, velocities), sorted_keys = self._sort(
+            (state.positions, state.velocities), state.positions, state.alive
         )
         slots = build_slot_grid(sorted_keys, g)
         mask = slots.slot_mask.reshape(g.ny, g.nx, g.occupancy)
@@ -231,8 +230,11 @@ class WCSPHPaddedSolver:
             alive=mask,
         )
 
-    # the host loop of the DFSPH solvers: account each step's dt, then step
+    # the host loop of the DFSPH solvers: account each step's dt, then step;
+    # their init-time sort and counter sum, the hooks of the shard solvers
     simulate = DFSPHPaddedSolver.simulate
+    _sort = DFSPHPaddedSolver._sort
+    _sum_counts = DFSPHPaddedSolver._sum_counts
 
     # -------------------------------------------------------------------- step
 

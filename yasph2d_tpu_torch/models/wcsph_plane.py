@@ -14,7 +14,9 @@ and the rebuild is K2 (ops/rebucket.py) with the velocity as its payload:
                     with PhysicalViscosityModel)
 
 The TPU-only stat-pass column chunking (pf_stat_chunk_kw) is not ported: the
-kernel has no column chunks.
+kernel has no column chunks. The hooks of spatial sharding are the DFSPH
+plane solver's (`_halo`, `_geom`, `_pair`, the CFL max `_max_vel_from_sq`),
+with the drop sum `_sum_counts` (parallel/shard_plane.py).
 """
 
 from dataclasses import dataclass
@@ -22,8 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.pair_reduce import pair_reduce
-from ..ops.planes import from_planes, plane_geom, to_planes
+from ..ops.planes import from_planes, to_planes
 from ..ops.rebucket import rebucket
 from ..timemanager import TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
@@ -52,8 +53,14 @@ class WCSPHPlaneSolver(WCSPHPaddedSolver):
     """WCSPH, plane-resident carry, every pass through K1 and K2. Takes
     `grid.pair_dtype` "float32" or "bfloat16" (K1's bf16 operand mode)."""
 
-    # plane-form boundary geometry, built once per boundary change
+    # plane-form boundary geometry, built once per boundary change, and the
+    # hooks of the shard solvers (models/dfsph_plane.py)
     boundary_planes = DFSPHPlaneSolver.boundary_planes
+    _rebucket_row0 = DFSPHPlaneSolver._rebucket_row0
+    _halo = DFSPHPlaneSolver._halo
+    _geom = DFSPHPlaneSolver._geom
+    _pair = DFSPHPlaneSolver._pair
+    _max_vel_from_sq = DFSPHPlaneSolver._max_vel_from_sq
     _bf16_operands = True
 
     def __post_init__(self):
@@ -93,33 +100,35 @@ class WCSPHPlaneSolver(WCSPHPaddedSolver):
         """One simulation step, in the padded step's order, in plane form."""
         time_state = carry.time
         dt = time_state.dt
-        f, c = self._forms, self._consts
+        f = self._forms
 
         # leapfrog part 1 in the OLD layout (wscsph.rs:141-151)
         v = carry.v + float(f32(0.5) * dt) * carry.accel
         pos = carry.pos + v * float(dt)
 
         # neighbourhood rebuild = plane-form re-bucket (wscsph.rs:153)
-        pos, mask, v, drops = rebucket(pos, carry.mask, v, self.grid)
+        pos, mask, v, drops = rebucket(pos, carry.mask, v, self.grid,
+                                       halo=self._halo((carry.mask, pos, v)))
 
         # density passes (fluidparticleworld.rs:197-231 + wscsph.rs:108-116)
         # on K1's geometry of this rebuild
-        geom = plane_geom(pos, mask, self.grid)
-        dyn_w = pair_reduce(f.density, geom, geom, c)[0]
-        stat = pair_reduce(f.stat, geom, boundary.geom, c)
+        geom = self._geom(pos, mask)
+        dyn_w = self._pair(f.density, geom, geom)[0]
+        stat = self._pair(f.stat, geom, boundary.geom)
         dens = self._density(dyn_w, stat[0])
         pres = tait_pressure(self.stiffness, self.properties.fluid_density, dens)
 
         # symmetric pressure + viscosity forces (wscsph.rs:59-105)
-        accel = pair_reduce(f.forces, geom, geom, c, q_vals=(pres, dens, v),
-                            s_vals=(pres, dens, v), scalars=(float(dt),))
+        accel = self._pair(f.forces, geom, geom, q_vals=(pres, dens, v),
+                           s_vals=(pres, dens, v), scalars=(float(dt),))
         gvec = torch.tensor(self.gravity, dtype=REAL, device=pos.device).reshape(2, 1, 1, 1)
         # dead slots stay frozen: no gravity, no advection
         accel = torch.where(mask[None], (accel + stat[1:3]) + gvec, 0.0)
 
         # CFL with the *old* dt estimate (wscsph.rs:158-167)
         vstar = v + accel * float(dt)
-        max_velocity = self._max_velocity((vstar * vstar).sum(dim=0), mask)
+        max_velocity = self._max_vel_from_sq(
+            torch.where(mask, (vstar * vstar).sum(dim=0), 0.0))
         time_state = update_simulation_step(
             self.step_config, time_state,
             self.properties.particle_radius * 2.0, max_velocity,
@@ -134,6 +143,6 @@ class WCSPHPlaneSolver(WCSPHPaddedSolver):
         diagnostics = Diagnostics.zeros()._replace(
             dt=dt,
             max_velocity=max_velocity,
-            neighbor_drops=int(drops + boundary.dense.num_dropped),
+            neighbor_drops=int(self._sum_counts(drops) + boundary.dense.num_dropped),
         )
         return new_carry, diagnostics

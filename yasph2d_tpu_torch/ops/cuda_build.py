@@ -102,8 +102,9 @@ class PairConsts(ctypes.Structure):
     )]
 
 
-# K1's call forms (csrc/pair_reduce.cu): the DFSPH plane step's six, then the
-# WCSPH plane step's three, then the physical viscosity forms of both steps
+# K1's call forms (csrc/pair_reduce.cuh K1_PAIR_FORMS): the DFSPH plane step's
+# six, then the WCSPH plane step's three, then the physical viscosity forms of
+# both steps
 PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
               "wcsph_density", "wcsph_stat", "wcsph_forces",
               "visc_gravity_phys", "wcsph_forces_phys")
@@ -129,13 +130,16 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for form in PAIR_FORMS:
         # q_pos, q_mask, s_pos, s_mask, planes, n_planes, out, P, Ps, ny, nx,
-        # ty, tx, threads, smem, scalar, [cell: bf16 operands only], consts, stream
-        for name, cell in ((form, []), (f"{form}_bf16", [ctypes.c_float])):
-            fn = getattr(lib, f"pair_reduce_{name}")
-            fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), _I, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, *cell,
-                           ctypes.POINTER(PairConsts), _P]
-            fn.restype = _I
+        # ty, tx, threads, smem, scalar, [cell: bf16 operands only], [h_pos,
+        # h_mask, h_planes: halo forms only (csrc/pair_reduce_halo.cu)],
+        # consts, stream
+        for halo in ((), (_P, _P, ctypes.POINTER(_P))):
+            for name, cell in ((form, ()), (f"{form}_bf16", (ctypes.c_float,))):
+                fn = getattr(lib, f"pair_reduce_{name}{'_halo' if halo else ''}")
+                fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), _I, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, *cell,
+                               *halo, ctypes.POINTER(PairConsts), _P]
+                fn.restype = _I
     for name in ([f"sm_pair_reduce_{f}" for f in SM_PAIR_FORMS]
                  + [f"tile_pair_reduce_{f}" for f in TILE_PAIR_FORMS]):
         fn = getattr(lib, name)
@@ -150,6 +154,10 @@ def library() -> ctypes.CDLL:
     lib.rebucket.argtypes = [_P, ctypes.POINTER(_P), _I, _P, _P, _P, _I, _I, _I, _I, _I,
                              ctypes.c_float, ctypes.c_float, ctypes.c_float, _P]
     lib.rebucket.restype = _I
+    # the halo form: as rebucket with the global row count for grid ny, then
+    # halo mask, halo payload planes, row0, stream
+    lib.rebucket_halo.argtypes = lib.rebucket.argtypes[:-1] + [_P, ctypes.POINTER(_P), _I, _P]
+    lib.rebucket_halo.restype = _I
     # mask, pos, part inputs, part outputs, part widths, n_parts, out_pos, new mask,
     # dropped, P, ny, nx, grid nx, grid ny, 1/cell size, origin x, origin y, stream
     lib.sm_rebucket.argtypes = [_P, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),

@@ -24,6 +24,7 @@ arithmetic, a stable sort (jax.lax.sort is stable, so ties keep input order),
 same clamped slot indices, same overflow accounting.
 """
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -108,10 +109,19 @@ def cell_coords(positions: torch.Tensor, grid: DenseGridConfig):
     return torch.clamp(cx, 0, grid.nx - 1), torch.clamp(cy, 0, grid.ny - 1)
 
 
-def cell_keys(positions: torch.Tensor, grid: DenseGridConfig, alive=None):
+def cell_keys(positions: torch.Tensor, grid: DenseGridConfig, alive=None,
+              row0: int = 0, ny_total: int = None):
     """Row-major cell key per particle; dead particles get the sentinel key
-    `num_cells`, which sorts after every real cell and never enters the grid."""
-    cx, cy = cell_coords(positions, grid)
+    `num_cells`, which sorts after every real cell and never enters the grid.
+    Under sharding `grid` is the shard's band of rows from global row `row0`
+    of `ny_total`: rows are taken against the global origin, clamped to the
+    global rows, then to the shard's (the JAX `_SpatialCollectives._sort`);
+    a particle outside the band lands in its edge row."""
+    if ny_total is None:
+        cx, cy = cell_coords(positions, grid)
+    else:
+        cx, cy = cell_coords(positions, dataclasses.replace(grid, ny=ny_total))
+        cy = torch.clamp(cy - row0, 0, grid.ny - 1)
     keys = cy * grid.nx + cx
     if alive is not None:
         keys = torch.where(alive, keys, torch.full_like(keys, grid.num_cells))
@@ -166,10 +176,11 @@ def build_slot_grid(sorted_keys: torch.Tensor, grid: DenseGridConfig) -> SlotGri
 
 
 def sort_by_dense_keys(tensors, positions: torch.Tensor, grid: DenseGridConfig,
-                       alive=None):
+                       alive=None, row0: int = 0, ny_total: int = None):
     """Sort a tuple of per-particle tensors into dense cell-key order (stable, so
-    the order matches jax.lax.sort's). Returns (sorted_tensors, sorted_keys)."""
-    keys = cell_keys(positions, grid, alive)
+    the order matches jax.lax.sort's). Returns (sorted_tensors, sorted_keys).
+    `row0`, `ny_total`: a shard's band of rows, as `cell_keys` takes them."""
+    keys = cell_keys(positions, grid, alive, row0, ny_total)
     sorted_keys, perm = torch.sort(keys, stable=True)
     return tuple(t[perm] for t in tensors), sorted_keys
 

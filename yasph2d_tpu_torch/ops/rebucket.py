@@ -10,19 +10,29 @@ runs the plain twin `rebucket_ref` for CPU tensors; both are bit-exact. On the
 card the whole re-bucket, move codes, new mask and drop count included, is one
 kernel launch after a 4-byte memset; `rebucket_planes` takes the payload as
 separate planes, so a caller need not concatenate them first.
+
+Halo form (spatial sharding, parallel/shard_plane.py): with a `planes.Halo`
+of the neighbouring shards' rows -1 and ny of (mask, positions, payload),
+those rows are source cells too, so a particle that crosses the seam into
+this shard's edge row arrives from them, and one that leaves is taken by the
+neighbour; every move code (the halo rows' too) is taken against global
+rows. Drops are this shard's; the caller sums them over the shards. The JAX
+kernel sends the code and payload rows together (pf_rebucket(row0=...)); here
+K2 computes the halo rows' codes itself. Launches count under
+"rebucket_halo".
 """
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from ..units import INDEX, REAL
 from . import cuda_build
 from .dense_grid import DenseGridConfig, f32_scalar
-from .planes import pf_move_codes
+from .planes import Halo, pf_move_codes
 
 # kernel launches, counted where the wrapper launches
-LAUNCHES = {"rebucket": 0}
+LAUNCHES = {"rebucket": 0, "rebucket_halo": 0}
 
 # csrc/rebucket.cu: one thread per target cell of a RB_TY x RB_TX tile
 RB_TY, RB_TX = 8, 32
@@ -30,7 +40,8 @@ MAX_PAYLOAD = 8  # position x, y and at most six value planes
 
 
 def reset_launch_counts():
-    LAUNCHES["rebucket"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def smem_bytes(p: int) -> int:
@@ -51,14 +62,28 @@ def check_launch(n_values: int, p: int):
                          f"memory; a block has {cuda_build.SMEM_LIMIT}")
 
 
-def rebucket_ref(pos, mask, values, grid: DenseGridConfig):
+def rebucket_ref(pos, mask, values, grid: DenseGridConfig, halo: Optional[Halo] = None):
     """Plain PyTorch twin of K2. pos (2, P, ny, nx), mask (P, ny, nx), values
-    (D, P, ny, nx). Returns (new_pos, new_mask, new_values, num_dropped)."""
+    (D, P, ny, nx); `halo`: rows (mask (P, 2, nx), pos (2, P, 2, nx),
+    values (D, P, 2, nx)). Returns (new_pos, new_mask, new_values,
+    num_dropped)."""
     p, ny, nx = mask.shape
-    code = pf_move_codes(pos, mask, grid)
     src = torch.cat([pos, values], dim=0)  # (n_pay, P, ny, nx)
-    code_pad = torch.nn.functional.pad(code, (1, 1, 1, 1))
-    src_pad = torch.nn.functional.pad(src, (1, 1, 1, 1))
+    if halo is None:
+        code = pf_move_codes(pos, mask, grid)
+        code_pad = torch.nn.functional.pad(code, (1, 1, 1, 1))
+        src_pad = torch.nn.functional.pad(src, (1, 1, 1, 1))
+    else:  # rows -1 and ny from the neighbours, codes against global rows
+        def rows(a, r):
+            return torch.cat([r[..., :1, :], a, r[..., 1:, :]], dim=-2)
+
+        h_mask, h_pos, h_values = halo.planes
+        ext_pos = rows(pos, h_pos)
+        code = pf_move_codes(ext_pos, rows(mask, h_mask), grid, halo.row0 - 1,
+                             halo.ny_total)
+        code_pad = torch.nn.functional.pad(code, (1, 1, 0, 0))
+        src_pad = torch.nn.functional.pad(
+            torch.cat([ext_pos, rows(values, h_values)], dim=0), (1, 1, 0, 0))
     # the 9P candidates of every target cell, in (dyv, dxv, sp) order
     cand_code, cand_pay, expected = [], [], []
     for dyv in range(3):
@@ -98,16 +123,26 @@ def _split(stacked: torch.Tensor, parts: Sequence[torch.Tensor]) -> tuple:
     return tuple(out)
 
 
-def rebucket_planes(pos, mask, payload: Sequence[torch.Tensor], grid: DenseGridConfig):
+def _stack(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([v if v.ndim == 4 else v[None] for v in parts], dim=0)
+
+
+def rebucket_planes(pos, mask, payload: Sequence[torch.Tensor], grid: DenseGridConfig,
+                    halo: Optional[Halo] = None):
     """Windowed re-bucket of the plane-form state with the payload given as
     separate (P, ny, nx) or (L, P, ny, nx) planes. Returns (new_pos, new_mask,
     the new payload parts in the input's shapes, num_dropped); dispatches on
     device. The CPU route concatenates the parts for `rebucket_ref`; the CUDA
-    route passes one pointer per plane and copies nothing."""
+    route passes one pointer per plane and copies nothing. `halo`: the
+    neighbours' rows of (mask, pos, *payload) as `Halo.planes` (module
+    docstring)."""
     device = pos.device
     if device.type == "cpu":
-        stacked = torch.cat([v if v.ndim == 4 else v[None] for v in payload], dim=0)
-        new_pos, new_mask, new_values, drops = rebucket_ref(pos, mask, stacked, grid)
+        if halo is not None:
+            h_mask, h_pos, *h_payload = halo.planes
+            halo = halo._replace(planes=(h_mask, h_pos, _stack(h_payload)))
+        new_pos, new_mask, new_values, drops = rebucket_ref(pos, mask, _stack(payload), grid,
+                                                            halo)
         return new_pos, new_mask, _split(new_values, payload), drops
     if device.type != "cuda":
         raise ValueError(f"rebucket: unsupported device {device}")
@@ -119,20 +154,37 @@ def rebucket_planes(pos, mask, payload: Sequence[torch.Tensor], grid: DenseGridC
     out = torch.empty((len(ptrs), p, ny, nx), dtype=REAL, device=device)
     new_mask = torch.empty((p, ny, nx), dtype=torch.bool, device=device)
     dropped = torch.empty((), dtype=INDEX, device=device)
-    err = cuda_build.library().rebucket(
-        mask.data_ptr(), cuda_build.pointer_array(ptrs), len(ptrs), out.data_ptr(),
-        new_mask.data_ptr(), dropped.data_ptr(), p, ny, nx, grid.nx, grid.ny,
-        f32_scalar(1.0 / grid.cell_size), f32_scalar(grid.origin[0]),
-        f32_scalar(grid.origin[1]), torch.cuda.current_stream(device).cuda_stream,
-    )
-    cuda_build.check(err, "rebucket")
-    LAUNCHES["rebucket"] += 1
+    lib, stream = cuda_build.library(), torch.cuda.current_stream(device).cuda_stream
+    move = (f32_scalar(1.0 / grid.cell_size), f32_scalar(grid.origin[0]),
+            f32_scalar(grid.origin[1]))
+    if halo is None:
+        name = "rebucket"
+        err = lib.rebucket(
+            mask.data_ptr(), cuda_build.pointer_array(ptrs), len(ptrs), out.data_ptr(),
+            new_mask.data_ptr(), dropped.data_ptr(), p, ny, nx, grid.nx, grid.ny, *move,
+            stream,
+        )
+    else:
+        name = "rebucket_halo"
+        h_mask, *h_rows = halo.planes
+        cuda_build.check_tensor(h_mask, device, (p, 2, nx), torch.bool, "rebucket: halo mask")
+        h_ptrs = cuda_build.plane_pointers(h_rows, device, p, 2, nx, "rebucket: halo payload")
+        if len(h_ptrs) != len(ptrs):
+            raise ValueError(f"rebucket: {len(h_ptrs)} halo payload planes for {len(ptrs)}")
+        err = lib.rebucket_halo(
+            mask.data_ptr(), cuda_build.pointer_array(ptrs), len(ptrs), out.data_ptr(),
+            new_mask.data_ptr(), dropped.data_ptr(), p, ny, nx, grid.nx, halo.ny_total,
+            *move, h_mask.data_ptr(), cuda_build.pointer_array(h_ptrs), halo.row0, stream,
+        )
+    cuda_build.check(err, name)
+    LAUNCHES[name] += 1
     return out[0:2], new_mask, _split(out[2:], payload), dropped
 
 
-def rebucket(pos, mask, values, grid: DenseGridConfig):
+def rebucket(pos, mask, values, grid: DenseGridConfig, halo: Optional[Halo] = None):
     """Windowed re-bucket of the plane-form state; values (D, P, ny, nx).
     Returns (new_pos, new_mask, new_values, num_dropped); dispatches on
-    device."""
-    new_pos, new_mask, (new_values,), drops = rebucket_planes(pos, mask, (values,), grid)
+    device. `halo` as `rebucket_planes` takes it."""
+    new_pos, new_mask, (new_values,), drops = rebucket_planes(pos, mask, (values,), grid,
+                                                              halo)
     return new_pos, new_mask, new_values, drops

@@ -71,17 +71,18 @@ SOLVERS = {
 
 
 def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=7,
-                 pair_dtype=None):
+                 pair_dtype=None, ny_multiple=1):
     """(solver, boundary) of one of SOLVERS on `world`, as the bench builds them
     (bench.py:125-150): occupancy 7, XSPH viscosity, the entry's adaptive CFL,
     the boundary on `device` (in plane form for the plane solvers).
-    `pair_dtype` overrides the entry's operand dtype."""
+    `pair_dtype` overrides the entry's operand dtype; `ny_multiple` rounds
+    the grid's rows up to a multiple (the shard count of a sharded run)."""
     import dataclasses
 
     import yasph2d_tpu_torch as y
 
     spec = SOLVERS[kind]
-    grid = dataclasses.replace(world.dense_grid(occupancy=occupancy),
+    grid = dataclasses.replace(world.dense_grid(occupancy=occupancy, ny_multiple=ny_multiple),
                                use_pallas_slotmajor=spec.slotmajor,
                                pair_dtype=pair_dtype or spec.pair_dtype)
     solver = getattr(y, spec.solver)(

@@ -5,7 +5,7 @@ times whole kernels only).
     python -m yasph2d_tpu_torch.tools.k1_phases [--kind dfsph_plane]
         [--particles 100000] [--steps 60]
 
-Builds truncated copies of the kernel's source (csrc/pair_reduce.cu for a
+Builds truncated copies of the kernel's source (csrc/pair_reduce.cuh for a
 plane kind, K1, and for `--kind probe_ctx`, K7; csrc/tile_pair_reduce.cu for
 a padded kind: K3 on dfsph_padded or wcsph_padded, K5 on dfsph_padded_k5 or
 wcsph_padded_k5), each ending its blocks after one phase of the kernel, and
@@ -26,15 +26,16 @@ import json
 import numpy as np
 import torch
 
-# source: (file in csrc/, {variant: (line of the source, the statement
-# inserted after it)}); "k1" holds K1 and K7, "tile" K3 and K5
+# source: (file in csrc/ that is compiled, file in csrc/ that is cut, {variant:
+# (line of the cut file, the statement inserted after it)}); "k1" holds K1 and
+# K7, "tile" K3 and K5
 CUTS = {
-    "k1": ("pair_reduce.cu", {
+    "k1": ("pair_reduce.cu", "pair_reduce.cuh", {
         "scan": ("  if (n_live == 0) return;  // uniform across the block: an air tile",
                  "  return;"),
         "staged": ("  // the live queries, one per thread, in slot order", "  return;"),
     }),
-    "tile": ("tile_pair_reduce.cu", {
+    "tile": ("tile_pair_reduce.cu", "tile_pair_reduce.cu", {
         "scan": ("    __syncthreads();   // the list is complete", "    return;"),
         "staged": ("    // the live queries, one per thread, in slot order", "    return;"),
     }),
@@ -46,15 +47,18 @@ def build_variant(kernel: str, name: str):
     own library and load it with its launchers' signatures."""
     from yasph2d_tpu_torch.ops import cuda_build
 
-    source, cuts = CUTS[kernel]
+    unit, source, cuts = CUTS[kernel]
     anchor, stmt = cuts[name]
     src = (cuda_build.CSRC / source).read_text()
     if src.count(anchor + "\n") != 1:
         raise RuntimeError(f"k1_phases: anchor of {name!r} not found once in {source}")
-    out_dir = cuda_build.BUILD_DIR / "k1_phases"
+    out_dir = cuda_build.BUILD_DIR / "k1_phases" / f"{kernel}_{name}"
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = out_dir / f"{kernel}_{name}.cu"
-    cu.write_text(src.replace(anchor + "\n", f"{anchor}\n{stmt}\n"))
+    # the cut file beside a copy of the unit, whose quoted include finds it first
+    (out_dir / source).write_text(src.replace(anchor + "\n", f"{anchor}\n{stmt}\n"))
+    cu = out_dir / unit
+    if unit != source:
+        cu.write_text((cuda_build.CSRC / unit).read_text())
     lib_path = out_dir / f"lib{kernel}_{name}.so"
     cuda_build._run_all([[cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
                           str(cuda_build.CSRC), "-shared", "-o", str(lib_path), str(cu)]])
@@ -140,7 +144,7 @@ def main(argv=None):
         mask = (carry.ctx.mask if hasattr(carry, "ctx") else carry.mask)
         live = int(mask.sum())
     libs = {"full": cuda_build.library(),
-            **{n: build_variant(kernel, n) for n in CUTS[kernel][1]}}
+            **{n: build_variant(kernel, n) for n in CUTS[kernel][2]}}
     rows = {}
     for label, run in runs.items():
         row = {}

@@ -2,12 +2,13 @@
 
     python -m yasph2d_tpu_torch.tools.sass_compare OLD.so NEW.so
         [--match 'void pair_reduce_kernel<'] [--rename 'ViscTerm<XsphCoef>=ViscTerm' ...]
-        [--show N]
+        [--sub 'PATTERN=REPLACEMENT' ...] [--show N]
 
 Disassembles both libraries with `cuobjdump -sass` (CUDA toolkit; on the card's
-host), demangles each kernel's name with `cu++filt`, applies the renames to the
-NEW names (a template argument a later tree added, so that a kernel keeps its
-key), and compares each kernel whose name starts with `--match`, instruction
+host), demangles each kernel's name with `cu++filt`, applies the renames (plain
+text) and then the subs (regular expressions, `re.sub`) to the NEW names (a
+template argument a later tree added, so that a kernel keeps its key), and
+compares each kernel whose name starts with `--match`, instruction
 by instruction, addresses and encodings dropped. Prints one line per kernel
 (same, differs, or only in one build), with `--show` the first N differing
 instruction pairs of each kernel that differs, and a JSON summary; exits 1
@@ -32,7 +33,7 @@ def _tool(name: str) -> str:
     return found
 
 
-def kernels(lib: str, renames=()) -> dict:
+def kernels(lib: str, renames=(), subs=()) -> dict:
     """{demangled kernel name: [instruction text]} of a library's SASS."""
     sass = subprocess.run([_tool("cuobjdump"), "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
@@ -52,6 +53,8 @@ def kernels(lib: str, renames=()) -> dict:
     for m, d in zip(mangled, plain):
         for old, new in renames:
             d = d.replace(old, new)
+        for pattern, repl in subs:
+            d = re.sub(pattern, repl, d)
         result[d] = out[m]
     return result
 
@@ -64,12 +67,16 @@ def main(argv=None) -> int:
                     help="the start of the demangled names to compare")
     ap.add_argument("--rename", action="append", default=[],
                     help="OLD=NEW text replaced in the new build's kernel names")
+    ap.add_argument("--sub", action="append", default=[],
+                    help="PATTERN=REPLACEMENT regular expression applied after the renames")
     ap.add_argument("--show", type=int, default=0,
                     help="differing instruction pairs to print per kernel")
     args = ap.parse_args(argv)
     renames = [tuple(r.split("=", 1)) for r in args.rename]
+    subs = [tuple(r.split("=", 1)) for r in args.sub]
     old = {k: v for k, v in kernels(args.old).items() if k.startswith(args.match)}
-    new = {k: v for k, v in kernels(args.new, renames).items() if k.startswith(args.match)}
+    new = {k: v for k, v in kernels(args.new, renames, subs).items()
+           if k.startswith(args.match)}
     same, differs, missing = [], [], []
     for name, instrs in sorted(old.items()):
         if name not in new:
