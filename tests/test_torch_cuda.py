@@ -14,7 +14,9 @@ ones, also on sources whose dead slots hold rho = 0 or NaN. The FMA probe of K6 
 (rtol 1e-5); its mix probe is bit-equal to the twin. The halo forms of K1 and
 K2 (spatial sharding) are bit-equal to their twins and, band by band, to the
 one-device kernels on the whole grid; the sharded plane steps on two gloo
-ranks sharing the card equal the one-device step."""
+ranks sharing the card equal the one-device step. So do the halo forms of K5
+(to its twin at K5's tolerance, to the one-device kernel's rows bit for bit)
+and K4 (bit for bit), and the sharded padded K5 steps."""
 
 import dataclasses
 
@@ -1291,3 +1293,171 @@ def test_sharded_plane_steps_equal_one_device(device, kind):
         assert launches and all(k.endswith("_halo") for k in launches)
     upper = results[1][1]
     assert upper[-1] > upper[0]  # particles crossed the seam into the upper shard
+
+
+# ------------------------------------------- K5 / K4 halo forms (padded sharding)
+
+SLOT_BANDS = ((0, 8), (8, 16), (16, 23), (0, 23))  # the last: one shard, dead halo
+
+
+def _slot_halo(t, r0, r1):
+    """Rows r0 - 1 and r1 of an (ny, nx, ...) slot tensor as (2, nx, ...), zero
+    (dead) off the grid, as the ends of a mesh receive them."""
+    rows = [t[r:r + 1] if 0 <= r < t.shape[0] else torch.zeros_like(t[:1])
+            for r in (r0 - 1, r1)]
+    return torch.cat(rows).contiguous()
+
+
+@pytest.mark.parametrize("source", ["same", "deep"])
+@pytest.mark.parametrize("form", list(tpp.cuda_build.TILE_PAIR_FORMS))
+def test_tile_pair_kernel_halo_forms_match_twin(device, k3case, form, source):
+    """Every K5 halo launcher on row bands of K3's synthetic P = 40 case (its
+    own source, or the Ps = 40 space whose dead slots hold NaN): the two
+    inner seams' halo rows hold live slots, the edges' are dead, and one band
+    is the whole grid (a one-shard mesh). Each call is one launch counted
+    under <form>_halo, agrees with its twin at K5's tolerance, and equals the
+    one-device kernel's rows of the whole grid bit for bit (each query sums
+    the same candidates in the same order)."""
+    dfsph, wcsph, spaces = k3case
+    k5 = [dataclasses.replace(s, grid=dataclasses.replace(s.grid, use_pallas_slotmajor=False))
+          for s in (dfsph, wcsph)]
+    (pos, mask), qv = spaces["p40"]
+    (spos, smask), sv = spaces[source] if source == "deep" else spaces["p40"]
+    pform, consts, kw = _k3_form(*k5, form, qv, sv)
+    assert pform.name == form
+    full = tpp.pallas_pair_reduce(pform, pos, mask, spos, smask, consts, **kw)
+    name = form + "_halo"
+    for r0, r1 in SLOT_BANDS:
+        rows = tuple(_slot_halo(t, r0, r1) for t in (spos, smask, *kw.get("s_vals", ())))
+        if 0 < r0:
+            assert bool(rows[1].any())  # a seam: live halo slots
+        kb = {k: tuple(t[r0:r1].contiguous() for t in kw[k])
+              for k in ("q_vals", "s_vals") if k in kw}
+        args = (pform, pos[r0:r1].contiguous(), mask[r0:r1].contiguous(),
+                spos[r0:r1].contiguous(), smask[r0:r1].contiguous())
+        before = tpp.LAUNCHES[name]
+        out = tpp.pallas_pair_reduce(*args, consts, scalars=kw.get("scalars", ()),
+                                     halo=Halo(rows, r0, 23), **kb)
+        assert tpp.LAUNCHES[name] == before + 1
+        twin = tpp.pallas_pair_reduce_ref(pform.term_fn, pform.n_out, *args[1:],
+                                          consts.radius_sq, scalars=kw.get("scalars", ()),
+                                          halo=Halo(rows, r0, 23), **kb)
+        torch.cuda.synchronize()
+        live = args[2][..., None].expand_as(out)
+        torch.testing.assert_close(out[live], twin[live], rtol=1e-5,
+                                   atol=1e-6 * max(1.0, float(twin[live].abs().max())))
+        assert (out[~live] == 0).all()
+        assert torch.equal(out.view(torch.int32), full[r0:r1].view(torch.int32))
+    assert float(full.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("overflow", [False, True], ids=["seams", "overflow"])
+@pytest.mark.parametrize("widths", [(2,), (2, 1, 1)], ids=["d2", "d4"])
+@pytest.mark.parametrize("p", [6, 40, smr.STAGED_MAX_P + 8], ids=["p6", "p40", "p_direct"])
+def test_sm_rebucket_halo_kernel_bit_equal(device, p, widths, overflow):
+    """K4's halo form through the parts entry on row bands of a ragged grid
+    (slots moved up to a row across each seam, or crowded into cells), the
+    last band the whole grid with dead halo rows (a one-shard mesh): one
+    launch counted under sm_rebucket_halo, bit-equal to its twin, and the
+    bands' outputs are the one-device kernel's rows with the same total
+    drops; the staged route (P = 6, P = 40) and the one-thread-per-cell
+    route (P beyond the staged limit)."""
+    ny = 23 if p <= 40 else 6
+    bands = SLOT_BANDS if p <= 40 else ((0, 3), (3, 6), (0, 6))
+    grid, pos, mask, vals = _k4_case(device, p, ny, 37 if p <= 40 else 7, 0.7, seed=40 + p,
+                                     full=overflow)
+    h = grid.cell_size
+    gen = torch.Generator().manual_seed(p)
+    step = torch.randint(-1, 2, pos.shape[:-1], generator=gen).to(device)
+    adv = pos.clone()
+    adv[..., 1] += step * h * 0.9
+    adv[..., 0] += (torch.rand(pos.shape[:-1], generator=gen).to(device) - 0.5) * 0.3 * h
+    if overflow:
+        adv[..., 0] += 0.6 * h  # crowds cells
+    parts, k = [], 0
+    for c in widths:
+        parts.append(vals[..., k].contiguous() if c == 1 else vals[..., k:k + c].contiguous())
+        k += c
+    full = smr.sm_rebucket_parts(adv, mask, tuple(parts), grid)
+    drops, crossed = 0, 0
+    for r0, r1 in bands:
+        halo = Halo(tuple(_slot_halo(t, r0, r1) for t in (mask, adv, *parts)), r0, ny)
+        args = (adv[r0:r1].contiguous(), mask[r0:r1].contiguous(),
+                tuple(t[r0:r1].contiguous() for t in parts),
+                dataclasses.replace(grid, ny=r1 - r0))
+        before = smr.LAUNCHES["sm_rebucket_halo"]
+        out = smr.sm_rebucket_parts(*args, halo=halo)
+        assert smr.LAUNCHES["sm_rebucket_halo"] == before + 1
+        ref = smr.sm_rebucket_ref(args[0], args[1], vals[r0:r1, :, :, :k].contiguous(), args[3],
+                                  halo._replace(planes=(*halo.planes[:2], _slot_halo(
+                                      vals[..., :k].contiguous(), r0, r1))))
+        torch.cuda.synchronize()
+        stacked = torch.cat([v[..., None] if v.ndim == 3 else v for v in out[2]], dim=-1)
+        got = _bits((out[0], out[1], stacked, out[3]))
+        for what, a, b in zip(("positions", "mask", "payload", "drops"), got, _bits(ref)):
+            assert torch.equal(a, b), f"{what} [{r0}, {r1})"
+        for a, b in zip((out[0], out[1], *out[2]), (full[0], full[1], *full[2])):
+            assert torch.equal(_bits((a,))[0], _bits((b[r0:r1],))[0])
+        if (r0, r1) != (0, ny):
+            drops += int(out[3])
+            crossed += abs(int(out[1].sum()) - int(args[1].sum()))
+    assert drops == int(full[3])
+    assert crossed > 0
+    if overflow:
+        assert drops > 0
+
+
+def _sharded_padded_rank(group, kind, steps, kick):
+    """One gloo rank of test_sharded_padded_steps_equal_one_device: the 3k
+    double dam-break, fluid kicked upward by `kick` m/s, `steps` sharded
+    steps of the padded driver; (per-step counts, gathered live rows, the
+    launches of the run)."""
+    from yasph2d_tpu_torch.parallel.shard_dense import ShardedDFSPHPadded, ShardedWCSPHPadded
+
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver(kind, world, device=group.device, ny_multiple=group.size)
+    cls = ShardedDFSPHPadded if kind.startswith("dfsph") else ShardedWCSPHPadded
+    sharded = cls(group, viscosity_model=solver.viscosity_model,
+                  properties=solver.properties, full_grid=solver.grid,
+                  step_config=solver.step_config)
+    state = world.initial_state(device=group.device)
+    state = state._replace(velocities=state.velocities + torch.tensor(
+        [0.0, kick], device=group.device))
+    carry, b = sharded.init(state, boundary)
+    tpp.reset_launch_counts()
+    smr.reset_launch_counts()
+    counts = []
+    for _ in range(steps):
+        carry, d = sharded.simulate(carry, b, 1)
+        counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
+    launches = {k: v for k, v in {**tpp.LAUNCHES, **smr.LAUNCHES}.items() if v}
+    return counts, sharded.gather_live_rows(carry).cpu(), launches
+
+
+@pytest.mark.parametrize("kind", ["dfsph_padded_k5", "wcsph_padded_k5"])
+def test_sharded_padded_steps_equal_one_device(device, kind):
+    """Two gloo ranks sharing the card: 40 steps of the 3k double dam-break
+    kicked 3 m/s upward give the one-device padded solver's per-step
+    iterations and drops and its live rows bit for bit, through K5's and
+    K4's halo launchers only."""
+    from yasph2d_tpu_torch.parallel import comm
+
+    steps, kick = 40, 3.0
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver(kind, world, device=device, ny_multiple=2)
+    state = world.initial_state(device=device)
+    state = state._replace(velocities=state.velocities + torch.tensor([0.0, kick],
+                                                                        device=device))
+    carry = solver.init_carry(state, boundary)
+    counts = []
+    for _ in range(steps):
+        carry, d = solver.simulate(carry, boundary, 1)
+        counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
+    s = solver.export_state(carry)
+    rows = torch.cat([s.positions, s.velocities, s.densities[:, None]], 1)[s.alive].cpu()
+    results = comm.spawn(_sharded_padded_rank, 2, "gloo", [device, device], kind, steps, kick)
+    for got_counts, got_rows, launches in results:
+        assert got_counts == counts
+        assert torch.equal(got_rows.view(torch.int32), rows.view(torch.int32))
+        assert launches and all(k.endswith("_halo") for k in launches)
+        assert "sm_rebucket_halo" in launches

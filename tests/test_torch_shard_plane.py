@@ -598,7 +598,9 @@ def test_sharded_step_matches_jax_sharded_step(mesh):
 
 
 def test_parallel_imports_no_jax():
-    """The port's parallel package imports neither JAX nor the JAX package."""
+    """The port's parallel package (the plane and the padded shard routes) and
+    the kernels' wrappers with halo forms import neither JAX nor the JAX
+    package."""
     import subprocess
     import sys
     from pathlib import Path
@@ -607,6 +609,10 @@ def test_parallel_imports_no_jax():
         "import sys\n"
         "import yasph2d_tpu_torch.parallel.comm, yasph2d_tpu_torch.parallel.shard_dense\n"
         "import yasph2d_tpu_torch.parallel.shard_plane\n"
+        "from yasph2d_tpu_torch.parallel.shard_dense import ShardedDFSPHPadded, "
+        "ShardedWCSPHPadded\n"
+        "import yasph2d_tpu_torch.ops.pallas_pair, yasph2d_tpu_torch.ops.sm_rebucket\n"
+        "import yasph2d_tpu_torch.ops.pair_reduce, yasph2d_tpu_torch.ops.rebucket\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m.split('.')[0] == 'yasph2d_tpu']\n"
         "assert not bad, bad\n"

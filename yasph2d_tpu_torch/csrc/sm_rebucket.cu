@@ -51,6 +51,24 @@
 //  shared memory) takes a slower route in the same launch: one thread per
 //  target cell scans its 9 x P source slots in device memory.
 //
+// Halo form (template parameter HALO, args HaloSrArgs, launcher
+// sm_rebucket_halo), for spatial sharding over cell rows
+// (parallel/shard_dense.py): the source rows -1 and ny, dead on one device,
+// are the neighbouring shards' edge rows of the mask, the positions and every
+// payload part (h_mask (2, nx, P), h_pos (2, nx, P) float2, h_in[j]
+// (2, nx, P, c_j); row -1 at index 0), which the caller exchanged; at the ends
+// of the mesh they arrive dead. Every move code, the halo rows' too, is taken
+// against global rows: row gy is cell row row0 + gy and MoveGrid's ny is the
+// global row count. So a slot that crosses the seam into an edge row arrives
+// from the halo, one that leaves is taken by the neighbour, and the drops are
+// this shard's. A source slot of a halo row is numbered past the grid's
+// slots (ny * nx * P + its index in the halo rows). The JAX package's sharded
+// padded route runs this re-bucket in XLA (dense_grid.rebucket(row0=...)),
+// whose halo carries the neighbours' codes and payload; K4 computes the halo
+// rows' codes itself, as K2's halo form does. The one-device kernels keep
+// their statements and parameter struct under `if constexpr`, so their code
+// is what it was.
+//
 // What bounds it on the H100: device-memory bytes. It must write every output
 // slot (28 MB at 100k with D = 4) and read the mask and the live slots'
 // positions and payload once. The first K4 ran one thread per target cell
@@ -61,6 +79,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "move_code.cuh"
 
@@ -94,6 +114,17 @@ struct SrArgs {
   MoveGrid mg;
 };
 
+// the halo form's arguments: rows -1 (index 0) and ny (index 1)
+struct HaloSrArgs : SrArgs {
+  const bool* h_mask;                // (2, nx, P)
+  const float2* h_pos;               // (2, nx, P)
+  const float* h_in[SR_MAX_PARTS];   // (2, nx, P, c) each
+  int row0;                          // this shard's first global cell row
+};
+
+template <bool HALO>
+using SrKernelArgs = std::conditional_t<HALO, HaloSrArgs, SrArgs>;
+
 // t / P for 0 <= t < 2^32 / P (a tile's slot indices at P <= SR_STAGED_MAX_P)
 __device__ __forceinline__ int div_p(int t, const SrArgs& a) {
   return a.P == 1 ? t : (int)__umulhi((unsigned)t, a.magic);
@@ -124,95 +155,220 @@ __device__ __forceinline__ void write_slot(const SrArgs& a, long dst, long src) 
   a.new_mask[dst] = src >= 0;
 }
 
-__global__ void __launch_bounds__(SR_THREADS) sm_rebucket_staged(const SrArgs a) {
-  extern __shared__ unsigned bits[];  // [9 codes][SR_HC cells][W words]
-  const int tid = threadIdx.x;
-  const int y0 = blockIdx.y * SR_TY;
-  const int x0 = blockIdx.x * SR_TX;
-  const int W = a.W;
-  for (int i = tid; i < 9 * SR_HC * W; i += SR_THREADS) bits[i] = 0u;
-  __syncthreads();
-
-  // 1. move codes of the haloed source tile's live slots, as bits
-  const int n_stage = SR_HC * a.P;
-  bool seen = false;
-  for (int base = tid; base < n_stage; base += SR_STAGE_UNROLL * SR_THREADS) {
-    long g[SR_STAGE_UNROLL];
-    int cell[SR_STAGE_UNROLL], sp[SR_STAGE_UNROLL];
-    bool m[SR_STAGE_UNROLL];
-#pragma unroll
-    for (int u = 0; u < SR_STAGE_UNROLL; ++u) {
-      const int t = base + u * SR_THREADS;
-      const int c = div_p(t, a);
-      const int hy = c / SR_HX;
-      const int gy = y0 + hy - 1;
-      const int gx = x0 + (c - hy * SR_HX) - 1;
-      cell[u] = c;
-      sp[u] = t - c * a.P;
-      g[u] = -1;
-      m[u] = false;
-      if (t < n_stage && gy >= 0 && gy < a.ny && gx >= 0 && gx < a.nx) {
-        g[u] = ((long)gy * a.nx + gx) * a.P + sp[u];
-        m[u] = __ldg(reinterpret_cast<const unsigned char*>(a.mask) + g[u]) != 0;
-      }
-    }
-    float2 q[SR_STAGE_UNROLL];
-#pragma unroll
-    for (int u = 0; u < SR_STAGE_UNROLL; ++u)
-      q[u] = m[u] ? __ldg(a.pos + g[u]) : make_float2(0.0f, 0.0f);
-#pragma unroll
-    for (int u = 0; u < SR_STAGE_UNROLL; ++u) {
-      if (!m[u]) continue;
-      const int hy = cell[u] / SR_HX;
-      const int code = move_code(q[u].x, q[u].y, y0 + hy - 1, x0 + (cell[u] - hy * SR_HX) - 1,
-                                 a.mg);
-      atomicOr(&bits[((code - 1) * SR_HC + cell[u]) * W + (sp[u] >> 5)], 1u << (sp[u] & 31));
-      seen = true;
-    }
+// a halo form's source slot `src`: the grid's below n_grid = ny * nx * P,
+// else index src - n_grid of the halo rows; copied as write_slot copies
+__device__ __forceinline__ void write_slot_halo(const HaloSrArgs& a, long dst, long src,
+                                                long n_grid) {
+  if (src < n_grid) {
+    write_slot(a, dst, src);
+    return;
   }
-  const bool any = __syncthreads_or(seen);
+  const long h = src - n_grid;
+  const float2 q = __ldg(a.h_pos + h);
+  a.out_pos[dst] = make_float2(0.0f + q.x, 0.0f + q.y);
+#pragma unroll
+  for (int j = 0; j < SR_MAX_PARTS; ++j) {
+    if (j >= a.n_parts) break;
+    const SrPart pt = a.part[j];
+    for (int i = 0; i < pt.c; ++i) pt.out[dst * pt.c + i] = 0.0f + __ldg(a.h_in[j] + h * pt.c + i);
+  }
+  a.new_mask[dst] = true;
+}
 
-  // 2. every target slot of the tile, in memory order
-  const int n_out = SR_TY * SR_TX * a.P;
-  int over = 0;
-  for (int o = tid; o < n_out; o += SR_THREADS) {
-    const int cl = div_p(o, a);
-    const int k = o - cl * a.P;
-    const int ly = cl / SR_TX;
-    const int lx = cl - ly * SR_TX;
-    const int y = y0 + ly;
-    const int x = x0 + lx;
-    if (y >= a.ny || x >= a.nx) continue;
-    long src = -1;
-    if (any) {
-      int total = 0;
-      for (int dyv = 0; dyv < 3; ++dyv) {
-        for (int dxv = 0; dxv < 3; ++dxv) {
-          // the source cell's slots whose code points at this cell
-          const int code = (2 - dyv) * 3 + (2 - dxv);  // minus 1
-          const unsigned* wp = bits + (code * SR_HC + (ly + dyv) * SR_HX + (lx + dxv)) * W;
-          for (int w = 0; w < W; ++w) {
-            unsigned word = wp[w];
-            const int n = __popc(word);
-            if (src < 0 && k < total + n) {
-              for (int r = k - total; r > 0; --r) word &= word - 1u;
-              src = ((long)(y + dyv - 1) * a.nx + (x + dxv - 1)) * a.P + w * 32 + __ffs(word) - 1;
-            }
-            total += n;
-          }
+// the number of the grid's slots, ny * nx * P: a halo form numbers the halo
+// rows' slots after them
+__device__ __forceinline__ long grid_slots(const SrArgs& a) { return (long)a.ny * a.nx * a.P; }
+
+// the slot index of source slot sp of cell (sy, sx): the grid's, or under
+// HALO for rows -1 and ny the halo rows' past n_grid
+__device__ __forceinline__ long halo_slot(int sy, int sx, int sp, int ny, int nx, int P,
+                                          long n_grid) {
+  if (sy >= 0 && sy < ny) return ((long)sy * nx + sx) * P + sp;
+  return n_grid + ((long)(sy < 0 ? 0 : 1) * nx + sx) * P + sp;
+}
+
+// HALO: the halo form (the one-device body below it is the one-device kernel's,
+// statement for statement, so that its code does not change)
+template <bool HALO>
+__global__ void __launch_bounds__(SR_THREADS) sm_rebucket_staged(const SrKernelArgs<HALO> a) {
+  if constexpr (HALO) {
+    // rows -1 and ny from the halo rows, numbered past the grid's slots;
+    // codes against global rows
+    extern __shared__ unsigned bits[];  // [9 codes][SR_HC cells][W words]
+    const int tid = threadIdx.x;
+    const int y0 = blockIdx.y * SR_TY;
+    const int x0 = blockIdx.x * SR_TX;
+    const int W = a.W;
+    const long n_grid = grid_slots(a);
+    for (int i = tid; i < 9 * SR_HC * W; i += SR_THREADS) bits[i] = 0u;
+    __syncthreads();
+
+    const int n_stage = SR_HC * a.P;
+    bool seen = false;
+    for (int base = tid; base < n_stage; base += SR_STAGE_UNROLL * SR_THREADS) {
+      long g[SR_STAGE_UNROLL];
+      int cell[SR_STAGE_UNROLL], sp[SR_STAGE_UNROLL];
+      bool m[SR_STAGE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SR_STAGE_UNROLL; ++u) {
+        const int t = base + u * SR_THREADS;
+        const int c = div_p(t, a);
+        const int hy = c / SR_HX;
+        const int gy = y0 + hy - 1;
+        const int gx = x0 + (c - hy * SR_HX) - 1;
+        cell[u] = c;
+        sp[u] = t - c * a.P;
+        g[u] = -1;
+        m[u] = false;
+        if (t < n_stage && gy >= -1 && gy <= a.ny && gx >= 0 && gx < a.nx) {
+          g[u] = halo_slot(gy, gx, sp[u], a.ny, a.nx, a.P, n_grid);
+          m[u] = __ldg(reinterpret_cast<const unsigned char*>(g[u] < n_grid ? a.mask : a.h_mask) +
+                       (g[u] < n_grid ? g[u] : g[u] - n_grid)) != 0;
         }
       }
-      if (k == 0) over += max(total - a.P, 0);
+      float2 q[SR_STAGE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SR_STAGE_UNROLL; ++u)
+        q[u] = m[u] ? __ldg(g[u] < n_grid ? a.pos + g[u] : a.h_pos + (g[u] - n_grid))
+                    : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int u = 0; u < SR_STAGE_UNROLL; ++u) {
+        if (!m[u]) continue;
+        const int hy = cell[u] / SR_HX;
+        const int code = move_code(q[u].x, q[u].y, a.row0 + y0 + hy - 1,
+                                   x0 + (cell[u] - hy * SR_HX) - 1, a.mg);
+        atomicOr(&bits[((code - 1) * SR_HC + cell[u]) * W + (sp[u] >> 5)], 1u << (sp[u] & 31));
+        seen = true;
+      }
     }
-    write_slot(a, ((long)y * a.nx + x) * a.P + k, src);
+    const bool any = __syncthreads_or(seen);
+
+    const int n_out = SR_TY * SR_TX * a.P;
+    int over = 0;
+    for (int o = tid; o < n_out; o += SR_THREADS) {
+      const int cl = div_p(o, a);
+      const int k = o - cl * a.P;
+      const int ly = cl / SR_TX;
+      const int lx = cl - ly * SR_TX;
+      const int y = y0 + ly;
+      const int x = x0 + lx;
+      if (y >= a.ny || x >= a.nx) continue;
+      long src = -1;
+      if (any) {
+        int total = 0;
+        for (int dyv = 0; dyv < 3; ++dyv) {
+          for (int dxv = 0; dxv < 3; ++dxv) {
+            const int code = (2 - dyv) * 3 + (2 - dxv);  // minus 1
+            const unsigned* wp = bits + (code * SR_HC + (ly + dyv) * SR_HX + (lx + dxv)) * W;
+            for (int w = 0; w < W; ++w) {
+              unsigned word = wp[w];
+              const int n = __popc(word);
+              if (src < 0 && k < total + n) {
+                for (int r = k - total; r > 0; --r) word &= word - 1u;
+                src = halo_slot(y + dyv - 1, x + dxv - 1, w * 32 + __ffs(word) - 1, a.ny, a.nx,
+                                a.P, n_grid);
+              }
+              total += n;
+            }
+          }
+        }
+        if (k == 0) over += max(total - a.P, 0);
+      }
+      write_slot_halo(a, ((long)y * a.nx + x) * a.P + k, src, n_grid);
+    }
+    over = __reduce_add_sync(0xffffffffu, over);
+    if ((tid & 31) == 0 && over > 0) atomicAdd(a.dropped, over);
+  } else {
+    extern __shared__ unsigned bits[];  // [9 codes][SR_HC cells][W words]
+    const int tid = threadIdx.x;
+    const int y0 = blockIdx.y * SR_TY;
+    const int x0 = blockIdx.x * SR_TX;
+    const int W = a.W;
+    for (int i = tid; i < 9 * SR_HC * W; i += SR_THREADS) bits[i] = 0u;
+    __syncthreads();
+
+    // 1. move codes of the haloed source tile's live slots, as bits
+    const int n_stage = SR_HC * a.P;
+    bool seen = false;
+    for (int base = tid; base < n_stage; base += SR_STAGE_UNROLL * SR_THREADS) {
+      long g[SR_STAGE_UNROLL];
+      int cell[SR_STAGE_UNROLL], sp[SR_STAGE_UNROLL];
+      bool m[SR_STAGE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SR_STAGE_UNROLL; ++u) {
+        const int t = base + u * SR_THREADS;
+        const int c = div_p(t, a);
+        const int hy = c / SR_HX;
+        const int gy = y0 + hy - 1;
+        const int gx = x0 + (c - hy * SR_HX) - 1;
+        cell[u] = c;
+        sp[u] = t - c * a.P;
+        g[u] = -1;
+        m[u] = false;
+        if (t < n_stage && gy >= 0 && gy < a.ny && gx >= 0 && gx < a.nx) {
+          g[u] = ((long)gy * a.nx + gx) * a.P + sp[u];
+          m[u] = __ldg(reinterpret_cast<const unsigned char*>(a.mask) + g[u]) != 0;
+        }
+      }
+      float2 q[SR_STAGE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < SR_STAGE_UNROLL; ++u)
+        q[u] = m[u] ? __ldg(a.pos + g[u]) : make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int u = 0; u < SR_STAGE_UNROLL; ++u) {
+        if (!m[u]) continue;
+        const int hy = cell[u] / SR_HX;
+        const int code = move_code(q[u].x, q[u].y, y0 + hy - 1, x0 + (cell[u] - hy * SR_HX) - 1,
+                                   a.mg);
+        atomicOr(&bits[((code - 1) * SR_HC + cell[u]) * W + (sp[u] >> 5)], 1u << (sp[u] & 31));
+        seen = true;
+      }
+    }
+    const bool any = __syncthreads_or(seen);
+
+    // 2. every target slot of the tile, in memory order
+    const int n_out = SR_TY * SR_TX * a.P;
+    int over = 0;
+    for (int o = tid; o < n_out; o += SR_THREADS) {
+      const int cl = div_p(o, a);
+      const int k = o - cl * a.P;
+      const int ly = cl / SR_TX;
+      const int lx = cl - ly * SR_TX;
+      const int y = y0 + ly;
+      const int x = x0 + lx;
+      if (y >= a.ny || x >= a.nx) continue;
+      long src = -1;
+      if (any) {
+        int total = 0;
+        for (int dyv = 0; dyv < 3; ++dyv) {
+          for (int dxv = 0; dxv < 3; ++dxv) {
+            // the source cell's slots whose code points at this cell
+            const int code = (2 - dyv) * 3 + (2 - dxv);  // minus 1
+            const unsigned* wp = bits + (code * SR_HC + (ly + dyv) * SR_HX + (lx + dxv)) * W;
+            for (int w = 0; w < W; ++w) {
+              unsigned word = wp[w];
+              const int n = __popc(word);
+              if (src < 0 && k < total + n) {
+                for (int r = k - total; r > 0; --r) word &= word - 1u;
+                src = ((long)(y + dyv - 1) * a.nx + (x + dxv - 1)) * a.P + w * 32 + __ffs(word) - 1;
+              }
+              total += n;
+            }
+          }
+        }
+        if (k == 0) over += max(total - a.P, 0);
+      }
+      write_slot(a, ((long)y * a.nx + x) * a.P + k, src);
+    }
+    // every lane of the warp takes part (the loop above has no early return)
+    over = __reduce_add_sync(0xffffffffu, over);
+    if ((tid & 31) == 0 && over > 0) atomicAdd(a.dropped, over);
   }
-  // every lane of the warp takes part (the loop above has no early return)
-  over = __reduce_add_sync(0xffffffffu, over);
-  if ((tid & 31) == 0 && over > 0) atomicAdd(a.dropped, over);
 }
 
 // P > SR_STAGED_MAX_P: one thread per target cell, codes computed in place
-__global__ void __launch_bounds__(SR_THREADS) sm_rebucket_direct(const SrArgs a) {
+template <bool HALO>
+__global__ void __launch_bounds__(SR_THREADS) sm_rebucket_direct(const SrKernelArgs<HALO> a) {
   const int cell = blockIdx.x * blockDim.x + threadIdx.x;
   const bool inside = cell < a.ny * a.nx;
   int k = 0;
@@ -220,20 +376,44 @@ __global__ void __launch_bounds__(SR_THREADS) sm_rebucket_direct(const SrArgs a)
     const int y = cell / a.nx;
     const int x = cell - y * a.nx;
     const long first = (long)cell * a.P;
-    for (int dyv = 0; dyv < 3; ++dyv) {
-      const int sy = y + dyv - 1;
-      if (sy < 0 || sy >= a.ny) continue;
-      for (int dxv = 0; dxv < 3; ++dxv) {
-        const int sx = x + dxv - 1;
-        if (sx < 0 || sx >= a.nx) continue;
-        const int expected = (2 - dyv) * 3 + (2 - dxv) + 1;
-        const long base = ((long)sy * a.nx + sx) * a.P;
-        for (int sp = 0; sp < a.P; ++sp) {
-          if (!a.mask[base + sp]) continue;
-          const float2 q = a.pos[base + sp];
-          if (move_code(q.x, q.y, sy, sx, a.mg) != expected) continue;
-          if (k < a.P) write_slot(a, first + k, base + sp);
-          ++k;
+    if constexpr (HALO) {
+      // rows -1 and ny from the halo rows, codes against global rows
+      const long n_grid = grid_slots(a);
+      for (int dyv = 0; dyv < 3; ++dyv) {
+        const int sy = y + dyv - 1;
+        const bool grid_row = sy >= 0 && sy < a.ny;
+        for (int dxv = 0; dxv < 3; ++dxv) {
+          const int sx = x + dxv - 1;
+          if (sx < 0 || sx >= a.nx) continue;
+          const int expected = (2 - dyv) * 3 + (2 - dxv) + 1;
+          const long base = halo_slot(sy, sx, 0, a.ny, a.nx, a.P, n_grid);
+          const bool* mask = grid_row ? a.mask + base : a.h_mask + (base - n_grid);
+          const float2* pos = grid_row ? a.pos + base : a.h_pos + (base - n_grid);
+          for (int sp = 0; sp < a.P; ++sp) {
+            if (!mask[sp]) continue;
+            const float2 q = pos[sp];
+            if (move_code(q.x, q.y, a.row0 + sy, sx, a.mg) != expected) continue;
+            if (k < a.P) write_slot_halo(a, first + k, base + sp, n_grid);
+            ++k;
+          }
+        }
+      }
+    } else {
+      for (int dyv = 0; dyv < 3; ++dyv) {
+        const int sy = y + dyv - 1;
+        if (sy < 0 || sy >= a.ny) continue;
+        for (int dxv = 0; dxv < 3; ++dxv) {
+          const int sx = x + dxv - 1;
+          if (sx < 0 || sx >= a.nx) continue;
+          const int expected = (2 - dyv) * 3 + (2 - dxv) + 1;
+          const long base = ((long)sy * a.nx + sx) * a.P;
+          for (int sp = 0; sp < a.P; ++sp) {
+            if (!a.mask[base + sp]) continue;
+            const float2 q = a.pos[base + sp];
+            if (move_code(q.x, q.y, sy, sx, a.mg) != expected) continue;
+            if (k < a.P) write_slot(a, first + k, base + sp);
+            ++k;
+          }
         }
       }
     }
@@ -243,13 +423,18 @@ __global__ void __launch_bounds__(SR_THREADS) sm_rebucket_direct(const SrArgs a)
   if ((threadIdx.x & 31) == 0 && over > 0) atomicAdd(a.dropped, over);
 }
 
-extern "C" int sm_rebucket(const void* mask, const void* pos, const void* const* part_in,
-                           void* const* part_out, const int* part_c, int n_parts,
-                           void* out_pos, void* new_mask, void* dropped, int P, int ny,
-                           int nx, int grid_nx, int grid_ny, float inv, float ox, float oy,
-                           void* stream) {
+// HALO: h_mask, h_pos and h_in (n_parts pointers) are the halo rows, row0 the
+// shard's first global row and grid_ny the global row count
+template <bool HALO>
+static int sm_rebucket_launch(const void* mask, const void* pos, const void* const* part_in,
+                              void* const* part_out, const int* part_c, int n_parts,
+                              void* out_pos, void* new_mask, void* dropped, int P, int ny,
+                              int nx, int grid_nx, int grid_ny, float inv, float ox, float oy,
+                              void* stream, const void* h_mask = nullptr,
+                              const void* h_pos = nullptr, const void* const* h_in = nullptr,
+                              int row0 = 0) {
   if (n_parts < 0 || n_parts > SR_MAX_PARTS || P < 1) return (int)cudaErrorInvalidValue;
-  SrArgs a;
+  SrKernelArgs<HALO> a;
   for (int j = 0; j < SR_MAX_PARTS; ++j) {
     a.part[j] = SrPart{nullptr, nullptr, 0};
     if (j < n_parts) {
@@ -257,6 +442,13 @@ extern "C" int sm_rebucket(const void* mask, const void* pos, const void* const*
       a.part[j] = SrPart{static_cast<const float*>(part_in[j]), static_cast<float*>(part_out[j]),
                          part_c[j]};
     }
+  }
+  if constexpr (HALO) {
+    a.h_mask = static_cast<const bool*>(h_mask);
+    a.h_pos = static_cast<const float2*>(h_pos);
+    for (int j = 0; j < SR_MAX_PARTS; ++j)
+      a.h_in[j] = j < n_parts ? static_cast<const float*>(h_in[j]) : nullptr;
+    a.row0 = row0;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(dropped, 0, sizeof(int), s);
@@ -277,16 +469,38 @@ extern "C" int sm_rebucket(const void* mask, const void* pos, const void* const*
   if (cells == 0) return (int)cudaSuccess;
   if (P > SR_STAGED_MAX_P) {
     const int blocks = (int)((cells + SR_THREADS - 1) / SR_THREADS);
-    sm_rebucket_direct<<<blocks, SR_THREADS, 0, s>>>(a);
+    sm_rebucket_direct<HALO><<<blocks, SR_THREADS, 0, s>>>(a);
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)9 * SR_HC * a.W * sizeof(unsigned);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(sm_rebucket_staged, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(sm_rebucket_staged<HALO>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((nx + SR_TX - 1) / SR_TX, (ny + SR_TY - 1) / SR_TY);
-  sm_rebucket_staged<<<grid, SR_THREADS, smem, s>>>(a);
+  sm_rebucket_staged<HALO><<<grid, SR_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+extern "C" int sm_rebucket(const void* mask, const void* pos, const void* const* part_in,
+                           void* const* part_out, const int* part_c, int n_parts,
+                           void* out_pos, void* new_mask, void* dropped, int P, int ny,
+                           int nx, int grid_nx, int grid_ny, float inv, float ox, float oy,
+                           void* stream) {
+  return sm_rebucket_launch<false>(mask, pos, part_in, part_out, part_c, n_parts, out_pos,
+                                   new_mask, dropped, P, ny, nx, grid_nx, grid_ny, inv, ox, oy,
+                                   stream);
+}
+
+// the halo form: grid_ny is the global row count
+extern "C" int sm_rebucket_halo(const void* mask, const void* pos, const void* const* part_in,
+                                void* const* part_out, const int* part_c, int n_parts,
+                                void* out_pos, void* new_mask, void* dropped, int P, int ny,
+                                int nx, int grid_nx, int grid_ny, float inv, float ox,
+                                float oy, const void* h_mask, const void* h_pos,
+                                const void* const* h_in, int row0, void* stream) {
+  return sm_rebucket_launch<true>(mask, pos, part_in, part_out, part_c, n_parts, out_pos,
+                                  new_mask, dropped, P, ny, nx, grid_nx, grid_ny, inv, ox, oy,
+                                  stream, h_mask, h_pos, h_in, row0);
 }

@@ -1,0 +1,37 @@
+// K5's halo-form launchers, for spatial sharding over cell rows: the kernel of
+// csrc/tile_pair_reduce.cuh in K5's sum order with HALO set, so that source
+// rows -1 and ny are read from the neighbouring shards' rows (h_pos
+// (2, nx, Ps) float2, h_mask (2, nx, Ps) and one (2, nx, Ps) row pair per
+// source value component, row -1 at index 0) instead of being dead. Its JAX
+// counterpart under sharding is the XLA dense_grid.pair_reduce with its
+// halo2d_multi exchange (the Pallas kernel of yasph2d_tpu/ops/pallas_pair.py,
+// which this kernel replaces on one device, only pads zeros there). Built by
+// its own nvcc process beside csrc/tile_pair_reduce.cu.
+
+#include "tile_pair_reduce.cuh"
+
+// tile_pair_reduce_NAME_halo: the arguments of tile_pair_reduce_NAME, then the
+// halo rows' positions, mask and source value pointers
+#define TILE_HALO_LAUNCHER(NAME, TERM)                                                \
+  extern "C" int tile_pair_reduce_##NAME##_halo(                                      \
+      const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,   \
+      const void* const* vals, const int* strides, int n_vals, void* out, int P,      \
+      int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,     \
+      float scalar, const void* h_pos, const void* h_mask, const void* const* h_vals, \
+      const PairConsts* consts, void* stream) {                                       \
+    return launch<TERM, true, true>(q_pos, q_mask, s_pos, s_mask, vals, strides,      \
+                                    n_vals, out, P, Ps, ny, nx, ty, tx, threads,      \
+                                    q_round, smem, scalar, consts, stream, h_pos,     \
+                                    h_mask, h_vals);                                  \
+  }
+
+// the forms of the padded K5 route (csrc/tile_pair_reduce.cu's K5 launchers)
+TILE_HALO_LAUNCHER(dfsph_ctx, CtxXlaTerm)    // ctx, fluid and boundary
+TILE_HALO_LAUNCHER(dfsph_div, DivXlaTerm)    // velocity divergence
+TILE_HALO_LAUNCHER(dfsph_corr, CorrXlaTerm)  // k-correction
+TILE_HALO_LAUNCHER(dfsph_visc, ViscTerm<XsphCoef>)  // XSPH viscosity
+TILE_HALO_LAUNCHER(wcsph_density, WcsphDensityTerm)  // Poly6
+TILE_HALO_LAUNCHER(wcsph_stat, WcsphStatTerm)        // boundary
+TILE_HALO_LAUNCHER(wcsph_forces, WcsphForcesXlaTerm<XsphCoef>)  // + XSPH
+TILE_HALO_LAUNCHER(dfsph_visc_phys, ViscTerm<PhysCoef>)
+TILE_HALO_LAUNCHER(wcsph_forces_phys, WcsphForcesXlaTerm<PhysCoef>)

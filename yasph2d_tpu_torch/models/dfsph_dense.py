@@ -29,6 +29,14 @@ runs blocks of one rebuilding step and k - 1 stale ones, which keep the slot
 layout (no K4) and refresh the pair context from the advected positions with
 the carry's drop count; leftover steps rebuild.
 
+Spatial sharding (parallel/shard_dense.py) overrides the hooks `_halo` (the
+neighbour shards' rows -1 and ny, None here) and `_rebucket_row0`: then
+every K5 pass and the K4 rebuild take the kernels' halo forms, with the
+fluid's rows exchanged once per pair context (kept in `DenseCtx.halo`), the
+boundary's once at init (`BoundaryDense.halo`) and the source values' once
+per pass; and the reductions over live slots (`_count_live`, `_mean_live`,
+the CFL max `_max_vel_from_sq`, `_sum_counts`) run over the shards.
+
 Also here: the static boundary index space (`build_boundary_dense`), the
 padded initial layout (`_padded_init`) and `simulate`, which the plane solver
 (models/dfsph_plane.py) builds on. Not ported: the sorted-carry
@@ -37,7 +45,7 @@ padded initial layout (`_padded_init`) and `simulate`, which the plane solver
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -53,6 +61,7 @@ from ..ops.dense_grid import (
 )
 from ..ops.pair_reduce import PairForm
 from ..ops.pallas_pair import pallas_pair_reduce
+from ..ops.planes import Halo
 from ..ops.sm_pair_reduce import sm_pair_reduce
 from ..ops.sm_rebucket import sm_rebucket_parts
 from ..ops.smoothing_kernels import WendlandQuinticC2
@@ -73,6 +82,8 @@ class BoundaryDense(NamedTuple):
     pos_pad: torch.Tensor  # (ny, nx, Pb, 2)
     mask: torch.Tensor  # (ny, nx, Pb) bool
     num_dropped: torch.Tensor  # () int32
+    # under sharding: the neighbour shards' rows of (pos_pad, mask), (2, nx, Pb[, 2])
+    halo: Optional[Halo] = None
 
 
 def build_boundary_dense(boundary_positions: torch.Tensor, grid: DenseGridConfig,
@@ -121,6 +132,8 @@ class DenseCtx(NamedTuple):
     densities_pad: torch.Tensor  # (ny, nx, P): clamped density per slot
     alpha_pad: torch.Tensor  # (ny, nx, P): DFSPH alpha per slot
     num_dropped: torch.Tensor  # () int32
+    # under sharding: the neighbour shards' rows of (pos_pad, mask), (2, nx, P[, 2])
+    halo: Optional[Halo] = None
 
 
 class DFSPHPaddedCarry(NamedTuple):
@@ -290,6 +303,33 @@ class DFSPHPaddedSolver:
         averages over its exact particle count, dfsph.rs:221, 376-377)."""
         return REAL_NP(int(mask.sum()))
 
+    def _rebucket_row0(self) -> int:
+        """This shard's first global cell row: 0 on one device."""
+        return 0
+
+    def _halo(self, tensors):
+        """The neighbour shards' rows -1 and ny of `tensors` as a Halo, under
+        spatial sharding; None on one device (the kernels' one-device forms)."""
+        return None
+
+    def _max_vel_from_sq(self, v_est_sq) -> np.float32:
+        """CFL velocity from the live slots' squared speeds (dead slots 0); the
+        one hook of the CFL max that the shard solvers override."""
+        return f32(float(torch.sqrt(v_est_sq.max())))
+
+    def _slot_pair(self, form: PairForm, q_pos, q_mask, s_pos, s_mask, s_halo=None,
+                   q_vals=(), s_vals=(), scalars=()):
+        """One K3 / K5 pass. A source with a halo (its positions' and mask's
+        rows from the neighbour shards) takes its values' rows from them too,
+        one exchange per pass, and runs K5's halo form."""
+        if s_halo is None:
+            return self._reduce(form, q_pos, q_mask, s_pos, s_mask, self._consts,
+                                q_vals=q_vals, s_vals=s_vals, scalars=scalars)
+        rows = self._halo(s_vals).planes if s_vals else ()
+        return pallas_pair_reduce(form, q_pos, q_mask, s_pos, s_mask, self._consts,
+                                  q_vals=q_vals, s_vals=s_vals, scalars=scalars,
+                                  halo=s_halo._replace(planes=s_halo.planes + tuple(rows)))
+
     def simulate(self, carry, boundary, num_steps: int):
         """Run `num_steps` steps; the returned Diagnostics aggregates all of them
         (Diagnostics.accumulate). Each step's dt is accounted before it runs.
@@ -314,10 +354,13 @@ class DFSPHPaddedSolver:
                          dropped) -> DenseCtx:
         """The fluid and boundary ctx passes and their assembly
         (dfsph_dense.py:261-346): density with the self-term and the rho0
-        clamp, alpha, the boundary gradient sums and the neighbour totals."""
-        f, c = self._padded_forms, self._consts
-        dyn = self._reduce(f.ctx, pos_pad, mask, pos_pad, mask, c)
-        stat = self._reduce(f.stat, pos_pad, mask, boundary.pos_pad, boundary.mask, c)
+        clamp, alpha, the boundary gradient sums and the neighbour totals.
+        Under sharding the fluid's rows are exchanged here, once per context."""
+        f = self._padded_forms
+        halo = self._halo((pos_pad, mask))
+        dyn = self._slot_pair(f.ctx, pos_pad, mask, pos_pad, mask, halo)
+        stat = self._slot_pair(f.stat, pos_pad, mask, boundary.pos_pad, boundary.mask,
+                               boundary.halo)
         m = float(self.properties.particle_mass)
         dens = torch.clamp(m * ((self._w0 + dyn[..., 0]) + stat[..., 0]),
                            min=self.properties.fluid_density)
@@ -335,28 +378,29 @@ class DFSPHPaddedSolver:
             densities_pad=dens,
             alpha_pad=1.0 / torch.clamp(denom, min=ALPHA_EPSILON),
             num_dropped=dropped,
+            halo=halo,
         )
 
     # --------------------------------------------------------------- pair ops
 
     def _velocity_divergence(self, ctx: DenseCtx, v_pad):
         """sum_dyn (v_i - v_j).grad + v_i.sum_grad_stat (dfsph.rs:99-126, 249-280)."""
-        dyn = self._reduce(self._padded_forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
-                           ctx.mask, self._consts, q_vals=(v_pad,), s_vals=(v_pad,))
+        dyn = self._slot_pair(self._padded_forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                              ctx.mask, ctx.halo, q_vals=(v_pad,), s_vals=(v_pad,))
         sgs = ctx.sum_grad_stat
         return dyn[..., 0] + (v_pad[..., 0] * sgs[..., 0] + v_pad[..., 1] * sgs[..., 1])
 
     def _k_correction(self, ctx: DenseCtx, k_pad):
         """sum_dyn (k_i + k_j) grad + k_i sum_grad_stat (dfsph.rs:128-161)."""
-        dyn = self._reduce(self._padded_forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
-                           ctx.mask, self._consts, q_vals=(k_pad,), s_vals=(k_pad,))
+        dyn = self._slot_pair(self._padded_forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                              ctx.mask, ctx.halo, q_vals=(k_pad,), s_vals=(k_pad,))
         return dyn + k_pad[..., None] * ctx.sum_grad_stat
 
     def _viscosity_pass(self, ctx: DenseCtx, v_pad, rho_pad, dt):
         """Viscous acceleration over fluid neighbours, (ny, nx, P, 2)."""
-        return self._reduce(self._padded_forms.visc, ctx.pos_pad, ctx.mask, ctx.pos_pad,
-                            ctx.mask, self._consts, q_vals=(v_pad,),
-                            s_vals=(v_pad, rho_pad), scalars=(float(dt),))
+        return self._slot_pair(self._padded_forms.visc, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                               ctx.mask, ctx.halo, q_vals=(v_pad,), s_vals=(v_pad, rho_pad),
+                               scalars=(float(dt),))
 
     def _mean_live(self, value_pad, ctx: DenseCtx, n_particles) -> np.float32:
         total = torch.where(ctx.mask, value_pad, 0.0).sum()
@@ -364,8 +408,8 @@ class DFSPHPaddedSolver:
 
     def _max_velocity(self, vstar_pad, mask) -> np.float32:
         """CFL velocity estimate over live slots (dfsph.rs:474-477)."""
-        v_est_sq = torch.where(mask, (vstar_pad * vstar_pad).sum(dim=-1), 0.0)
-        return f32(float(torch.sqrt(v_est_sq.max())))
+        return self._max_vel_from_sq(torch.where(mask, (vstar_pad * vstar_pad).sum(dim=-1),
+                                                 0.0))
 
     # ---------------------------------------------------------- pressure loops
 
@@ -481,9 +525,11 @@ class DFSPHPaddedSolver:
         # advect + re-bucket (dfsph.rs:499-512): [v*(2) | kappa | stiffness]
         pos = ctx.pos_pad + pred * float(dt)
         if rebuild:
+            payload = (pred, kappa, carry.stiff_pad)
             pos, mask, (pred, kappa, stiff), drops = sm_rebucket_parts(
-                pos, ctx.mask, (pred, kappa, carry.stiff_pad), self.grid)
-            ctx = self._ctx_from_padded(pos, mask, boundary, drops + boundary.num_dropped)
+                pos, ctx.mask, payload, self.grid, halo=self._halo((ctx.mask, pos, *payload)))
+            ctx = self._ctx_from_padded(pos, mask, boundary,
+                                        self._sum_counts(drops) + boundary.num_dropped)
         else:
             stiff = carry.stiff_pad
             ctx = self._ctx_from_padded(pos, ctx.mask, boundary, ctx.num_dropped)

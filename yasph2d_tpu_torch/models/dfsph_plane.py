@@ -177,15 +177,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         )
 
     # ------------------------------------------------- hooks of the shard solvers
-
-    def _rebucket_row0(self) -> int:
-        """This shard's first global cell row: 0 on one device."""
-        return 0
-
-    def _halo(self, planes):
-        """The neighbour shards' rows -1 and ny of `planes` as a Halo, under
-        spatial sharding; None on one device (the kernels' one-device forms)."""
-        return None
+    # (`_rebucket_row0`, `_halo` and `_max_vel_from_sq`: models/dfsph_dense.py)
 
     def _geom(self, pos, mask) -> PlaneGeom:
         """K1's geometry of one index space (planes.plane_geom), with the
@@ -268,11 +260,6 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
     def _max_velocity_pf(self, vstar, mask) -> np.float32:
         return self._max_vel_from_sq(torch.where(mask, (vstar * vstar).sum(dim=0), 0.0))
-
-    def _max_vel_from_sq(self, v_est_sq) -> np.float32:
-        """CFL velocity from the live slots' squared speeds (dead slots 0); the
-        one hook of the CFL max that the shard solvers override."""
-        return f32(float(torch.sqrt(v_est_sq.max())))
 
     # ---------------------------------------------------------- pressure loops
 

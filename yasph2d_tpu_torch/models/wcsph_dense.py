@@ -18,6 +18,11 @@ force against the boundary, symmetric pressure + viscosity):
 The forces form of PhysicalViscosityModel is wcsph_forces_phys on either
 kernel (and on K1, models/wcsph_plane.py); any other model is refused.
 
+Spatial sharding (parallel/shard_dense.py) takes the DFSPH padded solver's
+hooks: the fluid's rows are exchanged once per step (after the rebuild),
+the boundary's once at init, the force pass's source values (pressure,
+density, velocity) once per step; K4 and K5 then run their halo forms.
+
 The JAX package runs the boundary pass through the XLA dense_grid.pair_reduce
 on both of its routes; here it is the route's kernel, so its f32 sums come in
 the kernel's order and agree with the JAX package to f32 tolerance, not
@@ -175,7 +180,7 @@ class WCSPHPaddedSolver:
 
     def _max_velocity(self, v_est_sq, mask) -> np.float32:
         """CFL velocity from squared speeds; live slots only."""
-        return f32(float(torch.sqrt(torch.where(mask, v_est_sq, 0.0).max())))
+        return self._max_vel_from_sq(torch.where(mask, v_est_sq, 0.0))
 
     # ------------------------------------------------------------ pair passes
 
@@ -185,14 +190,14 @@ class WCSPHPaddedSolver:
         (wscsph.rs:108-116), symmetric pressure + viscosity forces
         (wscsph.rs:59-105). Returns (dens (ny, nx, P), accel (ny, nx, P, 2))
         with accel EXCLUDING gravity."""
-        f, c, reduce = self._forms, self._consts, self._reduce
-        dyn_w = reduce(f.density, pos, mask, pos, mask, c)[..., 0]
-        stat = reduce(f.stat, pos, mask, boundary.pos_pad, boundary.mask, c)
+        f, pair = self._forms, self._slot_pair
+        halo = self._halo((pos, mask))
+        dyn_w = pair(f.density, pos, mask, pos, mask, halo)[..., 0]
+        stat = pair(f.stat, pos, mask, boundary.pos_pad, boundary.mask, boundary.halo)
         dens = self._density(dyn_w, stat[..., 0])
         pres = tait_pressure(self.stiffness, self.properties.fluid_density, dens)
-        accel_dyn = reduce(f.forces, pos, mask, pos, mask, c,
-                           q_vals=(pres, dens, v), s_vals=(pres, dens, v),
-                           scalars=(float(dt),))
+        accel_dyn = pair(f.forces, pos, mask, pos, mask, halo, q_vals=(pres, dens, v),
+                         s_vals=(pres, dens, v), scalars=(float(dt),))
         return dens, accel_dyn + stat[..., 1:3]
 
     # ------------------------------------------------------------- host bounds
@@ -231,10 +236,14 @@ class WCSPHPaddedSolver:
         )
 
     # the host loop of the DFSPH solvers: account each step's dt, then step;
-    # their init-time sort and counter sum, the hooks of the shard solvers
+    # their pair pass and the hooks of the shard solvers
     simulate = DFSPHPaddedSolver.simulate
+    _slot_pair = DFSPHPaddedSolver._slot_pair
     _sort = DFSPHPaddedSolver._sort
     _sum_counts = DFSPHPaddedSolver._sum_counts
+    _rebucket_row0 = DFSPHPaddedSolver._rebucket_row0
+    _halo = DFSPHPaddedSolver._halo
+    _max_vel_from_sq = DFSPHPaddedSolver._max_vel_from_sq
 
     # -------------------------------------------------------------------- step
 
@@ -249,7 +258,8 @@ class WCSPHPaddedSolver:
         pos = carry.pos_pad + v * float(dt)
 
         # neighbourhood rebuild = windowed re-bucket (wscsph.rs:153)
-        pos, mask, (v,), drops = sm_rebucket_parts(pos, carry.mask, (v,), self.grid)
+        pos, mask, (v,), drops = sm_rebucket_parts(pos, carry.mask, (v,), self.grid,
+                                                   halo=self._halo((carry.mask, pos, v)))
 
         dens, accel = self._density_and_forces(pos, v, mask, boundary, dt)
         gvec = torch.tensor(self.gravity, dtype=REAL, device=pos.device)
@@ -274,6 +284,6 @@ class WCSPHPaddedSolver:
         diagnostics = Diagnostics.zeros()._replace(
             dt=dt,
             max_velocity=max_velocity,
-            neighbor_drops=int(drops + boundary.num_dropped),
+            neighbor_drops=int(self._sum_counts(drops) + boundary.num_dropped),
         )
         return new_carry, diagnostics

@@ -14,9 +14,10 @@ and the rebuild is K2 (ops/rebucket.py) with the velocity as its payload:
                     with PhysicalViscosityModel)
 
 The TPU-only stat-pass column chunking (pf_stat_chunk_kw) is not ported: the
-kernel has no column chunks. The hooks of spatial sharding are the DFSPH
-plane solver's (`_halo`, `_geom`, `_pair`, the CFL max `_max_vel_from_sq`),
-with the drop sum `_sum_counts` (parallel/shard_plane.py).
+kernel has no column chunks. The hooks of spatial sharding are the padded
+solvers' (`_halo`, the CFL max `_max_vel_from_sq`, the drop sum
+`_sum_counts`), with the DFSPH plane solver's `_geom` and `_pair`
+(parallel/shard_plane.py).
 """
 
 from dataclasses import dataclass
@@ -53,14 +54,11 @@ class WCSPHPlaneSolver(WCSPHPaddedSolver):
     """WCSPH, plane-resident carry, every pass through K1 and K2. Takes
     `grid.pair_dtype` "float32" or "bfloat16" (K1's bf16 operand mode)."""
 
-    # plane-form boundary geometry, built once per boundary change, and the
-    # hooks of the shard solvers (models/dfsph_plane.py)
+    # plane-form boundary geometry, built once per boundary change, and K1's
+    # pass under the shard solvers' hooks (models/dfsph_plane.py)
     boundary_planes = DFSPHPlaneSolver.boundary_planes
-    _rebucket_row0 = DFSPHPlaneSolver._rebucket_row0
-    _halo = DFSPHPlaneSolver._halo
     _geom = DFSPHPlaneSolver._geom
     _pair = DFSPHPlaneSolver._pair
-    _max_vel_from_sq = DFSPHPlaneSolver._max_vel_from_sq
     _bf16_operands = True
 
     def __post_init__(self):

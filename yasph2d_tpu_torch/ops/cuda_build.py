@@ -115,7 +115,8 @@ SM_PAIR_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces",
                  "dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc",
                  "dfsph_visc_phys", "wcsph_forces_phys")
 # K5's call forms (csrc/tile_pair_reduce.cu): the DFSPH padded step's four, then
-# the WCSPH padded step's three, then the physical viscosity forms of both
+# the WCSPH padded step's three, then the physical viscosity forms of both;
+# each also has a halo form (csrc/tile_pair_reduce_halo.cu), `<form>_halo`
 TILE_PAIR_FORMS = ("dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc",
                    "wcsph_density", "wcsph_stat", "wcsph_forces",
                    "dfsph_visc_phys", "wcsph_forces_phys")
@@ -149,6 +150,14 @@ def library() -> ctypes.CDLL:
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
                        ctypes.POINTER(PairConsts), _P]
         fn.restype = _I
+    for form in TILE_PAIR_FORMS:
+        # K5's halo form: as the one-device launcher with the halo rows' positions,
+        # mask and source value pointers before consts
+        fn = getattr(lib, f"tile_pair_reduce_{form}_halo")
+        fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                       _P, _P, ctypes.POINTER(_P), ctypes.POINTER(PairConsts), _P]
+        fn.restype = _I
     # mask, payload planes, n_pay, out, new mask, dropped, P, ny, nx,
     # grid nx, grid ny, 1/cell size, origin x, origin y, stream
     lib.rebucket.argtypes = [_P, ctypes.POINTER(_P), _I, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -164,6 +173,11 @@ def library() -> ctypes.CDLL:
                                 ctypes.POINTER(_I), _I, _P, _P, _P, _I, _I, _I, _I, _I,
                                 ctypes.c_float, ctypes.c_float, ctypes.c_float, _P]
     lib.sm_rebucket.restype = _I
+    # the halo form: as sm_rebucket with the global row count for grid ny, then
+    # halo mask, halo positions, halo part inputs, row0, stream
+    lib.sm_rebucket_halo.argtypes = lib.sm_rebucket.argtypes[:-1] + [
+        _P, _P, ctypes.POINTER(_P), _I, _P]
+    lib.sm_rebucket_halo.restype = _I
     for probe in ("vpu_fma_probe", "vpu_mix_probe"):  # K6
         # x, out, n, chains, inner, trips, stream
         getattr(lib, probe).argtypes = [_P, _P, _I, _I, _I, _I, _P]

@@ -196,16 +196,19 @@ def pad_to_slots(values: torch.Tensor, slots: SlotGrid, grid: DenseGridConfig):
 
 
 def move_codes(positions_pad: torch.Tensor, mask: torch.Tensor,
-               grid: DenseGridConfig) -> torch.Tensor:
+               grid: DenseGridConfig, row0: int = 0, ny_total: int = None) -> torch.Tensor:
     """(ny, nx, P) uint8 move code per slot, in the OLD slot layout: 0 for a
     dead slot, else (dy+1)*3 + (dx+1) + 1 with (dx, dy) the clamped offset of
     the cell holding the slot's (advected) position from the slot's own cell.
-    Bit-identical to the JAX move_codes on one device (no `row0`)."""
+    Bit-identical to the JAX move_codes. Under sharding (JAX `row0`) the rows
+    are global: row i is cell row `row0` + i and cell rows clamp to
+    `ny_total` (default grid.ny), so that a move across the seam survives."""
     ny, nx, _ = mask.shape
     device = positions_pad.device
-    iy = torch.arange(ny, dtype=INDEX, device=device)[:, None, None]
+    iy = torch.arange(row0, row0 + ny, dtype=INDEX, device=device)[:, None, None]
     ix = torch.arange(nx, dtype=INDEX, device=device)[None, :, None]
-    cx, cy = cell_coords(positions_pad, grid)
+    cx, cy = cell_coords(positions_pad, grid if ny_total is None
+                         else dataclasses.replace(grid, ny=ny_total))
     dy = torch.clamp(cy - iy, -1, 1)
     dx = torch.clamp(cx - ix, -1, 1)
     code = (dy + 1) * 3 + (dx + 1) + 1

@@ -13,18 +13,31 @@ are bit-exact. On the card the whole re-bucket, move codes, new mask and drop
 count included, is one kernel launch after a 4-byte memset;
 `sm_rebucket_parts` takes the payload as separate parts, so a caller need not
 concatenate them first.
+
+Halo form (spatial sharding, parallel/shard_dense.py): with a `planes.Halo`
+of the neighbouring shards' rows -1 and ny of (mask (2, nx, P), positions
+(2, nx, P, 2), then each payload part (2, nx, P[, C]); row -1 at index 0,
+dead at the ends of the mesh), those rows are source cells too: a slot that
+crosses the seam into this shard's edge row arrives from them, and one that
+leaves is taken by the neighbour. Every move code, the halo rows' too, is
+taken against global rows (`Halo.row0`, `Halo.ny_total`). The drops are
+this shard's; the caller sums them over the shards. This is the JAX
+package's XLA `dense_grid.rebucket(row0=...)`, which its sharded padded
+route runs; K4 computes the halo rows' codes itself instead of receiving
+them. The launches count under "sm_rebucket_halo".
 """
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from ..units import INDEX, REAL
 from . import cuda_build
 from .dense_grid import DenseGridConfig, f32_scalar, move_codes
+from .planes import Halo
 
 # kernel launches, counted where the wrapper launches
-LAUNCHES = {"sm_rebucket": 0}
+LAUNCHES = {"sm_rebucket": 0, "sm_rebucket_halo": 0}
 
 MAX_PARTS = 8  # csrc/sm_rebucket.cu SR_MAX_PARTS
 # above this occupancy the kernel's words no longer fit one block's shared
@@ -33,17 +46,30 @@ STAGED_MAX_P = 32 * 18
 
 
 def reset_launch_counts():
-    LAUNCHES["sm_rebucket"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
-def sm_rebucket_ref(pos, mask, values, grid: DenseGridConfig):
+def sm_rebucket_ref(pos, mask, values, grid: DenseGridConfig, halo: Optional[Halo] = None):
     """Plain PyTorch twin of K4. pos (ny, nx, P, 2), mask (ny, nx, P), values
-    (ny, nx, P, D). Returns (new_pos, new_mask, new_values, num_dropped)."""
+    (ny, nx, P, D); `halo`: rows (mask (2, nx, P), pos (2, nx, P, 2), values
+    (2, nx, P, D)). Returns (new_pos, new_mask, new_values, num_dropped)."""
     ny, nx, p = mask.shape
-    code = move_codes(pos, mask, grid)
-    src = torch.cat([pos, values], dim=-1)  # (ny, nx, P, 2 + D)
-    code_pad = torch.nn.functional.pad(code, (0, 0, 1, 1, 1, 1))
-    src_pad = torch.nn.functional.pad(src, (0, 0, 0, 0, 1, 1, 1, 1))
+    if halo is None:
+        code = move_codes(pos, mask, grid)
+        src = torch.cat([pos, values], dim=-1)  # (ny, nx, P, 2 + D)
+        code_pad = torch.nn.functional.pad(code, (0, 0, 1, 1, 1, 1))
+        src_pad = torch.nn.functional.pad(src, (0, 0, 0, 0, 1, 1, 1, 1))
+    else:  # rows -1 and ny from the neighbours, codes against global rows
+        def rows(a, r):
+            return torch.cat([r[:1], a, r[1:]])
+
+        h_mask, h_pos, h_values = halo.planes
+        ext_pos = rows(pos, h_pos)
+        code = move_codes(ext_pos, rows(mask, h_mask), grid, halo.row0 - 1, halo.ny_total)
+        code_pad = torch.nn.functional.pad(code, (0, 0, 1, 1))
+        src_pad = torch.nn.functional.pad(torch.cat([ext_pos, rows(values, h_values)], dim=-1),
+                                          (0, 0, 0, 0, 1, 1))
     # the 9P candidates of every target cell, in (dyv, dxv, sp) order
     cand_code, cand_pay, expected = [], [], []
     for dyv in range(3):
@@ -82,18 +108,30 @@ def _split(stacked: torch.Tensor, parts: Sequence[torch.Tensor]) -> tuple:
     return tuple(out)
 
 
-def sm_rebucket_parts(pos, mask, parts: Sequence[torch.Tensor], grid: DenseGridConfig):
+def _stack(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([v[..., None] if v.ndim == 3 else v for v in parts], dim=-1)
+
+
+def sm_rebucket_parts(pos, mask, parts: Sequence[torch.Tensor], grid: DenseGridConfig,
+                      halo: Optional[Halo] = None):
     """Windowed re-bucket of the padded slot-major state with the payload given
     as parts, each (ny, nx, P) or (ny, nx, P, C). Returns (new_pos, new_mask,
     the new parts in the input's shapes, num_dropped); dispatches on device.
     The CPU route concatenates the parts for `sm_rebucket_ref`; the CUDA route
-    passes one pointer per part and copies nothing."""
+    passes one pointer per part and copies nothing. `halo`: the neighbours'
+    rows of (mask, pos, *parts) as `Halo.planes` (module docstring)."""
     if not parts:
         raise ValueError("sm_rebucket: the payload needs at least one part")
     device = pos.device
+    if halo is not None and len(halo.planes) != 2 + len(parts):
+        raise ValueError(f"sm_rebucket: {len(halo.planes) - 2} halo payload parts for "
+                         f"{len(parts)}")
     if device.type == "cpu":
-        stacked = torch.cat([v[..., None] if v.ndim == 3 else v for v in parts], dim=-1)
-        new_pos, new_mask, new_values, drops = sm_rebucket_ref(pos, mask, stacked, grid)
+        if halo is not None:
+            h_mask, h_pos, *h_parts = halo.planes
+            halo = halo._replace(planes=(h_mask, h_pos, _stack(h_parts)))
+        new_pos, new_mask, new_values, drops = sm_rebucket_ref(pos, mask, _stack(parts), grid,
+                                                               halo)
         return new_pos, new_mask, _split(new_values, parts), drops
     if device.type != "cuda":
         raise ValueError(f"sm_rebucket: unsupported device {device}")
@@ -117,17 +155,33 @@ def sm_rebucket_parts(pos, mask, parts: Sequence[torch.Tensor], grid: DenseGridC
     new_pos = torch.empty_like(pos)
     new_mask = torch.empty_like(mask)
     dropped = torch.empty((), dtype=INDEX, device=device)
-    err = cuda_build.library().sm_rebucket(
-        mask.data_ptr(), pos.data_ptr(),
-        cuda_build.pointer_array([v.data_ptr() for v in parts]),
-        cuda_build.pointer_array([o.data_ptr() for o in outs]),
-        cuda_build.int_array(widths), len(parts), new_pos.data_ptr(), new_mask.data_ptr(),
-        dropped.data_ptr(), p, ny, nx, grid.nx, grid.ny,
-        f32_scalar(1.0 / grid.cell_size), f32_scalar(grid.origin[0]),
-        f32_scalar(grid.origin[1]), torch.cuda.current_stream(device).cuda_stream,
-    )
-    cuda_build.check(err, "sm_rebucket")
-    LAUNCHES["sm_rebucket"] += 1
+    args = [mask.data_ptr(), pos.data_ptr(),
+            cuda_build.pointer_array([v.data_ptr() for v in parts]),
+            cuda_build.pointer_array([o.data_ptr() for o in outs]),
+            cuda_build.int_array(widths), len(parts), new_pos.data_ptr(), new_mask.data_ptr(),
+            dropped.data_ptr(), p, ny, nx, grid.nx,
+            grid.ny if halo is None else halo.ny_total,
+            f32_scalar(1.0 / grid.cell_size), f32_scalar(grid.origin[0]),
+            f32_scalar(grid.origin[1])]
+    name = "sm_rebucket"
+    if halo is not None:
+        name = "sm_rebucket_halo"
+        h_mask, h_pos, *h_parts = halo.planes
+        cuda_build.check_tensor(h_mask, device, (2, nx, p), torch.bool,
+                                "sm_rebucket: halo mask")
+        cuda_build.check_tensor(h_pos, device, (2, nx, p, 2), REAL,
+                                "sm_rebucket: halo positions")
+        if h_pos.data_ptr() % 8:
+            raise ValueError("sm_rebucket: halo positions must be 8-byte aligned (float2)")
+        for v, r in zip(parts, h_parts):
+            cuda_build.check_tensor(r, device, (2,) + tuple(v.shape[1:]), REAL,
+                                    "sm_rebucket: halo payload part")
+        args += [h_mask.data_ptr(), h_pos.data_ptr(),
+                 cuda_build.pointer_array([r.data_ptr() for r in h_parts]), halo.row0]
+    err = getattr(cuda_build.library(), name)(
+        *args, torch.cuda.current_stream(device).cuda_stream)
+    cuda_build.check(err, name)
+    LAUNCHES[name] += 1
     return new_pos, new_mask, tuple(outs), dropped
 
 

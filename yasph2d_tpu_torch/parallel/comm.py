@@ -5,13 +5,15 @@ shard solvers call inside `shard_map`).
 One process per shard; shard r owns cell rows [r * ny, (r + 1) * ny) of the
 global grid. `SpaceGroup` is one process's view of the group:
 
-- `halo_rows(planes)` sends each plane's last row to the next shard and its
-  first row to the previous one, and returns the neighbours' rows (row -1 =
-  the previous shard's last row, row ny = the next shard's first row). All
-  planes of a call travel as one packed byte buffer each way, one exchange
-  pair, as the JAX `_pf_halo` sends all its planes in one `ppermute` pair. At
-  the ends of the mesh the received rows are zero bytes: mask False, zero
-  values, dead.
+- `halo_rows(tensors, dim)` sends each tensor's last row (along its row
+  axis `dim`: -2 for the (..., ny, nx) planes, 0 for the (ny, nx, P, ...)
+  slot layout) to the next shard and its first row to the previous one, and
+  returns the neighbours' rows (row -1 = the previous shard's last row, row
+  ny = the next shard's first row). All tensors of a call travel as one
+  packed byte buffer each way, one exchange pair, as the JAX `_pf_halo` and
+  `halo2d_multi` send all their operands in one `ppermute` pair. At the ends
+  of the mesh the received rows are zero bytes: mask False, zero values,
+  dead.
 - `sum(x)` and `max(x)` all-reduce a 0-d tensor; `all_gather(x)` stacks every
   shard's tensor along dim 0 in shard order.
 
@@ -72,14 +74,15 @@ class SpaceGroup:
     def _wire(self, t: torch.Tensor) -> torch.Tensor:
         return t.cpu() if self._staged else t
 
-    def halo_rows(self, planes: Sequence[torch.Tensor]
+    def halo_rows(self, planes: Sequence[torch.Tensor], dim: int = -2
                   ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """(below, above): for each (..., ny, nx) plane, the previous shard's
-        last row and the next shard's first row, each (..., 1, nx) in the
-        plane's dtype on this device; dead (zero) rows at the ends of the
-        mesh. One packed exchange pair for all planes."""
-        first = [p[..., :1, :] for p in planes]
-        last = [p[..., -1:, :] for p in planes]
+        """(below, above): for each tensor, the previous shard's last row and
+        the next shard's first row along its row axis `dim` (-2 for
+        (..., ny, nx) planes, 0 for (ny, nx, P, ...) slots), each of length 1
+        there, in the tensor's dtype on this device; dead (zero) rows at the
+        ends of the mesh. One packed exchange pair for all tensors."""
+        first = [p.narrow(dim, 0, 1) for p in planes]
+        last = [p.narrow(dim, p.shape[dim] - 1, 1) for p in planes]
         recv_below, recv_above = None, None
         if self.size > 1:
             send_up, send_down = self._wire(_pack(last)), self._wire(_pack(first))

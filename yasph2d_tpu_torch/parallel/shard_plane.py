@@ -15,7 +15,8 @@ over processes, one shard each, and every collective outside the kernels:
   step can move at most an edge row's slots across a seam each way, the JAX
   contract);
 - residual averages, the live count and the drop counts are sums over the
-  shards, the CFL velocity a max (shard_dense._SpatialCollectives).
+  shards, the CFL velocity a max (shard_dense._SpatialCollectives); the
+  driver is the padded route's (shard_dense._ShardedBase).
 
 The result is the one-device step's on the same grid: the same iterations
 and drops and the same live rows bit for bit. A residual average is a sum
@@ -41,19 +42,13 @@ scene, e.g. inside `comm.spawn`:
 """
 
 import dataclasses
-from typing import Optional
-
-import torch
 
 from ..models.dfsph_dense import BoundaryDense
 from ..models.dfsph_plane import DFSPHPlaneSolver
 from ..models.wcsph_plane import WCSPHPlaneSolver
 from ..ops.dense_grid import DenseGridConfig
-from ..ops.planes import Halo
-from ..units import REAL_NP
-from ..world import ParticleState
 from .comm import SpaceGroup
-from .shard_dense import _SpatialCollectives, distribute, make_local_grid
+from .shard_dense import _ShardedBase, _SpatialCollectives, make_local_grid
 
 
 def make_local_plane_grid(full_grid: DenseGridConfig, n_shards: int) -> DenseGridConfig:
@@ -70,20 +65,10 @@ def make_local_plane_grid(full_grid: DenseGridConfig, n_shards: int) -> DenseGri
 
 
 class _PlaneCollectives(_SpatialCollectives):
-    """The plane solvers' sharding hooks: the neighbour shards' halo rows for
-    every geometry, pass and re-bucket, and the CFL max over the shards."""
+    """The plane solvers' sharding hooks: the neighbour shards' halo rows of
+    (..., ny, nx) planes for every geometry, pass and re-bucket."""
 
-    def _halo(self, planes) -> Optional[Halo]:
-        """The neighbours' rows of `planes`; None on a one-shard mesh, whose
-        halo rows would all be dead: the one-device kernels run there."""
-        if self.group.size == 1:
-            return None
-        below, above = self.group.halo_rows(planes)
-        rows = tuple(torch.cat([b, a], dim=-2) for b, a in zip(below, above))
-        return Halo(rows, self._rebucket_row0(), self.grid.ny * self._n_shards)
-
-    def _max_vel_from_sq(self, v_est_sq) -> REAL_NP:
-        return REAL_NP(float(torch.sqrt(self.group.max(v_est_sq.max()))))
+    _ROW_DIM = -2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,58 +87,15 @@ class WCSPHPlaneShardSolver(_PlaneCollectives, WCSPHPlaneSolver):
     group: SpaceGroup = None
 
 
-class _ShardedPlaneBase:
-    """One process's driver of a sharded plane solver: distributes the scene,
-    builds the shard's boundary planes (their seam rows exchanged) and carry,
-    steps them, and gathers the global state."""
+class _ShardedPlaneBase(_ShardedBase):
+    """The shared driver with the plane solvers' local grid and boundary
+    planes (their seam rows exchanged); `init` returns (carry, boundary
+    planes)."""
 
-    SOLVER_CLS = None
+    _local_grid = staticmethod(make_local_plane_grid)
 
-    def __init__(self, group: SpaceGroup, viscosity_model, properties,
-                 full_grid: DenseGridConfig, step_config, **solver_kwargs):
-        self.group = group
-        self.full_grid = full_grid
-        self.solver = self.SOLVER_CLS(
-            viscosity_model=viscosity_model, properties=properties,
-            grid=make_local_plane_grid(full_grid, group.size), step_config=step_config,
-            group=group, **solver_kwargs,
-        )
-
-    def local_boundary(self, boundary: BoundaryDense) -> BoundaryDense:
-        """This shard's rows of the full grid's boundary index space; the drop
-        count stays the full build's."""
-        r0, ny = self.solver._rebucket_row0(), self.solver.grid.ny
-        return boundary._replace(pos_pad=boundary.pos_pad[r0:r0 + ny],
-                                 mask=boundary.mask[r0:r0 + ny])
-
-    def init(self, state: ParticleState, boundary: BoundaryDense):
-        """(carry, boundary planes) of this shard. `state` is the whole scene and
-        `boundary` the full grid's (world.boundary_dense(full_grid)), the same
-        on every shard; pass the boundary planes to step / simulate."""
-        local = distribute(state, self.full_grid, self.group.size)[self.group.rank]
-        bpl = self.solver.boundary_planes(self.local_boundary(boundary))
-        return self.solver.init_carry(local, bpl), bpl
-
-    # step / simulate: the API of the JAX sharded classes, so that a sharded run
-    # is driven as a one-device solver is
-    def step(self, carry, boundary_planes):
-        return self.solver.step(carry, boundary_planes)
-
-    def simulate(self, carry, boundary_planes, num_steps: int):
-        return self.solver.simulate(carry, boundary_planes, num_steps)
-
-    def export_state(self, carry) -> ParticleState:
-        """The one-device solver's export_state of the full grid (slot order:
-        global row, column, slot), gathered from every shard onto each."""
-        return ParticleState(*(self.group.all_gather(t)
-                               for t in self.solver.export_state(carry)))
-
-    def gather_live_rows(self, carry) -> torch.Tensor:
-        """(N live, 5) rows x, y, vx, vy, density of the live particles of every
-        shard, in the global slot order."""
-        s = self.export_state(carry)
-        rows = torch.cat([s.positions, s.velocities, s.densities[:, None]], dim=1)
-        return rows[s.alive]
+    def _boundary(self, local: BoundaryDense):
+        return self.solver.boundary_planes(local)
 
 
 class ShardedDFSPHPlane(_ShardedPlaneBase):
