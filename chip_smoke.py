@@ -121,7 +121,27 @@ Phases, each reported on its own line:
      of the edge row; for the re-buckets the live halo slots' positions and
      the arrivals' payload) and count candidates and pairs across the seam;
      the two shards' K2 and K4 outputs must be the one-device re-bucket's
-     rows, forced overflow included.
+     rows, forced overflow included;
+  7. app: `python -m yasph2d_tpu_torch record` in-process (`__main__.main`)
+     on BASELINE config 3's scene (the reference dam-break at ~100k fluid
+     particles; only the kind and the world reach the app, XSPH viscosity)
+     for the default kind `dfsph_padded` (K5 + K4) and for `dfsph_plane`
+     (K1 + K2), APP_FRAMES (24) frames of 1/60 s at 1920x1080 into a
+     temporary directory: the kind's kernels launched, no drop, every fluid
+     particle live, finite state, no app warning, `flush()` 0, the PNGs
+     named as the Recorder names them, each decoded with the standard
+     library's zlib to 1080x1920x3 with fluid pixels, the last one the
+     native renderer's frame of the final state, and the native and NumPy
+     renderers within 1% of pixels there; steps per frame and the host ms
+     of each frame's simulate, render (read-back + rasterise) and submit
+     parts, and the final flush, are logged. Then APP_REALTIME_FRAMES (10)
+     realtime frames on the same app: whether the governor dropped steps is
+     logged, not gated. Every pair form and the re-bucket the app's step
+     launches are held against their twins on the record's final state, at
+     the app's own shapes (phase 5's config grid with XSPH viscosity),
+     check-only. The app's launches are on its own lines; the kernel records
+     keep those of the paths above. The native host library (g++) is built
+     in phase 2 after the kernels.
 
 The line before the last is the GPU's name and power limit as nvidia-smi
 reports them, the one before that the per-kernel JSON record; the last line is
@@ -129,8 +149,10 @@ reports them, the one before that the per-kernel JSON record; the last line is
 prints no result. Imports nothing of JAX.
 """
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import time
 from functools import partial
@@ -298,6 +320,20 @@ SHARDED_PATHS = {
     ONE_RANK: SOLVER_PATHS["dfsph_plane"],
     **{f"sharded2_gloo_{kind}": halo_path(kind) for kind in SHARD_KINDS + PADDED_SHARD_KINDS},
     **{f"sharded2_nccl_{kind}": halo_path(kind) for kind in NCCL_KINDS},
+}
+# the app phase: `python -m yasph2d_tpu_torch record` on BASELINE config 3's
+# scene (the reference dam-break at ~CONFIG_PARTICLES) for each of these
+# kinds, APP_FRAMES frames of 1/60 s at APP_RESOLUTION, then
+# APP_REALTIME_FRAMES realtime frames on the same app. Only the kind and the
+# world reach the app (XSPH viscosity, as the JAX record command): the
+# default padded kind on the K5 route (the app keeps use_pallas_slotmajor
+# False), the plane kind on K1 + K2
+APP_FRAMES = 24
+APP_REALTIME_FRAMES = 10
+APP_RESOLUTION = (1920, 1080)
+APP_PATHS = {
+    "app_dfsph_padded": ("dfsph_padded", SOLVER_PATHS["dfsph_padded_k5"]),
+    "app_dfsph_plane": ("dfsph_plane", SOLVER_PATHS["dfsph_plane"]),
 }
 PATHS = {**SOLVER_PATHS, **TOOL_PATHS, **{k: v[3] for k, v in CONFIG_PATHS.items()},
          **SHARDED_PATHS}
@@ -502,6 +538,9 @@ def phase_environment():
 
 
 def phase_build():
+    """The CUDA kernels (nvcc), then the app's native host library (g++:
+    native/render.cpp, native/recorder.cpp)."""
+    from yasph2d_tpu_torch import native
     from yasph2d_tpu_torch.ops import cuda_build
 
     fresh = not cuda_build.library_path().exists()
@@ -509,8 +548,12 @@ def phase_build():
     path = cuda_build.build()
     t_build = time.perf_counter() - t0
     cuda_build.library()
+    t1 = time.perf_counter()
+    host_path = native.build()
+    native.load_render()
     log(f"phase 2 build: {path.name} {'nvcc' if fresh else 'already built,'} "
-        f"{t_build:.2f} s, load {time.perf_counter() - t0 - t_build:.2f} s")
+        f"{t_build:.2f} s, load {t1 - t0 - t_build:.2f} s; "
+        f"{host_path.name} (g++) {time.perf_counter() - t1:.2f} s")
 
 
 def physical(solver):
@@ -649,10 +692,10 @@ def dfsph_plane_calls(solver, boundary, carry, mode=RECORD, visc_mode=RECORD, ph
     return geom, ctx.mask, calls
 
 
-def check_plane_rebucket(device, rec: Records, solver, carry, size="", paths=None):
+def check_plane_rebucket(device, rec: Records, solver, carry, size="", paths=None, where=""):
     """K2 with the DFSPH plane step's payload as the step calls it: the
     step's own advection, and a forced overflow in which every particle of an
-    odd cell column moves one cell left."""
+    odd cell column moves one cell left; `where` names the state in the log."""
     from yasph2d_tpu_torch.ops import rebucket as rb
 
     grid, ctx = solver.grid, carry.ctx
@@ -663,7 +706,7 @@ def check_plane_rebucket(device, rec: Records, solver, carry, size="", paths=Non
     crowded = pos.clone()
     crowded[0] -= odd * grid.cell_size
     for label, p in (("advect", pos), ("overflow", crowded)):
-        rec.check_rebucket("rebucket", label + size,
+        rec.check_rebucket("rebucket", label + size + where,
                            lambda: rb.rebucket_planes(p, ctx.mask, parts, grid),
                            lambda: rb.rebucket_ref(p, ctx.mask, extra, grid),
                            overflow=label == "overflow", inputs=[p, ctx.mask, extra],
@@ -805,21 +848,15 @@ def dfsph_slot_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD
     return fluid, mask, calls
 
 
-def phase_kernels_dfsph_padded(device, rec: Records):
+def check_padded_rebucket(device, rec: Records, solver, carry, where=""):
+    """K4 with the DFSPH padded step's payload (D = 4) as the step calls it:
+    the step's own advection, and a forced overflow in which every particle
+    of an odd cell column moves one cell left; `where` names the state in the
+    log."""
     from yasph2d_tpu_torch.ops import sm_rebucket as smr
 
-    rng = np.random.default_rng(2)
-
-    # K3's five DFSPH forms and K4 (D = 4) on the padded state
-    solver, boundary, carry = moving_state("dfsph_padded", device, CONTACT_STEPS)
     ctx, grid = carry.ctx, solver.grid
-    (pos, mask), _, calls = dfsph_slot_calls(solver, boundary, carry, rng,
-                                             phys=physical(solver))
-    check_slot_calls(rec, "sm_pair_reduce", pos, mask, calls)
-    rec.require_nonzero([f"sm_pair_reduce_{n}" for n in DFSPH_SM_FORMS + DFSPH_SM_PHYS_FORMS]
-                        + ["sm_pair_reduce_dfsph_stat[boundary]"])
-    dt = float(carry.time.dt)
-    adv = ctx.pos_pad + carry.v_pad * dt
+    adv = ctx.pos_pad + carry.v_pad * float(carry.time.dt)
     parts = (carry.v_pad, carry.kappa_pad, carry.stiff_pad)
     extra = torch.cat([carry.v_pad, carry.kappa_pad[..., None],
                        carry.stiff_pad[..., None]], dim=-1)
@@ -827,12 +864,25 @@ def phase_kernels_dfsph_padded(device, rec: Records):
     crowded = adv.clone()
     crowded[..., 0] -= odd[None, :, None] * grid.cell_size
     for label, p in (("D=4 advect", adv), ("D=4 overflow", crowded)):
-        rec.check_rebucket("sm_rebucket", label,
+        rec.check_rebucket("sm_rebucket", label + where,
                            lambda: smr.sm_rebucket_parts(p, ctx.mask, parts, grid),
                            lambda: smr.sm_rebucket_ref(p, ctx.mask, extra, grid),
                            overflow=label.endswith("overflow"),
                            inputs=[p, ctx.mask, extra], name="sm_rebucket_d4",
                            paths={"dfsph_padded", "dfsph_padded_k5"})
+
+
+def phase_kernels_dfsph_padded(device, rec: Records):
+    rng = np.random.default_rng(2)
+
+    # K3's five DFSPH forms and K4 (D = 4) on the padded state
+    solver, boundary, carry = moving_state("dfsph_padded", device, CONTACT_STEPS)
+    (pos, mask), _, calls = dfsph_slot_calls(solver, boundary, carry, rng,
+                                             phys=physical(solver))
+    check_slot_calls(rec, "sm_pair_reduce", pos, mask, calls)
+    rec.require_nonzero([f"sm_pair_reduce_{n}" for n in DFSPH_SM_FORMS + DFSPH_SM_PHYS_FORMS]
+                        + ["sm_pair_reduce_dfsph_stat[boundary]"])
+    check_padded_rebucket(device, rec, solver, carry)
 
     # K5's four DFSPH forms on the padded state of the K5 route
     solver, boundary, carry = moving_state("dfsph_padded_k5", device, CONTACT_STEPS)
@@ -1291,29 +1341,39 @@ def check_config_state(rec: Records, name, run):
     3's seeded noise (the fluid is falling freely: no shear, rho = rho0):
     the viscosity form (a *_phys form) RECORD, so its record's times, bound
     and launches all come from the config paths; the other forms CHECK."""
-    kind = CONFIG_PATHS[name][0]
-    solver, boundary, carry = run.solver, run.boundary, run.carry
-    where, paths = f" on {name}", set(CONFIG_PATHS)
+    kind, _, steps, _ = CONFIG_PATHS[name]
+    where = f" on {name}"
+    labels = check_state(rec, kind, run.solver, run.boundary, run.carry, where,
+                         set(CONFIG_PATHS), RECORD)
+    # the path that runs through contact ends with fluid on the ramp: its
+    # boundary pass sums something
+    contact = steps >= CONTACT_CONFIG
+    rec.require_nonzero([label for label, sfx, mode in labels
+                         if mode == RECORD or (contact and sfx == "[boundary]")])
+
+
+def check_state(rec: Records, kind, solver, boundary, carry, where, paths, visc_mode):
+    """The pair calls of a `kind` step (a config kind) against their twins
+    on its `carry`, with phase 3's seeded noise: the viscosity form with
+    `visc_mode`, the others CHECK. Returns each call's (nonzero label,
+    label suffix, mode)."""
     rng = np.random.default_rng(5)
     if kind.endswith("plane"):
         kernel = "pair_reduce"
         variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
         builder = dfsph_plane_calls if kind.startswith("dfsph") else partial(
             wcsph_plane_calls, rng=rng)
-        geom, live, calls = builder(solver, boundary, carry, mode=CHECK)
+        geom, live, calls = builder(solver, boundary, carry, mode=CHECK, visc_mode=visc_mode)
         check_k1_calls(rec, geom, live, calls, variant, paths=paths, where=where)
     else:
         kernel = "sm_pair_reduce" if solver.grid.use_pallas_slotmajor else "tile_pair_reduce"
         variant = ""
         builder = dfsph_slot_calls if kind.startswith("dfsph") else wcsph_slot_calls
-        (pos, mask), _, calls = builder(solver, boundary, carry, rng, mode=CHECK)
+        (pos, mask), _, calls = builder(solver, boundary, carry, rng, mode=CHECK,
+                                        visc_mode=visc_mode)
         check_slot_calls(rec, kernel, pos, mask, calls, paths, where)
-    # the path that runs through contact ends with fluid on the ramp: its
-    # boundary pass sums something
-    contact = CONFIG_PATHS[name][2] >= CONTACT_CONFIG
-    rec.require_nonzero([f"{kernel}_{form.name}{sfx}{variant}{where}"
-                         for sfx, form, _, _, _, mode in calls
-                         if mode == RECORD or (contact and sfx == "[boundary]")])
+    return [(f"{kernel}_{form.name}{sfx}{variant}{where}", sfx, mode)
+            for sfx, form, _, _, _, mode in calls]
 
 
 def phase_tool_path(device, kind) -> dict:
@@ -1852,6 +1912,211 @@ def phase_sharded(device, rec: Records) -> dict:
     return path_launches
 
 
+# -------------------------------------------------------------------- app phase
+
+
+def read_png(path) -> np.ndarray:
+    """An 8-bit RGB PNG as the recorder writes it (one zlib stream over the
+    IDAT chunks, filter 0 on every row), decoded with the standard library:
+    the card's host need not have PIL."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise RuntimeError(f"{path}: not a PNG")
+    pos, idat, shape = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) != crc:
+            raise RuntimeError(f"{path}: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                raise RuntimeError(f"{path}: not 8-bit RGB ({depth}, {color})")
+            shape = (h, w)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    h, w = shape
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise RuntimeError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def fluid_pixels(image) -> int:
+    """Pixels of neither the background's nor the boundary's colour."""
+    from yasph2d_tpu_torch.render.renderer import BACKGROUND_COLOR, BOUNDARY_COLOR
+
+    other = np.ones(image.shape[:2], dtype=bool)
+    for color in (BACKGROUND_COLOR, BOUNDARY_COLOR):
+        other &= (image != (np.asarray(color) * 255.0 + 0.5).astype(np.uint8)).any(-1)
+    return int(other.sum())
+
+
+@contextlib.contextmanager
+def frame_times():
+    """The host time of each app frame's parts while the block runs:
+    `simulate` (SimulationApp.update), `render` (SimulationApp.draw less its
+    submit: read-back and rasterise), `submit` (Recorder.save_frame, the PNG
+    queue), `flush` (each Recorder.flush), and the solver `steps` of each
+    frame (read as draw starts, before it resets them)."""
+    from yasph2d_tpu_torch.app import SimulationApp
+    from yasph2d_tpu_torch.render.renderer import Recorder
+
+    t = {part: [] for part in ("simulate", "draw", "submit", "flush", "steps")}
+    patched = ((SimulationApp, "update", "simulate"), (SimulationApp, "draw", "draw"),
+               (Recorder, "save_frame", "submit"), (Recorder, "flush", "flush"))
+
+    def timed(fn, part):
+        def run(self, *args):
+            if part == "draw":
+                t["steps"].append(self.time_manager.num_simulation_steps_this_frame)
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            t[part].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    originals = [getattr(cls, attr) for cls, attr, _ in patched]
+    for (cls, attr, part), fn in zip(patched, originals):
+        setattr(cls, attr, timed(fn, part))
+    try:
+        yield t
+    finally:
+        for (cls, attr, _), fn in zip(patched, originals):
+            setattr(cls, attr, fn)
+    t["render"] = [d - s for d, s in zip(t.pop("draw"), t["submit"])]
+
+
+def timer_line(t) -> str:
+    ms = {part: [round(1e3 * v, 2) for v in t[part]] for part in ("simulate", "render", "submit")}
+    means = ", ".join(f"{part} {np.mean(v):.2f}" for part, v in ms.items())
+    return (f"ms per frame (mean of {len(ms['simulate'])}): {means}; per frame "
+            f"{ms['simulate']} simulate, {ms['render']} render, {ms['submit']} submit")
+
+
+def phase_app(device, rec: Records, name):
+    """One of APP_PATHS through `python -m yasph2d_tpu_torch record`,
+    in-process: APP_FRAMES recorded frames at APP_RESOLUTION into a temporary
+    directory, the kind's kernels launched, no drop, every fluid particle
+    live, finite state, no app warning, `flush()` 0, the PNGs named as the
+    Recorder names them, each decoded to the resolution with fluid pixels,
+    the last one the native renderer's frame of the final state, and the
+    native and NumPy renderers within 1% of pixels on that state. Then
+    APP_REALTIME_FRAMES frames in realtime mode on the same app: whether the
+    governor dropped steps is logged, not gated. Last, every pair form of the
+    app's step and its re-bucket against their twins on the record's final
+    state (`check_state`, `check_plane_rebucket`, `check_padded_rebucket`),
+    at the app's shapes, check-only: the kernel records keep their times and
+    launches from the paths of phases 3-6, and take the errors."""
+    import tempfile
+    from pathlib import Path
+
+    from yasph2d_tpu_torch.__main__ import main as cli
+    from yasph2d_tpu_torch.app import UpdateMode
+    from yasph2d_tpu_torch.render.renderer import ParticleRenderer
+
+    kind, kernels = APP_PATHS[name]
+    cfg = Path(CONFIG_DIR) / f"{name}.json"
+    cfg.parent.mkdir(parents=True, exist_ok=True)
+    baseline_config(kind).to_json(str(cfg))
+    w, h = APP_RESOLUTION
+    with tempfile.TemporaryDirectory(prefix=f"{name}_") as out:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with frame_times() as times:
+            app = cli(["record", "--config", str(cfg), "--frames", str(APP_FRAMES), "--out",
+                       out, "--resolution", f"{w}x{h}", "--device", str(device)])
+        elapsed = time.perf_counter() - t0
+        launches = launch_counts()
+        path = {k: launches[k] for k in kernels}
+        tm, world = app.time_manager, app.world
+        grid = app.solver.grid
+        log(f"phase 7 app [{name}]: {kind}, grid {grid.nx}x{grid.ny} P {grid.occupancy}, "
+            f"{world.num_dynamic_particles} fluid / {world.num_boundary_particles} boundary, "
+            f"{APP_FRAMES} frames {w}x{h} in {elapsed:.3f} s (solver build and init "
+            f"included), {tm.num_simulation_steps} steps, simulated "
+            f"{tm.total_simulated_time!r} s, dt {tm.simulation_step!r} | {gpu_line()}")
+        log(f"phase 7 app [{name}]: steps per frame {times['steps']}")
+        log(f"phase 7 app [{name}]: {timer_line(times)}; final flush "
+            f"{1e3 * times['flush'][-1]:.2f} ms")
+        log(f"phase 7 app [{name}]: launches {path}")
+        errors = app.recorder.flush()
+        s = app.solver.export_state(app.carry)
+        live = int(s.alive.sum())
+        finite = bool(torch.isfinite(s.positions[s.alive]).all()
+                      and torch.isfinite(s.velocities[s.alive]).all()
+                      and torch.isfinite(s.densities[s.alive]).all())
+        drops = int(app.last_diagnostics.neighbor_drops)
+        warnings = list(app.warnings)
+        positions, velocities = app.particle_state()
+        native = app.renderer.render(positions, velocities, app._boundary_render_positions)
+        plain = ParticleRenderer(camera=app.camera, particle_radius=app.renderer.particle_radius,
+                                 resolution=app.renderer.resolution, use_native=False)
+        t1 = time.perf_counter()
+        numpy_frame = plain.render(positions, velocities, app._boundary_render_positions)
+        t_numpy = time.perf_counter() - t1
+        mismatch = float((native != numpy_frame).any(-1).mean())
+        dens = s.densities[s.alive]
+        log(f"phase 7 app [{name}]: {live} live, drops {drops}, finite {finite}, density "
+            f"[{float(dens.min())!r}, {float(dens.max())!r}], warnings "
+            f"{warnings[:3]}, flush {errors}; native vs NumPy renderer on the "
+            f"final state: {mismatch:.4%} of pixels differ (NumPy {1e3 * t_numpy:.1f} ms)")
+        final = app.carry  # the step is functional: realtime steps leave it as it is
+
+        app.set_update_mode(UpdateMode.REALTIME, reset=False)
+        realtime = []
+        for _ in range(APP_REALTIME_FRAMES):
+            app.update()
+            steps = tm.num_simulation_steps_this_frame
+            app.draw()
+            realtime.append((steps, app.simulation_is_realtime,
+                             round(1e3 * tm.duration_last_frame, 2)))
+        dropped = sum(not r for _, r, _ in realtime)
+        log(f"phase 7 app [{name}]: realtime {APP_REALTIME_FRAMES} frames (steps, realtime, "
+            f"frame ms) {realtime}: the governor dropped steps in {dropped} of them; "
+            f"simulated {tm.total_simulated_time!r} s, warnings {list(app.warnings)[:3]}")
+        # after the realtime frames, which a long pause before them would
+        # change (the governor treats it as lag)
+        where = f" on {name}"
+        labels = check_state(rec, kind, app.solver, app.boundary, final, where, None, CHECK)
+        # the fluid rests on the ramp by now: every form, the boundary pass too,
+        # sums something
+        rec.require_nonzero([label for label, _, _ in labels])
+        (check_plane_rebucket if kind.endswith("plane") else check_padded_rebucket)(
+            device, rec, app.solver, final, where=where)
+
+        names = sorted(p.name for p in Path(out).iterdir())
+        expected = sorted(f"{i}.png" for i in range(APP_FRAMES))
+        t1 = time.perf_counter()
+        images = [read_png(Path(out) / f"{i}.png") for i in range(APP_FRAMES)]
+        counts = [fluid_pixels(im) for im in images]
+        n_bytes = sum(os.path.getsize(Path(out) / n) for n in names)
+        log(f"phase 7 app [{name}]: {len(names)} PNGs, {n_bytes} bytes, decoded in {time.perf_counter() - t1:.2f} s; fluid pixels per frame {counts}")
+    problems = [k for k, v in path.items() if v <= 0]
+    if problems:
+        raise RuntimeError(f"{name}: kernels never launched on the app path: {problems}")
+    if drops or live != world.num_dynamic_particles or not finite or warnings:
+        raise RuntimeError(f"{name}: state wrong: drops {drops} live {live} of "
+                           f"{world.num_dynamic_particles} finite {finite} warnings "
+                           f"{warnings[:5]}")
+    if errors != 0 or names != expected:
+        raise RuntimeError(f"{name}: recorder: flush {errors}, files {names[:5]}...")
+    if any(im.shape != (h, w, 3) for im in images) or min(counts) == 0:
+        raise RuntimeError(f"{name}: frames wrong: shapes {[im.shape for im in images][:3]}, "
+                           f"fluid pixels {counts}")
+    if not np.array_equal(images[-1], native):
+        raise RuntimeError(f"{name}: the last PNG is not the renderer's frame of the "
+                           "final state")
+    if mismatch >= 0.01:
+        raise RuntimeError(f"{name}: native and NumPy renderers differ on {mismatch:.4%}")
+
+
 def main():
     t0 = time.perf_counter()
     phase_environment()
@@ -1873,6 +2138,10 @@ def main():
     path_launches.update({name: phase_config_path(device, rec, name)
                           for name in CONFIG_PATHS})
     path_launches.update(phase_sharded(device, rec))
+    # the app's launches are logged on its own lines: the kernel records
+    # count the paths above
+    for name in APP_PATHS:
+        phase_app(device, rec, name)
     records = list(rec.by_name.values())
     for r in records:
         # a record that names no path is one of the 100k solver states: it

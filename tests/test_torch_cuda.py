@@ -1461,3 +1461,64 @@ def test_sharded_padded_steps_equal_one_device(device, kind):
         assert torch.equal(got_rows.view(torch.int32), rows.view(torch.int32))
         assert launches and all(k.endswith("_halo") for k in launches)
         assert "sm_rebucket_halo" in launches
+
+
+def _recorded_app(kind, device, directory, frames, first):
+    """SimulationApp on the reference scene at 1600 particles/m^2, recording
+    `frames` frames at 160x120; the steps of each frame, the frames, and
+    (dt, live rows) after each of the first `first` steps."""
+    from yasph2d_tpu_torch.app import SimulationApp, UpdateMode, default_world
+
+    app = SimulationApp(solver=kind, world=default_world(1600.0), resolution=(160, 120),
+                        update_mode=UpdateMode.RECORDING, recording_dir=str(directory),
+                        device=device)
+    states, step = [], app.single_sim_step
+
+    def single_sim_step():
+        step()
+        if len(states) < first:
+            states.append((app.time_manager.simulation_step, app.particle_state()))
+
+    app.single_sim_step = single_sim_step
+    steps, images = [], []
+    for _ in range(frames):
+        app.update()
+        steps.append(app.time_manager.num_simulation_steps_this_frame)
+        images.append(app.draw())
+    assert app.recorder.flush() == 0
+    return app, steps, images, states
+
+
+@pytest.mark.parametrize("kind", ["dfsph_padded", "dfsph_plane"])
+def test_app_records_on_the_card(device, kind, tmp_path):
+    """SimulationApp records 2 frames of the reference scene at 1600
+    particles/m^2 on the card (K5 + K4, K1 + K2), against the same app on the
+    CPU at the CPU tests' tolerances (tests/test_torch_app.py: the scene
+    ejects a particle at 100-200 m/s on the first step and turns chaotic): the
+    first 30 steps' dt to 1e-6 relative and live positions to 1e-5 (matched
+    to the nearest CPU particle, one to one), equal steps per frame, no
+    warning, every particle live, the centre of mass within a tenth of the
+    particle spacing, and each frame within 1% of pixels."""
+    from yasph2d_tpu_torch.ops import pair_reduce, pallas_pair
+
+    first = 30
+    mod = pair_reduce if kind.endswith("plane") else pallas_pair
+    mod.reset_launch_counts()
+    gpu = _recorded_app(kind, device, tmp_path / "gpu", 2, first)
+    assert sum(mod.LAUNCHES.values()) > 0
+    cpu = _recorded_app(kind, "cpu", tmp_path / "cpu", 2, first)
+    (g_app, g_steps, g_images, g_states), (c_app, c_steps, c_images, c_states) = gpu, cpu
+    assert g_steps == c_steps and list(g_app.warnings) == list(c_app.warnings) == []
+    for (gdt, (gp, _)), (cdt, (cp, _)) in zip(g_states, c_states):
+        assert abs(gdt - cdt) <= 1e-6 * cdt
+        assert gp.shape == cp.shape
+        dist = np.sqrt(((gp[:, None, :] - cp[None, :, :]) ** 2).sum(-1))
+        idx = dist.argmin(1)
+        assert len(np.unique(idx)) == len(idx) and dist.min(1).max() <= 1e-5
+    (gp, gv), (cp, cv) = g_app.particle_state(), c_app.particle_state()
+    n = g_app.world.num_dynamic_particles
+    assert gp.shape == cp.shape == (n, 2) and np.isfinite(gp).all() and np.isfinite(gv).all()
+    np.testing.assert_allclose(gp.mean(0), cp.mean(0), rtol=0, atol=0.1 / np.sqrt(1600.0))
+    for a, b in zip(g_images, c_images):
+        assert (a != b).any(axis=-1).mean() < 0.01
+    assert sorted(p.name for p in (tmp_path / "gpu").iterdir()) == ["0.png", "1.png"]

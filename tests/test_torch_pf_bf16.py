@@ -339,7 +339,7 @@ def test_padded_solvers_refuse_bf16(solver_cls, slotmajor):
     grid = dataclasses.replace(world.dense_grid(occupancy=3), pair_dtype="bfloat16",
                                use_pallas_slotmajor=slotmajor)
     h = world.properties.smoothing_length
-    match = "K3" if slotmajor else "ROADMAP"
+    match = "K3" if slotmajor else r"the padded solvers' bf16 math mode, ROADMAP.md Queue 1\)"
     with pytest.raises(ValueError, match=match):
         solver_cls(viscosity_model=TXSPH(h), properties=world.properties, grid=grid,
                    step_config=TFixed(1.0 / 3000.0))

@@ -32,15 +32,21 @@ utils/checkpoint.py saves and loads carries in the JAX package's .npz layout.
 parallel/ is the JAX package's spatial decomposition of the plane solvers
 over `torch.distributed`: one process a band of cell rows, the halo forms of
 K1 and K2, and the one-device result (parallel/shard_plane.py).
+
+The application layer is the JAX package's too: app.SimulationApp (scene,
+TimeManager frame loop, camera, host renderer and PNG recorder, the native
+C++ of native/ built with g++ at first use), viewer.InteractiveViewer and
+`python -m yasph2d_tpu_torch record`.
 """
 
+from .app import SimulationApp
 from .config import SimulationConfig
 from .models.dfsph_dense import DFSPHPaddedSolver
 from .models.dfsph_plane import DFSPHPlaneSolver
 from .models.viscosity import PhysicalViscosityModel, XSPHViscosityModel
 from .models.wcsph_dense import WCSPHPaddedSolver
 from .models.wcsph_plane import WCSPHPlaneSolver
-from .timemanager import AdaptiveTimeStep, FixedTimeStep
+from .timemanager import AdaptiveTimeStep, FixedTimeStep, TimeManager, TimerConfig
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 from .world import FluidParticleWorld
 
@@ -51,7 +57,10 @@ __all__ = [
     "FixedTimeStep",
     "FluidParticleWorld",
     "PhysicalViscosityModel",
+    "SimulationApp",
     "SimulationConfig",
+    "TimeManager",
+    "TimerConfig",
     "WCSPHPaddedSolver",
     "WCSPHPlaneSolver",
     "XSPHViscosityModel",

@@ -185,6 +185,26 @@ KINDS = {
 UNPORTED_KINDS = ("dfsph", "dfsph_dense", "wcsph", "wcsph_dense")
 
 
+def require_kind(kind: str):
+    """Raise a ValueError unless `kind` is one of the port's solver kinds."""
+    if kind in UNPORTED_KINDS:
+        raise ValueError(
+            f"solver kind {kind!r} is the JAX package's table or sorted layout, "
+            f"which the port does not have; use one of {sorted(KINDS)}")
+    if kind not in KINDS:
+        raise ValueError(f"unknown solver kind {kind!r}")
+
+
+def require_device(device, what: str) -> torch.device:
+    """`device` as a torch.device; raises if it is a CUDA device and no card
+    is present (no CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: device 'cuda' asked for and no CUDA device is "
+                           "available (pass device='cpu' for the twins)")
+    return device
+
+
 @dataclass(frozen=True)
 class SimulationConfig:
     fluid: FluidConfig = field(default_factory=FluidConfig)
@@ -287,16 +307,8 @@ class SimulationConfig:
         import yasph2d_tpu_torch as y
 
         sc = self.solver
-        if sc.kind in UNPORTED_KINDS:
-            raise ValueError(
-                f"solver kind {sc.kind!r} is the JAX package's table or sorted layout, "
-                f"which the port does not have; use one of {sorted(KINDS)}")
-        if sc.kind not in KINDS:
-            raise ValueError(f"unknown solver kind {sc.kind!r}")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("SimulationConfig.build: device 'cuda' asked for and no "
-                               "CUDA device is available (pass device='cpu' for the twins)")
+        require_kind(sc.kind)
+        device = require_device(device, "SimulationConfig.build")
         cls_name, plane = KINDS[sc.kind]
         world = self.build_world()
         grid = dataclasses.replace(

@@ -89,7 +89,8 @@ def require_float32_pairs(grid: DenseGridConfig, solver: str):
             "WCSPHPlaneSolver)")
     raise ValueError(
         f"{solver}: the bfloat16 pair math of the K5 route (the JAX XLA "
-        "pair_reduce's bf16 mode) is not ported yet (ROADMAP.md Queue 1 item 18); "
+        "pair_reduce's bf16 mode) is not ported yet (the padded solvers' bf16 math "
+        "mode, ROADMAP.md Queue 1); "
         "use pair_dtype='float32' or the plane solvers")
 
 

@@ -76,6 +76,12 @@ class FluidParticleWorld:
 
     # ---------------------------------------------------------------- scene API
 
+    def remove_all_fluid_particles(self):
+        self._positions = []
+
+    def remove_all_boundary_particles(self):
+        self._boundary = []
+
     def add_fluid_rect(self, fluid_rect, jitter_amount: float):
         """Fill an axis-aligned rect (x, y, w, h) with a jittered particle lattice
         (reference: fluidparticleworld.rs:140-166): lattice density de-rated by
