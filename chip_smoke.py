@@ -16,7 +16,11 @@ Phases, each reported on its own line:
      tile kernel in K3's sum order) and the slot-major re-bucket K4 with the
      WCSPH (D = 2) and DFSPH (D = 4) payloads on the padded states; the seven
      forms of the tiled pair kernel K5 (four DFSPH, three WCSPH) on the
-     padded states of its route; and K3's and K5's physical forms
+     padded states of its route, in f32 and in K5's bf16 math mode (on the
+     states of the bf16 K5 paths; records `tile_pair_reduce_<form>_bf16`);
+     K1's three forms without an epilogue of the unfused DFSPH plane step
+     (visc, div, corr; f32 records, bf16 operands checked only, visc_phys
+     timed); and K3's and K5's physical forms
      (dfsph_visc_phys, wcsph_forces_phys). The physical forms are checked
      and timed here beside their XSPH forms on the same operands, but their
      records come from phase 5, where they launch. The WCSPH states
@@ -27,11 +31,14 @@ Phases, each reported on its own line:
      probe's constant input and on a seeded input spread across 0.5) and the
      ctx-pass probe K7 (K1's kernel with the probe's statement; 64 x 1612
      cells, P 7) beside K1's ctx form on the same inputs. Then K1's eleven
-     forms in both operand modes, K3's ten and K7 with a source space of
+     forms and its three no-epilogue forms and visc_phys in both operand
+     modes, K3's ten and K7 with a source space of
      40 slots a cell (more than 32 live: two live words), on a synthetic
      ragged grid (checked only). K1's, K3's and K7's forms must be bit-equal
      to their twins (max_abs_err 0.0), K5's agree to rtol 1e-5 plus 1e-6 of
-     each output component's largest live magnitude; the re-buckets
+     each output component's largest live magnitude, in either math mode
+     (in bf16 both round each operation alike: what remains is the sum
+     order); the re-buckets
      bit-equal, with and without forced cell overflow (each timed as its
      steps call it: one launch, the payload planes (K2) or parts (K4, one
      record per payload width D) by pointer). Then, where the device and not the host sets the pace, K1's
@@ -43,7 +50,9 @@ Phases, each reported on its own line:
      events, median of 7, over 10; `plain_ms` the twin's, eager, CUDA events,
      median of 7. `bound_ms` is the larger of the bytes the call must move
      over 3.35 TB/s and its float32 operations (counted from the live
-     candidate and valid pair counts of these inputs; K6's FMA chains as the
+     candidate and valid pair counts of these inputs, K5's bf16 mode its
+     own valid pairs and twice the operations, each followed by its
+     rounding; K6's FMA chains as the
      TPU probe counts them, an FMA as 2) over 67 TFLOP/s, the H100 SXM's
      data-sheet rates; K6's mix, whose compare and select are no FP32
      arithmetic, by its SASS instructions (one FSETP, FSEL and FADD a step)
@@ -69,7 +78,10 @@ Phases, each reported on its own line:
      all 99,372 particles live, finite state and densities in [rho0, 1.3 rho0]
      (the columns are still falling; after the impact, by step 60, the
      densest particle of the DFSPH plane step reaches 1.55 rho0, so phases 3
-     and 4 check the contact regime instead). Then the tools of TOOL_PATHS
+     and 4 check the contact regime instead); the unfused DFSPH plane path
+     with the fused path's per-step iterations and drops (whether the live
+     rows are bit-equal is logged), the K5 bf16 paths with sorted positions
+     within 0.2 h of the K5 f32 paths'. Then the tools of TOOL_PATHS
      through their entry points, each with its launch counts > 0: the K6
      rates (FMA, mix, HBM stream), the K7 probe beside K1 ctx, and the
      roofline at 1M particles in bfloat16 after 100 settle steps, whose state
@@ -81,7 +93,9 @@ Phases, each reported on its own line:
      mode and run by `python -m yasph2d_tpu_torch run` in-process
      (`__main__.main`), each with its kernels' launch counts > 0, no drop,
      every fluid particle live, finite state and densities in [rho0,
-     1.3 rho0] at its end. Eight paths take 10-20 steps, in free fall; the
+     1.3 rho0] at its end. Ten paths (two of them the padded kinds with
+     pair_dtype bfloat16: K5's bf16 math mode) take 10-20 steps, in free
+     fall; the
      rebuild_every 3 path takes CONTACT_CONFIG (150) steps, through the
      impact on the ramp, with one K4 launch per block of 3 steps and per
      leftover step, and must end in wall contact. After each such run,
@@ -95,8 +109,9 @@ Phases, each reported on its own line:
      steps, against the one-device solver on the same grid and state: one
      NCCL rank in this process (DFSPH plane f32; host ms/step beside the
      one-device solver's), two gloo ranks sharing the card, spawned (the
-     plane solvers: DFSPH f32, DFSPH bf16, WCSPH f32; the padded K5 solvers:
-     DFSPH and WCSPH, each with XSPH and with physical viscosity; halo rows
+     plane solvers: DFSPH f32, DFSPH bf16, WCSPH f32, and the unfused DFSPH
+     step; the padded K5 solvers: DFSPH and WCSPH, each with XSPH and with
+     physical viscosity, and DFSPH in bf16; halo rows
      staged through the host), and two NCCL ranks on two cards (DFSPH plane
      and padded K5) where the machine has two (else a line says why not).
      Each run must give the one-device per-step iterations and drops, every
@@ -107,7 +122,7 @@ Phases, each reported on its own line:
      largest relative difference of the residual averages (sums of
      per-shard sums) is logged. The two-rank runs' launches are the halo
      forms' (K1 `<form>[_bf16]_halo`, K2 `rebucket_halo`, K5
-     `tile_pair_reduce_<form>_halo`, K4 `sm_rebucket_halo`), summed over the
+     `tile_pair_reduce_<form>[_bf16]_halo`, K4 `sm_rebucket_halo`), summed over the
      ranks; the one-rank mesh has no halo and launches the one-device
      kernels, whose records count the 100k solver paths only. Then the halo
      forms against their twins on the two shards' states (the one-device
@@ -161,6 +176,7 @@ import numpy as np
 import torch
 
 from yasph2d_tpu_torch.tools.roofline import (
+    BF16_OPS_FACTOR,
     OPS_PER_PAIR,
     OPS_PER_QUERY,
     OPS_PER_SLOT_REBUCKET,
@@ -221,6 +237,10 @@ DFSPH_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v"
 WCSPH_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces")
 DFSPH_SM_FORMS = ("dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc")
 DFSPH_TILE_FORMS = ("dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc")
+# the unfused DFSPH plane step's K1 forms (both fuse switches off): the ctx
+# form on fluid sources too, and the passes without an epilogue
+DFSPH_UNFUSED_FORMS = ("ctx", "visc", "div", "corr")
+BF16 = "_bf16"  # the suffix of K1's bf16-operand and K5's bf16-math launchers
 # the kernels each main path must launch: the solvers' steps, then the tools
 SOLVER_PATHS = {
     "dfsph_plane": [f"pair_reduce_{f}" for f in DFSPH_FORMS] + ["rebucket"],
@@ -232,7 +252,19 @@ SOLVER_PATHS = {
     "wcsph_padded_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"],
     "dfsph_plane_bf16": [f"pair_reduce_{f}_bf16" for f in DFSPH_FORMS] + ["rebucket"],
     "wcsph_plane_bf16": [f"pair_reduce_{f}_bf16" for f in WCSPH_FORMS] + ["rebucket"],
+    "dfsph_plane_unfused": [f"pair_reduce_{f}" for f in DFSPH_UNFUSED_FORMS] + ["rebucket"],
+    "dfsph_padded_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in DFSPH_TILE_FORMS]
+    + ["sm_rebucket"],
+    "wcsph_padded_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in WCSPH_FORMS]
+    + ["sm_rebucket"],
 }
+# the main paths held against a path of the same step: the unfused DFSPH
+# plane step against the fused one (the same per-step iterations and drops;
+# whether the live rows are bit-equal is logged), the K5 bf16 paths against
+# the K5 f32 ones (sorted positions within BF16_POSITION_TOL h)
+FUSED_OF = {"dfsph_plane_unfused": "dfsph_plane"}
+F32_OF = {"dfsph_padded_k5_bf16": "dfsph_padded_k5", "wcsph_padded_k5_bf16": "wcsph_padded_k5"}
+BF16_POSITION_TOL = 0.2  # JAX's bf16-vs-f32 bound (tests/test_bf16_pairs.py:104-105)
 VPU_PROBES = ["vpu_probe_fma4", "vpu_probe_fma8", "vpu_probe_mix8"]
 TOOL_PATHS = {
     "vpu_probe": VPU_PROBES,
@@ -283,6 +315,12 @@ CONFIG_PATHS = {
     "config_dfsph_padded_k5_rebuild3": (
         "dfsph_padded", {"rebuild_every": 3}, CONTACT_CONFIG,
         [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]),
+    "config_dfsph_padded_k5_bf16": ("dfsph_padded", {"pair_dtype": "bfloat16"}, 10,
+                                    [f"tile_pair_reduce_{f}{BF16}"
+                                     for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]),
+    "config_wcsph_padded_k5_bf16": ("wcsph_padded", {"pair_dtype": "bfloat16"}, 10,
+                                    [f"tile_pair_reduce_{f}{BF16}" for f in WCSPH_PHYS_FORMS]
+                                    + ["sm_rebucket"]),
 }
 # the sharded phase: the 100k double dam-break on a grid whose rows split over
 # two shards (515 x 326, P 7), every fluid particle kicked SHARD_KICK m/s
@@ -294,20 +332,21 @@ SHARD_PARTICLES = 100_000
 SHARD_STEPS = 40
 SHARD_KICK = 1.5
 SHARD_RANKS = 2
-SHARD_KINDS = ("dfsph_plane", "dfsph_plane_bf16", "wcsph_plane")
+SHARD_KINDS = ("dfsph_plane", "dfsph_plane_bf16", "wcsph_plane", "dfsph_plane_unfused")
 PADDED_SHARD_KINDS = ("dfsph_padded_k5", "wcsph_padded_k5", "dfsph_padded_k5" + PHYS,
-                      "wcsph_padded_k5" + PHYS)
+                      "wcsph_padded_k5" + PHYS, "dfsph_padded_k5_bf16")
 HALO = "_halo"
 
 
 def halo_path(kind):
+    variant = BF16 if kind.endswith(BF16) else ""
     if "padded" in kind:
         phys = kind.endswith(PHYS)
         forms = ((DFSPH_TILE_PHYS_FORMS if phys else DFSPH_TILE_FORMS)
                  if kind.startswith("dfsph") else (WCSPH_PHYS_FORMS if phys else WCSPH_FORMS))
-        return [f"tile_pair_reduce_{f}{HALO}" for f in forms] + ["sm_rebucket" + HALO]
-    forms = DFSPH_FORMS if kind.startswith("dfsph") else WCSPH_FORMS
-    variant = "_bf16" if kind.endswith("_bf16") else ""
+        return [f"tile_pair_reduce_{f}{variant}{HALO}" for f in forms] + ["sm_rebucket" + HALO]
+    forms = (DFSPH_UNFUSED_FORMS if kind.endswith("_unfused") else DFSPH_FORMS) \
+        if kind.startswith("dfsph") else WCSPH_FORMS
     return [f"pair_reduce_{f}{variant}{HALO}" for f in forms] + ["rebucket" + HALO]
 
 
@@ -415,14 +454,15 @@ class Records:
         the input masks, for its bytes; `pairs`: (q_pos, q_mask, s_pos,
         s_mask) in the slot layout and the cutoff, for its needed slots and
         operation count; `variant`: the operand mode's suffix of the launch
-        name ("_bf16" for K1's bf16 operands, whose `pairs` are rebased);
-        `size`: a suffix of the record's name for another state than the
-        100k one, whose launches are counted on `paths`; `mode` RECORD, TIME
-        or CHECK; `where` names the state in the log; `halo`, for K1's halo
-        forms: (the call's `pairs` with the source's halo rows, the bytes
-        it reads from them). K1 and K3 must be bit-equal to their twins, K5
-        within `pair_error`. The record keeps its form's first RECORD call's
-        times and bound."""
+        name ("_bf16" for K1's bf16 operands, whose `pairs` are rebased,
+        and for K5's bf16 math mode, whose `pairs` carry its Rebase sixth,
+        after a None); `size`: a suffix of the record's name for another
+        state than the 100k one, whose launches are counted on `paths`;
+        `mode` RECORD, TIME or CHECK; `where` names the state in the log;
+        `halo`, for the halo forms: (the call's `pairs` with the source's
+        halo rows, the bytes it reads from them). K1 and K3 must be
+        bit-equal to their twins, K5 within `pair_error`. The record keeps
+        its form's first RECORD call's times and bound."""
         out_k, out_t = run_kernel(), run_twin()
         torch.cuda.synchronize()
         errs, ok = pair_error(out_k, out_t, live, comp_dim)
@@ -450,11 +490,14 @@ class Records:
             return
         ms, plain_ms = graph_ms(run_kernel), event_ms(run_twin)
         counted = pairs if halo is None else halo[0]
+        rebase = counted[5] if len(counted) > 5 else None  # K5's bf16 math mode
         cand, valid = pair_counts(*counted[:4], radius_sq,
-                                  rebase_cell=counted[4] if len(counted) > 4 else None)
+                                  rebase_cell=counted[4] if len(counted) > 4 else None,
+                                  rebase=rebase)
         n_live = int(pairs[1].sum())
-        n_ops = 5 * cand + OPS_PER_PAIR[form.name] * valid \
-            + OPS_PER_QUERY.get(form.name, 0) * n_live
+        n_ops = (5 * cand + OPS_PER_PAIR[form.name] * valid
+                 + OPS_PER_QUERY.get(form.name, 0) * n_live) \
+            * (1 if rebase is None else BF16_OPS_FACTOR)
         log(f"phase 3 kernels: {kernel}_{label} kernel {ms:.5f} ms twin {plain_ms:.4f} ms, "
             f"{n_live} live queries, {cand} live candidates, {valid} valid pairs")
         n_bytes = pair_bytes(*roles, masks, [out_k], pairs[1], pairs[3]) + (
@@ -596,7 +639,8 @@ def check_k1_calls(rec: Records, geom, live, calls, variant="", size="", paths=N
 
 
 def check_slot_calls(rec: Records, kernel, pos, mask, calls, paths=None, where=""):
-    """K3 or K5 calls on one padded state against their twins."""
+    """K3 or K5 calls on one padded state against their twins; a call with a
+    `rebase` is K5's bf16 math mode (records `<form>_bf16`)."""
     from yasph2d_tpu_torch.ops import pallas_pair as tpp
     from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
 
@@ -604,24 +648,39 @@ def check_slot_calls(rec: Records, kernel, pos, mask, calls, paths=None, where="
                 "tile_pair_reduce": (tpp.pallas_pair_reduce,
                                      tpp.pallas_pair_reduce_ref)}[kernel]
     for suffix, form, (s_pos, s_mask), kw, c, mode in calls:
+        rebase = kw.get("rebase")
         rec.check_pair(
             kernel, form.name + suffix, form,
             lambda: run(form, pos, mask, s_pos, s_mask, c, **kw),
             lambda: ref(form.term_fn, form.n_out, pos, mask, s_pos, s_mask,
                         c.radius_sq, **kw),
             mask, -1, role_tensors(pos, s_pos, kw), [mask, s_mask],
-            (pos, mask, s_pos, s_mask), c.radius_sq, paths=paths, mode=mode, where=where)
+            (pos, mask, s_pos, s_mask, None, rebase), c.radius_sq,
+            "" if rebase is None else BF16, paths=paths, mode=mode, where=where)
+
+
+def slot_kw(solver, kw: dict) -> dict:
+    """A padded step's K3 / K5 call operands `kw`, with the solver's rebase
+    on a bf16 grid (K5's bf16 math mode)."""
+    from yasph2d_tpu_torch.ops.pallas_pair import rebase_of
+
+    rebase = rebase_of(solver.grid)
+    return kw if rebase is None else dict(kw, rebase=rebase)
 
 
 def phase_kernels_dfsph(device, rec: Records, kind="dfsph_plane"):
-    """K1's six DFSPH forms and visc_gravity_phys on the plane state of `kind`
-    (f32 or bf16 operands) and, in f32, the re-bucket K2."""
+    """K1's six DFSPH forms, visc_gravity_phys and the unfused step's visc,
+    div, corr and visc_phys on the plane state of `kind` (f32 or bf16
+    operands; the unfused forms are records in f32, the path they launch on,
+    and checked only in bf16) and, in f32, the re-bucket K2."""
     solver, boundary, carry = moving_state(kind, device, CONTACT_STEPS)
     variant = "_bf16" if solver.grid.pair_dtype == "bfloat16" else ""
-    geom, live, calls = dfsph_plane_calls(solver, boundary, carry, phys=physical(solver))
+    geom, live, calls = dfsph_plane_calls(solver, boundary, carry, phys=physical(solver),
+                                          unfused_mode=CHECK if variant else RECORD)
     check_k1_calls(rec, geom, live, calls, variant)
     rec.require_nonzero([f"pair_reduce_{n}{variant}" for n in DFSPH_PHYS_FORMS + DFSPH_FORMS]
-                        + [f"pair_reduce_ctx[boundary]{variant}"])
+                        + [f"pair_reduce_ctx[boundary]{variant}"]
+                        + [f"pair_reduce_{n}{variant}" for n in DFSPH_UNFUSED_FORMS[1:]])
     if not variant:  # K2 does not change with the operand mode
         check_plane_rebucket(device, rec, solver, carry)
 
@@ -645,10 +704,14 @@ def phase_kernels_1m(device, rec: Records):
     check_plane_rebucket(device, rec, solver, carry, SIZE_1M, {"roofline"})
 
 
-def dfsph_plane_calls(solver, boundary, carry, mode=RECORD, visc_mode=RECORD, phys=None):
+def dfsph_plane_calls(solver, boundary, carry, mode=RECORD, visc_mode=RECORD, phys=None,
+                      unfused_mode=None):
     """The DFSPH plane step's K1 calls on a DFSPH plane state (the operand
     mode is the solver's); the ctx instantiation also fluid -> fluid, where
-    every live slot has neighbours."""
+    every live slot has neighbours (the unfused step's ctx pass). With
+    `unfused_mode`, also the unfused step's no-epilogue forms visc, div and
+    corr on the same operands with that mode, and with `phys` visc_phys,
+    TIME."""
     from yasph2d_tpu_torch.ops import pair_reduce as pr
 
     ctx = carry.ctx
@@ -689,6 +752,13 @@ def dfsph_plane_calls(solver, boundary, carry, mode=RECORD, visc_mode=RECORD, ph
     ]
     if phys is not None:
         calls.append(("", phys._forms.visc_gravity, geom, visc_kw, phys._consts, TIME))
+    if unfused_mode is not None:
+        calls += [("", f.visc, geom, visc_kw, c, unfused_mode),
+                  ("", f.div, geom, dict(q_vals=(v,), s_vals=(v,)), c, unfused_mode),
+                  ("", f.corr, geom, dict(q_vals=(k,), s_vals=(k,)), c, unfused_mode)]
+        if phys is not None:
+            calls.append(("", phys._forms.visc, geom, visc_kw, phys._consts,
+                          TIME if unfused_mode == RECORD else CHECK))
     return geom, ctx.mask, calls
 
 
@@ -752,9 +822,10 @@ def wcsph_slot_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD
     """The WCSPH padded step's K3 or K5 calls on a padded state."""
     pos, mask = carry.pos_pad, carry.mask
     operands = wcsph_operands(solver, mask, mask[..., None], carry.v_pad, carry.dens_pad, rng)
-    return (pos, mask), mask, wcsph_calls(
-        solver, (pos, mask), (boundary.pos_pad, boundary.mask), operands,
-        float(carry.time.dt), mode, visc_mode, phys)
+    calls = wcsph_calls(solver, (pos, mask), (boundary.pos_pad, boundary.mask), operands,
+                        float(carry.time.dt), mode, visc_mode, phys)
+    return (pos, mask), mask, [(sfx, form, src, slot_kw(solver, kw), c, m)
+                               for sfx, form, src, kw, c, m in calls]
 
 
 def wcsph_plane_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD, phys=None):
@@ -792,12 +863,14 @@ def phase_kernels_wcsph(device, rec: Records):
                            overflow=label == "overflow", inputs=[p, mask, carry.v_pad],
                            paths={"wcsph_padded", "wcsph_padded_k5"})
 
-    # K5's WCSPH forms on the padded state of the K5 route
-    solver, boundary, carry = moving_state("wcsph_padded_k5", device, WARMUP_STEPS)
-    (pos, mask), _, calls = wcsph_slot_calls(solver, boundary, carry, rng,
-                                             phys=physical(solver))
-    check_slot_calls(rec, "tile_pair_reduce", pos, mask, calls)
-    rec.require_nonzero([f"tile_pair_reduce_{n}" for n in WCSPH_FORMS + WCSPH_PHYS_FORMS])
+    # K5's WCSPH forms on the padded states of the K5 route, f32 and bf16 math
+    for kind, variant in (("wcsph_padded_k5", ""), ("wcsph_padded_k5_bf16", BF16)):
+        solver, boundary, carry = moving_state(kind, device, WARMUP_STEPS)
+        (pos, mask), _, calls = wcsph_slot_calls(solver, boundary, carry, rng,
+                                                 phys=physical(solver))
+        check_slot_calls(rec, "tile_pair_reduce", pos, mask, calls)
+        rec.require_nonzero([f"tile_pair_reduce_{n}{variant}"
+                             for n in WCSPH_FORMS + WCSPH_PHYS_FORMS])
 
     phase_kernels_wcsph_plane(device, rec, "wcsph_plane", rng)
 
@@ -845,7 +918,8 @@ def dfsph_slot_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD
     ]
     if phys is not None:
         calls.append(("", phys._padded_forms.visc, fluid, visc_kw, phys._consts, TIME))
-    return fluid, mask, calls
+    return fluid, mask, [(sfx, form, src, slot_kw(solver, kw), cc, m)
+                         for sfx, form, src, kw, cc, m in calls]
 
 
 def check_padded_rebucket(device, rec: Records, solver, carry, where=""):
@@ -884,13 +958,15 @@ def phase_kernels_dfsph_padded(device, rec: Records):
                         + ["sm_pair_reduce_dfsph_stat[boundary]"])
     check_padded_rebucket(device, rec, solver, carry)
 
-    # K5's four DFSPH forms on the padded state of the K5 route
-    solver, boundary, carry = moving_state("dfsph_padded_k5", device, CONTACT_STEPS)
-    (pos, mask), _, calls = dfsph_slot_calls(solver, boundary, carry, rng,
-                                             phys=physical(solver))
-    check_slot_calls(rec, "tile_pair_reduce", pos, mask, calls)
-    rec.require_nonzero([f"tile_pair_reduce_{n}" for n in DFSPH_TILE_FORMS
-                         + DFSPH_TILE_PHYS_FORMS] + ["tile_pair_reduce_dfsph_ctx[boundary]"])
+    # K5's four DFSPH forms on the padded states of the K5 route, f32 and bf16
+    for kind, variant in (("dfsph_padded_k5", ""), ("dfsph_padded_k5_bf16", BF16)):
+        solver, boundary, carry = moving_state(kind, device, CONTACT_STEPS)
+        (pos, mask), _, calls = dfsph_slot_calls(solver, boundary, carry, rng,
+                                                 phys=physical(solver))
+        check_slot_calls(rec, "tile_pair_reduce", pos, mask, calls)
+        rec.require_nonzero([f"tile_pair_reduce_{n}{variant}" for n in DFSPH_TILE_FORMS
+                             + DFSPH_TILE_PHYS_FORMS]
+                            + [f"tile_pair_reduce_dfsph_ctx[boundary]{variant}"])
 
 
 def phase_kernels_probes(device, rec: Records):
@@ -990,7 +1066,7 @@ def slot_space(rng, grid, pp, fill, dead_rho, device):
 
 
 def phase_kernels_deep(device):
-    """K1 (eleven forms, f32 and bf16 operands), K3 (ten forms) and K7 with a
+    """K1 (fifteen forms, f32 and bf16 operands), K3 (ten forms) and K7 with a
     source space of DEEP_PS slots, cells of more than 32 live ones (two live
     words a cell), on a ragged grid of the 3k scene's cell size (query
     spaces of P 7, K7 P 12, 60% live; sources 90% live, dead rho NaN),
@@ -1066,12 +1142,15 @@ def phase_kernels_deep(device):
               (fd.delta_ki, dict(q_vals=(qp["v"],), s_vals=(dp["v"],),
                                  post_planes=(qp["v"], sgs, nt, alpha))),
               (fd.corr_v, dict(q_vals=(qp["k"],), s_vals=(dp["k"],), scalars=(1234.5,),
-                               post_planes=(qp["v"], qp["k"], sgs)))]
+                               post_planes=(qp["v"], qp["k"], sgs))),
+              (fd.visc, visc_kw), (fd.div, dict(q_vals=(qp["v"],), s_vals=(dp["v"],))),
+              (fd.corr, dict(q_vals=(qp["k"],), s_vals=(dp["k"],)))]
         k1 = [(form, kw, d._consts) for form, kw in k1] + [
             (fw.density, {}, w._consts), (fw.stat, {}, w._consts),
             (fw.forces, forces_kw, w._consts),
             (dphys._forms.visc_gravity, visc_kw, dphys._consts),
-            (wphys._forms.forces, forces_kw, wphys._consts)]
+            (wphys._forms.forces, forces_kw, wphys._consts),
+            (dphys._forms.visc, visc_kw, dphys._consts)]
         for form, kw, c in k1:
             record(f"pair_reduce_{form.name}{'_bf16' if bf16 else ''}",
                    pr.pair_reduce(form, q, src, c, **kw),
@@ -1207,7 +1286,10 @@ def launch_counts() -> dict:
     return counts
 
 
-def phase_main_path(device, kind) -> dict:
+def phase_main_path(device, kind) -> tuple:
+    """One of SOLVER_PATHS at 100k (module docstring); returns its launches
+    and its run: per-step (iterations, drops), the live rows (x, y, vx, vy,
+    density, on the CPU, in slot order) and h."""
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 
     world = double_dam_break(100_000)
@@ -1256,7 +1338,36 @@ def phase_main_path(device, kind) -> dict:
                            f"finite {finite}")
     if not (rho0 <= dmin and dmax <= 1.3 * rho0):
         raise RuntimeError(f"{kind}: densities outside [rho0, 1.3 rho0]: [{dmin}, {dmax}]")
-    return path
+    run = dict(counts=[(d.density_iterations, d.divergence_iterations, d.neighbor_drops)
+                       for d in diags],
+               rows=torch.cat([pos, vel, dens[:, None]], 1).cpu(),
+               h=solver.properties.smoothing_length)
+    return path, run
+
+
+def compare_main_paths(runs: dict):
+    """The unfused DFSPH plane path against the fused one: the same per-step
+    iterations and drops (else it fails), and whether the live rows are
+    bit-equal (logged); the K5 bf16 paths against the K5 f32 ones: sorted
+    positions within BF16_POSITION_TOL h (else it fails)."""
+    for kind, fused in FUSED_OF.items():
+        a, b = runs[kind], runs[fused]
+        same = a["rows"].shape == b["rows"].shape and torch.equal(
+            a["rows"].view(torch.int32), b["rows"].view(torch.int32))
+        log(f"phase 5 main path [{kind}]: per-step (iterations, drops) equal to {fused}'s "
+            f"{a['counts'] == b['counts']}; live rows bit-equal {same}")
+        if a["counts"] != b["counts"]:
+            raise RuntimeError(f"{kind}: per-step iterations or drops differ from {fused}: "
+                               f"{a['counts']} vs {b['counts']}")
+    for kind, f32 in F32_OF.items():
+        a, b = runs[kind], runs[f32]
+        diff = max(float(np.abs(np.sort(a["rows"][:, k].numpy())
+                                - np.sort(b["rows"][:, k].numpy())).max()) for k in (0, 1))
+        log(f"phase 5 main path [{kind}]: sorted x and y within {diff!r} m = "
+            f"{diff / a['h']!r} h of {f32}'s (bound {BF16_POSITION_TOL} h); per-step "
+            f"(iterations, drops) equal to {f32}'s {a['counts'] == b['counts']}")
+        if a["rows"].shape != b["rows"].shape or diff > BF16_POSITION_TOL * a["h"]:
+            raise RuntimeError(f"{kind}: sorted positions {diff / a['h']} h from {f32}'s")
 
 
 def check_launches(kind, launches) -> dict:
@@ -1367,7 +1478,7 @@ def check_state(rec: Records, kind, solver, boundary, carry, where, paths, visc_
         check_k1_calls(rec, geom, live, calls, variant, paths=paths, where=where)
     else:
         kernel = "sm_pair_reduce" if solver.grid.use_pallas_slotmajor else "tile_pair_reduce"
-        variant = ""
+        variant = BF16 if solver.grid.pair_dtype == "bfloat16" else ""
         builder = dfsph_slot_calls if kind.startswith("dfsph") else wcsph_slot_calls
         (pos, mask), _, calls = builder(solver, boundary, carry, rng, mode=CHECK,
                                         visc_mode=visc_mode)
@@ -1467,9 +1578,12 @@ def sharded_rank(group, kinds, scene):
     out = {}
     for kind in kinds:
         world, solver, boundary = shard_setup(kind, group.device, particles)
+        # the DFSPH plane solver's fuse switches reach the shard solver
+        switches = {f: getattr(solver, f) for f in ("fuse_loop_elementwise",
+                                                    "fuse_ctx_elementwise") if hasattr(solver, f)}
         sharded = sharded_driver(kind)(group, viscosity_model=solver.viscosity_model,
                                        properties=solver.properties, full_grid=solver.grid,
-                                       step_config=solver.step_config)
+                                       step_config=solver.step_config, **switches)
         state = kicked_state(world, group.device, kick)
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -1624,7 +1738,10 @@ def check_halo_k1(rec: Records, kind, ref, paths):
     from yasph2d_tpu_torch.ops import pair_reduce as pr
 
     solver, boundary, carry = ref["solver"], ref["boundary"], ref["carry"]
-    if kind.startswith("dfsph"):
+    if kind.endswith("_unfused"):  # the no-epilogue forms (ctx: the fused kinds')
+        geom, live, calls = dfsph_plane_calls(solver, boundary, carry, unfused_mode=RECORD)
+        calls = [c for c in calls if c[1].name in DFSPH_UNFUSED_FORMS[1:]]
+    elif kind.startswith("dfsph"):
         geom, live, calls = dfsph_plane_calls(solver, boundary, carry)
     else:
         geom, live, calls = wcsph_plane_calls(solver, boundary, carry,
@@ -1645,8 +1762,8 @@ def check_halo_k1(rec: Records, kind, ref, paths):
                 band_rows(live, r0, r1), 0, role_tensors(q.pos, src.pos, kw),
                 [q.mask, src.mask], k1_pairs(q, src), c.radius_sq, variant, paths=paths,
                 mode=mode, where=where, halo=halo_extras(q, src, kw))
-    forms = DFSPH_FORMS if kind.startswith("dfsph") else WCSPH_FORMS
-    rec.require_nonzero([f"pair_reduce_{f}{variant}" for f in forms])
+    forms = [c[1].name for c in calls if not c[0]]  # the step's forms, once each
+    rec.require_nonzero([f"pair_reduce_{f}{variant}" for f in dict.fromkeys(forms)])
 
 
 def k2_operands(kind, carry):
@@ -1761,6 +1878,7 @@ def check_halo_k5(rec: Records, kind, ref, paths):
     slot_calls = dfsph_slot_calls if kind.startswith("dfsph") else wcsph_slot_calls
     (pos, mask), _, calls = slot_calls(solver, boundary, carry, rng)
     ny = solver.grid.ny
+    bf16 = solver.grid.pair_dtype == "bfloat16"
     for k, (r0, r1) in enumerate(((0, ny // SHARD_RANKS), (ny // SHARD_RANKS, ny))):
         qp, qm = slot_band(pos, r0, r1), slot_band(mask, r0, r1)
         where = f" on shard {k} of {kind}"
@@ -1771,14 +1889,19 @@ def check_halo_k5(rec: Records, kind, ref, paths):
                   for key in ("q_vals", "s_vals") if key in kw}
             kb["scalars"] = kw.get("scalars", ())
             sp, sm = slot_band(s_pos, r0, r1), slot_band(s_mask, r0, r1)
+            extras = slot_halo_extras(qp, qm, sp, sm, halo)
+            if bf16:  # rebased on the band's global rows (the counted rows from r0 - 1)
+                kb["rebase"] = kw["rebase"]._replace(row0=r0)
+                extras = ((*extras[0], None, kw["rebase"]._replace(row0=r0 - 1)), extras[1])
             rec.check_pair(
                 "tile_pair_reduce", form.name + suffix, form,
                 lambda: tpp.pallas_pair_reduce(form, qp, qm, sp, sm, c, halo=halo, **kb),
                 lambda: tpp.pallas_pair_reduce_ref(form.term_fn, form.n_out, qp, qm, sp, sm,
                                                    c.radius_sq, halo=halo, **kb),
-                qm, -1, role_tensors(qp, sp, kb), [qm, sm], (qp, qm, sp, sm), c.radius_sq,
-                HALO, paths=paths, mode=RECORD if k == 0 else CHECK, where=where,
-                halo=slot_halo_extras(qp, qm, sp, sm, halo))
+                qm, -1, role_tensors(qp, sp, kb), [qm, sm],
+                (qp, qm, sp, sm, None, kb.get("rebase")), c.radius_sq,
+                (BF16 if bf16 else "") + HALO, paths=paths, mode=RECORD if k == 0 else CHECK,
+                where=where, halo=extras)
     rec.require_nonzero(halo_path(kind)[:-1])  # the K5 halo forms of the kind's step
 
 
@@ -2133,7 +2256,9 @@ def main():
     phase_kernels_deep(device)
     phase_kernels_1m(device, rec)
     phase_small_reference(device)
-    path_launches = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}
+    runs = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}
+    path_launches = {kind: path for kind, (path, _) in runs.items()}
+    compare_main_paths({kind: run for kind, (_, run) in runs.items()})
     path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})
     path_launches.update({name: phase_config_path(device, rec, name)
                           for name in CONFIG_PATHS})

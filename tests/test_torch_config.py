@@ -234,10 +234,18 @@ def test_unported_kinds_and_refusals():
     with pytest.raises(ValueError, match="unknown viscosity kind"):
         dataclasses.replace(small_config(T, "dfsph_padded"),
                             viscosity=T.ViscosityConfig(kind="xsp")).build(device="cpu")
-    # the padded solvers' bf16 refusal (their kernels take float32 operands)
+    # bf16 on the padded kinds: K5's bf16 math mode builds and runs; K3
+    # (use_pallas_slotmajor) still refuses it, as the JAX padded solvers assert
     for kind in ("dfsph_padded", "wcsph_padded"):
+        cfg = small_config(T, kind, pair_dtype="bfloat16")
+        world, solver, boundary, carry = cfg.build(device="cpu")
+        carry, diag = solver.simulate(carry, boundary, 1)
+        assert solver.grid.pair_dtype == "bfloat16" and diag.neighbor_drops == 0
+        state = solver.export_state(carry)
+        assert bool(torch.isfinite(state.positions[state.alive]).all())
         with pytest.raises(ValueError, match="bfloat16"):
-            small_config(T, kind, pair_dtype="bfloat16").build(device="cpu")
+            small_config(T, kind, pair_dtype="bfloat16",
+                         use_pallas_slotmajor=True).build(device="cpu")
     if not torch.cuda.is_available():  # no CPU fallback
         with pytest.raises(RuntimeError, match="no CUDA device"):
             small_config(T, "dfsph_padded").build()

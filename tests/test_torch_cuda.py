@@ -258,7 +258,7 @@ def test_sm_rebucket_kernel_bit_equal(device, wcase, shift):
 
 
 @pytest.mark.parametrize("kind", ["wcsph_padded", "wcsph_plane", "wcsph_padded_k5",
-                                  "wcsph_plane_bf16"])
+                                  "wcsph_plane_bf16", "wcsph_padded_k5_bf16"])
 def test_wcsph_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal drops and live rows."""
@@ -279,7 +279,8 @@ def test_wcsph_solver_gpu_matches_cpu(device, kind):
 
 
 @pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_padded", "dfsph_padded_k5",
-                                  "dfsph_plane_bf16"])
+                                  "dfsph_plane_bf16", "dfsph_plane_unfused",
+                                  "dfsph_padded_k5_bf16"])
 def test_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal iteration counts and live rows."""
@@ -581,6 +582,9 @@ def _edge_operands(edge, form, q):
             v, vals["sgs"], vals["nt"], vals["alpha"]))),
         "corr_v": (dfsph, f.corr_v, q, dict(q_vals=(k,), s_vals=(k,), scalars=(1234.5,),
                                             post_planes=(v, k, vals["sgs"]))),
+        "visc": (dfsph, f.visc, q, dict(q_vals=(v,), s_vals=(v, rho), scalars=(dt,))),
+        "div": (dfsph, f.div, q, dict(q_vals=(v,), s_vals=(v,))),
+        "corr": (dfsph, f.corr, q, dict(q_vals=(k,), s_vals=(k,))),
         "wcsph_density": (wcsph, w.density, q, {}),
         "wcsph_stat": (wcsph, w.stat, s_walls, {}),
         "wcsph_forces": (wcsph, w.forces, q, dict(q_vals=wv, s_vals=wv, scalars=(dt,))),
@@ -1001,6 +1005,10 @@ def test_pair_kernel_deep_sources_bit_equal(device, edge, form, bf16):
             v, vals["sgs"], vals["nt"], vals["alpha"]))),
         "corr_v": (dfsph, f.corr_v, dict(q_vals=(k,), s_vals=(sv["k"],), scalars=(1234.5,),
                                          post_planes=(v, k, vals["sgs"]))),
+        "visc": (dfsph, f.visc, dict(q_vals=(v,), s_vals=(sv["v"], sv["rho"]),
+                                     scalars=(dt,))),
+        "div": (dfsph, f.div, dict(q_vals=(v,), s_vals=(sv["v"],))),
+        "corr": (dfsph, f.corr, dict(q_vals=(k,), s_vals=(sv["k"],))),
         "wcsph_density": (wcsph, w.density, {}),
         "wcsph_stat": (wcsph, w.stat, {}),
         "wcsph_forces": (wcsph, w.forces, dict(q_vals=(vals["pres"], rho, v),
@@ -1342,6 +1350,54 @@ def test_tile_pair_kernel_halo_forms_match_twin(device, k3case, form, source):
         twin = tpp.pallas_pair_reduce_ref(pform.term_fn, pform.n_out, *args[1:],
                                           consts.radius_sq, scalars=kw.get("scalars", ()),
                                           halo=Halo(rows, r0, 23), **kb)
+        torch.cuda.synchronize()
+        live = args[2][..., None].expand_as(out)
+        torch.testing.assert_close(out[live], twin[live], rtol=1e-5,
+                                   atol=1e-6 * max(1.0, float(twin[live].abs().max())))
+        assert (out[~live] == 0).all()
+        assert torch.equal(out.view(torch.int32), full[r0:r1].view(torch.int32))
+    assert float(full.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("source", ["same", "deep"])
+@pytest.mark.parametrize("form", list(tpp.cuda_build.TILE_PAIR_FORMS))
+def test_tile_pair_kernel_bf16_forms_match_twin(device, k3case, form, source):
+    """Every K5 launcher in its bf16 math mode, one-device and halo form, on
+    K3's synthetic P = 40 case (its own source, or the Ps = 40 space whose
+    dead slots hold NaN) and its row bands: one launch counted under
+    <form>_bf16 / <form>_bf16_halo, at K5's tolerance from its twin, and
+    each band (rebased on its global rows) the one-device kernel's rows bit
+    for bit."""
+    dfsph, wcsph, spaces = k3case
+    k5 = {dtype: [dataclasses.replace(s, grid=dataclasses.replace(
+        s.grid, use_pallas_slotmajor=False, pair_dtype=dtype)) for s in (dfsph, wcsph)]
+        for dtype in ("float32", "bfloat16")}
+    (pos, mask), qv = spaces["p40"]
+    (spos, smask), sv = spaces[source] if source == "deep" else spaces["p40"]
+    pform, consts, kw = _k3_form(*k5["bfloat16"], form, qv, sv)
+    grid = k5["bfloat16"][0].grid
+    assert pform.name == form and consts.radius_sq == tpp.bf16_float(grid.radius_sq)
+    name = form + "_bf16"
+    before = tpp.LAUNCHES[name]
+    full = tpp.pallas_pair_reduce(pform, pos, mask, spos, smask, consts,
+                                  rebase=tpp.rebase_of(grid), **kw)
+    assert tpp.LAUNCHES[name] == before + 1
+    f32_form, f32_consts, _ = _k3_form(*k5["float32"], form, qv, sv)
+    f32 = tpp.pallas_pair_reduce(f32_form, pos, mask, spos, smask, f32_consts, **kw)
+    assert not torch.equal(full, f32)  # the mode is live
+    for r0, r1 in SLOT_BANDS:
+        rows = tuple(_slot_halo(t, r0, r1) for t in (spos, smask, *kw.get("s_vals", ())))
+        kb = {k: tuple(t[r0:r1].contiguous() for t in kw[k])
+              for k in ("q_vals", "s_vals") if k in kw}
+        args = (pform, pos[r0:r1].contiguous(), mask[r0:r1].contiguous(),
+                spos[r0:r1].contiguous(), smask[r0:r1].contiguous())
+        halo_kw = dict(scalars=kw.get("scalars", ()), halo=Halo(rows, r0, 23),
+                       rebase=tpp.rebase_of(grid, r0), **kb)
+        before = tpp.LAUNCHES[name + "_halo"]
+        out = tpp.pallas_pair_reduce(*args, consts, **halo_kw)
+        assert tpp.LAUNCHES[name + "_halo"] == before + 1
+        twin = tpp.pallas_pair_reduce_ref(pform.term_fn, pform.n_out, *args[1:],
+                                          consts.radius_sq, **halo_kw)
         torch.cuda.synchronize()
         live = args[2][..., None].expand_as(out)
         torch.testing.assert_close(out[live], twin[live], rtol=1e-5,

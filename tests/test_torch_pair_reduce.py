@@ -1,7 +1,11 @@
-"""K1 (pair reduction): the port's plain twin in all nine call forms against the
-JAX plane solvers' passes (six DFSPH, three WCSPH), whose pf_pair_reduce runs
-in interpret mode on the CPU (as tests/test_pallas_plane.py runs it), on random
-grids and on distinct query (fluid) / source (boundary) spaces.
+"""K1 (pair reduction): the port's plain twin in all its call forms against the
+JAX plane solvers' passes (six DFSPH, three WCSPH, and the unfused DFSPH
+step's three without an epilogue, `visc`, `div` and `corr`, with the glue of
+`_velocity_divergence_pf` and `_k_correction_pf` around the last two), whose
+pf_pair_reduce runs in interpret mode on the CPU (as
+tests/test_pallas_plane.py runs it), on random grids and on distinct query
+(fluid) / source (boundary) spaces. The no-epilogue forms write zeros to
+dead query slots, as the JAX kernel does without a post_fn.
 
 Tolerance on live slots: rtol 1e-5, and atol 1e-6 in units of the output
 plane's largest magnitude. The accumulation order is the same (dyv, dxv, sp)
@@ -55,6 +59,10 @@ BR = 4
 RTOL, ATOL = 1e-5, 1e-6
 FORMS = ["ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
          "wcsph_density", "wcsph_stat", "wcsph_forces"]
+# the unfused DFSPH plane step's passes: the three no-epilogue forms, and the
+# divergence and k-correction with their glue (JAX _velocity_divergence_pf,
+# _k_correction_pf)
+UNFUSED = ["visc", "div", "corr", "velocity_divergence", "k_correction"]
 
 
 NY, NX, P, PB = 11, 17, 3, 2
@@ -101,8 +109,29 @@ def solvers(visc="xsph"):
         delta_ki=jax.jit(js._divergence_delta_ki_pf),
         corr_v=jax.jit(js._apply_correction_pf),
         **wcsph,
+        **jax_unfused(js, jgrid),
     )
     return h, jgrid, js, ts, tws, jitted
+
+
+def jax_unfused(js, jgrid):
+    """The JAX unfused plane step's passes (models/dfsph_plane.py:236-284),
+    jitted: the viscosity pass, the divergence and k-correction kernels
+    without their glue (`_div_terms`, and `_k_correction_pf`'s closure op
+    for op), and both with it."""
+    def corr_terms(dx, dy, r_sq, r, scalars, q_planes, s_planes):
+        kk = (q_planes[0] + s_planes[0]) * js.kernel.gradient_coefficient(r_sq, r)
+        return (kk * dx, kk * dy)
+
+    def raw(terms, n_out):
+        return jax.jit(lambda ctx, a: pf_pair_reduce(
+            terms, n_out, ctx.geom, ctx.geom, ctx.flags_dyn, jgrid, BR,
+            q_vals=(a,), s_vals=(a,)))
+
+    return dict(visc=jax.jit(js._viscosity_pf), div=raw(js._div_terms(), 1),
+                corr=raw(corr_terms, 2),
+                velocity_divergence=jax.jit(js._velocity_divergence_pf),
+                k_correction=jax.jit(js._k_correction_pf))
 
 
 class Case:
@@ -256,10 +285,32 @@ def run_form(case: Case, form: str):
     elif form == "delta_ki":
         out_j = jit[form](jctx, case.j(case.v))
         out_t = ts._divergence_delta_ki_pf(tctx, case.t(case.v))
-    else:  # corr_v
+    elif form == "corr_v":
         scale = np.float32(1.0 / dt) * np.float32(case.js.properties.particle_mass)
         out_j = jit[form](jctx, case.j(case.k), case.j(case.v), scale)
         out_t = ts._apply_correction_pf(tctx, case.t(case.k), case.t(case.v), scale)
+    else:
+        return run_unfused(case, form, jctx, tctx)
+    return list(out_j), list(out_t)
+
+
+def run_unfused(case, form, jctx, tctx):
+    """(jax outputs, port outputs) of one pass of the unfused plane step."""
+    ts, jit = case.ts, case.jitted
+    if form == "visc":
+        out_j = jit[form](jctx, case.j(case.v), case.j(case.rho), case.dt)
+        out_t = ts._viscosity_pf(tctx, case.t(case.v), case.t(case.rho), case.dt)
+    elif form in ("div", "corr"):  # the kernel alone
+        a = case.v if form == "div" else case.k
+        out_j = jit[form](jctx, case.j(a))
+        out_t = tpr.pair_reduce(getattr(ts._forms, form), tctx.geom, tctx.geom,
+                                ts._consts, q_vals=(case.t(a),), s_vals=(case.t(a),))
+    elif form == "velocity_divergence":
+        out_j = [jit[form](jctx, case.j(case.v))]
+        out_t = [ts._velocity_divergence(tctx, case.t(case.v))]
+    else:  # k_correction
+        out_j = jit[form](jctx, case.j(case.k))
+        out_t = ts._k_correction(tctx, case.t(case.k))
     return list(out_j), list(out_t)
 
 
@@ -291,16 +342,25 @@ def test_twin_matches_jax(case, form):
     check_form(case, form)
 
 
+@pytest.mark.parametrize("form", UNFUSED)
+def test_unfused_pass_matches_jax(case, form):
+    """The unfused plane step's passes (no epilogue; the divergence and
+    k-correction also with their torch glue) against the JAX ones."""
+    check_form(case, form)
+
+
 @pytest.fixture(scope="module", params=[0, 1], ids=["seed0", "seed1"])
 def physical_case(request):
     return Case(seed=request.param, visc="physical")
 
 
-@pytest.mark.parametrize("form", ["visc_gravity", "wcsph_forces"])
+@pytest.mark.parametrize("form", ["visc_gravity", "wcsph_forces", "visc"])
 def test_physical_twin_matches_jax(physical_case, form):
     """The physical viscosity forms (PhysicalViscosityModel, mu = 0.01) of
-    both plane steps against the JAX plane passes, as the XSPH forms."""
+    both plane steps and of the unfused step against the JAX plane passes,
+    as the XSPH forms."""
     assert physical_case.ts._forms.visc_gravity.name == "visc_gravity_phys"
+    assert physical_case.ts._forms.visc.name == "visc_phys"
     assert physical_case.tws._forms.forces.name == "wcsph_forces_phys"
     check_form(physical_case, form)
 
@@ -320,11 +380,19 @@ def test_twin_matches_jax_deep_sources(deep_case, form):
     check_form(deep_case, form)
 
 
-def test_dead_query_slots_are_zero(case):
-    out = tpr.pair_reduce(case.ts._forms.ctx, case.tctx().geom, case.tctx().geom,
-                          case.ts._consts)
+@pytest.mark.parametrize("form", ["ctx", "visc", "div", "corr"])
+def test_dead_query_slots_are_zero(case, form):
+    """The no-epilogue forms write zeros to every dead query slot (the JAX
+    kernel without post_fn, pallas_slotmajor.py:853-870), over a live
+    sum elsewhere."""
+    a = (case.v,) if form in ("visc", "div") else (case.k,) if form == "corr" else ()
+    kw = dict(q_vals=tuple(map(case.t, a)), s_vals=tuple(map(case.t, a)))
+    if form == "visc":
+        kw.update(s_vals=kw["s_vals"] + (case.t(case.rho),), scalars=(float(case.dt),))
+    geom = case.tctx().geom
+    out = tpr.pair_reduce(getattr(case.ts._forms, form), geom, geom, case.ts._consts, **kw)
     dead = ~case.t(case.mask)
-    assert (out[:, dead] == 0).all()
+    assert (out[:, dead] == 0).all() and (out[:, ~dead] != 0).any()
 
 
 def test_wrapper_dispatch_is_by_device(case):

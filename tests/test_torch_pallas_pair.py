@@ -11,7 +11,18 @@ Tolerance on live slots: rtol 1e-4, and atol 1e-4 in units of the output's
 largest magnitude: the tolerance tests/test_pallas_pair.py states for two
 summation orders (the twin sums each view's Ps candidates with torch.sum, the
 Pallas kernel with jnp.sum, the XLA path over one 9P axis), scaled because
-the gradient sums at h = 0.1 reach 1e4."""
+the gradient sums at h = 0.1 reach 1e4.
+
+K5's bf16 math mode (`rebase`) is held to the XLA pair_reduce at a bfloat16
+grid, every form and both physical ones, at the same tolerance: per pair
+both round every operation to bf16 as the jaxpr types it, so what remains
+is the f32 summation order (measured: under 1e-7 of each output's scale,
+where the f32 twin is 0.4-6% of the scale away, which the test also
+asserts). The JAX pass is jitted with XLA's `xla_allow_excess_precision`
+off: by default XLA on the CPU keeps f32 intermediates through fused bf16
+chains and skips most of the jaxpr's bf16 roundings (measured: 0.2-1.7% of
+the scale from the twin, about as far as f32; the neighbour counts become
+f32's)."""
 
 import dataclasses
 import functools
@@ -121,6 +132,17 @@ def jax_closures(jd, jw):
                 wcsph_density=density, wcsph_stat=stat, wcsph_forces=forces)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_bf16_pass(visc, form):
+    """The XLA pair_reduce of `form`'s closure at a bfloat16 grid, jitted with
+    excess precision off (module docstring)."""
+    case_grid = dataclasses.replace(solvers(visc)[1], pair_dtype="bfloat16")
+    closure = jax_closures(*solvers(visc)[2:4])[form]
+    return jax.jit(lambda p, m, sp, sm, qv, sv, sc: j_xla_pair_reduce(
+        closure, p, m, sp, sm, case_grid, source_values=sv, query_values=qv,
+        scalar_args=sc), compiler_options={"xla_allow_excess_precision": False})
+
+
 def stack_outputs(out) -> np.ndarray:
     """A JAX pytree of (ny, nx, P[, 2]) leaves, in order, as (ny, nx, P, n_out)."""
     leaves = jax.tree_util.tree_leaves(out)
@@ -181,13 +203,30 @@ class Case:
                                     j(spos), j(smask), self.jgrid, **kw)
         return stack_outputs(out)
 
-    def port(self, form, boundary):
+    def port(self, form, boundary, bf16=False):
+        """The port's twin of `form`; `bf16`: in K5's bf16 math mode, with the
+        bf16 constants of the form's solver."""
         spos, smask, qv, sv, sc = self.operands(form, boundary)
         t = torch.as_tensor
+        pf, consts, kw = self.forms[form], self.td._consts, {}
+        if bf16:
+            solver = self.tw if form.startswith("wcsph") else self.td
+            consts = tpp.bf16_consts(solver._consts)
+            pf = tpp.bf16_form(pf, consts)
+            kw = dict(rebase=tpp.rebase_of(dataclasses.replace(solver.grid,
+                                                               pair_dtype="bfloat16")))
         return tpp.pallas_pair_reduce(
-            self.forms[form], t(self.pos), t(self.mask), t(spos), t(smask),
-            self.td._consts, q_vals=tuple(map(t, qv)), s_vals=tuple(map(t, sv)),
-            scalars=tuple(float(s) for s in sc)).numpy()
+            pf, t(self.pos), t(self.mask), t(spos), t(smask), consts,
+            q_vals=tuple(map(t, qv)), s_vals=tuple(map(t, sv)),
+            scalars=tuple(float(s) for s in sc), **kw).numpy()
+
+    def jax_bf16(self, form, boundary, visc):
+        """The JAX XLA pair_reduce of `form` at a bfloat16 grid."""
+        spos, smask, qv, sv, sc = self.operands(form, boundary)
+        j = jnp.asarray
+        return stack_outputs(jax_bf16_pass(visc, form)(
+            j(self.pos), j(self.mask), j(spos), j(smask), tuple(map(j, qv)),
+            tuple(map(j, sv)), tuple(jnp.float32(s) for s in sc)))
 
 
 def assert_live_close(out_t, ref, mask, what):
@@ -220,6 +259,22 @@ def test_twin_matches_jax_xla_pair_reduce(case, form, boundary):
                       case.mask, form)
 
 
+def check_bf16(case, form, boundary, visc):
+    """K5's bf16 twin of one form against the JAX bf16 XLA pass, at the f32
+    summation-order tolerance; the f32 twin is outside it."""
+    ref = case.jax_bf16(form, boundary, visc)
+    out = case.port(form, boundary, bf16=True)
+    assert_live_close(out, ref, case.mask, form)
+    assert np.abs(out).sum() > 0
+    with pytest.raises(AssertionError):
+        assert_live_close(case.port(form, boundary), ref, case.mask, form)
+
+
+@pytest.mark.parametrize("form,boundary", CASES, ids=IDS)
+def test_bf16_twin_matches_jax_xla_pair_reduce(case, form, boundary):
+    check_bf16(case, form, boundary, "xsph")
+
+
 @pytest.fixture(scope="module", params=[0, 3], ids=["seed0", "seed3"])
 def physical_case(request):
     return Case(seed=request.param, visc="physical")
@@ -236,6 +291,13 @@ def test_physical_twin_matches_jax(physical_case, form, pallas):
     assert_live_close(out, physical_case.jax(form, False, pallas=pallas),
                       physical_case.mask, form)
     assert np.abs(out).sum() > 0
+
+
+@pytest.mark.parametrize("form", ["dfsph_visc", "wcsph_forces"])
+def test_bf16_physical_twin_matches_jax(physical_case, form):
+    """The physical forms in bf16: the laplacian in bf16, the rest in f32 (the
+    JAX model's f32 array constant promotes), against the JAX bf16 pass."""
+    check_bf16(physical_case, form, False, "physical")
 
 
 def test_tile_width_fits_shared_memory():

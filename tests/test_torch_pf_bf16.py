@@ -5,7 +5,8 @@ JAX package's bf16 plane path (pf_build_geom / pf_pair_reduce with
 - The bf16 geometry of live slots (positions rebased onto their cell centre,
   cast to bf16) is bit-equal to JAX's `q_geom`, cropped, on a grid whose
   origin is not at zero.
-- Every K1 form (six DFSPH, three WCSPH) matches JAX's bf16 pass on live
+- Every K1 form (six DFSPH, three WCSPH, and the unfused DFSPH step's
+  visc, div and corr, also with their glue) matches JAX's bf16 pass on live
   slots to the f32 tolerance of tests/test_torch_pair_reduce.py (rtol 1e-5,
   atol 1e-6 of the plane's scale): the same bf16 operands and f32 math, but
   XLA contracts multiply-adds and CPU torch.sqrt is not correctly rounded.
@@ -15,11 +16,13 @@ JAX package's bf16 plane path (pf_build_geom / pf_pair_reduce with
   on every step (tiny and contact scenes of tests/test_torch_dfsph_plane.py),
   WCSPH equal drops and dt with positions to f32 drift (the scene of
   tests/test_torch_wcsph.py), tolerances as in those files.
-- The padded solvers refuse bf16, and the interop converters build the bf16
-  geometry from the grid."""
+- The padded solvers refuse bf16 on their K3 route and step it on K5
+  (its bf16 math mode, tests/test_torch_padded_bf16.py), and the interop
+  converters build the bf16 geometry from the grid."""
 
 import dataclasses
 import functools
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +31,9 @@ import pytest
 import torch
 
 from test_torch_dfsph_plane import carry_leaves, contact_scene, live_rows, scene
-from test_torch_pair_reduce import jax_ctx_terms, jax_wcsph_terms
+from test_torch_pair_reduce import (
+    UNFUSED, jax_ctx_terms, jax_unfused, jax_wcsph_terms, run_unfused,
+)
 from yasph2d_tpu.models.dfsph_plane import BoundaryPlanes as JBoundaryPlanes
 from yasph2d_tpu.models.dfsph_plane import DFSPHPlaneSolver as JSolver
 from yasph2d_tpu.models.dfsph_plane import PlaneCtx as JCtx
@@ -111,6 +116,7 @@ def solvers(visc="xsph"):
         delta_ki=jax.jit(js._divergence_delta_ki_pf),
         corr_v=jax.jit(js._apply_correction_pf),
         **wcsph,
+        **jax_unfused(js, jgrid),
     )
     return h, jgrid, tgrid, js, ts, tws, jitted
 
@@ -235,10 +241,12 @@ def run_form(case, form):
     elif form == "delta_ki":
         out_j = jit[form](jctx, case.j(case.v))
         out_t = ts._divergence_delta_ki_pf(tctx, case.t(case.v))
-    else:  # corr_v
+    elif form == "corr_v":
         scale = np.float32(1.0 / dt) * np.float32(case.js.properties.particle_mass)
         out_j = jit[form](jctx, case.j(case.k), case.j(case.v), scale)
         out_t = ts._apply_correction_pf(tctx, case.t(case.k), case.t(case.v), scale)
+    else:
+        return run_unfused(case, form, jctx, tctx)
     return list(out_j), list(out_t)
 
 
@@ -258,7 +266,7 @@ def check_form(case, form):
     assert any(np.abs(b.numpy()).sum() > 0 for b in out_t)
 
 
-@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("form", FORMS + UNFUSED)
 def test_bf16_form_matches_jax(case, form):
     check_form(case, form)
 
@@ -268,7 +276,7 @@ def physical_case():
     return Case(seed=0, visc="physical")
 
 
-@pytest.mark.parametrize("form", ["visc_gravity", "wcsph_forces"])
+@pytest.mark.parametrize("form", ["visc_gravity", "wcsph_forces", "visc"])
 def test_bf16_physical_form_matches_jax(physical_case, form):
     """The physical viscosity forms (mu = 0.01) with bf16 operands against the
     JAX plane passes in bf16, as the XSPH forms."""
@@ -334,15 +342,30 @@ def test_bf16_envelope_against_f32():
 @pytest.mark.parametrize("solver_cls", [TPadded, TWPadded])
 @pytest.mark.parametrize("slotmajor", [True, False])
 def test_padded_solvers_refuse_bf16(solver_cls, slotmajor):
+    """The padded solvers refuse bf16 on their K3 route, as the JAX slot-major
+    solvers assert; on the K5 route (slotmajor False) they build and step
+    in K5's bf16 math mode (held to JAX in tests/test_torch_padded_bf16.py).
+    A dtype that is neither is refused by the grid."""
     world = TWorld(1.0, 60.0, 100.0)
     world.add_fluid_rect((0.1, 0.7, 0.5, 1.0), 0.05)
+    world.add_boundary_thick_line((0.0, 0.0), (2.0, 0.0), 2)
     grid = dataclasses.replace(world.dense_grid(occupancy=3), pair_dtype="bfloat16",
                                use_pallas_slotmajor=slotmajor)
     h = world.properties.smoothing_length
-    match = "K3" if slotmajor else r"the padded solvers' bf16 math mode, ROADMAP.md Queue 1\)"
-    with pytest.raises(ValueError, match=match):
-        solver_cls(viscosity_model=TXSPH(h), properties=world.properties, grid=grid,
-                   step_config=TFixed(1.0 / 3000.0))
+    make = partial(solver_cls, viscosity_model=TXSPH(h), properties=world.properties,
+                   grid=grid, step_config=TFixed(1.0 / 3000.0))
+    if slotmajor:
+        with pytest.raises(ValueError, match="K3"):
+            make()
+    else:
+        solver = make()
+        boundary = world.boundary_dense(grid, device="cpu")
+        carry = solver.init_carry(world.initial_state(device="cpu"), boundary)
+        carry, diag = solver.simulate(carry, boundary, 2)
+        assert diag.neighbor_drops == 0
+        state = solver.export_state(carry)
+        assert int(state.alive.sum()) == world.num_dynamic_particles
+        assert bool(torch.isfinite(state.positions[state.alive]).all())
     with pytest.raises(ValueError, match="pair_dtype"):
         dataclasses.replace(grid, pair_dtype="float16")
 

@@ -10,9 +10,12 @@ shard_dense.py) on the CPU: gloo ranks started by `parallel.comm.spawn`
   scale), K4 bit for bit with a third of the particles moved across a seam.
 - The halo twins band by band against the one-device twins on the whole
   grid: bit for bit.
+- K5's bf16 math mode on the same bands: the halo twin, each band rebased
+  on its global rows, equals the one-device bf16 twin's rows bit for bit.
 - ShardedDFSPHPadded and ShardedWCSPHPadded at 2 and 4 ranks, on a contact
-  scene with seeded 3 m/s velocities (particles cross the seams), with
-  rebuild_every = 3, and on a column spanning every shard: per-step
+  scene with seeded 3 m/s velocities (particles cross the seams), in f32
+  and on a bf16 grid (K5's bf16 math mode), with rebuild_every = 3, and on
+  a column spanning every shard: per-step
   iterations and drops equal to the port's one-device solver on the same
   grid, live rows bit for bit, every particle live.
 - The same drivers against JAX's ShardedDFSPHPadded and ShardedWCSPHPadded on
@@ -219,13 +222,14 @@ def test_k4_halo_twin_matches_jax_sharded_migration(mesh, d):
 
 # --------------------------------------- halo twins against one-device twins
 
-def port_case(seed):
+def port_case(seed, pair_dtype="float32"):
     """The DFSPH and WCSPH padded solvers on a 12 x 9 grid, P 3, with random
     live slots near their cells (a tenth of a cell outside, so pairs cross
     cells), velocities, kappa and densities."""
     world = TWorld(1.0, 60.0, 100.0)
     h = world.properties.smoothing_length
-    grid = TGrid(cell_size=h, origin=(0.0, 0.0), nx=9, ny=12, occupancy=3)
+    grid = TGrid(cell_size=h, origin=(0.0, 0.0), nx=9, ny=12, occupancy=3,
+                 pair_dtype=pair_dtype)
     kw = dict(viscosity_model=TXSPH(h), properties=world.properties, grid=grid)
     dfsph = TSolver(**kw, step_config=TFixed(1.0 / 3000.0))
     wcsph = TWSolver(**kw, step_config=TAdaptive(1 / 360, 1 / 24000, 0.2))
@@ -266,26 +270,43 @@ K5_FORMS = ("dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc", "wcsph_density
             "wcsph_stat", "wcsph_forces", "dfsph_visc_phys", "wcsph_forces_phys")
 
 
-@pytest.mark.parametrize("form", K5_FORMS)
-def test_k5_halo_twin_bands_equal_one_device(form):
-    """Every K5 form of the padded steps on three row bands (dead halo rows
-    at the ends): the halo-form twin's output is the one-device twin's rows
-    of the whole grid, bit for bit, and the CPU route counts no launch."""
-    dfsph, wcsph, grid, pos, mask, vals = port_case(3)
+def check_k5_bands(form, pair_dtype):
+    """`form` on three row bands (dead halo rows at the ends): the halo-form
+    twin's output is the one-device twin's rows of the whole grid, bit for
+    bit (in bf16 each band rebased on its global rows), and the CPU route
+    counts no launch."""
+    dfsph, wcsph, grid, pos, mask, vals = port_case(3, pair_dtype)
     pform, consts, kw = k5_call(dfsph, wcsph, form.removesuffix("_phys"), vals,
                                 form.endswith("_phys"))
     assert pform.name == form
-    full = tpp.pallas_pair_reduce(pform, pos, mask, pos, mask, consts, **kw)
+    full = tpp.pallas_pair_reduce(pform, pos, mask, pos, mask, consts,
+                                  rebase=tpp.rebase_of(grid), **kw)
     before = dict(tpp.LAUNCHES)
     for r0, r1 in bands(12, 3):
         kb = {k: tuple(band(t, r0, r1) for t in kw[k]) for k in ("q_vals", "s_vals") if k in kw}
         rows = tuple(halo_rows(t, r0, r1) for t in (pos, mask, *kw.get("s_vals", ())))
         bp, bm = band(pos, r0, r1), band(mask, r0, r1)
         out = tpp.pallas_pair_reduce(pform, bp, bm, bp, bm, consts, scalars=kw.get("scalars", ()),
-                                     halo=Halo(rows, r0, 12), **kb)
+                                     halo=Halo(rows, r0, 12), rebase=tpp.rebase_of(grid, r0),
+                                     **kb)
         assert torch.equal(out.view(torch.int32), band(full, r0, r1).view(torch.int32))
     assert tpp.LAUNCHES == before
     assert float(full.abs().sum()) > 0
+    return full
+
+
+@pytest.mark.parametrize("form", K5_FORMS)
+def test_k5_halo_twin_bands_equal_one_device(form):
+    """Every K5 form of the padded steps on three row bands (`check_k5_bands`)."""
+    check_k5_bands(form, "float32")
+
+
+@pytest.mark.parametrize("form", K5_FORMS)
+def test_k5_bf16_halo_twin_bands_equal_one_device(form):
+    """Every K5 form in its bf16 math mode on three row bands
+    (`check_k5_bands`); the mode is live (its sums are not the f32 ones)."""
+    bf16 = check_k5_bands(form, "bfloat16")
+    assert not torch.equal(bf16, check_k5_bands(form, "float32"))
 
 
 @pytest.mark.parametrize("label", ["seams", "overflow"])
@@ -392,10 +413,12 @@ def setup(case):
     """(world, full grid, initial state, solver keywords) of a scenario, on a
     grid whose rows divide over 2 and 4 ranks."""
     kind, scene = case[:2]
+    scene, bf16 = scene.removesuffix("_bf16"), scene.endswith("_bf16")
     world = {"contact": contact_scene, "column": column_scene,
              "dam": lambda: dam_scene(TWorld)}[scene]()
     occupancy = 12 if scene == "dam" else None
-    grid = world.dense_grid(occupancy=occupancy, ny_multiple=4)
+    grid = dataclasses.replace(world.dense_grid(occupancy=occupancy, ny_multiple=4),
+                               pair_dtype="bfloat16" if bf16 else "float32")
     state = world.initial_state(device="cpu")
     n = state.positions.shape[0]
     if scene == "contact":
@@ -416,8 +439,10 @@ def setup(case):
     return world, grid, state, kw
 
 
-# (solver, scene[, rebuild_every]) of the spawned runs, and their step counts
+# (solver, scene[, rebuild_every]) of the spawned runs, and their step counts;
+# a scene `<scene>_bf16` runs on a bf16 grid (K5's bf16 math mode)
 CASES = {("dfsph", "contact"): STEPS, ("wcsph", "contact"): STEPS,
+         ("dfsph", "contact_bf16"): STEPS, ("wcsph", "contact_bf16"): STEPS,
          ("dfsph", "contact", 3): 7, ("dfsph", "column"): 8,
          ("dfsph", "dam"): DAM_STEPS, ("wcsph", "dam"): DAM_STEPS}
 
@@ -508,6 +533,18 @@ def test_sharded_padded_solver_equals_one_device(n, kind):
     assert sum(moved) > 0, moved
     if kind == "dfsph":
         assert max(c[0] for c in counts) > 1 and max(c[1] for c in counts) > 1
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n", RANKS)
+def test_sharded_padded_bf16_equals_one_device(n, kind):
+    """The same on a bf16 grid: K5's bf16 halo forms, each shard rebased on
+    its global rows, give the one-device bf16 solver's iterations, drops and
+    live rows bit for bit, with particles across the seams."""
+    moved, counts = check_equal_one_device(n, (kind, "contact_bf16"))
+    assert sum(moved) > 0, moved
+    assert not torch.equal(one_device((kind, "contact_bf16"))[1],
+                           one_device((kind, "contact"))[1])
 
 
 @pytest.mark.parametrize("n", RANKS)

@@ -12,10 +12,13 @@ whole module), the kernels' plain twins.
   grid: bit for bit.
 - `SpaceGroup.halo_rows`, `sum`, `max` and `all_gather` at 2 and 4 ranks
   against the same computation in one process.
-- ShardedDFSPHPlane and ShardedWCSPHPlane, f32 and bf16, at 2 and 4 ranks,
-  on a contact scene with seeded 3 m/s velocities, so that particles cross
-  the seams: per-step iterations and drops equal to the port's one-device
-  solver on the same grid and live rows bit for bit; against the JAX
+- ShardedDFSPHPlane and ShardedWCSPHPlane, f32 and bf16, and
+  ShardedDFSPHPlane with `fuse_loop_elementwise` and `fuse_ctx_elementwise`
+  False (passed through to the shard solver; the halo forms of K1's `ctx`,
+  `visc`, `div` and `corr`), at 2 and 4 ranks, on a contact scene with
+  seeded 3 m/s velocities, so that particles cross the seams: per-step
+  iterations and drops equal to the port's one-device solver on the same
+  grid and live rows bit for bit; against the JAX
   one-device solver equal counts and live rows to the tolerances of
   tests/test_torch_dfsph_plane.py (DFSPH, rtol 1e-5 atol 1e-6; bf16 atol
   1e-5 as tests/test_torch_pf_bf16.py) and tests/test_torch_wcsph.py
@@ -81,6 +84,8 @@ STEPS = 4
 # the solver scenarios: (DFSPH or WCSPH, pair dtype)
 KINDS = (("dfsph", "float32"), ("dfsph", "bfloat16"), ("wcsph", "float32"),
          ("wcsph", "bfloat16"))
+# the unfused DFSPH step (both fuse switches off), against one device only
+UNFUSED = ("dfsph_unfused", "float32")
 
 
 @pytest.fixture(scope="module")
@@ -364,9 +369,12 @@ def port_setup(kind, pair_dtype):
     state = world.initial_state(device="cpu")
     state = state._replace(velocities=torch.from_numpy(noise(state.positions.shape[0])))
     h = world.properties.smoothing_length
-    step = TFixed(1.0 / 250.0) if kind == "dfsph" else TAdaptive(1 / 360, 1 / 24000, 0.2)
-    return world, grid, state, dict(viscosity_model=TXSPH(h), properties=world.properties,
-                                    step_config=step)
+    dfsph = kind.startswith("dfsph")
+    step = TFixed(1.0 / 250.0) if dfsph else TAdaptive(1 / 360, 1 / 24000, 0.2)
+    kw = dict(viscosity_model=TXSPH(h), properties=world.properties, step_config=step)
+    if kind == "dfsph_unfused":
+        kw.update(fuse_loop_elementwise=False, fuse_ctx_elementwise=False)
+    return world, grid, state, kw
 
 
 def band_counts(mask_flat, grid, n):
@@ -394,7 +402,7 @@ def space_checks(group):
 
 def solver_run(group, kind, pair_dtype):
     world, grid, state, kw = port_setup(kind, pair_dtype)
-    cls = ShardedDFSPHPlane if kind == "dfsph" else ShardedWCSPHPlane
+    cls = ShardedDFSPHPlane if kind.startswith("dfsph") else ShardedWCSPHPlane
     sharded = cls(group, full_grid=grid, **kw)
     carry, bpl = sharded.init(state, world.boundary_dense(grid, device="cpu"))
     counts, bands_per_step = [], [band_counts(sharded.export_state(carry).alive, grid,
@@ -404,13 +412,15 @@ def solver_run(group, kind, pair_dtype):
         counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
         bands_per_step.append(band_counts(sharded.export_state(carry).alive, grid, group.size))
     return dict(counts=counts, rows=sharded.gather_live_rows(carry), bands=bands_per_step,
-                kinds=(type(sharded.solver).__name__, sharded.solver.grid.ny))
+                kinds=(type(sharded.solver).__name__, sharded.solver.grid.ny),
+                fused=(sharded.solver.fuse_loop_elementwise
+                       if kind.startswith("dfsph") else None))
 
 
 def rank_main(group):
     """Everything this module asks of one gloo rank."""
     return dict(space=space_checks(group),
-                runs={k: solver_run(group, *k) for k in KINDS})
+                runs={k: solver_run(group, *k) for k in KINDS + (UNFUSED,)})
 
 
 # each computed once for the module (pytest may set a parametrized module
@@ -448,7 +458,7 @@ def one_device(kind, pair_dtype):
     """The port's one-device solver on the sharded runs' grid: per-step counts
     and live rows (x, y, vx, vy, density in slot order)."""
     world, grid, state, kw = port_setup(kind, pair_dtype)
-    solver = (TSolver if kind == "dfsph" else TWSolver)(grid=grid, **kw)
+    solver = (TSolver if kind.startswith("dfsph") else TWSolver)(grid=grid, **kw)
     boundary = solver.boundary_planes(world.boundary_dense(grid, device="cpu"))
     carry = solver.init_carry(state, boundary)
     counts = []
@@ -460,12 +470,14 @@ def one_device(kind, pair_dtype):
     return counts, rows
 
 
-@pytest.mark.parametrize("key", KINDS, ids=["-".join(k) for k in KINDS])
+@pytest.mark.parametrize("key", KINDS + (UNFUSED,),
+                         ids=["-".join(k) for k in KINDS + (UNFUSED,)])
 @pytest.mark.parametrize("n", RANKS)
 def test_sharded_solver_equals_one_device(n, key):
     """Equal per-step iterations and drops, live rows bit for bit, on every
     rank; particles crossed the seams (the live counts of the shards' bands
-    changed), and the run went through the shard solver on the shard's rows."""
+    changed), and the run went through the shard solver on the shard's rows
+    (for the unfused kind, with the switches passed through)."""
     results = ranks(n)
     counts, rows = one_device(*key)
     for res in results:
@@ -473,12 +485,13 @@ def test_sharded_solver_equals_one_device(n, key):
         assert run["counts"] == counts
         assert torch.equal(run["rows"].view(torch.int32), rows.view(torch.int32))
         assert run["kinds"][0].endswith("PlaneShardSolver")
+        assert run["fused"] is (None if key[0] == "wcsph" else key != UNFUSED)
     moved = [sum(abs(a - b) for a, b in zip(s0, s1))
              for s0, s1 in zip(results[0]["runs"][key]["bands"],
                                results[0]["runs"][key]["bands"][1:])]
     assert sum(moved) > 0, moved
     assert all(c[2] == 0 for c in counts)
-    if key[0] == "dfsph":
+    if key[0].startswith("dfsph"):
         assert max(c[0] for c in counts) > 1 and max(c[1] for c in counts) > 1
 
 

@@ -13,8 +13,10 @@ solver kinds the port has:
     wcsph_plane    WCSPHPlaneSolver: K1 + K2
 
 The table and sorted layouts (`dfsph`, `dfsph_dense`, `wcsph`, `wcsph_dense`)
-are not ported and raise a ValueError. `pair_dtype="bfloat16"` on a padded
-kind keeps the padded solvers' refusal. There is no CPU fallback:
+are not ported and raise a ValueError. `pair_dtype="bfloat16"` runs K1's
+bf16 operands on the plane kinds and K5's bf16 math mode on the padded
+kinds; with `use_pallas_slotmajor` (K3) it raises, as the JAX padded
+solvers assert. There is no CPU fallback:
 `device="cuda"` without a card raises; `device="cpu"` runs the kernels'
 plain twins.
 
@@ -151,7 +153,8 @@ class SolverConfig:
     rebuild_every: int = 1
     # padded kinds: pair passes on K3 (True) or K5 (False); plane kinds set it
     use_pallas_slotmajor: bool = False
-    # "float32" | "bfloat16" (K1's bf16 operands; plane kinds only)
+    # "float32" | "bfloat16" (plane kinds: K1's bf16 operands; padded kinds:
+    # K5's bf16 math mode, refused on K3)
     pair_dtype: str = "float32"
     # TPU layout knobs (TPU_LAYOUT_KNOBS): no meaning in the port's layout
     pallas_pf_chunk_lanes: Optional[int] = None

@@ -552,10 +552,16 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
   X(err_ki, DivTerm, ErrKiPost)                                            \
   X(delta_ki, DivTerm, DeltaKiPost)                                        \
   X(corr_v, CorrTerm, VUpdatePost)                                         \
+  /* their passes without an epilogue: the unfused plane step (the JAX */  \
+  /* fuse_loop_elementwise False), its glue in torch */                    \
+  X(visc, ViscTerm<XsphCoef>, NoPost<2>)                                   \
+  X(div, DivTerm, NoPost<1>)                                               \
+  X(corr, CorrTerm, NoPost<2>)                                             \
   /* the three call forms of the WCSPH plane step (models/wcsph_plane.py) */ \
   X(wcsph_density, WcsphDensityTerm, NoPost<1>)  /* Poly6 density */      \
   X(wcsph_stat, WcsphStatTerm, NoPost<3>)  /* boundary density + force */  \
   X(wcsph_forces, WcsphForcesTerm<XsphCoef>, NoPost<2>)                    \
   /* the physical viscosity forms of both steps (PhysicalViscosityModel) */ \
   X(visc_gravity_phys, ViscTerm<PhysCoef>, GravityPost)                    \
-  X(wcsph_forces_phys, WcsphForcesTerm<PhysCoef>, NoPost<2>)
+  X(wcsph_forces_phys, WcsphForcesTerm<PhysCoef>, NoPost<2>)               \
+  X(visc_phys, ViscTerm<PhysCoef>, NoPost<2>)

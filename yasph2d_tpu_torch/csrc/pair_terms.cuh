@@ -21,10 +21,25 @@
 // *XlaTerm functors follow the second. The terms that carry viscosity
 // (ViscTerm, WcsphForcesTerm, WcsphForcesXlaTerm) take its coefficient as a
 // template parameter: XsphCoef or PhysCoef, one statement each.
+//
+// Math modes (template parameter M of the helpers and of the terms K5 takes):
+// F32Math, every operation in f32 as written; Bf16Math, K5's bf16 mode, the
+// JAX package's XLA dense_grid.pair_reduce with pair_dtype "bfloat16"
+// (ops/pallas_pair.py lists its operations' dtypes): each operation's f32
+// result rounded to bf16 (M::r, round to nearest even), which is the bits of
+// the JAX bf16 operation and of torch's bf16 elementwise operations. The
+// constants arrive rounded to bf16 (ops/pallas_pair.py bf16_consts), as JAX
+// rounds its weakly typed Python floats, except f32(mu m) of PhysCoef: the
+// JAX model makes it an f32 array, which promotes the operations after it to
+// f32 (Coef::PROMOTES; their M is then F32Math). In F32Math M::r is the
+// identity, so the f32 forms compute what they did.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 struct PairConsts {
   float radius_sq;    // h^2 rounded to f32
@@ -53,6 +68,15 @@ struct PairConsts {
 static constexpr float MIN_DISTANCE_SQ = 1.0e-10f;
 static constexpr float DIVISION_EPSILON = 1.0e-10f;
 
+struct F32Math {
+  static constexpr bool BF16 = false;
+  __device__ static float r(float x) { return x; }
+};
+struct Bf16Math {
+  static constexpr bool BF16 = true;
+  __device__ static float r(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+};
+
 // jnp.maximum / jnp.minimum semantics for a NaN first operand (fmaxf would
 // drop it); the second operand is always a constant here
 __device__ __forceinline__ float jmax(float a, float b) {
@@ -63,48 +87,64 @@ __device__ __forceinline__ float jmin(float a, float b) {
 }
 
 // WendlandQuinticC2.evaluate / gradient_coefficient (smoothing_kernels.py)
+template <class M = F32Math>
 __device__ __forceinline__ float wendland_w(float r, const PairConsts& c) {
-  const float q = jmin(r * c.w_h_inv, 1.0f);
-  const float omq = 1.0f - q;
-  const float omq_sq = omq * omq;
-  return ((c.w_norm * omq_sq) * omq_sq) * (q + 0.25f);
+  const float q = jmin(M::r(r * c.w_h_inv), 1.0f);
+  const float omq = M::r(1.0f - q);
+  const float omq_sq = M::r(omq * omq);
+  return M::r(M::r(M::r(c.w_norm * omq_sq) * omq_sq) * M::r(q + 0.25f));
 }
+template <class M = F32Math>
 __device__ __forceinline__ float wendland_gc(float r, const PairConsts& c) {
-  const float q = jmin(r * c.w_h_inv, 1.0f);
-  const float omq = 1.0f - q;
-  return ((c.w_norm_grad * omq) * omq) * omq;
+  const float q = jmin(M::r(r * c.w_h_inv), 1.0f);
+  const float omq = M::r(1.0f - q);
+  return M::r(M::r(M::r(c.w_norm_grad * omq) * omq) * omq);
 }
 // Poly6.evaluate with the given h^2 and normaliser
+template <class M = F32Math>
 __device__ __forceinline__ float poly6_w(float r_sq, float hsq, float norm) {
-  const float dsq = jmax(hsq - r_sq, 0.0f);
-  return ((norm * dsq) * dsq) * dsq;
+  const float dsq = jmax(M::r(hsq - r_sq), 0.0f);
+  return M::r(M::r(M::r(norm * dsq) * dsq) * dsq);
 }
 // Spiky.evaluate / gradient_coefficient
+template <class M = F32Math>
 __device__ __forceinline__ float spiky_w(float r, const PairConsts& c) {
-  const float hsubr = jmax(c.sp_h - r, 0.0f);
-  return ((c.sp_norm * hsubr) * hsubr) * hsubr;
+  const float hsubr = jmax(M::r(c.sp_h - r), 0.0f);
+  return M::r(M::r(M::r(c.sp_norm * hsubr) * hsubr) * hsubr);
 }
+template <class M = F32Math>
 __device__ __forceinline__ float spiky_gc(float r, const PairConsts& c) {
-  const float hsubr = jmax(c.sp_h - r, 0.0f);
-  return ((c.sp_norm_grad * hsubr) * hsubr) / (r + DIVISION_EPSILON);
+  const float hsubr = jmax(M::r(c.sp_h - r), 0.0f);
+  return M::r(M::r(M::r(c.sp_norm_grad * hsubr) * hsubr) /
+              M::r(r + M::r(DIVISION_EPSILON)));
 }
 
 // The viscosity coefficients c of a pair (acceleration c (v_j - v_i)), the
-// template parameter of the terms that carry viscosity.
+// template parameter of the terms that carry viscosity. PROMOTES: the JAX
+// coefficient is f32 in a bf16 pass, and so are the operations it feeds.
 struct XsphCoef {  // XSPHViscosityModel.viscous_coefficient: eps m W_poly6 / (rho_j dt)
+  static constexpr bool PROMOTES = false;
+  template <class M = F32Math>
   __device__ static float coef(float r_sq, float r, float rho_j, float dt,
                             const PairConsts& c) {
-    return (c.xsph_coef * poly6_w(r_sq, c.p6_hsq, c.p6_norm)) / (rho_j * dt);
+    return M::r(M::r(c.xsph_coef * poly6_w<M>(r_sq, c.p6_hsq, c.p6_norm)) /
+                M::r(rho_j * dt));
   }
 };
 // PhysicalViscosityModel.viscous_coefficient: f32(mu m) lap W_visc(r) / rho_j,
-// lap W_visc(r) = norm_lapl (h - r), no clamp (the pair test bounds r)
+// lap W_visc(r) = norm_lapl (h - r), no clamp (the pair test bounds r); the
+// laplacian in the pass's math, f32(mu m) and what follows in f32
 struct PhysCoef {
+  static constexpr bool PROMOTES = true;
+  template <class M = F32Math>
   __device__ static float coef(float r_sq, float r, float rho_j, float dt,
                             const PairConsts& c) {
-    return (c.mu_m * (c.vl_norm * (c.vl_h - r))) / rho_j;
+    return (c.mu_m * M::r(c.vl_norm * M::r(c.vl_h - r))) / rho_j;
   }
 };
+// the math of the operations after a coefficient of `Coef` in mode M
+template <class Coef, class M>
+using AfterCoef = std::conditional_t<Coef::PROMOTES, F32Math, M>;
 
 // ---------------------------------------------------------------- terms
 
@@ -125,15 +165,16 @@ struct CtxTerm {  // W, m grad W (x, y), |m grad W|^2, count
   }
 };
 
-template <class Coef>
+template <class Coef, class M = F32Math>
 struct ViscTerm {  // c (v_j - v_i); qv vx vy, sv vx vy rho, scalar dt
   static constexpr int NQV = 2, NSV = 3, NACC = 2;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
-    const float vc = Coef::coef(r_sq, r, sv[2], scalar, c);
-    acc[0] += vc * (sv[0] - qv[0]);
-    acc[1] += vc * (sv[1] - qv[1]);
+    using MC = AfterCoef<Coef, M>;
+    const float vc = Coef::template coef<M>(r_sq, r, sv[2], scalar, c);
+    acc[0] += MC::r(vc * M::r(sv[0] - qv[0]));
+    acc[1] += MC::r(vc * M::r(sv[1] - qv[1]));
   }
 };
 
@@ -158,27 +199,31 @@ struct CorrTerm {  // (k_i + k_j) grad W
   }
 };
 
-struct WcsphDensityTerm {  // Poly6 W (models/wcsph_dense.py density pass)
+template <class M>
+struct WcsphDensityTermT {  // Poly6 W (models/wcsph_dense.py density pass)
   static constexpr int NQV = 0, NSV = 0, NACC = 1;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
-    acc[0] += poly6_w(r_sq, c.d6_hsq, c.d6_norm);
+    acc[0] += poly6_w<M>(r_sq, c.d6_hsq, c.d6_norm);
   }
 };
+using WcsphDensityTerm = WcsphDensityTermT<F32Math>;
 
-struct WcsphStatTerm {  // boundary pass: Poly6 W, Monaghan-Kajtar c (dx, dy)
+template <class M>
+struct WcsphStatTermT {  // boundary pass: Poly6 W, Monaghan-Kajtar c (dx, dy)
   static constexpr int NQV = 0, NSV = 0, NACC = 3;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
-    const float wb = spiky_w(r, c);
-    const float cf = (-c.bff * wb) / r_sq;
-    acc[0] += poly6_w(r_sq, c.d6_hsq, c.d6_norm);
-    acc[1] += cf * dx;
-    acc[2] += cf * dy;
+    const float wb = spiky_w<M>(r, c);
+    const float cf = M::r(M::r(-c.bff * wb) / r_sq);
+    acc[0] += poly6_w<M>(r_sq, c.d6_hsq, c.d6_norm);
+    acc[1] += M::r(cf * dx);
+    acc[2] += M::r(cf * dy);
   }
 };
+using WcsphStatTerm = WcsphStatTermT<F32Math>;
 
 template <class Coef>
 struct WcsphForcesTerm {  // symmetric pressure + viscosity; qv, sv = p rho vx vy; dt
@@ -197,56 +242,62 @@ struct WcsphForcesTerm {  // symmetric pressure + viscosity; qv, sv = p rho vx v
 // The XLA closures' order (models/dfsph_dense.py terms/div/corr,
 // models/wcsph_dense.py dyn_forces): the gradient is the vector gc (dx, dy).
 
+template <class M = F32Math>
 struct CtxXlaTerm {  // W, (grad W) m (x, y), |(grad W) m|^2, count
   static constexpr int NQV = 0, NSV = 0, NACC = 5;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
-    const float w = wendland_w(r, c);
-    const float gc = wendland_gc(r, c);
-    const float gx = (gc * dx) * c.mass;
-    const float gy = (gc * dy) * c.mass;
+    const float w = wendland_w<M>(r, c);
+    const float gc = wendland_gc<M>(r, c);
+    const float gx = M::r(M::r(gc * dx) * c.mass);
+    const float gy = M::r(M::r(gc * dy) * c.mass);
     acc[0] += w;
     acc[1] += gx;
     acc[2] += gy;
-    acc[3] += gx * gx + gy * gy;
+    acc[3] += M::r(M::r(gx * gx) + M::r(gy * gy));
     acc[4] += 1.0f;
   }
 };
 
+template <class M = F32Math>
 struct DivXlaTerm {  // sum((v_i - v_j) * grad W)
   static constexpr int NQV = 2, NSV = 2, NACC = 1;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
-    const float gc = wendland_gc(r, c);
-    acc[0] += (qv[0] - sv[0]) * (gc * dx) + (qv[1] - sv[1]) * (gc * dy);
+    const float gc = wendland_gc<M>(r, c);
+    acc[0] += M::r(M::r(M::r(qv[0] - sv[0]) * M::r(gc * dx)) +
+                   M::r(M::r(qv[1] - sv[1]) * M::r(gc * dy)));
   }
 };
 
+template <class M = F32Math>
 struct CorrXlaTerm {  // (k_i + k_j) grad W
   static constexpr int NQV = 1, NSV = 1, NACC = 2;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
-    const float kk = qv[0] + sv[0];
-    const float gc = wendland_gc(r, c);
-    acc[0] += kk * (gc * dx);
-    acc[1] += kk * (gc * dy);
+    const float kk = M::r(qv[0] + sv[0]);
+    const float gc = wendland_gc<M>(r, c);
+    acc[0] += M::r(kk * M::r(gc * dx));
+    acc[1] += M::r(kk * M::r(gc * dy));
   }
 };
 
-template <class Coef>
+template <class Coef, class M = F32Math>
 struct WcsphForcesXlaTerm {  // coef grad W_spiky + viscosity; qv, sv = p rho vx vy; dt
   static constexpr int NQV = 4, NSV = 4, NACC = 2;
   __device__ static void term(float* acc, float dx, float dy, float r_sq, float r,
                               const float* qv, const float* sv, const PairConsts& c,
                               float scalar) {
-    const float coef = (-c.mass * (qv[0] + sv[0])) / ((2.0f * qv[1]) * sv[1]);
-    const float gc = spiky_gc(r, c);
-    const float vc = Coef::coef(r_sq, r, sv[1], scalar, c);
-    acc[0] += coef * (gc * dx) + vc * (sv[2] - qv[2]);
-    acc[1] += coef * (gc * dy) + vc * (sv[3] - qv[3]);
+    using MC = AfterCoef<Coef, M>;
+    const float coef =
+        M::r(M::r(-c.mass * M::r(qv[0] + sv[0])) / M::r(M::r(2.0f * qv[1]) * sv[1]));
+    const float gc = spiky_gc<M>(r, c);
+    const float vc = Coef::template coef<M>(r_sq, r, sv[1], scalar, c);
+    acc[0] += MC::r(M::r(coef * M::r(gc * dx)) + MC::r(vc * M::r(sv[2] - qv[2])));
+    acc[1] += MC::r(M::r(coef * M::r(gc * dy)) + MC::r(vc * M::r(sv[3] - qv[3])));
   }
 };
 

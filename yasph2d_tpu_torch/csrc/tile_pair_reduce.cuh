@@ -99,6 +99,25 @@
 // kernels keep their staging statements verbatim under `if constexpr`, so
 // that their code does not change.
 //
+// bf16 math mode (template parameter M = Bf16Math, K5 only; launchers
+// tile_pair_reduce_<form>_bf16 and their halo forms), the JAX package's XLA
+// dense_grid.pair_reduce with pair_dtype "bfloat16", which K5 stands in for
+// on the padded route: positions are read in f32 and rebased onto their own
+// cell's centre ((i + 0.5) h + origin in f32, i the global cell row under
+// sharding: args RebaseArgs), then rounded to bf16; query and source values
+// are rounded to bf16 where they are loaded; the difference of two rebased
+// positions plus the view's centre offset (dxv - 1) bf16(h) is rounded after
+// each operation, and so are r^2, r and every operation of the term
+// (csrc/pair_terms.cuh Bf16Math); h^2, 1e-10 and the constants compare and
+// compute in bf16 (the caller passes them rounded, ops/pallas_pair.py
+// bf16_consts). The per-view sums and their sum stay f32. A halo row's
+// positions are rebased on the neighbour's cell centres (its global row),
+// as the JAX sharded route exchanges rows that the neighbour rebased. Each
+// operation is the f32 operation rounded to nearest even, as torch's bf16
+// operations do, so per pair the kernel computes its twin's values; the
+// sums differ by f32 summation order, as in f32 mode. Positions stay f32 in
+// memory and are staged as f32 (bf16 staging is later speed work).
+//
 // Build: yasph2d_tpu_torch/ops/cuda_build.py (sm_90a, -fmad=false, no fast
 // math): each term is rounded as in the plain PyTorch twins
 // (yasph2d_tpu_torch/ops/pallas_pair.py pallas_pair_reduce_ref,
@@ -152,8 +171,29 @@ struct HaloTileArgs : TileArgs {
   TileVals hv;          // source values' rows over (2, nx, Ps), the strides of sv
 };
 
-template <bool HALO>
-using TileKernelArgs = std::conditional_t<HALO, HaloTileArgs, TileArgs>;
+// the bf16 mode's arguments: what a cell's centre is built from
+struct Rebase {
+  float ox, oy;  // the grid's origin, f32
+  float cell;    // the cell size h, f32
+  int row0;      // the grid's first global cell row (a shard's; 0 on one device)
+};
+template <class Base>
+struct RebaseArgs : Base {
+  Rebase rb;
+};
+
+template <bool HALO, class M = F32Math>
+using TileKernelArgs = std::conditional_t<
+    M::BF16, RebaseArgs<std::conditional_t<HALO, HaloTileArgs, TileArgs>>,
+    std::conditional_t<HALO, HaloTileArgs, TileArgs>>;
+
+// bf16 mode: position p of cell column gx, local row gy (-1 and ny are the
+// halo rows) relative to that cell's centre, rounded to bf16
+__device__ __forceinline__ float2 rebased(const Rebase& rb, float2 p, int gx, int gy) {
+  const float cx = ((float)gx + 0.5f) * rb.cell + rb.ox;
+  const float cy = ((float)(rb.row0 + gy) + 0.5f) * rb.cell + rb.oy;
+  return make_float2(Bf16Math::r(p.x - cx), Bf16Math::r(p.y - cy));
+}
 
 // ---------------------------------------------------------------- shared memory
 
@@ -178,10 +218,10 @@ struct TileSmem {
 
 // PER_VIEW: K5's sum order (per-view sums, then the view sums), else K3's
 // (every candidate straight into the accumulators). HALO: source rows -1 and
-// ny from the halo rows
-template <class Term, bool PER_VIEW, bool HALO>
+// ny from the halo rows. M: the math mode (F32Math, or K5's Bf16Math)
+template <class Term, bool PER_VIEW, bool HALO, class M = F32Math>
 __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
-    tile_pair_reduce_kernel(const TileKernelArgs<HALO> a) {
+    tile_pair_reduce_kernel(const TileKernelArgs<HALO, M> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const TileSmem L(a.ty, a.tx, a.Ps, Term::NSV, a.W, a.q_round);
   float2* t_pos = reinterpret_cast<float2*>(smem + L.pos);
@@ -293,8 +333,10 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
     if (tid < n_live) {
       idx0 = query(tid, ly0, lx0);
       qp0 = __ldg(a.q_pos + idx0);
+      if constexpr (M::BF16) qp0 = rebased(a.rb, qp0, x0 + lx0, y0 + ly0);
 #pragma unroll
-      for (int k = 0; k < Term::NQV; ++k) qv0[k] = __ldg(a.qv.p[k] + idx0 * a.qv.stride[k]);
+      for (int k = 0; k < Term::NQV; ++k)
+        qv0[k] = M::r(__ldg(a.qv.p[k] + idx0 * a.qv.stride[k]));
     }
     if (!staged) {
       // 2. stage the haloed source tile and 3. its live words: staging index
@@ -331,6 +373,7 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
               const bool* mk = grid_row ? a.s_mask : a.h_mask;
               m[u] = __ldg(reinterpret_cast<const unsigned char*>(mk) + g) != 0;
               pos[u] = __ldg((grid_row ? a.s_pos : a.h_pos) + g);
+              if constexpr (M::BF16) pos[u] = rebased(a.rb, pos[u], gx, gy);
 #pragma unroll
               for (int k = 0; k < Term::NSV; ++k)
                 v[u][k] = __ldg((grid_row ? a.sv.p[k] : a.hv.p[k]) + g * a.sv.stride[k]);
@@ -343,6 +386,7 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
               const long g = ((long)gy * a.nx + gx) * a.Ps + sp[u];
               m[u] = __ldg(reinterpret_cast<const unsigned char*>(a.s_mask) + g) != 0;
               pos[u] = __ldg(a.s_pos + g);
+              if constexpr (M::BF16) pos[u] = rebased(a.rb, pos[u], gx, gy);
 #pragma unroll
               for (int k = 0; k < Term::NSV; ++k) v[u][k] = __ldg(a.sv.p[k] + g * a.sv.stride[k]);
             }
@@ -354,7 +398,7 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
             const int s = cell[u] * a.Ps + sp[u];
             t_pos[s] = pos[u];
 #pragma unroll
-            for (int k = 0; k < Term::NSV; ++k) t_val[k * n_src + s] = v[u][k];
+            for (int k = 0; k < Term::NSV; ++k) t_val[k * n_src + s] = M::r(v[u][k]);
           }
           const unsigned ballot = __ballot_sync(0xffffffffu, m[u]);
           // one lane per word writes it; cells off the grid are dead
@@ -371,6 +415,10 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
     }
     __syncthreads();
 
+    // bf16 mode: the views' centre offsets (dxv - 1) bf16(h)
+    float cell_b = 0.0f;
+    if constexpr (M::BF16) cell_b = M::r(a.rb.cell);
+    const float delta[3] = {-cell_b, 0.0f, cell_b};
     // the live queries, one per thread, in slot order
     for (int jj = tid; jj < n_live; jj += blockDim.x) {
       int ly = ly0, lx = lx0;
@@ -382,8 +430,10 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
       if (jj != tid) {
         idx = query(jj, ly, lx);
         q = __ldg(a.q_pos + idx);
+        if constexpr (M::BF16) q = rebased(a.rb, q, x0 + lx, y0 + ly);
 #pragma unroll
-        for (int k = 0; k < Term::NQV; ++k) qv[k] = __ldg(a.qv.p[k] + idx * a.qv.stride[k]);
+        for (int k = 0; k < Term::NQV; ++k)
+          qv[k] = M::r(__ldg(a.qv.p[k] + idx * a.qv.stride[k]));
       }
       float acc[Term::NACC];
       for (int k = 0; k < Term::NACC; ++k) acc[k] = 0.0f;
@@ -398,13 +448,17 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
             for (unsigned bits = t_bits[c * a.W + w]; bits != 0u; bits &= bits - 1u) {
               const int s = c * a.Ps + w * 32 + __ffs(bits) - 1;
               const float2 src = t_pos[s];
-              const float dx = src.x - q.x;
-              const float dy = src.y - q.y;
-              const float r_sq = dx * dx + dy * dy;
-              if (!(r_sq <= a.c.radius_sq && r_sq > MIN_DISTANCE_SQ)) continue;
+              float dx = M::r(src.x - q.x);
+              float dy = M::r(src.y - q.y);
+              if constexpr (M::BF16) {  // the views' centre offsets
+                dx = M::r(dx + delta[dxv]);
+                dy = M::r(dy + delta[dyv]);
+              }
+              const float r_sq = M::r(M::r(dx * dx) + M::r(dy * dy));
+              if (!(r_sq <= a.c.radius_sq && r_sq > M::r(MIN_DISTANCE_SQ))) continue;
               float sv[Term::NSV > 0 ? Term::NSV : 1];
               for (int k = 0; k < Term::NSV; ++k) sv[k] = t_val[k * n_src + s];
-              Term::term(sum, dx, dy, r_sq, sqrtf(r_sq), qv, sv, a.c, a.scalar);
+              Term::term(sum, dx, dy, r_sq, M::r(sqrtf(r_sq)), qv, sv, a.c, a.scalar);
             }
           }
           if (PER_VIEW)
@@ -421,21 +475,22 @@ static inline int log2_exact(int v) { return __builtin_ctz((unsigned)v); }
 static inline int log2_ceil(int v) { return v <= 1 ? 0 : 32 - __builtin_clz((unsigned)(v - 1)); }
 
 // HALO: h_pos, h_mask and h_vals (Term::NSV pointers, the strides of the
-// source values') are the halo rows
-template <class Term, bool PER_VIEW, bool HALO = false>
+// source values') are the halo rows. M = Bf16Math: `rb` is the rebase
+template <class Term, bool PER_VIEW, bool HALO = false, class M = F32Math>
 static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
                   const void* s_mask, const void* const* vals, const int* strides,
                   int n_vals, void* out, int P, int Ps, int ny, int nx, int ty, int tx,
                   int threads, int q_round, int smem, float scalar,
                   const PairConsts* consts, void* stream, const void* h_pos = nullptr,
-                  const void* h_mask = nullptr, const void* const* h_vals = nullptr) {
+                  const void* h_mask = nullptr, const void* const* h_vals = nullptr,
+                  Rebase rb = Rebase{}) {
   const int W = (Ps + 31) / 32;
   if (n_vals != Term::NQV + Term::NSV || P < 1 || Ps < 1 || ty < 1 || tx < 1 ||
       (ty & (ty - 1)) || (tx & (tx - 1)) || threads < 32 || threads > K5_MAX_THREADS ||
       threads % 32 || q_round < 1 || q_round > K5_MAX_LIST ||
       (size_t)smem != TileSmem(ty, tx, Ps, Term::NSV, W, q_round).total)
     return (int)cudaErrorInvalidValue;
-  TileKernelArgs<HALO> a;
+  TileKernelArgs<HALO, M> a;
   a.q_pos = static_cast<const float2*>(q_pos);
   a.q_mask = static_cast<const bool*>(q_mask);
   a.s_pos = static_cast<const float2*>(s_pos);
@@ -477,15 +532,39 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
       a.hv.stride[k] = k < Term::NSV ? a.sv.stride[k] : 0;
     }
   }
+  if constexpr (M::BF16) a.rb = rb;
   if ((long)ny * nx * P == 0) return (int)cudaSuccess;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(tile_pair_reduce_kernel<Term, PER_VIEW, HALO>,
+    cudaError_t err = cudaFuncSetAttribute(tile_pair_reduce_kernel<Term, PER_VIEW, HALO, M>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((nx + tx - 1) / tx, (ny + ty - 1) / ty);
-  tile_pair_reduce_kernel<Term, PER_VIEW, HALO>
+  tile_pair_reduce_kernel<Term, PER_VIEW, HALO, M>
       <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
+// K5's call forms, as X(NAME, TERM) with TERM a template of the math mode,
+// for the launcher macros of csrc/tile_pair_reduce.cu and
+// csrc/tile_pair_reduce_halo.cu: the DFSPH padded step's four (ctx serves
+// the fluid and the boundary), the WCSPH padded step's three, then the
+// physical viscosity forms of both (the JAX XLA closures' order)
+template <class M>
+using ViscXsphTerm = ViscTerm<XsphCoef, M>;
+template <class M>
+using ViscPhysTerm = ViscTerm<PhysCoef, M>;
+template <class M>
+using WcsphForcesXsphXlaTerm = WcsphForcesXlaTerm<XsphCoef, M>;
+template <class M>
+using WcsphForcesPhysXlaTerm = WcsphForcesXlaTerm<PhysCoef, M>;
+#define K5_PAIR_FORMS(X)                   \
+  X(dfsph_ctx, CtxXlaTerm)                 \
+  X(dfsph_div, DivXlaTerm)                 \
+  X(dfsph_corr, CorrXlaTerm)               \
+  X(dfsph_visc, ViscXsphTerm)              \
+  X(wcsph_density, WcsphDensityTermT)      \
+  X(wcsph_stat, WcsphStatTermT)            \
+  X(wcsph_forces, WcsphForcesXsphXlaTerm)  \
+  X(dfsph_visc_phys, ViscPhysTerm)         \
+  X(wcsph_forces_phys, WcsphForcesPhysXlaTerm)

@@ -11,27 +11,34 @@
 #include "tile_pair_reduce.cuh"
 
 // tile_pair_reduce_NAME_halo: the arguments of tile_pair_reduce_NAME, then the
-// halo rows' positions, mask and source value pointers
-#define TILE_HALO_LAUNCHER(NAME, TERM)                                                \
-  extern "C" int tile_pair_reduce_##NAME##_halo(                                      \
-      const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,   \
-      const void* const* vals, const int* strides, int n_vals, void* out, int P,      \
-      int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,     \
-      float scalar, const void* h_pos, const void* h_mask, const void* const* h_vals, \
-      const PairConsts* consts, void* stream) {                                       \
-    return launch<TERM, true, true>(q_pos, q_mask, s_pos, s_mask, vals, strides,      \
-                                    n_vals, out, P, Ps, ny, nx, ty, tx, threads,      \
-                                    q_round, smem, scalar, consts, stream, h_pos,     \
-                                    h_mask, h_vals);                                  \
+// halo rows' positions, mask and source value pointers; and
+// tile_pair_reduce_NAME_bf16_halo, the bf16 math mode, whose rebase
+// arguments (origin, cell size, the shard's first global row) follow the
+// scalar as in tile_pair_reduce_NAME_bf16
+#define TILE_HALO_LAUNCHERS(NAME, TERM)                                                \
+  extern "C" int tile_pair_reduce_##NAME##_halo(                                       \
+      const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,    \
+      const void* const* vals, const int* strides, int n_vals, void* out, int P,       \
+      int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,      \
+      float scalar, const void* h_pos, const void* h_mask, const void* const* h_vals,  \
+      const PairConsts* consts, void* stream) {                                        \
+    return launch<TERM<F32Math>, true, true>(q_pos, q_mask, s_pos, s_mask, vals,       \
+                                             strides, n_vals, out, P, Ps, ny, nx, ty,  \
+                                             tx, threads, q_round, smem, scalar,       \
+                                             consts, stream, h_pos, h_mask, h_vals);   \
+  }                                                                                    \
+  extern "C" int tile_pair_reduce_##NAME##_bf16_halo(                                  \
+      const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,    \
+      const void* const* vals, const int* strides, int n_vals, void* out, int P,       \
+      int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,      \
+      float scalar, float ox, float oy, float cell, int row0, const void* h_pos,       \
+      const void* h_mask, const void* const* h_vals, const PairConsts* consts,         \
+      void* stream) {                                                                  \
+    return launch<TERM<Bf16Math>, true, true, Bf16Math>(                               \
+        q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out, P, Ps, ny, nx, ty,   \
+        tx, threads, q_round, smem, scalar, consts, stream, h_pos, h_mask, h_vals,     \
+        Rebase{ox, oy, cell, row0});                                                   \
   }
 
 // the forms of the padded K5 route (csrc/tile_pair_reduce.cu's K5 launchers)
-TILE_HALO_LAUNCHER(dfsph_ctx, CtxXlaTerm)    // ctx, fluid and boundary
-TILE_HALO_LAUNCHER(dfsph_div, DivXlaTerm)    // velocity divergence
-TILE_HALO_LAUNCHER(dfsph_corr, CorrXlaTerm)  // k-correction
-TILE_HALO_LAUNCHER(dfsph_visc, ViscTerm<XsphCoef>)  // XSPH viscosity
-TILE_HALO_LAUNCHER(wcsph_density, WcsphDensityTerm)  // Poly6
-TILE_HALO_LAUNCHER(wcsph_stat, WcsphStatTerm)        // boundary
-TILE_HALO_LAUNCHER(wcsph_forces, WcsphForcesXlaTerm<XsphCoef>)  // + XSPH
-TILE_HALO_LAUNCHER(dfsph_visc_phys, ViscTerm<PhysCoef>)
-TILE_HALO_LAUNCHER(wcsph_forces_phys, WcsphForcesXlaTerm<PhysCoef>)
+K5_PAIR_FORMS(TILE_HALO_LAUNCHERS)

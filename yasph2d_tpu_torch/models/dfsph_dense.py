@@ -14,7 +14,10 @@ which one:
            operation order; the boundary pass, an XLA pair_reduce in the JAX
            package, in its XLA closure's order
     False  K5 (ops/pallas_pair.py): dfsph_ctx (fluid and boundary), dfsph_div,
-           dfsph_corr, dfsph_visc, in the XLA closures' order
+           dfsph_corr, dfsph_visc, in the XLA closures' order; on a grid with
+           pair_dtype "bfloat16" in K5's bf16 math mode (the JAX XLA route's:
+           cell-relative bf16 pair math, f32 sums; the glue stays f32), which
+           K3 refuses as JAX does
 
 and the rebuild is K4 (ops/sm_rebucket.py) with the payload
 [v*(2) | kappa | stiffness] on both (the JAX package's XLA rebucket is
@@ -60,7 +63,7 @@ from ..ops.dense_grid import (
     sort_by_dense_keys,
 )
 from ..ops.pair_reduce import PairForm
-from ..ops.pallas_pair import pallas_pair_reduce
+from ..ops.pallas_pair import bf16_consts, bf16_form, pallas_pair_reduce, rebase_of
 from ..ops.planes import Halo
 from ..ops.sm_pair_reduce import sm_pair_reduce
 from ..ops.sm_rebucket import sm_rebucket_parts
@@ -175,8 +178,8 @@ class DFSPHPaddedSolver:
     # default, rebuilds every step as the reference does): `simulate`
     rebuild_every: int = 1
 
-    # the padded kernels K3 / K5 take float32 operands only; the plane
-    # solver's K1 takes bf16 too
+    # K3 takes float32 only (K5 takes bf16 as its math mode); the plane
+    # solver's K1 takes bf16 operands
     _bf16_operands = False
 
     def __post_init__(self):
@@ -204,7 +207,11 @@ class DFSPHPaddedSolver:
         slotmajor = self.grid.use_pallas_slotmajor
         object.__setattr__(self, "_reduce",
                            sm_pair_reduce if slotmajor else pallas_pair_reduce)
-        object.__setattr__(self, "_padded_forms", self._make_padded_forms(m, slotmajor))
+        forms = self._make_padded_forms(m, slotmajor)
+        if not slotmajor and rebase_of(self.grid) is not None:  # K5's bf16 math mode
+            object.__setattr__(self, "_consts", bf16_consts(self._consts))
+            forms = PaddedForms(*(bf16_form(f, self._consts) for f in forms))
+        object.__setattr__(self, "_padded_forms", forms)
 
     def _make_padded_forms(self, m: float, slotmajor: bool) -> PaddedForms:
         """The pair terms as Python callables (the twins'), op for op the JAX
@@ -321,14 +328,19 @@ class DFSPHPaddedSolver:
                    q_vals=(), s_vals=(), scalars=()):
         """One K3 / K5 pass. A source with a halo (its positions' and mask's
         rows from the neighbour shards) takes its values' rows from them too,
-        one exchange per pass, and runs K5's halo form."""
+        one exchange per pass, and runs K5's halo form. On a bfloat16 grid
+        (K5 only) the pass is in K5's bf16 math mode, rebased on this shard's
+        global rows."""
+        kw = dict(q_vals=q_vals, s_vals=s_vals, scalars=scalars)
+        rebase = rebase_of(self.grid, self._rebucket_row0())
+        if rebase is not None:
+            kw["rebase"] = rebase
         if s_halo is None:
-            return self._reduce(form, q_pos, q_mask, s_pos, s_mask, self._consts,
-                                q_vals=q_vals, s_vals=s_vals, scalars=scalars)
+            return self._reduce(form, q_pos, q_mask, s_pos, s_mask, self._consts, **kw)
         rows = self._halo(s_vals).planes if s_vals else ()
         return pallas_pair_reduce(form, q_pos, q_mask, s_pos, s_mask, self._consts,
-                                  q_vals=q_vals, s_vals=s_vals, scalars=scalars,
-                                  halo=s_halo._replace(planes=s_halo.planes + tuple(rows)))
+                                  halo=s_halo._replace(planes=s_halo.planes + tuple(rows)),
+                                  **kw)
 
     def simulate(self, carry, boundary, num_steps: int):
         """Run `num_steps` steps; the returned Diagnostics aggregates all of them

@@ -15,6 +15,24 @@ re-bucket kernel K2 (ops/rebucket.py):
     delta_ki     velocity divergence, epilogue: divergence and k_i
     corr_v       k-correction, epilogue: velocity update (warm starts + loops)
 
+The JAX switches `fuse_ctx_elementwise` and `fuse_loop_elementwise` (both
+True by default) take the glue out of the epilogues. With the first False
+the fluid ctx pass is `ctx` on fluid sources and the density / alpha /
+neighbour-total assembly runs in torch; with the second False the step's
+passes are the no-epilogue forms
+
+    visc         viscosity (visc_phys for the physical model); + gravity
+    div          velocity divergence
+    corr         k-correction
+
+and the warm starts and loop bodies run in torch: the padded solver's loops
+(models/dfsph_dense.py) over this solver's plane passes `_velocity_divergence`
+and `_k_correction`, which are the JAX `_velocity_divergence_pf` and
+`_k_correction_pf`. The glue is the same f32 operations in the same order as
+the epilogues, one torch operation each, so live slots are bit-equal between
+the fused and unfused steps (dead slots hold what the glue makes of the
+kernels' zeros; nothing reads them).
+
 The JAX `lax.while_loop`s become Python loops that read one residual back per
 iteration; the exit test is the JAX one, so a loop may run max + 1 times. The
 f32 scalars that reach the kernels (dt, 1/dt * m) are computed in np.float32
@@ -84,6 +102,9 @@ class _Forms(NamedTuple):
     err_ki: PairForm
     delta_ki: PairForm
     corr_v: PairForm
+    visc: PairForm  # the unfused step's no-epilogue passes
+    div: PairForm
+    corr: PairForm
 
 
 @dataclass(frozen=True)
@@ -91,7 +112,13 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
     """DFSPH, plane-resident carry, every pass through the pair kernel. Takes
     `grid.pair_dtype` "float32" or "bfloat16" (K1's bf16 operand mode)."""
 
-    # K1 takes bf16 operands (ops/pair_reduce.py); the padded kernels do not
+    # the loops' and the ctx assembly's glue in K1's epilogues (the JAX
+    # fields; False runs it in torch, module docstring)
+    fuse_loop_elementwise: bool = True
+    fuse_ctx_elementwise: bool = True
+
+    # K1 takes bf16 operands (ops/pair_reduce.py) on the slot-major route, where
+    # the padded solvers (K3) refuse them
     _bf16_operands = True
 
     def __post_init__(self):
@@ -105,7 +132,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
             self._w0))
 
     def _make_forms(self, m: float, rho0: float, w0: float) -> _Forms:
-        """The six K1 call forms: their math as Python callables (the twin's),
+        """The K1 call forms: their math as Python callables (the twin's),
         op for op the JAX closures of models/dfsph_plane.py."""
         kernel = self.kernel
         eps = float(ALPHA_EPSILON)
@@ -174,6 +201,9 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
             err_ki=PairForm("err_ki", 2, div_terms, err_post, n_acc=1),
             delta_ki=PairForm("delta_ki", 2, div_terms, delta_post, n_acc=1),
             corr_v=PairForm("corr_v", 2, corr_terms, v_post, n_acc=2),
+            visc=PairForm("visc" + self._visc_suffix, 2, visc_terms),
+            div=PairForm("div", 1, div_terms),
+            corr=PairForm("corr", 2, corr_terms),
         )
 
     # ------------------------------------------------- hooks of the shard solvers
@@ -207,13 +237,19 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
     # ------------------------------------------------------------ pair context
 
     def _ctx_pf(self, pos, mask, boundary: BoundaryPlanes, dropped) -> PlaneCtx:
-        """Fluid-boundary and fused fluid-fluid ctx passes: density, alpha and
+        """Fluid-boundary and fluid-fluid ctx passes: density, alpha and
         neighbour totals, plus the boundary gradient sums the loops reuse. K1's
-        geometry is built here, once per rebuild, and kept in the ctx."""
+        geometry is built here, once per rebuild, and kept in the ctx. The
+        assembly is ctx_post's epilogue, or with `fuse_ctx_elementwise`
+        False the same function in torch over the `ctx` form's sums."""
         geom = self._geom(pos, mask)
         f = self._forms
         stat = self._pair(f.ctx, geom, boundary.geom)
-        fused = self._pair(f.ctx_post, geom, geom, post_planes=(stat,))
+        if self.fuse_ctx_elementwise:
+            fused = self._pair(f.ctx_post, geom, geom, post_planes=(stat,))
+        else:
+            dyn = self._pair(f.ctx, geom, geom)
+            fused = f.ctx_post.post_fn(list(dyn), tuple(stat), ())
         m = torch.tensor(self.properties.particle_mass, dtype=REAL, device=pos.device)
         return PlaneCtx(
             pos=pos,
@@ -255,6 +291,26 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         return self._pair(self._forms.corr_v, ctx.geom, ctx.geom,
                           q_vals=(k,), s_vals=(k,), scalars=(float(scale),),
                           post_planes=(v, k, ctx.sum_grad_stat))
+
+    # ----------------------------------- the unfused step's passes (no epilogue)
+
+    def _viscosity_pf(self, ctx: PlaneCtx, v, rho, dt):
+        """Viscous acceleration over fluid neighbours, (2, P, ny, nx)."""
+        return self._pair(self._forms.visc, ctx.geom, ctx.geom,
+                          q_vals=(v,), s_vals=(v, rho), scalars=(float(dt),))
+
+    def _velocity_divergence(self, ctx: PlaneCtx, v):
+        """sum_dyn (v_i - v_j).grad + v_i.sum_grad_stat (JAX
+        `_velocity_divergence_pf`); the padded loops call it."""
+        dyn = self._pair(self._forms.div, ctx.geom, ctx.geom, q_vals=(v,), s_vals=(v,))[0]
+        sgs = ctx.sum_grad_stat
+        return dyn + (v[0] * sgs[0] + v[1] * sgs[1])
+
+    def _k_correction(self, ctx: PlaneCtx, k):
+        """sum_dyn (k_i + k_j) grad + k_i sum_grad_stat, (2, P, ny, nx) (JAX
+        `_k_correction_pf`); the padded loops call it."""
+        dyn = self._pair(self._forms.corr, ctx.geom, ctx.geom, q_vals=(k,), s_vals=(k,))
+        return dyn + k[None] * ctx.sum_grad_stat
 
     # ------------------------------------------------------------- reductions
 
@@ -353,7 +409,15 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         v = carry.v
         rho = ctx.densities
 
-        accel = self._viscosity_gravity_pf(ctx, v, rho, dt)
+        fused = self.fuse_loop_elementwise
+        if fused:
+            accel = self._viscosity_gravity_pf(ctx, v, rho, dt)
+        else:
+            gvec = torch.tensor(self.gravity, dtype=REAL, device=v.device)
+            accel = self._viscosity_pf(ctx, v, rho, dt) + gvec[:, None, None, None]
+        density_loop, divergence_loop = (
+            (self._correct_density_error_pf, self._correct_divergence_error_pf) if fused
+            else (self._correct_density_error, self._correct_divergence_error))
 
         # CFL with the old-dt estimate (dfsph.rs:472-481)
         vstar = v + accel * float(dt)
@@ -366,7 +430,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
         # predict v* with the new dt, constant-density loop (dfsph.rs:484-496)
         pred = v + accel * float(dt)
-        pred, kappa, density_iters, avg_density_error = self._correct_density_error_pf(
+        pred, kappa, density_iters, avg_density_error = density_loop(
             dt, rho, ctx.alpha, pred, carry.kappa,
             carry.prev_density_iterations, ctx, n,
         )
@@ -386,7 +450,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
         # divergence-free loop (dfsph.rs:521)
         pred, stiff, divergence_iters, avg_divergence = (
-            self._correct_divergence_error_pf(
+            divergence_loop(
                 dt, ctx.alpha, pred, stiff,
                 carry.prev_divergence_iterations, ctx, n,
             )

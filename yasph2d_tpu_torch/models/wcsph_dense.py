@@ -13,7 +13,8 @@ force against the boundary, symmetric pressure + viscosity):
     True   K3 (ops/sm_pair_reduce.py) wcsph_density, wcsph_stat, wcsph_forces,
            in the JAX slot-major closures' order
     False  K5 (ops/pallas_pair.py), the same three forms in the JAX XLA
-           closures' order (wcsph_dense.py:141-150, 189-197)
+           closures' order (wcsph_dense.py:141-150, 189-197); on a grid with
+           pair_dtype "bfloat16" in K5's bf16 math mode (the glue stays f32)
 
 The forces form of PhysicalViscosityModel is wcsph_forces_phys on either
 kernel (and on K1, models/wcsph_plane.py); any other model is refused.
@@ -46,7 +47,7 @@ from ..ops.dense_grid import (
     require_float32_pairs,
 )
 from ..ops.pair_reduce import PairForm
-from ..ops.pallas_pair import pallas_pair_reduce
+from ..ops.pallas_pair import bf16_consts, bf16_form, pallas_pair_reduce, rebase_of
 from ..ops.sm_pair_reduce import sm_pair_reduce
 from ..ops.sm_rebucket import sm_rebucket_parts
 from ..ops.smoothing_kernels import Poly6, Spiky
@@ -95,8 +96,8 @@ class WCSPHPaddedSolver:
     expected_max_flow_speed: float = 1.0
     gravity: tuple = GRAVITY
 
-    # the padded kernels K3 / K5 take float32 operands only; the plane
-    # solver's K1 takes bf16 too
+    # K3 takes float32 only (K5 takes bf16 as its math mode); the plane
+    # solver's K1 takes bf16 operands
     _bf16_operands = False
 
     def __post_init__(self):
@@ -130,7 +131,11 @@ class WCSPHPaddedSolver:
         slotmajor = self.grid.use_pallas_slotmajor
         object.__setattr__(self, "_reduce",
                            sm_pair_reduce if slotmajor else pallas_pair_reduce)
-        object.__setattr__(self, "_forms", self._make_forms(m, slotmajor))
+        forms = self._make_forms(m, slotmajor)
+        if not slotmajor and rebase_of(self.grid) is not None:  # K5's bf16 math mode
+            object.__setattr__(self, "_consts", bf16_consts(self._consts))
+            forms = WCSPHForms(*(bf16_form(f, self._consts) for f in forms))
+        object.__setattr__(self, "_forms", forms)
 
     def _make_forms(self, m: float, slotmajor: bool) -> WCSPHForms:
         """The pair terms as Python callables (the twins'), op for op the JAX

@@ -103,20 +103,22 @@ class PairConsts(ctypes.Structure):
 
 
 # K1's call forms (csrc/pair_reduce.cuh K1_PAIR_FORMS): the DFSPH plane step's
-# six, then the WCSPH plane step's three, then the physical viscosity forms of
-# both steps
+# six, its unfused step's three passes without an epilogue, then the WCSPH
+# plane step's three, then the physical viscosity forms of both steps
 PAIR_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v",
+              "visc", "div", "corr",
               "wcsph_density", "wcsph_stat", "wcsph_forces",
-              "visc_gravity_phys", "wcsph_forces_phys")
+              "visc_gravity_phys", "wcsph_forces_phys", "visc_phys")
 # K3's call forms (csrc/tile_pair_reduce.cu, K3's sum order): the WCSPH padded
 # step's three, then the DFSPH padded step's five, then the physical viscosity
 # forms of both steps
 SM_PAIR_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces",
                  "dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc",
                  "dfsph_visc_phys", "wcsph_forces_phys")
-# K5's call forms (csrc/tile_pair_reduce.cu): the DFSPH padded step's four, then
-# the WCSPH padded step's three, then the physical viscosity forms of both;
-# each also has a halo form (csrc/tile_pair_reduce_halo.cu), `<form>_halo`
+# K5's call forms (csrc/tile_pair_reduce.cuh K5_PAIR_FORMS): the DFSPH padded
+# step's four, then the WCSPH padded step's three, then the physical viscosity
+# forms of both; each also has a bf16 math mode, `<form>_bf16`, and a halo
+# form of each mode (csrc/tile_pair_reduce_halo.cu), `<form>[_bf16]_halo`
 TILE_PAIR_FORMS = ("dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc",
                    "wcsph_density", "wcsph_stat", "wcsph_forces",
                    "dfsph_visc_phys", "wcsph_forces_phys")
@@ -151,13 +153,20 @@ def library() -> ctypes.CDLL:
                        ctypes.POINTER(PairConsts), _P]
         fn.restype = _I
     for form in TILE_PAIR_FORMS:
-        # K5's halo form: as the one-device launcher with the halo rows' positions,
-        # mask and source value pointers before consts
-        fn = getattr(lib, f"tile_pair_reduce_{form}_halo")
-        fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                       _P, _P, ctypes.POINTER(_P), ctypes.POINTER(PairConsts), _P]
-        fn.restype = _I
+        # K5's bf16 mode: the rebase (origin x, origin y, cell size, first
+        # global row) after the scalar; the halo forms: the halo rows'
+        # positions, mask and source value pointers before consts
+        head = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
+                _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float]
+        rebase = [ctypes.c_float, ctypes.c_float, ctypes.c_float, _I]
+        halo = [_P, _P, ctypes.POINTER(_P)]
+        tail = [ctypes.POINTER(PairConsts), _P]
+        for name, args in ((f"{form}_bf16", head + rebase + tail),
+                           (f"{form}_halo", head + halo + tail),
+                           (f"{form}_bf16_halo", head + rebase + halo + tail)):
+            fn = getattr(lib, f"tile_pair_reduce_{name}")
+            fn.argtypes = args
+            fn.restype = _I
     # mask, payload planes, n_pay, out, new mask, dropped, P, ny, nx,
     # grid nx, grid ny, 1/cell size, origin x, origin y, stream
     lib.rebucket.argtypes = [_P, ctypes.POINTER(_P), _I, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -12,7 +12,9 @@ do. The JAX package has two routes for False, the XLA `pair_reduce` and the
 gen-1 Pallas kernel behind `use_pallas`; they compute one contract, so here
 both are the one K5 route and the `use_pallas` flag is not ported (it would
 be a knob without effect). `pair_dtype` ("float32" or "bfloat16") is the
-JAX field; only the plane solvers take "bfloat16". The port needs the slot
+JAX field: the plane solvers take "bfloat16" as K1's bf16 operands, the
+padded solvers on the K5 route as K5's bf16 math mode (the JAX XLA
+`pair_reduce`'s), and K3 refuses it, as JAX does. The port needs the slot
 build only to
 build the initial carry and the static boundary index space; the per-step
 neighbourhood rebuild is the windowed re-bucket (ops/rebucket.py in plane form,
@@ -49,10 +51,11 @@ class DenseGridConfig:
     ny: int
     occupancy: int = 8  # P: max particles per cell
     use_pallas_slotmajor: bool = False  # padded solvers: K3 if True, else K5
-    # Operand dtype of the plane solvers' pair kernel K1: "float32" (exact) or
-    # "bfloat16": positions rebased onto their cell centre and stored in bf16,
-    # value operands rounded to bf16, all math and accumulation in f32
-    # (ops/planes.plane_geom, ops/pair_reduce.py). The padded solvers take
+    # "float32" (exact) or "bfloat16". The plane solvers' K1: positions rebased
+    # onto their cell centre and stored in bf16, value operands rounded to
+    # bf16, all math and accumulation in f32 (ops/planes.plane_geom,
+    # ops/pair_reduce.py). The padded solvers' K5: cell-relative positions and
+    # per-pair math in bf16, sums in f32 (ops/pallas_pair.py). K3 takes
     # float32 only.
     pair_dtype: str = "float32"
 
@@ -75,23 +78,16 @@ class DenseGridConfig:
 
 
 def require_float32_pairs(grid: DenseGridConfig, solver: str):
-    """The padded solvers' pair kernels take float32 operands only: raise for
-    a bfloat16 grid, as the JAX padded solvers assert on their slot-major
-    route. Their XLA route (K5 here) has a bf16 mode of its own that does the
-    pair math in bf16 (yasph2d_tpu/ops/dense_grid.py pair_reduce `relative`);
-    it is not ported."""
-    if grid.pair_dtype == "float32":
-        return
-    if grid.use_pallas_slotmajor:
+    """The padded solvers' slot-major kernel K3 takes float32 operands only:
+    raise for a bfloat16 grid on that route, as the JAX padded solvers
+    assert. Their K5 route takes bfloat16 as its bf16 math mode, the JAX XLA
+    route's (yasph2d_tpu/ops/dense_grid.py pair_reduce `relative`;
+    ops/pallas_pair.py)."""
+    if grid.pair_dtype != "float32" and grid.use_pallas_slotmajor:
         raise ValueError(
             f"{solver}: the slot-major pair kernel K3 computes on float32 planes; "
             "bfloat16 operands need the plane solvers (DFSPHPlaneSolver, "
-            "WCSPHPlaneSolver)")
-    raise ValueError(
-        f"{solver}: the bfloat16 pair math of the K5 route (the JAX XLA "
-        "pair_reduce's bf16 mode) is not ported yet (the padded solvers' bf16 math "
-        "mode, ROADMAP.md Queue 1); "
-        "use pair_dtype='float32' or the plane solvers")
+            "WCSPHPlaneSolver) or the K5 route (use_pallas_slotmajor=False)")
 
 
 def f32_scalar(x) -> float:

@@ -70,14 +70,17 @@ def reset_launch_counts():
 
 @dataclass(frozen=True)
 class PairForm:
-    """One call form of K1: the CUDA instantiation's name and the same math as
-    Python callables for the twin. `n_acc` defaults to n_out."""
+    """One call form of K1 (and of K3 and K5): the CUDA instantiation's name
+    and the same math as Python callables for the twin. `n_acc` defaults to
+    n_out. `bf16`: a K5 form in its bf16 math mode (ops/pallas_pair.py
+    bf16_form), whose calls must pass a rebase."""
 
     name: str
     n_out: int
     term_fn: Callable
     post_fn: Optional[Callable] = None
     n_acc: Optional[int] = None
+    bf16: bool = False
 
 
 def _operand_mode(q: PlaneGeom, s: PlaneGeom):

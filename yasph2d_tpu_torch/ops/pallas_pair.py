@@ -34,20 +34,51 @@ takes the exchanged rows whatever `use_pallas` says. The CUDA launchers
 are the halo instantiations of the same kernel (csrc/tile_pair_reduce_halo.cu),
 counted under `<form>_halo`; the rows stage into the tile's ring, so the
 shared memory and launch shape are the one-device form's.
+
+bf16 math mode (`rebase`, a `Rebase`: `rebase_of(grid)` on a grid with
+`pair_dtype="bfloat16"`): the contract of the JAX XLA
+`dense_grid.pair_reduce` at a bf16 grid (`relative=True`,
+yasph2d_tpu/ops/dense_grid.py:843-887), which the JAX padded solvers run
+there. Operation by operation, as `jax.make_jaxpr` of that pass shows it for
+each closure of the padded solvers (DFSPH ctx to the fluid and the walls,
+div, corr, visc and visc with physical viscosity; WCSPH density, stat,
+forces and forces with physical viscosity):
+- rebase, f32: centre = (i + 0.5 [+ row0]) * h + origin per cell column and
+  (global) row, pos - centre, then cast to bf16; query and source positions
+  alike, a shard's halo rows on their own (global) rows;
+- query values, source values and the scalar (dt): cast f32 -> bf16;
+- ri_to_rj = rel_j - rel_i (bf16), + the view's offset ((dxv-1) h, (dyv-1)
+  h) as a bf16 array (h rounded to f32, then bf16) (bf16);
+- r^2 = x*x, y*y (bf16), summed in f32 (jnp.sum upcasts), cast to bf16;
+  the compares r^2 <= h^2 and r^2 > 1e-10 in bf16 (both Python floats,
+  rounded to bf16); r = sqrt(r^2) (bf16);
+- every operation of the term in bf16, every Python-float constant rounded
+  to bf16 (jnp.sum over a vector's two components in f32, then bf16, as
+  r^2); except PhysicalViscosityModel's f32(mu m), an f32 array: the
+  laplacian is bf16, then f32(mu m) * lap, / rho_j and * (v_j - v_i) are
+  f32, and WCSPH's pressure term (bf16) + that viscosity term adds in f32;
+- where(valid, term, 0) in the term's dtype, cast to f32, summed in f32.
+Each bf16 operation is its f32 result rounded to bf16 (round to nearest
+even), in the kernel (csrc/pair_terms.cuh Bf16Math) and in the twin
+(`bf16_terms`, on f32 tensors through `_rd`), so that per pair both compute
+the same values. The sums are f32 in K5's order: per view over Ps, then the
+views; the JAX pass sums one 9 Ps axis. The constants come rounded
+(`bf16_consts`), the scalar is rounded here. The CUDA forms of this mode
+launch and count under `<form>_bf16` and `<form>_bf16_halo`.
 """
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from . import cuda_build
-from .dense_grid import MIN_DISTANCE_SQ
+from .dense_grid import MIN_DISTANCE_SQ, f32_scalar
 from .pair_reduce import PairForm
-from .planes import Halo
+from .planes import Halo, centre_coords
 
-# kernel launches per call form (halo forms under "<form>_halo"), counted where
-# the wrapper launches
-LAUNCHES = {f"{form}{suffix}": 0 for suffix in ("", "_halo")
+# kernel launches per call form (bf16 mode under "<form>_bf16", halo forms
+# under "<form>_halo" / "<form>_bf16_halo"), counted where the wrapper launches
+LAUNCHES = {f"{form}{suffix}": 0 for suffix in ("", "_bf16", "_halo", "_bf16_halo")
             for form in cuda_build.TILE_PAIR_FORMS}
 
 # (TY, TX, threads) of a launch, both sides powers of two, at most 256 threads
@@ -62,6 +93,140 @@ SMEM_LIMIT = cuda_build.SMEM_LIMIT
 def reset_launch_counts():
     for form in LAUNCHES:
         LAUNCHES[form] = 0
+
+
+class Rebase(NamedTuple):
+    """K5's bf16 math mode: the geometry of the cell centres that positions
+    are rebased onto (module docstring)."""
+
+    cell: float  # the cell size h
+    origin: tuple  # (x0, y0)
+    row0: int = 0  # the grid's first global cell row (a shard's)
+
+
+def rebase_of(grid, row0: int = 0) -> Optional[Rebase]:
+    """The math mode of `grid`'s pair passes: a Rebase for pair_dtype
+    "bfloat16", None (f32) otherwise; `row0` a shard's first global row."""
+    if grid.pair_dtype != "bfloat16":
+        return None
+    return Rebase(float(grid.cell_size), tuple(float(o) for o in grid.origin), row0)
+
+
+def _rd(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 operation's result: the f32 result rounded to bf16 (nearest
+    even), held in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_float(x: float) -> float:
+    """`x` rounded to f32, then to bf16: a weakly typed Python float in a bf16
+    JAX operation."""
+    return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16))
+
+
+def bf16_consts(consts: cuda_build.PairConsts) -> cuda_build.PairConsts:
+    """The constants of the bf16 mode: each rounded to bf16 as the JAX pass
+    rounds its Python floats, except f32(mu m), an f32 array in the JAX
+    physical viscosity model."""
+    return cuda_build.PairConsts(**{
+        name: getattr(consts, name) if name == "mu_m" else bf16_float(getattr(consts, name))
+        for name, _ in consts._fields_})
+
+
+def bf16_terms(name: str, c: cuda_build.PairConsts) -> Callable:
+    """The twin's per-pair terms of K5's form `name` in the bf16 mode, with the
+    bf16 constants `c`: the operations of the JAX closure at a bf16 grid
+    (module docstring), each rounded by `_rd`, as csrc/pair_terms.cuh
+    computes them with Bf16Math. Operands are bf16 values held in f32."""
+    phys = name.endswith("_phys")
+
+    def wendland(r):  # (W, grad coefficient)
+        q = torch.clamp(_rd(r * c.w_h_inv), max=1.0)
+        omq = _rd(1.0 - q)
+        omq_sq = _rd(omq * omq)
+        w = _rd(_rd(_rd(c.w_norm * omq_sq) * omq_sq) * _rd(q + 0.25))
+        return w, _rd(_rd(_rd(c.w_norm_grad * omq) * omq) * omq)
+
+    def poly6(r_sq, hsq, norm):
+        dsq = torch.clamp(_rd(hsq - r_sq), min=0.0)
+        return _rd(_rd(_rd(norm * dsq) * dsq) * dsq)
+
+    def spiky(r):  # (W, grad coefficient)
+        hsubr = torch.clamp(_rd(c.sp_h - r), min=0.0)
+        w = _rd(_rd(_rd(c.sp_norm * hsubr) * hsubr) * hsubr)
+        gc = _rd(_rd(_rd(c.sp_norm_grad * hsubr) * hsubr) / _rd(r + bf16_float(1.0e-10)))
+        return w, gc
+
+    def visc(r_sq, r, rho_j, dt, dv):  # the viscosity term c (v_j - v_i)
+        if phys:  # f32 from the f32 array f32(mu m) on
+            return (c.mu_m * _rd(c.vl_norm * _rd(c.vl_h - r))) / rho_j * dv
+        vc = _rd(_rd(c.xsph_coef * poly6(r_sq, c.p6_hsq, c.p6_norm)) / _rd(rho_j * dt))
+        return _rd(vc * dv)
+
+    def ctx(dx, dy, r_sq, r, scalars, q, s):
+        w, gc = wendland(r)
+        gx = _rd(_rd(gc * dx) * c.mass)
+        gy = _rd(_rd(gc * dy) * c.mass)
+        return (w, gx, gy, _rd(_rd(gx * gx) + _rd(gy * gy)), torch.ones_like(r_sq))
+
+    def div(dx, dy, r_sq, r, scalars, q, s):
+        gc = wendland(r)[1]
+        return (_rd(_rd(_rd(q[0] - s[0]) * _rd(gc * dx))
+                    + _rd(_rd(q[1] - s[1]) * _rd(gc * dy))),)
+
+    def corr(dx, dy, r_sq, r, scalars, q, s):
+        kk = _rd(q[0] + s[0])
+        gc = wendland(r)[1]
+        return (_rd(kk * _rd(gc * dx)), _rd(kk * _rd(gc * dy)))
+
+    def dfsph_visc(dx, dy, r_sq, r, scalars, q, s):
+        return tuple(visc(r_sq, r, s[2], scalars[0], _rd(s[k] - q[k])) for k in (0, 1))
+
+    def density(dx, dy, r_sq, r, scalars, q, s):
+        return (poly6(r_sq, c.d6_hsq, c.d6_norm),)
+
+    def stat(dx, dy, r_sq, r, scalars, q, s):
+        cf = _rd(_rd(-c.bff * spiky(r)[0]) / r_sq)
+        return (poly6(r_sq, c.d6_hsq, c.d6_norm), _rd(cf * dx), _rd(cf * dy))
+
+    def forces(dx, dy, r_sq, r, scalars, q, s):
+        p_i, rho_i, vx_i, vy_i = q
+        p_j, rho_j, vx_j, vy_j = s
+        coef = _rd(_rd(-c.mass * _rd(p_i + p_j)) / _rd(_rd(2.0 * rho_i) * rho_j))
+        gc = spiky(r)[1]
+        out = []
+        for d, v_i, v_j in ((dx, vx_i, vx_j), (dy, vy_i, vy_j)):
+            f = _rd(coef * _rd(gc * d)) + visc(r_sq, r, rho_j, scalars[0], _rd(v_j - v_i))
+            out.append(f if phys else _rd(f))  # bf16 + f32 adds in f32
+        return tuple(out)
+
+    return dict(dfsph_ctx=ctx, dfsph_div=div, dfsph_corr=corr, dfsph_visc=dfsph_visc,
+                wcsph_density=density, wcsph_stat=stat,
+                wcsph_forces=forces)[name.removesuffix("_phys")]
+
+
+def bf16_form(form: PairForm, consts: cuda_build.PairConsts) -> PairForm:
+    """`form` in the bf16 mode: its twin's terms `bf16_terms` with the bf16
+    constants `consts` (`bf16_consts`); the CUDA form keeps its name."""
+    return PairForm(form.name, form.n_out, bf16_terms(form.name, consts), bf16=True)
+
+
+def require_mode(kernel: str, form: PairForm, rebase: Optional[Rebase]):
+    """Raise unless a bf16 form comes with a rebase and an f32 form without:
+    the terms and constants are the mode's."""
+    if form.bf16 != (rebase is not None):
+        raise ValueError(f"{kernel}: form {form.name} is {'bf16' if form.bf16 else 'f32'} "
+                         f"math, called {'with' if rebase is not None else 'without'} a rebase")
+
+
+def _centres(rebase: Rebase, rows: int, cols: int, row_lo: int, col_lo: int,
+             device) -> torch.Tensor:
+    """(rows, cols, 1, 2) f32 centres (planes.centre_coords) of the cells from
+    local row `row_lo` and column `col_lo` on."""
+    cx, cy = centre_coords(rebase.cell, rebase.origin, cols, rows, rebase.row0 + row_lo,
+                           device, col_lo)
+    return torch.stack([cx.expand(rows, cols), cy[:, None].expand(rows, cols)],
+                       dim=-1)[:, :, None]
 
 
 def _comps(vals) -> list:
@@ -86,12 +251,14 @@ def _halo_rows(halo: Optional[Halo], s_vals) -> Optional[tuple]:
 
 def pallas_pair_reduce_ref(term_fn, n_out: int, q_pos, q_mask, s_pos, s_mask,
                            radius_sq: float, q_vals=(), s_vals=(), scalars=(),
-                           halo: Optional[Halo] = None):
+                           halo: Optional[Halo] = None, rebase: Optional[Rebase] = None):
     """Plain PyTorch twin of K5: nine shifted views of the one-cell-padded
     source space; each view evaluates the terms of all Ps source slots at once
     ((ny, nx, P, Ps) candidates), sums them over Ps with torch.sum, and the
     view sums are added in (dy, dx) order. Returns (ny, nx, P, n_out). With a
-    `halo` the ring's rows -1 and ny are its rows (module docstring)."""
+    `halo` the ring's rows -1 and ny are its rows; with a `rebase` the bf16
+    math mode (module docstring), `term_fn` its terms (`bf16_terms`) and
+    `radius_sq` rounded to bf16."""
     ny, nx, _ = q_mask.shape
     rows = _halo_rows(halo, s_vals)
 
@@ -109,8 +276,19 @@ def pallas_pair_reduce_ref(term_fn, n_out: int, q_pos, q_mask, s_pos, s_mask,
         s_pos = pad(s_pos, rows[0])
         s_mask = pad(s_mask, rows[1])
         s_comps = [pad(c, r) for c, r in zip(_comps(s_vals), rows[2])]
+    q_comps = tuple(_comps(q_vals))
+    rd = min_sq = None
+    if rebase is not None:  # positions onto their cells' centres, values and scalars
+        rd, min_sq = _rd, bf16_float(MIN_DISTANCE_SQ)  # to bf16
+        q_pos = _rd(q_pos - _centres(rebase, ny, nx, 0, 0, q_pos.device))
+        s_pos = _rd(s_pos - _centres(rebase, ny + 2, nx + 2, -1, -1, q_pos.device))
+        q_comps = tuple(map(_rd, q_comps))
+        s_comps = list(map(_rd, s_comps))
+        scalars = tuple(bf16_float(x) for x in scalars)
+        h = bf16_float(rebase.cell)
+        deltas = (-h, 0.0, h)
     qx, qy = q_pos[..., 0, None], q_pos[..., 1, None]  # (ny, nx, P, 1)
-    q_comps = tuple(c[..., None] for c in _comps(q_vals))
+    q_comps = tuple(c[..., None] for c in q_comps)
     q_live = q_mask[..., None]
     radius_sq = torch.tensor(radius_sq, dtype=q_pos.dtype, device=q_pos.device)
     accs = None
@@ -119,13 +297,20 @@ def pallas_pair_reduce_ref(term_fn, n_out: int, q_pos, q_mask, s_pos, s_mask,
             rows, cols = slice(dyv, dyv + ny), slice(dxv, dxv + nx)
             dx = s_pos[rows, cols, None, :, 0] - qx
             dy = s_pos[rows, cols, None, :, 1] - qy
-            r_sq = dx * dx + dy * dy
+            if rd is None:
+                r_sq = dx * dx + dy * dy
+                r_min = MIN_DISTANCE_SQ
+            else:  # each operation rounded, the views' centre offsets added
+                dx, dy = rd(rd(dx) + deltas[dxv]), rd(rd(dy) + deltas[dyv])
+                r_sq = rd(rd(dx * dx) + rd(dy * dy))
+                r_min = min_sq
             valid = (
                 q_live & s_mask[rows, cols, None, :]
-                & (r_sq <= radius_sq) & (r_sq > MIN_DISTANCE_SQ)
+                & (r_sq <= radius_sq) & (r_sq > r_min)
             )
             s_planes = tuple(c[rows, cols, None, :] for c in s_comps)
-            outs = term_fn(dx, dy, r_sq, torch.sqrt(r_sq), scalars, q_comps, s_planes)
+            r = torch.sqrt(r_sq) if rd is None else rd(torch.sqrt(r_sq))
+            outs = term_fn(dx, dy, r_sq, r, scalars, q_comps, s_planes)
             # where, not a multiply: invalid candidates may hold inf/NaN
             views = [torch.sum(torch.where(valid, o, 0.0), dim=-1) for o in outs]
             accs = views if accs is None else [a + v for a, v in zip(accs, views)]
@@ -236,24 +421,32 @@ def halo_operands(halo: Halo, s_vals, device, nx: int, ps: int) -> tuple:
 
 def tile_launch(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
                 consts: cuda_build.PairConsts, q_vals, s_vals, scalars, tile,
-                halo: Optional[Halo] = None) -> torch.Tensor:
+                halo: Optional[Halo] = None, rebase: Optional[Rebase] = None
+                ) -> torch.Tensor:
     """Launch `kernel`'s instantiation of `form` (csrc/tile_pair_reduce.cu:
     `tile_pair_reduce`, K5's sum order, or `sm_pair_reduce`, K3's) on CUDA
     tensors with the launch shape `tile` = (TY, TX, threads); returns
     (ny, nx, P, n_out). A `halo` (K5 only) launches the form's halo
-    instantiation (csrc/tile_pair_reduce_halo.cu). Counts nothing."""
+    instantiation (csrc/tile_pair_reduce_halo.cu), a `rebase` (K5 only) its
+    bf16 math mode. Counts nothing."""
+    require_mode(kernel, form, rebase)
     (ny, nx, p, ps), ptrs, strides, scalar = slot_operands(
         kernel, q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars)
     ty, tx, threads = tile
     n_sv = len(_comps(s_vals))
     out = torch.empty((ny, nx, p, form.n_out), dtype=torch.float32, device=q_pos.device)
     name, extra = f"{kernel}_{form.name}", ()
+    if (halo is not None or rebase is not None) and kernel != "tile_pair_reduce":
+        raise ValueError(f"{kernel}: no halo form and no bf16 mode (K5's sum order only)")
+    if rebase is not None:  # after the scalar: the rebase's origin, cell, row0
+        name += "_bf16"
+        scalar = bf16_float(scalar)
+        extra = (f32_scalar(rebase.origin[0]), f32_scalar(rebase.origin[1]),
+                 f32_scalar(rebase.cell), rebase.row0)
     if halo is not None:
-        if kernel != "tile_pair_reduce":
-            raise ValueError(f"{kernel}: no halo form (K5's sum order only)")
         h_pos, h_mask, h_ptrs = halo_operands(halo, s_vals, q_pos.device, nx, ps)
         name += "_halo"
-        extra = (h_pos, h_mask, cuda_build.pointer_array(h_ptrs))
+        extra += (h_pos, h_mask, cuda_build.pointer_array(h_ptrs))
     err = getattr(cuda_build.library(), name)(
         q_pos.data_ptr(), q_mask.data_ptr(), s_pos.data_ptr(), s_mask.data_ptr(),
         cuda_build.pointer_array(ptrs), cuda_build.int_array(strides), len(ptrs),
@@ -266,32 +459,40 @@ def tile_launch(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
 
 
 def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.PairConsts,
-           q_vals, s_vals, scalars, tile, halo: Optional[Halo] = None) -> torch.Tensor:
-    """Launch K5's instantiation of `form` (its halo form with a `halo`) on
-    CUDA tensors with the launch shape `tile` = (TY, TX, threads); returns
-    (ny, nx, P, n_out). Counts nothing: `pallas_pair_reduce` is the solvers'
-    entry (tools/tile_sweep.py times other shapes through this)."""
+           q_vals, s_vals, scalars, tile, halo: Optional[Halo] = None,
+           rebase: Optional[Rebase] = None) -> torch.Tensor:
+    """Launch K5's instantiation of `form` (its halo form with a `halo`, its
+    bf16 mode with a `rebase`) on CUDA tensors with the launch shape `tile` =
+    (TY, TX, threads); returns (ny, nx, P, n_out). Counts nothing:
+    `pallas_pair_reduce` is the solvers' entry (tools/tile_sweep.py times
+    other shapes through this)."""
     return tile_launch("tile_pair_reduce", form, q_pos, q_mask, s_pos, s_mask, consts,
-                       q_vals, s_vals, scalars, tile, halo)
+                       q_vals, s_vals, scalars, tile, halo, rebase)
 
 
 def pallas_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,
                        consts: cuda_build.PairConsts, q_vals=(), s_vals=(),
-                       scalars=(), halo: Optional[Halo] = None) -> torch.Tensor:
+                       scalars=(), halo: Optional[Halo] = None,
+                       rebase: Optional[Rebase] = None) -> torch.Tensor:
     """Run one K5 call form; returns (ny, nx, P, n_out). `consts.radius_sq` is
     the pair cutoff for both routes; the launch shape is `tile_shape`'s, with
-    or without a `halo` (the source's rows -1 and ny, module docstring)."""
+    or without a `halo` (the source's rows -1 and ny) or a `rebase` (the bf16
+    math mode: `form` from `bf16_form`, `consts` from `bf16_consts`; module
+    docstring)."""
     if form.post_fn is not None:
         raise ValueError("pallas_pair_reduce: K5 forms have no epilogue")
+    require_mode("pallas_pair_reduce", form, rebase)
     device = q_pos.device
     if device.type == "cpu":
         return pallas_pair_reduce_ref(form.term_fn, form.n_out, q_pos, q_mask, s_pos,
                                       s_mask, consts.radius_sq, q_vals=q_vals,
-                                      s_vals=s_vals, scalars=scalars, halo=halo)
+                                      s_vals=s_vals, scalars=scalars, halo=halo,
+                                      rebase=rebase)
     if device.type != "cuda":
         raise ValueError(f"pallas_pair_reduce: unsupported device {device}")
     tile = tile_shape(q_mask.shape[2], s_mask.shape[2], len(_comps(s_vals)))
     out = launch(form, q_pos, q_mask, s_pos, s_mask, consts, q_vals, s_vals, scalars,
-                 tile, halo)
-    LAUNCHES[form.name + ("" if halo is None else "_halo")] += 1
+                 tile, halo, rebase)
+    LAUNCHES[form.name + ("" if rebase is None else "_bf16")
+             + ("" if halo is None else "_halo")] += 1
     return out

@@ -55,18 +55,25 @@ class PlaneGeom(NamedTuple):
     halo: Optional[Halo] = None  # planes (pos (2, P, 2, nx), mask (P, 2, nx))
 
 
+def centre_coords(cell: float, origin, cols: int, rows: int, row0: int, device,
+                  col0: int = 0) -> tuple:
+    """(cx (cols,), cy (rows,)) f32 centres of the cell columns from `col0` and
+    the global cell rows from `row0`: (i + 0.5) * f32(h) + f32(origin), each
+    operation in f32 as the JAX `_pf_rebase` and XLA `pair_reduce` compute
+    them (i + 0.5 is exact, so both shards of a seam see the same centres)."""
+    h = f32_scalar(cell)
+    cx = (torch.arange(col0, col0 + cols, dtype=REAL, device=device) + 0.5) * h \
+        + f32_scalar(origin[0])
+    cy = (torch.arange(row0, row0 + rows, dtype=REAL, device=device) + 0.5) * h \
+        + f32_scalar(origin[1])
+    return cx, cy
+
+
 @functools.lru_cache(maxsize=8)
 def _cell_centres(grid: DenseGridConfig, device: torch.device, row0: int) -> torch.Tensor:
-    """(2, 1, ny, nx) f32 centre of every cell, built once per grid, device
-    and row offset: (i + 0.5 + row0) * f32(h) + f32(origin) with i the
-    global cell row under sharding, each operation in f32 as the JAX
-    `_pf_rebase` computes it (so both shards of a seam see the same
-    centres; row0 = 0 adds an exact zero)."""
-    h = f32_scalar(grid.cell_size)
-    cx = (torch.arange(grid.nx, dtype=REAL, device=device) + 0.5) * h \
-        + f32_scalar(grid.origin[0])
-    cy = (torch.arange(grid.ny, dtype=REAL, device=device) + 0.5 + row0) * h \
-        + f32_scalar(grid.origin[1])
+    """(2, 1, ny, nx) f32 centre of every cell (`centre_coords`), built once
+    per grid, device and row offset (i the global cell row under sharding)."""
+    cx, cy = centre_coords(grid.cell_size, grid.origin, grid.nx, grid.ny, row0, device)
     shape = (grid.ny, grid.nx)
     return torch.stack([cx.expand(shape), cy[:, None].expand(shape)])[:, None]
 

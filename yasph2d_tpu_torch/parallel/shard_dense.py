@@ -32,7 +32,11 @@ Two shard routes share these collectives and one driver (`_ShardedBase`):
   slot-major route (K3) has no halo form there and is refused here too. With
   `rebuild_every > 1` a stale step keeps the slot layout, so shard assignment
   is frozen until the next rebuild, as in JAX (a particle that crossed the
-  seam stays in the old shard's edge cells).
+  seam stays in the old shard's edge cells). On a `full_grid` with
+  `pair_dtype="bfloat16"` the passes are K5's bf16 math mode in its halo
+  form: each shard rebases its positions on its global cell rows
+  (`row0`), and the halo rows on the neighbours' rows, as the JAX XLA
+  route rebases before it exchanges.
 - **the plane route** (parallel/shard_plane.py): K1's and K2's halo forms.
 
 The result is the one-device step's on the same grid: the same iterations and

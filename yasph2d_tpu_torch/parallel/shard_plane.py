@@ -16,7 +16,10 @@ over processes, one shard each, and every collective outside the kernels:
   contract);
 - residual averages, the live count and the drop counts are sums over the
   shards, the CFL velocity a max (shard_dense._SpatialCollectives); the
-  driver is the padded route's (shard_dense._ShardedBase).
+  driver is the padded route's (shard_dense._ShardedBase), whose solver
+  keywords reach the shard solver: `fuse_loop_elementwise=False` /
+  `fuse_ctx_elementwise=False` run the unfused DFSPH step on the halo forms
+  of K1's `ctx`, `visc`, `div` and `corr`.
 
 The result is the one-device step's on the same grid: the same iterations
 and drops and the same live rows bit for bit. A residual average is a sum

@@ -53,11 +53,16 @@ class SolverSpec(NamedTuple):
     cfl_factor: float  # adaptive CFL factor (bench.py:116-120)
     plane_boundary: bool  # the solver takes the boundary in plane form
     pair_dtype: str = "float32"  # DenseGridConfig.pair_dtype
+    # DFSPHPlaneSolver's fuse_loop_elementwise and fuse_ctx_elementwise (the
+    # bench's YASPH_BENCH_FUSE_LOOPS / YASPH_BENCH_FUSE_CTX, bench.py:204-212)
+    fused: bool = True
 
 
 # The bench's solver configurations on one scene, by name. The bench's own
 # default operand dtype is bfloat16 (bench.py:83-88); the *_bf16 entries run
-# the plane solvers so.
+# the plane solvers so (K1's bf16 operands) and the padded solvers' K5 route
+# (K5's bf16 math mode); `dfsph_plane_unfused` is the plane step with both
+# fuse switches off.
 SOLVERS = {
     "dfsph_plane": SolverSpec("DFSPHPlaneSolver", True, 1.5, True),
     "dfsph_padded": SolverSpec("DFSPHPaddedSolver", True, 1.5, False),
@@ -67,6 +72,9 @@ SOLVERS = {
     "wcsph_plane": SolverSpec("WCSPHPlaneSolver", True, 0.2, True),
     "dfsph_plane_bf16": SolverSpec("DFSPHPlaneSolver", True, 1.5, True, "bfloat16"),
     "wcsph_plane_bf16": SolverSpec("WCSPHPlaneSolver", True, 0.2, True, "bfloat16"),
+    "dfsph_plane_unfused": SolverSpec("DFSPHPlaneSolver", True, 1.5, True, fused=False),
+    "dfsph_padded_k5_bf16": SolverSpec("DFSPHPaddedSolver", False, 1.5, False, "bfloat16"),
+    "wcsph_padded_k5_bf16": SolverSpec("WCSPHPaddedSolver", False, 0.2, False, "bfloat16"),
 }
 
 
@@ -85,6 +93,8 @@ def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=
     grid = dataclasses.replace(world.dense_grid(occupancy=occupancy, ny_multiple=ny_multiple),
                                use_pallas_slotmajor=spec.slotmajor,
                                pair_dtype=pair_dtype or spec.pair_dtype)
+    switches = {} if spec.fused else dict(fuse_loop_elementwise=False,
+                                          fuse_ctx_elementwise=False)
     solver = getattr(y, spec.solver)(
         viscosity_model=y.XSPHViscosityModel(world.properties.smoothing_length),
         properties=world.properties,
@@ -93,6 +103,7 @@ def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=
             timestep_max=1.0 / 360.0, timestep_min=1.0 / 24000.0,
             cfl_factor=spec.cfl_factor,
         ),
+        **switches,
     )
     boundary = world.boundary_dense(grid, device=device)
     if spec.plane_boundary:

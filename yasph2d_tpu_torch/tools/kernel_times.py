@@ -13,8 +13,9 @@ stiffness and density noise (as chip_smoke.py phase 3), and the re-bucket on
 the step's own advection with the step's payload, as the step calls it:
 plane kinds K1's forms and K2 (`rebucket.rebucket`, the payload stacked as
 one (D, P, ny, nx) tensor); padded kinds (dfsph_padded, dfsph_padded_k5,
-wcsph_padded, wcsph_padded_k5) K3's or K5's forms (`sm_pair_reduce`,
-`pallas_pair_reduce`) and K4 with its glue: `sm_rebucket_parts` where the
+wcsph_padded, wcsph_padded_k5, and the *_k5_bf16 kinds in K5's bf16 math
+mode) K3's or K5's forms (`sm_pair_reduce`, `pallas_pair_reduce`) and K4
+with its glue: `sm_rebucket_parts` where the
 tree has it, else the concatenation, `sm_rebucket` and the splits that the
 step around it made. Times are device milliseconds per call: 10 calls in a
 CUDA graph, CUDA events, median of 7. It calls only wrappers and the scene
@@ -199,7 +200,13 @@ def main(argv=None):
         from yasph2d_tpu_torch.ops.sm_pair_reduce import sm_pair_reduce
 
         pair = sm_pair_reduce if solver.grid.use_pallas_slotmajor else pallas_pair_reduce
+        mode = {}
+        if solver.grid.pair_dtype == "bfloat16":  # K5's bf16 math mode
+            from yasph2d_tpu_torch.ops.pallas_pair import rebase_of
+
+            mode = dict(rebase=rebase_of(solver.grid))
         for label, (form, q, s, kw) in padded_calls(solver, boundary, carry, rng).items():
+            kw = dict(kw, **mode)
             runs[label] = (lambda form=form, q=q, s=s, kw=kw: pair(form, *q, *s, c, **kw))
         runs["sm_rebucket"] = padded_rebucket(solver, carry)
         state = (carry.ctx.pos_pad, carry.ctx.mask) if hasattr(carry, "ctx") \

@@ -62,7 +62,14 @@ OPS_PER_PAIR = {
     # lap W_visc(r) = norm_lapl (h - r), one sqrt more than with XSPH; the
     # forces terms read r for the pressure gradient with either coefficient
     "visc_gravity_phys": 11, "wcsph_forces_phys": 27, "dfsph_visc_phys": 11,
+    # the unfused DFSPH plane step's passes: their fused forms' terms, no
+    # epilogue
+    "visc": 14, "div": 14, "corr": 13, "visc_phys": 11,
 }
+# K5's bf16 math mode (ops/pallas_pair.py): each float32 operation of the
+# candidate and the term is followed by its rounding to bf16, counted as one
+# more operation
+BF16_OPS_FACTOR = 2
 OPS_PER_QUERY = {"ctx_post": 15, "visc_gravity": 2, "visc_gravity_phys": 2, "err_ki": 8,
                  "delta_ki": 8, "corr_v": 8}
 OPS_PER_SLOT_REBUCKET = 10  # cell coordinates and the move code of a live slot
@@ -128,11 +135,15 @@ def instruction_bound(counts: dict) -> tuple:
     return times[what] * 1e3, what
 
 
-def pair_counts(q_pos, q_mask, s_pos, s_mask, radius_sq, rebase_cell=None):
+def pair_counts(q_pos, q_mask, s_pos, s_mask, radius_sq, rebase_cell=None, rebase=None):
     """(live candidates, valid pairs) of a pair pass in the slot layout
     ((ny, nx, P[, 2])): query live and source live in the 3x3 cells, and
     1e-10 < r_sq <= h^2. With `rebase_cell` the positions are K1's bf16
-    cell-relative geometry and each view adds its centre offset, as K1 does."""
+    cell-relative geometry and each view adds its centre offset, as K1 does;
+    with a `rebase` (K5's bf16 math mode) the pass's valid pairs are counted
+    by its twin's bf16 test (`radius_sq` then the bf16 one)."""
+    if rebase is not None:
+        return _bf16_pair_counts(q_pos, q_mask, s_pos, s_mask, radius_sq, rebase)
     ny, nx, _ = q_mask.shape
 
     def pad(a):
@@ -154,6 +165,19 @@ def pair_counts(q_pos, q_mask, s_pos, s_mask, radius_sq, rebase_cell=None):
             cand += int(live.sum())
             valid += int((live & (r_sq <= radius_sq) & (r_sq > 1e-10)).sum())
     return cand, valid
+
+
+def _bf16_pair_counts(q_pos, q_mask, s_pos, s_mask, radius_sq, rebase):
+    """`pair_counts` in K5's bf16 math mode: the twin's pair test on its
+    valid-pair count (a pass whose term counts 1 a pair)."""
+    from ..ops.pallas_pair import pallas_pair_reduce_ref
+
+    def count(dx, dy, r_sq, r, scalars, q, s):
+        return (torch.ones_like(r_sq),)
+
+    valid = pallas_pair_reduce_ref(count, 1, q_pos, q_mask, s_pos, s_mask, radius_sq,
+                                   rebase=rebase)
+    return pair_counts(q_pos, q_mask, s_pos, s_mask, 0.0)[0], int(valid.sum())
 
 
 def plane_pairs(q: PlaneGeom, s: PlaneGeom):

@@ -1,14 +1,16 @@
 """Where the time of a solver step goes on one GPU.
 
     python -m yasph2d_tpu_torch.tools.trace_step
-        [--solver dfsph_plane|dfsph_plane_bf16|dfsph_padded|dfsph_padded_k5|
-                  wcsph_padded|wcsph_padded_k5|wcsph_plane|wcsph_plane_bf16]
+        [--solver dfsph_plane|dfsph_plane_bf16|dfsph_plane_unfused|dfsph_padded|
+                  dfsph_padded_k5|dfsph_padded_k5_bf16|wcsph_padded|wcsph_padded_k5|
+                  wcsph_padded_k5_bf16|wcsph_plane|wcsph_plane_bf16]
         [--particles 100000]
         [--settle 50] [--steps 20] [--trace out.json]
 
 Runs the double dam-break through the CUDA kernels, with the solver as
 `scenes.bench_solver` builds it (`*_k5`: the padded solver on K5 instead of
-K3; adaptive CFL 1.5 for DFSPH, 0.2 for WCSPH): `--settle` steps first
+K3; `*_bf16`: K1's bf16 operands or K5's bf16 math mode; `*_unfused`: the
+DFSPH plane step's glue in torch; adaptive CFL 1.5 for DFSPH, 0.2 for WCSPH): `--settle` steps first
 (per-window ms/step, iteration counts and drops are printed), then `--steps`
 steps under torch.profiler. Reports the host-clock ms/step of the profiled
 window, the device time per kernel name (per step and per launch), and the
