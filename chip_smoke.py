@@ -67,21 +67,31 @@ Phases, each reported on its own line:
      input once, every output written once in full. No single PyTorch call
      computes any of these functions, so `library_ms` is null;
   4. small reference: a 3k-particle scene stepped through the kernels on the
-     GPU and through the twins on the CPU must agree, for every solver path:
+     GPU and through the twins on the CPU must agree, for every solver path
+     (the table paths, plain tensor operations, on the card against the
+     CPU):
      5 steps from rest with XSPH and with physical viscosity, and for the
-     DFSPH paths, with either viscosity, 5 more from the GPU's state after
+     DFSPH paths, with either viscosity (the table and sorted paths with XSPH
+     only: their physical forms are the padded paths'), 5 more from the
+     GPU's state after
      55 steps, where the columns touch the walls, the divergence loop
      iterates and warm-starts, and the fluid -> boundary pass sums something;
   5. main paths: init_carry + 20 steps of the 100k double dam-break through the
      kernels, for each solver, route and operand dtype of SOLVER_PATHS, with
-     the launch count of every kernel of that path > 0, no dropped particle,
+     the launch count of every kernel of that path > 0 (the table paths
+     `dfsph_table`, `wcsph_table` have none; the sorted paths `dfsph_dense`,
+     `wcsph_dense` run K3, their `_k5` twins and `dfsph_dense_k5_bf16` K5,
+     and neither launches a re-bucket, which is checked), every tensor of the
+     final carry on the card, no dropped particle,
      all 99,372 particles live, finite state and densities in [rho0, 1.3 rho0]
      (the columns are still falling; after the impact, by step 60, the
      densest particle of the DFSPH plane step reaches 1.55 rho0, so phases 3
      and 4 check the contact regime instead); the unfused DFSPH plane path
      with the fused path's per-step iterations and drops (whether the live
      rows are bit-equal is logged), the K5 bf16 paths with sorted positions
-     within 0.2 h of the K5 f32 paths'. Then the tools of TOOL_PATHS
+     within 0.2 h of the K5 f32 paths'; the table and sorted paths' sorted
+     positions beside the padded path of the same step (logged). Then the
+     tools of TOOL_PATHS
      through their entry points, each with its launch counts > 0: the K6
      rates (FMA, mix, HBM stream), the K7 probe beside K1 ctx, and the
      roofline at 1M particles in bfloat16 after 100 settle steps, whose state
@@ -93,9 +103,10 @@ Phases, each reported on its own line:
      mode and run by `python -m yasph2d_tpu_torch run` in-process
      (`__main__.main`), each with its kernels' launch counts > 0, no drop,
      every fluid particle live, finite state and densities in [rho0,
-     1.3 rho0] at its end. Ten paths (two of them the padded kinds with
-     pair_dtype bfloat16: K5's bf16 math mode) take 10-20 steps, in free
-     fall; the
+     1.3 rho0] at its end. Fourteen paths (two of them the padded kinds
+     with pair_dtype bfloat16: K5's bf16 math mode; four the table and
+     sorted kinds `dfsph`, `wcsph`, `dfsph_dense`, `wcsph_dense`, which
+     launch no re-bucket) take 10-20 steps, in free fall; the
      rebuild_every 3 path takes CONTACT_CONFIG (150) steps, through the
      impact on the ramp, with one K4 launch per block of 3 steps and per
      leftover step, and must end in wall contact. After each such run,
@@ -140,8 +151,9 @@ Phases, each reported on its own line:
   7. app: `python -m yasph2d_tpu_torch record` in-process (`__main__.main`)
      on BASELINE config 3's scene (the reference dam-break at ~100k fluid
      particles; only the kind and the world reach the app, XSPH viscosity)
-     for the default kind `dfsph_padded` (K5 + K4) and for `dfsph_plane`
-     (K1 + K2), APP_FRAMES (24) frames of 1/60 s at 1920x1080 into a
+     for the app's default kind, the table `dfsph` (no kernel: its
+     checks against twins are skipped), for `dfsph_padded` (K5 + K4) and
+     for `dfsph_plane` (K1 + K2), APP_FRAMES (24) frames of 1/60 s at 1920x1080 into a
      temporary directory: the kind's kernels launched, no drop, every fluid
      particle live, finite state, no app warning, `flush()` 0, the PNGs
      named as the Recorder names them, each decoded with the standard
@@ -149,7 +161,8 @@ Phases, each reported on its own line:
      native renderer's frame of the final state, and the native and NumPy
      renderers within 1% of pixels there; steps per frame and the host ms
      of each frame's simulate, render (read-back + rasterise) and submit
-     parts, and the final flush, are logged. Then APP_REALTIME_FRAMES (10)
+     parts, and the final flush, are logged. Then APP_REALTIME_FRAMES (10; 2
+     for the table kind, whose frames take ~250 steps at ~11 ms)
      realtime frames on the same app: whether the governor dropped steps is
      logged, not gated. Every pair form and the re-bucket the app's step
      launches are held against their twins on the record's final state, at
@@ -257,13 +270,33 @@ SOLVER_PATHS = {
     + ["sm_rebucket"],
     "wcsph_padded_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in WCSPH_FORMS]
     + ["sm_rebucket"],
+    # the table solvers: plain tensor operations, no kernel; the sorted
+    # solvers: K3 or K5, rebuilt by a sort (no re-bucket)
+    "dfsph_table": [],
+    "wcsph_table": [],
+    "dfsph_dense": [f"sm_pair_reduce_{f}" for f in DFSPH_SM_FORMS],
+    "dfsph_dense_k5": [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_FORMS],
+    "wcsph_dense": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS],
+    "wcsph_dense_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS],
+    "dfsph_dense_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in DFSPH_TILE_FORMS],
 }
+# the paths that must launch no re-bucket (K2, K4): the table and sorted ones
+NO_REBUCKET = ("dfsph_table", "wcsph_table", "dfsph_dense", "dfsph_dense_k5", "wcsph_dense",
+               "wcsph_dense_k5", "dfsph_dense_k5_bf16", "config_dfsph", "config_wcsph",
+               "config_dfsph_dense", "config_wcsph_dense")
 # the main paths held against a path of the same step: the unfused DFSPH
 # plane step against the fused one (the same per-step iterations and drops;
 # whether the live rows are bit-equal is logged), the K5 bf16 paths against
 # the K5 f32 ones (sorted positions within BF16_POSITION_TOL h)
 FUSED_OF = {"dfsph_plane_unfused": "dfsph_plane"}
-F32_OF = {"dfsph_padded_k5_bf16": "dfsph_padded_k5", "wcsph_padded_k5_bf16": "wcsph_padded_k5"}
+F32_OF = {"dfsph_padded_k5_bf16": "dfsph_padded_k5", "wcsph_padded_k5_bf16": "wcsph_padded_k5",
+          "dfsph_dense_k5_bf16": "dfsph_dense_k5"}
+# the table and sorted paths beside the padded path of the same step: the
+# largest difference of their sorted positions is logged (not gated: the
+# layouts sum in other orders)
+LAYOUT_OF = {"dfsph_table": "dfsph_padded_k5", "dfsph_dense": "dfsph_padded",
+             "dfsph_dense_k5": "dfsph_padded_k5", "wcsph_table": "wcsph_padded_k5",
+             "wcsph_dense": "wcsph_padded", "wcsph_dense_k5": "wcsph_padded_k5"}
 BF16_POSITION_TOL = 0.2  # JAX's bf16-vs-f32 bound (tests/test_bf16_pairs.py:104-105)
 VPU_PROBES = ["vpu_probe_fma4", "vpu_probe_fma8", "vpu_probe_mix8"]
 TOOL_PATHS = {
@@ -321,6 +354,13 @@ CONFIG_PATHS = {
     "config_wcsph_padded_k5_bf16": ("wcsph_padded", {"pair_dtype": "bfloat16"}, 10,
                                     [f"tile_pair_reduce_{f}{BF16}" for f in WCSPH_PHYS_FORMS]
                                     + ["sm_rebucket"]),
+    # the table kinds (no kernel) and the sorted kinds (K5, the config's route)
+    "config_dfsph": ("dfsph", {}, 10, []),
+    "config_wcsph": ("wcsph", {}, 10, []),
+    "config_dfsph_dense": ("dfsph_dense", {}, 10,
+                           [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS]),
+    "config_wcsph_dense": ("wcsph_dense", {}, 10,
+                           [f"tile_pair_reduce_{f}" for f in WCSPH_PHYS_FORMS]),
 }
 # the sharded phase: the 100k double dam-break on a grid whose rows split over
 # two shards (515 x 326, P 7), every fluid particle kicked SHARD_KICK m/s
@@ -365,12 +405,15 @@ SHARDED_PATHS = {
 # kinds, APP_FRAMES frames of 1/60 s at APP_RESOLUTION, then
 # APP_REALTIME_FRAMES realtime frames on the same app. Only the kind and the
 # world reach the app (XSPH viscosity, as the JAX record command): the
-# default padded kind on the K5 route (the app keeps use_pallas_slotmajor
-# False), the plane kind on K1 + K2
+# app's default kind, the table `dfsph` (no kernel), the padded kind on the
+# K5 route (the app keeps use_pallas_slotmajor False), the plane kind on
+# K1 + K2
 APP_FRAMES = 24
 APP_REALTIME_FRAMES = 10
+APP_REALTIME_FRAMES_TABLE = 2  # the table kind: ~250 steps at ~11 ms a frame
 APP_RESOLUTION = (1920, 1080)
 APP_PATHS = {
+    "app_dfsph": ("dfsph", SOLVER_PATHS["dfsph_table"]),
     "app_dfsph_padded": ("dfsph_padded", SOLVER_PATHS["dfsph_padded_k5"]),
     "app_dfsph_plane": ("dfsph_plane", SOLVER_PATHS["dfsph_plane"]),
 }
@@ -380,6 +423,14 @@ PATHS = {**SOLVER_PATHS, **TOOL_PATHS, **{k: v[3] for k, v in CONFIG_PATHS.items
 
 def log(msg):
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase_clock(name):
+    """Log the host seconds the block took."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
 def gpu_line() -> str:
@@ -828,6 +879,23 @@ def wcsph_slot_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD
                                for sfx, form, src, kw, c, m in calls]
 
 
+def padded_wcsph(solver, carry):
+    """A sorted WCSPH carry in the padded carry's slot layout (pos_pad, mask,
+    v_pad, dens_pad, time), as its step pads it, for its pair calls."""
+    from yasph2d_tpu_torch.models.wcsph_dense import WCSPHPaddedCarry
+    from yasph2d_tpu_torch.ops.dense_grid import build_slot_grid, pad_to_slots
+
+    g, p = solver.grid, carry.particles
+    (pos, vel, dens), keys = solver._sort((p.positions, p.velocities, p.densities),
+                                          p.positions, p.alive)
+    slots = build_slot_grid(keys, g)
+    return WCSPHPaddedCarry(pos_pad=pad_to_slots(pos, slots, g),
+                            v_pad=pad_to_slots(vel, slots, g),
+                            accel_pad=None, dens_pad=pad_to_slots(dens, slots, g),
+                            mask=slots.slot_mask.reshape(g.ny, g.nx, g.occupancy),
+                            time=carry.time)
+
+
 def wcsph_plane_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD, phys=None):
     """The WCSPH plane step's K1 calls on a plane state (the operand mode is
     the solver's)."""
@@ -1212,7 +1280,10 @@ def phase_small_reference(device):
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 
     sides = {"gpu": device, "cpu": torch.device("cpu")}
-    for kind, phys in [(k, p) for k in SOLVER_PATHS for p in (False, True)]:
+    # the table and sorted paths with XSPH only: their physical forms are
+    # the padded paths' (and the config paths run them at 100k)
+    for kind, phys in [(k, p) for k in SOLVER_PATHS for p in (False, True)
+                       if not (p and k in NO_REBUCKET)]:
         solvers = {side: bench_solver(kind, double_dam_break(3_000), dev)
                    for side, dev in sides.items()}
         if phys:
@@ -1253,12 +1324,37 @@ def phase_small_reference(device):
             if start == "contact":
                 # a divergence loop of more than one iteration warm-starts the
                 # next step's; the boundary pass found fluid -> wall pairs
-                walls = float(carry.ctx.sum_grad_stat.abs().sum())
-                log(f"phase 4 small reference: {kind} from contact, |sum grad W to the "
-                    f"boundary| {walls!r}")
+                walls = wall_contact(carry)
+                log(f"phase 4 small reference: {kind} from contact, wall contact "
+                    f"(|sum grad W to the boundary|, a table's boundary neighbours) {walls!r}")
                 if max(c[1] for c in gc[:-1]) <= 1 or walls == 0.0:
                     raise RuntimeError(f"{kind}: the contact state exercised no warm "
                                        "start or no fluid -> boundary pair")
+
+
+def wall_contact(carry) -> float:
+    """|sum of grad W to the boundary| of a DFSPH carry (the boundary
+    neighbour count of a table carry): > 0 once fluid touches a wall."""
+    if hasattr(carry, "neighborhood"):
+        return float(carry.neighborhood.static.count.sum())
+    return float(carry.ctx.sum_grad_stat.abs().sum())
+
+
+def grid_text(grid) -> str:
+    """A solver grid for the log: the slot grid's cells and occupancy, or
+    the table solvers' cell size."""
+    if hasattr(grid, "nx"):
+        return f"grid {grid.nx}x{grid.ny} P {grid.occupancy}"
+    return f"cell grid h {grid.cell_size!r}, K {grid.max_neighbors_dynamic}"
+
+
+def carry_tensors(tree) -> list:
+    """Every tensor of a carry (nested named tuples)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for item in tree for t in carry_tensors(item)]
+    return []
 
 
 def _kernel_modules():
@@ -1322,7 +1418,7 @@ def phase_main_path(device, kind) -> tuple:
     dmin, dmax = float(dens.min()), float(dens.max())
     drops = max(d.neighbor_drops for d in diags)
     ms = elapsed / STEPS * 1e3
-    log(f"phase 5 main path [{kind}]: grid {grid.nx}x{grid.ny} P {grid.occupancy}, "
+    log(f"phase 5 main path [{kind}]: {grid_text(grid)}, "
         f"{live} live / {world.num_boundary_particles} boundary, init {t_init:.3f} s, "
         f"{STEPS} steps {ms:.3f} ms/step {live * STEPS / elapsed:.1f} particle-steps/s, "
         f"drops {drops}, density [{dmin!r}, {dmax!r}], dt {float(carry.time.dt)!r}, "
@@ -1333,6 +1429,9 @@ def phase_main_path(device, kind) -> tuple:
             f"{iters}")
     log(f"phase 5 main path [{kind}]: drops per step {[d.neighbor_drops for d in diags]}")
     path = check_launches(kind, launches)
+    off_card = [t.device for t in carry_tensors(carry) if t.device.type != "cuda"]
+    if off_card:
+        raise RuntimeError(f"{kind}: carry tensors off the card: {off_card[:3]}")
     if drops != 0 or live != N_FLUID or not finite:
         raise RuntimeError(f"{kind}: main path state wrong: drops {drops} live {live} "
                            f"finite {finite}")
@@ -1359,6 +1458,12 @@ def compare_main_paths(runs: dict):
         if a["counts"] != b["counts"]:
             raise RuntimeError(f"{kind}: per-step iterations or drops differ from {fused}: "
                                f"{a['counts']} vs {b['counts']}")
+    for kind, padded in LAYOUT_OF.items():
+        a, b = runs[kind], runs[padded]
+        diff = max(float(np.abs(np.sort(a["rows"][:, k].numpy())
+                                - np.sort(b["rows"][:, k].numpy())).max()) for k in (0, 1))
+        log(f"phase 5 main path [{kind}]: sorted x and y within {diff!r} m of {padded}'s; "
+            f"per-step (iterations, drops) equal {a['counts'] == b['counts']}")
     for kind, f32 in F32_OF.items():
         a, b = runs[kind], runs[f32]
         diff = max(float(np.abs(np.sort(a["rows"][:, k].numpy())
@@ -1371,11 +1476,18 @@ def compare_main_paths(runs: dict):
 
 
 def check_launches(kind, launches) -> dict:
+    """The launches of `kind`'s kernels, each > 0; the table and sorted paths
+    (NO_REBUCKET) also launch no re-bucket."""
     path = {k: launches[k] for k in PATHS[kind]}
     log(f"phase 5 main path [{kind}]: launches {path}")
     problems = [k for k, v in path.items() if v <= 0]
     if problems:
         raise RuntimeError(f"{kind}: kernels never launched on the main path: {problems}")
+    if kind in NO_REBUCKET:
+        rebuckets = {k: v for k, v in launches.items() if "rebucket" in k and v}
+        if rebuckets:
+            raise RuntimeError(f"{kind}: a table or sorted path launched re-buckets: "
+                               f"{rebuckets}")
     return path
 
 
@@ -1426,8 +1538,8 @@ def phase_config_path(device, rec: Records, name) -> dict:
                   and torch.isfinite(dens).all())
     dmin, dmax = float(dens.min()), float(dens.max())
     grid = solver.grid
-    log(f"phase 5 main path [{name}]: {kind} {knobs}, grid {grid.nx}x{grid.ny} P "
-        f"{grid.occupancy}, {live} live of {world.num_dynamic_particles} fluid / "
+    log(f"phase 5 main path [{name}]: {kind} {knobs}, {grid_text(grid)}, "
+        f"{live} live of {world.num_dynamic_particles} fluid / "
         f"{world.num_boundary_particles} boundary, {steps} steps in {elapsed:.3f} s "
         f"(build included), density [{dmin!r}, {dmax!r}], record {json.dumps(out)}")
     path_launches = check_launches(name, launches)
@@ -1452,7 +1564,9 @@ def check_config_state(rec: Records, name, run):
     3's seeded noise (the fluid is falling freely: no shear, rho = rho0):
     the viscosity form (a *_phys form) RECORD, so its record's times, bound
     and launches all come from the config paths; the other forms CHECK."""
-    kind, _, steps, _ = CONFIG_PATHS[name]
+    kind, _, steps, kernels = CONFIG_PATHS[name]
+    if not kernels:  # a table kind: no kernel to hold
+        return
     where = f" on {name}"
     labels = check_state(rec, kind, run.solver, run.boundary, run.carry, where,
                          set(CONFIG_PATHS), RECORD)
@@ -1480,6 +1594,8 @@ def check_state(rec: Records, kind, solver, boundary, carry, where, paths, visc_
         kernel = "sm_pair_reduce" if solver.grid.use_pallas_slotmajor else "tile_pair_reduce"
         variant = BF16 if solver.grid.pair_dtype == "bfloat16" else ""
         builder = dfsph_slot_calls if kind.startswith("dfsph") else wcsph_slot_calls
+        if kind == "wcsph_dense":
+            carry = padded_wcsph(solver, carry)
         (pos, mask), _, calls = builder(solver, boundary, carry, rng, mode=CHECK,
                                         visc_mode=visc_mode)
         check_slot_calls(rec, kernel, pos, mask, calls, paths, where)
@@ -2160,7 +2276,7 @@ def phase_app(device, rec: Records, name):
         path = {k: launches[k] for k in kernels}
         tm, world = app.time_manager, app.world
         grid = app.solver.grid
-        log(f"phase 7 app [{name}]: {kind}, grid {grid.nx}x{grid.ny} P {grid.occupancy}, "
+        log(f"phase 7 app [{name}]: {kind}, {grid_text(grid)}, "
             f"{world.num_dynamic_particles} fluid / {world.num_boundary_particles} boundary, "
             f"{APP_FRAMES} frames {w}x{h} in {elapsed:.3f} s (solver build and init "
             f"included), {tm.num_simulation_steps} steps, simulated "
@@ -2194,25 +2310,28 @@ def phase_app(device, rec: Records, name):
 
         app.set_update_mode(UpdateMode.REALTIME, reset=False)
         realtime = []
-        for _ in range(APP_REALTIME_FRAMES):
+        realtime_frames = APP_REALTIME_FRAMES if kernels else APP_REALTIME_FRAMES_TABLE
+        for _ in range(realtime_frames):
             app.update()
             steps = tm.num_simulation_steps_this_frame
             app.draw()
             realtime.append((steps, app.simulation_is_realtime,
                              round(1e3 * tm.duration_last_frame, 2)))
         dropped = sum(not r for _, r, _ in realtime)
-        log(f"phase 7 app [{name}]: realtime {APP_REALTIME_FRAMES} frames (steps, realtime, "
+        log(f"phase 7 app [{name}]: realtime {realtime_frames} frames (steps, realtime, "
             f"frame ms) {realtime}: the governor dropped steps in {dropped} of them; "
             f"simulated {tm.total_simulated_time!r} s, warnings {list(app.warnings)[:3]}")
         # after the realtime frames, which a long pause before them would
         # change (the governor treats it as lag)
         where = f" on {name}"
-        labels = check_state(rec, kind, app.solver, app.boundary, final, where, None, CHECK)
-        # the fluid rests on the ramp by now: every form, the boundary pass too,
-        # sums something
-        rec.require_nonzero([label for label, _, _ in labels])
-        (check_plane_rebucket if kind.endswith("plane") else check_padded_rebucket)(
-            device, rec, app.solver, final, where=where)
+        if kernels:  # the table kind has no kernel to hold
+            labels = check_state(rec, kind, app.solver, app.boundary, final, where, None,
+                                 CHECK)
+            # the fluid rests on the ramp by now: every form, the boundary pass
+            # too, sums something
+            rec.require_nonzero([label for label, _, _ in labels])
+            (check_plane_rebucket if kind.endswith("plane") else check_padded_rebucket)(
+                device, rec, app.solver, final, where=where)
 
         names = sorted(p.name for p in Path(out).iterdir())
         expected = sorted(f"{i}.png" for i in range(APP_FRAMES))
@@ -2247,26 +2366,33 @@ def main():
     torch.cuda.set_device(device)
     phase_build()
     rec = Records()
-    phase_kernels_dfsph(device, rec)
-    phase_kernels_wcsph(device, rec)
-    phase_kernels_dfsph_padded(device, rec)
-    phase_kernels_dfsph(device, rec, "dfsph_plane_bf16")
-    phase_kernels_wcsph_plane(device, rec, "wcsph_plane_bf16", np.random.default_rng(4))
-    phase_kernels_probes(device, rec)
-    phase_kernels_deep(device)
-    phase_kernels_1m(device, rec)
-    phase_small_reference(device)
-    runs = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}
+    with phase_clock("3 kernels"):
+        phase_kernels_dfsph(device, rec)
+        phase_kernels_wcsph(device, rec)
+        phase_kernels_dfsph_padded(device, rec)
+        phase_kernels_dfsph(device, rec, "dfsph_plane_bf16")
+        phase_kernels_wcsph_plane(device, rec, "wcsph_plane_bf16", np.random.default_rng(4))
+        phase_kernels_probes(device, rec)
+        phase_kernels_deep(device)
+        phase_kernels_1m(device, rec)
+    with phase_clock("4 small reference"):
+        phase_small_reference(device)
+    with phase_clock("5 main paths (solvers)"):
+        runs = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}
     path_launches = {kind: path for kind, (path, _) in runs.items()}
     compare_main_paths({kind: run for kind, (_, run) in runs.items()})
-    path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})
-    path_launches.update({name: phase_config_path(device, rec, name)
-                          for name in CONFIG_PATHS})
-    path_launches.update(phase_sharded(device, rec))
+    with phase_clock("5 main paths (tools)"):
+        path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})
+    with phase_clock("5 main paths (configs)"):
+        path_launches.update({name: phase_config_path(device, rec, name)
+                              for name in CONFIG_PATHS})
+    with phase_clock("6 sharded"):
+        path_launches.update(phase_sharded(device, rec))
     # the app's launches are logged on its own lines: the kernel records
     # count the paths above
     for name in APP_PATHS:
-        phase_app(device, rec, name)
+        with phase_clock(f"7 app [{name}]"):
+            phase_app(device, rec, name)
     records = list(rec.by_name.values())
     for r in records:
         # a record that names no path is one of the 100k solver states: it

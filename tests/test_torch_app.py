@@ -22,8 +22,12 @@ Both start from the same world (the scene API gives bit-identical positions).
   loops are held step by step over their first LOCKSTEP_STEPS steps, to the
   tolerances above (each dt to 1e-6 relative).
 - The JAX app tests mirrored on the port's kinds (tests/test_render.py:86-200):
-  reset, HUD text and overlay, the plane kinds' wiring; the table kinds and
-  `device="cuda"` without a card raise.
+  reset, HUD text and overlay, the plane kinds' wiring; `device="cuda"`
+  without a card raises.
+- The table and sorted kinds (`dfsph`, the default as in the JAX app, and
+  `wcsph`, `dfsph_dense`, `wcsph_dense`) build with the JAX app's solver
+  class, grid, boundary and CFL, and their first steps agree with the JAX
+  app's (400 particles/m^2, the tolerances above).
 """
 
 from pathlib import Path
@@ -35,7 +39,7 @@ from scipy.spatial import cKDTree
 
 import yasph2d_tpu.app as J
 import yasph2d_tpu_torch.app as T
-from yasph2d_tpu_torch.config import UNPORTED_KINDS
+from yasph2d_tpu_torch.config import KINDS
 
 KIND = "dfsph_padded"
 RESOLUTION = (160, 120)
@@ -247,15 +251,34 @@ def test_app_padded_wiring_takes_the_k5_route(kind):
     assert app.solver.step_config.cfl_factor == (1.5 if kind.startswith("dfsph") else 0.2)
 
 
-@pytest.mark.parametrize("kind", UNPORTED_KINDS)
+@pytest.mark.parametrize("kind", ["dfsph", "dfsph_dense", "wcsph", "wcsph_dense"])
 def test_table_kinds_raise(kind):
-    with pytest.raises(ValueError, match="table or sorted layout"):
-        T.SimulationApp(solver=kind, world=T.default_world(400.0), device="cpu")
+    """The table and sorted kinds, which the port once refused, build as the
+    JAX app builds them and step with it: each app's first three steps as its
+    frame loop runs them (`first_steps`) from the same world, the per-step dt
+    and the live state after each step within the tolerances above."""
+    apps = [mod.SimulationApp(solver=kind, world=mod.default_world(400.0),
+                              resolution=(64, 64), **kw)
+            for mod, kw in ((J, {}), (T, dict(device="cpu")))]
+    jax_app, app = apps
+    assert type(app.solver).__name__ == KINDS[kind][0] == type(jax_app.solver).__name__
+    assert app.solver.step_config.cfl_factor == jax_app.solver.step_config.cfl_factor
+    assert type(app.boundary).__name__ == type(jax_app.boundary).__name__
+    if kind.endswith("_dense"):
+        assert app.solver.grid.occupancy == 8 and not app.solver.grid.use_pallas_slotmajor
+    for (jdt, jstate), (dt, state) in zip(first_steps(jax_app, 3), first_steps(app, 3)):
+        np.testing.assert_allclose(dt, jdt, rtol=1e-6)
+        assert_state_close(jstate, state)
+    assert not app.warnings and not jax_app.warnings
 
 
 def test_default_kind_is_dfsph_padded():
+    """The default kind is the JAX app's: the table `dfsph` (main.rs:91), on
+    the world's cell grid and boundary_grid."""
     app = T.SimulationApp(world=T.default_world(400.0), resolution=(64, 64), device="cpu")
-    assert app.solver_name == "dfsph_padded"
+    assert app.solver_name == "dfsph"
+    assert type(app.solver).__name__ == "DFSPHSolver"
+    assert app.solver.grid == app.world.grid and hasattr(app.boundary, "keys")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")

@@ -8,9 +8,10 @@ the JAX package's, its build and its CLI (`python -m yasph2d_tpu_torch`).
   reference's high-viscosity config), builds from a JSON that the JAX package
   wrote, on the scene of tests/test_config.py:18-31, and steps 5 steps on the
   CPU (the kernels' twins). The reference is the JAX package built from the
-  same file on its XLA padded route of the same solver family (the contract
-  both JAX kernel routes are held to; the jitted JAX plane and slot-major
-  solvers compile for minutes in interpret mode). They agree to f32 drift:
+  same file: the table kinds as they are, the sorted kinds on their XLA
+  route, the padded and plane kinds on the XLA padded route of the same
+  solver family (the contract both JAX kernel routes are held to; the jitted
+  JAX plane and slot-major solvers compile for minutes in interpret mode). They agree to f32 drift:
   equal per-step iterations and drops, dt to rtol 1e-6, sorted live positions
   to atol 1e-5, densities to rtol 1e-4 / atol 1e-2 (the tolerances of
   tests/test_torch_dfsph_padded.py).
@@ -37,6 +38,8 @@ import yasph2d_tpu.config as J
 import yasph2d_tpu_torch.config as T
 from yasph2d_tpu_torch.models import dfsph_dense as t_dense
 from yasph2d_tpu_torch.models import dfsph_plane as t_plane
+from yasph2d_tpu_torch.ops.neighborhood import CellGrid as T_CellGrid
+from yasph2d_tpu_torch.ops.neighborhood import GridConfig as T_GridConfig
 
 torch.set_num_threads(1)
 
@@ -44,6 +47,12 @@ ROOT = Path(__file__).resolve().parent.parent
 STEPS = 5
 # port kind -> (config kind, use_pallas_slotmajor)
 PORT_KINDS = {
+    "dfsph_table": ("dfsph", False),
+    "wcsph_table": ("wcsph", False),
+    "dfsph_dense_k5": ("dfsph_dense", False),
+    "dfsph_dense_k3": ("dfsph_dense", True),
+    "wcsph_dense_k5": ("wcsph_dense", False),
+    "wcsph_dense_k3": ("wcsph_dense", True),
     "dfsph_padded_k5": ("dfsph_padded", False),
     "dfsph_padded_k3": ("dfsph_padded", True),
     "dfsph_plane": ("dfsph_plane", False),
@@ -72,7 +81,7 @@ def small_config(mod, kind, visc="xsph", **solver):
 
 def live_rows(solver, carry) -> np.ndarray:
     """(x, y, density) of the live particles, sorted by position."""
-    s = solver.export_state(carry)
+    s = carry.particles if hasattr(carry, "particles") else solver.export_state(carry)
     alive = np.asarray(s.alive)
     rows = np.concatenate([np.asarray(s.positions)[alive],
                            np.asarray(s.densities)[alive][:, None]], axis=1)
@@ -88,12 +97,15 @@ _JAX_RUNS = {}
 
 
 def jax_reference(path, steps, per_step):
-    """The JAX package built from the JSON at `path` on its XLA padded route
-    of the same family; (per-step or summed counts, last dt, live rows)."""
+    """The JAX package built from the JSON at `path` (a table kind as it is,
+    a sorted kind on its XLA route, any other on the XLA padded route of the
+    same family); (per-step or summed counts, last dt, live rows)."""
     cfg = J.SimulationConfig.from_json(path)
-    family = cfg.solver.kind.split("_")[0]
+    kind = cfg.solver.kind
+    if kind not in ("dfsph", "wcsph", "dfsph_dense", "wcsph_dense"):
+        kind = kind.split("_")[0] + "_padded"
     cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
-        cfg.solver, kind=f"{family}_padded", use_pallas_slotmajor=False))
+        cfg.solver, kind=kind, use_pallas_slotmajor=False))
     key = (json.dumps(cfg.to_dict(), sort_keys=True), steps, per_step)
     if key not in _JAX_RUNS:
         _, solver, boundary, carry = cfg.build()
@@ -226,9 +238,18 @@ def test_build_wires_every_field():
 
 
 def test_unported_kinds_and_refusals():
-    for kind in T.UNPORTED_KINDS:
-        with pytest.raises(ValueError, match="does not have"):
-            small_config(T, kind).build(device="cpu")
+    """The JAX package's table and sorted kinds, which the port once refused,
+    build and step (their steps against JAX: test_kind_steps_as_jax); an
+    unknown kind and the configs JAX refuses raise."""
+    for kind in ("dfsph", "dfsph_dense", "wcsph", "wcsph_dense"):
+        world, solver, boundary, carry = small_config(T, kind).build(device="cpu")
+        assert type(solver).__name__ == T.KINDS[kind][0]
+        assert isinstance(boundary, T_CellGrid) == (kind in ("dfsph", "wcsph"))
+        carry, diag = solver.simulate(carry, boundary, 2)
+        state = solver.export_state(carry)
+        assert diag.neighbor_drops == 0 and int(carry.time.num_steps) == 2
+        assert int(state.alive.sum()) == world.num_dynamic_particles
+        assert bool(torch.isfinite(state.positions).all())
     with pytest.raises(ValueError, match="unknown solver kind"):
         small_config(T, "sph").build(device="cpu")
     with pytest.raises(ValueError, match="unknown viscosity kind"):
@@ -261,7 +282,10 @@ def test_kind_steps_as_jax(tmp_path, port_kind, visc):
     path = str(tmp_path / "cfg.json")
     small_config(J, kind, visc, use_pallas_slotmajor=slot).to_json(path)
     solver, port = port_run(path, STEPS, per_step=True)
-    assert solver.grid.use_pallas_slotmajor == (slot or kind.endswith("plane"))
+    if kind in ("dfsph", "wcsph"):
+        assert isinstance(solver.grid, T_GridConfig)  # the world's cell grid
+    else:
+        assert solver.grid.use_pallas_slotmajor == (slot or kind.endswith("plane"))
     assert_runs_agree(port, jax_reference(path, STEPS, per_step=True))
 
 

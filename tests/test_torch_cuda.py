@@ -16,7 +16,9 @@ K2 (spatial sharding) are bit-equal to their twins and, band by band, to the
 one-device kernels on the whole grid; the sharded plane steps on two gloo
 ranks sharing the card equal the one-device step. So do the halo forms of K5
 (to its twin at K5's tolerance, to the one-device kernel's rows bit for bit)
-and K4 (bit for bit), and the sharded padded K5 steps."""
+and K4 (bit for bit), and the sharded padded K5 steps. The table solvers
+(plain tensor operations) and the sorted solvers (K3 or K5, no K4) on the
+card agree with themselves on the CPU, and keep every tensor on the card."""
 
 import dataclasses
 
@@ -258,7 +260,8 @@ def test_sm_rebucket_kernel_bit_equal(device, wcase, shift):
 
 
 @pytest.mark.parametrize("kind", ["wcsph_padded", "wcsph_plane", "wcsph_padded_k5",
-                                  "wcsph_plane_bf16", "wcsph_padded_k5_bf16"])
+                                  "wcsph_plane_bf16", "wcsph_padded_k5_bf16", "wcsph_table",
+                                  "wcsph_dense", "wcsph_dense_k5"])
 def test_wcsph_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal drops and live rows."""
@@ -280,7 +283,8 @@ def test_wcsph_solver_gpu_matches_cpu(device, kind):
 
 @pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_padded", "dfsph_padded_k5",
                                   "dfsph_plane_bf16", "dfsph_plane_unfused",
-                                  "dfsph_padded_k5_bf16"])
+                                  "dfsph_padded_k5_bf16", "dfsph_table", "dfsph_dense",
+                                  "dfsph_dense_k5", "dfsph_dense_k5_bf16"])
 def test_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal iteration counts and live rows."""
@@ -298,6 +302,35 @@ def test_solver_gpu_matches_cpu(device, kind):
         rows[dev.type], iters[dev.type] = r[np.lexsort(r.T)], it
     assert iters["cuda"] == iters["cpu"]
     np.testing.assert_allclose(rows["cuda"], rows["cpu"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["dfsph_dense", "dfsph_dense_k5", "dfsph_dense_k5_bf16",
+                                  "wcsph_dense", "wcsph_dense_k5", "dfsph_table",
+                                  "wcsph_table"])
+def test_table_and_sorted_steps_stay_on_the_card(device, kind):
+    """Three steps of a 3k double dam-break: the sorted kinds launch their
+    pair kernel (K3, or K5 on `*_k5`) and never K4, the table kinds no
+    kernel; every tensor of the carry is on the card."""
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver(kind, world, device=device)
+    carry = solver.init_carry(world.initial_state(device=device), boundary)
+    for mod in (smp, tpp, smr):
+        mod.reset_launch_counts()
+    carry, diag = solver.simulate(carry, boundary, 3)
+    torch.cuda.synchronize()
+    pair = sum((tpp if kind.endswith(("_k5", "_k5_bf16")) else smp).LAUNCHES.values())
+    assert (pair > 0) == ("dense" in kind) and sum(smr.LAUNCHES.values()) == 0
+    tensors = []
+
+    def collect(tree):
+        if isinstance(tree, torch.Tensor):
+            tensors.append(tree)
+        elif isinstance(tree, tuple):
+            for t in tree:
+                collect(t)
+    collect(carry)
+    assert tensors and all(t.device.type == "cuda" for t in tensors)
+    assert diag.neighbor_drops == 0
 
 
 @pytest.fixture(scope="module")

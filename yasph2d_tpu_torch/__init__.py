@@ -1,8 +1,13 @@
 """yasph2d_tpu_torch: the PyTorch + CUDA port of yasph2d_tpu for NVIDIA Hopper.
 
 The package mirrors yasph2d_tpu's module paths. It imports torch and numpy and
-never JAX. Its solvers so far:
+never JAX. Its solvers, every one of the JAX package's:
 
+- DFSPH and WCSPH on neighbour tables (models/dfsph.DFSPHSolver,
+  models/wcsph.WCSPHSolver; the cell-list search of ops/neighborhood.py, in
+  plain tensor operations, as the JAX package runs them in plain XLA);
+- DFSPH and WCSPH, sorted carry on the slot grid
+  (models/dfsph_dense.DFSPHDenseSolver, models/wcsph_dense.WCSPHDenseSolver);
 - DFSPH, padded slot-major carry (models/dfsph_dense.DFSPHPaddedSolver);
 - DFSPH, plane carry (models/dfsph_plane.DFSPHPlaneSolver);
 - WCSPH, padded slot-major carry (models/wcsph_dense.WCSPHPaddedSolver);
@@ -17,7 +22,8 @@ and K5, the pair reduction in that layout with per-view sums
 (ops/pallas_pair.py); K3 and K5 are one kernel on shared-memory cell tiles
 (csrc/tile_pair_reduce.cu) with the sum order as a template parameter. The padded solvers run their
 pair passes on K3 when `DenseGridConfig.use_pallas_slotmajor` is True and on
-K5 when it is False (the default); the plane solvers require True. CUDA
+K5 when it is False (the default); so do the sorted solvers, which rebuild
+by a sort instead of K4; the plane solvers require True. CUDA
 tensors run the kernels, CPU tensors their plain PyTorch twins. The scene's
 tensors (`FluidParticleWorld.initial_state`, `boundary_dense`) are made on the
 card unless `device="cpu"` is asked for. Both viscosity models of the JAX
@@ -41,29 +47,39 @@ C++ of native/ built with g++ at first use), viewer.InteractiveViewer and
 
 from .app import SimulationApp
 from .config import SimulationConfig
-from .models.dfsph_dense import DFSPHPaddedSolver
+from .models.dfsph import DFSPHSolver
+from .models.dfsph_dense import DFSPHDenseSolver, DFSPHPaddedSolver
 from .models.dfsph_plane import DFSPHPlaneSolver
 from .models.viscosity import PhysicalViscosityModel, XSPHViscosityModel
-from .models.wcsph_dense import WCSPHPaddedSolver
+from .models.wcsph import WCSPHSolver
+from .models.wcsph_dense import WCSPHDenseSolver, WCSPHPaddedSolver
 from .models.wcsph_plane import WCSPHPlaneSolver
+from .ops.neighborhood import GridConfig
 from .timemanager import AdaptiveTimeStep, FixedTimeStep, TimeManager, TimerConfig
 from .utils.checkpoint import load_checkpoint, save_checkpoint
-from .world import FluidParticleWorld
+from .world import FluidParticleWorld, update_densities, update_neighborhood
 
 __all__ = [
     "AdaptiveTimeStep",
+    "DFSPHDenseSolver",
     "DFSPHPaddedSolver",
     "DFSPHPlaneSolver",
+    "DFSPHSolver",
     "FixedTimeStep",
     "FluidParticleWorld",
+    "GridConfig",
     "PhysicalViscosityModel",
     "SimulationApp",
     "SimulationConfig",
     "TimeManager",
     "TimerConfig",
+    "WCSPHDenseSolver",
     "WCSPHPaddedSolver",
     "WCSPHPlaneSolver",
+    "WCSPHSolver",
     "XSPHViscosityModel",
     "load_checkpoint",
     "save_checkpoint",
+    "update_densities",
+    "update_neighborhood",
 ]

@@ -8,8 +8,9 @@ same camera framing, and the same recording mode (forced 1/60 s frame deltas ->
 deterministic sim, PNG per frame). "Realtime" mode paces against the wall clock like
 the reference's windowed mode.
 
-The solver steps on `device` (the card by default: K5 + K4 on the padded kinds,
-K1 + K2 on the plane kinds; `device="cpu"` runs the kernels' plain twins); the
+The solver steps on `device` (the card by default: plain tensor operations on
+the table kinds, K5 on the sorted kinds, K5 + K4 on the padded kinds, K1 + K2
+on the plane kinds; `device="cpu"` runs the kernels' plain twins); the
 frame is drawn on the host by the native rasterizer from the live rows read back
 once per frame. Per-step processing-time history (len 80) mirrors the reference
 HUD statistics (main.rs:61, 277-290).
@@ -24,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import KINDS, require_device, require_kind
+from .config import KINDS, build_solver, require_device, require_kind, solver_boundary
 from .models.viscosity import XSPHViscosityModel
 from .render.camera import Camera
 from .render.renderer import ParticleRenderer, Recorder
@@ -39,6 +40,10 @@ from .world import FluidParticleWorld
 
 RECORDING_FPS = 60.0  # main.rs:62
 SIMULATION_STEP_HISTORY_LENGTH = 80  # main.rs:61
+# the adaptive CFL factor of each solver kind (main.rs:115-118; the JAX app's table)
+CFL_FACTOR = {"wcsph": 0.2, "wcsph_dense": 0.2, "wcsph_padded": 0.2,
+              "wcsph_plane": 0.2, "dfsph": 1.5, "dfsph_dense": 1.5,
+              "dfsph_padded": 1.5, "dfsph_plane": 1.5}
 
 
 class UpdateMode(enum.Enum):
@@ -88,19 +93,18 @@ def _stamp_hud(image: np.ndarray, text: str) -> np.ndarray:
 class SimulationApp:
     """Headless MainState (reference: main.rs:45-59, 301-401).
 
-    `solver` is one of the port's kinds (config.KINDS), each with the JAX app's
-    solver class and grid: `dfsph_padded` / `wcsph_padded` on
+    `solver` is one of the solver kinds (config.KINDS), each with the JAX
+    app's solver class and grid: `dfsph` (the default, the reference's:
+    main.rs:91) and `wcsph` on the world's GridConfig and `boundary_grid`,
+    `dfsph_dense` / `wcsph_dense` and `dfsph_padded` / `wcsph_padded` on
     `world.dense_grid(occupancy=8)` (the K5 route), `dfsph_plane` /
     `wcsph_plane` on the same grid with `use_pallas_slotmajor=True` (K1 + K2).
-    The default is `dfsph_padded`, the JAX config's default kind; the JAX
-    app's default, the table kind `dfsph`, is not ported, and it and the
-    other table and sorted kinds raise the config's ValueError.
-    `device="cuda"` without a card raises.
+    An unknown kind raises; `device="cuda"` without a card raises.
     """
 
     def __init__(
         self,
-        solver: str = "dfsph_padded",
+        solver: str = "dfsph",  # reference default (main.rs:91)
         world: Optional[FluidParticleWorld] = None,
         resolution=(1920, 1080),
         update_mode: UpdateMode = UpdateMode.REALTIME,
@@ -112,22 +116,19 @@ class SimulationApp:
         self.world = world if world is not None else default_world()
         h = self.world.properties.smoothing_length
 
-        cfl_factor = 0.2 if solver.startswith("wcsph") else 1.5  # main.rs:115-118
         step_config = AdaptiveTimeStep(
             timestep_max=1.0 / 120.0 / 3.0,  # main.rs:122
             timestep_min=1.0 / 60.0 / 400.0,  # main.rs:123
-            cfl_factor=cfl_factor,
+            cfl_factor=CFL_FACTOR[solver],
             target_frame_length=(
                 1.0 / RECORDING_FPS if update_mode == UpdateMode.RECORDING else None
             ),
         )
-        import yasph2d_tpu_torch as y
-
-        cls_name, plane = KINDS[solver]
         dense_grid = self.world.dense_grid(occupancy=8)
-        if plane:
+        if KINDS[solver][1] == "plane":
             dense_grid = dataclasses.replace(dense_grid, use_pallas_slotmajor=True)
-        self.solver = getattr(y, cls_name)(
+        self.solver = build_solver(
+            solver, self.world,
             viscosity_model=XSPHViscosityModel(smoothing_length=h),  # main.rs:93
             properties=self.world.properties,
             grid=dense_grid,
@@ -162,9 +163,7 @@ class SimulationApp:
         self.simulation_is_realtime = True
         self.last_diagnostics = None
 
-        self.boundary = self.world.boundary_dense(self.solver.grid, device=self.device)
-        if plane:
-            self.boundary = self.solver.boundary_planes(self.boundary)
+        self.boundary = solver_boundary(solver, self.world, self.solver, self.device)
         # boundary positions for rendering, independent of the solver's index space
         self._boundary_render_positions = self.world.host_boundary_positions()
         self._init_carry()
@@ -281,7 +280,7 @@ class SimulationApp:
 
     def particle_state(self):
         """Live particle (positions, velocities) as host NumPy arrays, read from
-        the solver's exported slot state."""
+        the solver's exported state (the particles, or the slots)."""
         particles = self.solver.export_state(self.carry)
         alive = particles.alive
         return (

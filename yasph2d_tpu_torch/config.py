@@ -3,20 +3,28 @@
 The same dataclass tree, field names, defaults and JSON as the JAX package's
 `SimulationConfig`, so that a file written by either package loads in the
 other; the same scene ops and `default_scene()`. `build(device="cuda")`
-returns a ready-to-run (world, solver, boundary, carry) quadruple for the
-solver kinds the port has:
+returns a ready-to-run (world, solver, boundary, carry) quadruple for every
+solver kind of the JAX package:
 
+    dfsph          DFSPHSolver: neighbour tables, plain tensor operations
+                   (the JAX app's default solver)
+    wcsph          WCSPHSolver: neighbour tables
+    dfsph_dense    DFSPHDenseSolver: the sorted carry, K3 with
+                   `use_pallas_slotmajor`, K5 without
+    wcsph_dense    WCSPHDenseSolver: the sorted carry, K3 or K5
     dfsph_padded   DFSPHPaddedSolver: K3 + K4 with `use_pallas_slotmajor`,
                    K5 + K4 without (the default kind)
     dfsph_plane    DFSPHPlaneSolver: K1 + K2 (f32 or bf16 operands)
     wcsph_padded   WCSPHPaddedSolver: K3 or K5, + K4
     wcsph_plane    WCSPHPlaneSolver: K1 + K2
 
-The table and sorted layouts (`dfsph`, `dfsph_dense`, `wcsph`, `wcsph_dense`)
-are not ported and raise a ValueError. `pair_dtype="bfloat16"` runs K1's
-bf16 operands on the plane kinds and K5's bf16 math mode on the padded
-kinds; with `use_pallas_slotmajor` (K3) it raises, as the JAX padded
-solvers assert. There is no CPU fallback:
+The table kinds step on `world.grid` against `world.boundary_grid()`; the
+dense knobs (`dense_*`, `use_pallas_slotmajor`, `pair_dtype`) do not reach
+them, and the JAX table solver has no `rebuild_every`. An unknown kind
+raises a ValueError. `pair_dtype="bfloat16"` runs K1's bf16 operands on the
+plane kinds and K5's bf16 math mode on the padded and sorted kinds; with
+`use_pallas_slotmajor` (K3) it raises, as the JAX slot-major solvers assert.
+There is no CPU fallback:
 `device="cuda"` without a card raises; `device="cpu"` runs the kernels'
 plain twins.
 
@@ -26,7 +34,7 @@ Every `SolverConfig` field is either wired to the port's solver
 `pallas_pf_rebucket_chunk_lanes`, `pallas_pf_unroll`, `pallas_sm_row_block`),
 which size the TPU kernels' lane chunks, unrolling and row bands and have no
 meaning in the port's layout: they load, save and are ignored. The DFSPH
-tolerances and `rebuild_every` reach the DFSPH kinds, the WCSPH
+tolerances reach the DFSPH kinds and `rebuild_every` the DFSPH slot kinds, the WCSPH
 compressibility and boundary force the WCSPH kinds (as in the JAX package,
 `rebuild_every` has no WCSPH counterpart). No knob is dropped on the way to
 the grid (the JAX `_grid_knobs` drops two of its own).
@@ -177,25 +185,52 @@ TPU_LAYOUT_KNOBS = frozenset({
     "pallas_pf_rebucket_chunk_lanes", "pallas_pf_unroll", "pallas_sm_row_block",
 })
 
-# solver kinds of the port: (class name, plane carry)
+# the solver kinds: (class name, layout); "table" steps on the world's
+# GridConfig and boundary_grid(), "dense" and "plane" on its dense grid and
+# boundary_dense() (the plane solvers on its plane form)
 KINDS = {
-    "dfsph_padded": ("DFSPHPaddedSolver", False),
-    "dfsph_plane": ("DFSPHPlaneSolver", True),
-    "wcsph_padded": ("WCSPHPaddedSolver", False),
-    "wcsph_plane": ("WCSPHPlaneSolver", True),
+    "dfsph": ("DFSPHSolver", "table"),
+    "wcsph": ("WCSPHSolver", "table"),
+    "dfsph_dense": ("DFSPHDenseSolver", "dense"),
+    "wcsph_dense": ("WCSPHDenseSolver", "dense"),
+    "dfsph_padded": ("DFSPHPaddedSolver", "dense"),
+    "dfsph_plane": ("DFSPHPlaneSolver", "plane"),
+    "wcsph_padded": ("WCSPHPaddedSolver", "dense"),
+    "wcsph_plane": ("WCSPHPlaneSolver", "plane"),
 }
-# the JAX package's table and sorted layouts, not ported
-UNPORTED_KINDS = ("dfsph", "dfsph_dense", "wcsph", "wcsph_dense")
 
 
 def require_kind(kind: str):
-    """Raise a ValueError unless `kind` is one of the port's solver kinds."""
-    if kind in UNPORTED_KINDS:
-        raise ValueError(
-            f"solver kind {kind!r} is the JAX package's table or sorted layout, "
-            f"which the port does not have; use one of {sorted(KINDS)}")
+    """Raise a ValueError unless `kind` is one of the solver kinds."""
     if kind not in KINDS:
         raise ValueError(f"unknown solver kind {kind!r}")
+
+
+def build_solver(kind: str, world, **solver):
+    """The solver of `kind` on `world`, with the keywords `solver` (a
+    `grid`, the DenseGridConfig, for the slot kinds): the table kinds step on
+    the world's GridConfig and take no `grid` and no `rebuild_every` (the JAX
+    table solver has none)."""
+    import yasph2d_tpu_torch as y
+
+    require_kind(kind)
+    cls_name, layout = KINDS[kind]
+    if layout == "table":
+        solver = dict(solver, grid=world.grid)
+        solver.pop("rebuild_every", None)
+    return getattr(y, cls_name)(**solver)
+
+
+def solver_boundary(kind: str, world, solver, device, occupancy=None):
+    """The boundary that `solver` (of `kind`) steps against, on `device`:
+    the world's `boundary_grid` for the table kinds, its `boundary_dense` on
+    the solver's grid (`occupancy` slots a cell, None to fit) for the others,
+    in plane form for the plane kinds."""
+    layout = KINDS[kind][1]
+    if layout == "table":
+        return world.boundary_grid(device=device)
+    boundary = world.boundary_dense(solver.grid, occupancy, device=device)
+    return solver.boundary_planes(boundary) if layout == "plane" else boundary
 
 
 def require_device(device, what: str) -> torch.device:
@@ -306,17 +341,15 @@ class SimulationConfig:
 
     def build(self, device="cuda"):
         """(world, solver, boundary, carry) ready to step on `device`; the
-        plane kinds' boundary is in plane form."""
-        import yasph2d_tpu_torch as y
-
+        table kinds' boundary is the world's `boundary_grid`, the plane
+        kinds' in plane form."""
         sc = self.solver
         require_kind(sc.kind)
         device = require_device(device, "SimulationConfig.build")
-        cls_name, plane = KINDS[sc.kind]
         world = self.build_world()
         grid = dataclasses.replace(
             world.dense_grid(occupancy=sc.dense_occupancy, ny_multiple=sc.dense_ny_multiple),
-            use_pallas_slotmajor=sc.use_pallas_slotmajor or plane,
+            use_pallas_slotmajor=sc.use_pallas_slotmajor or KINDS[sc.kind][1] == "plane",
             pair_dtype=sc.pair_dtype,
         )
         common = dict(
@@ -325,24 +358,16 @@ class SimulationConfig:
             gravity=tuple(self.gravity),
         )
         if sc.kind.startswith("wcsph"):
-            solver = getattr(y, cls_name)(
-                **common,
-                boundary_force_factor=sc.boundary_force_factor,
-                target_density_variation=sc.target_density_variation,
-                expected_max_flow_speed=sc.expected_max_flow_speed,
-            )
+            knobs = dict(boundary_force_factor=sc.boundary_force_factor,
+                         target_density_variation=sc.target_density_variation,
+                         expected_max_flow_speed=sc.expected_max_flow_speed)
         else:
-            solver = getattr(y, cls_name)(
-                **common,
-                max_avg_density_error=sc.max_avg_density_error,
-                max_density_iterations=sc.max_density_iterations,
-                max_divergence_error=sc.max_divergence_error,
-                max_divergence_iterations=sc.max_divergence_iterations,
-                rebuild_every=sc.rebuild_every,
-            )
-        boundary = world.boundary_dense(grid, sc.dense_boundary_occupancy, device=device)
-        if plane:
-            # the plane solvers step against the boundary's plane-form geometry
-            boundary = solver.boundary_planes(boundary)
+            knobs = dict(max_avg_density_error=sc.max_avg_density_error,
+                         max_density_iterations=sc.max_density_iterations,
+                         max_divergence_error=sc.max_divergence_error,
+                         max_divergence_iterations=sc.max_divergence_iterations,
+                         rebuild_every=sc.rebuild_every)
+        solver = build_solver(sc.kind, world, **common, **knobs)
+        boundary = solver_boundary(sc.kind, world, solver, device, sc.dense_boundary_occupancy)
         carry = solver.init_carry(world.initial_state(device=device), boundary)
         return world, solver, boundary, carry

@@ -1,9 +1,23 @@
-"""DFSPH on the dense slot grid with the padded-resident carry (PyTorch port of
-DFSPHPaddedSolver in yasph2d_tpu/models/dfsph_dense.py; algorithm: Bender &
-Koschier, reference src/sph/solver/dfsph.rs:414-525).
+"""DFSPH on the dense slot grid (PyTorch port of yasph2d_tpu/models/
+dfsph_dense.py; algorithm: Bender & Koschier, reference
+src/sph/solver/dfsph.rs:414-525), with two carries:
 
-The state stays in the (ny, nx, P[, 2]) slot layout between steps: positions,
-velocities and both warm starts. A step is the viscosity pass, the CFL
+- `DFSPHPaddedSolver`, the padded-resident carry: the state stays in the
+  (ny, nx, P[, 2]) slot layout between steps (positions, velocities, both
+  warm starts), and the rebuild is K4's re-bucket;
+- `DFSPHDenseSolver`, the sorted carry (JAX `DFSPHDenseSolver`): the
+  particles live in cell-sorted (N, ...) arrays, and every rebuilding step
+  sorts them (`sort_by_dense_keys`, stable), builds the slot grid and pads
+  the positions and loop state into it; the pressure loops run in the slot
+  layout, and their results return to the sorted arrays through
+  `slots_to_sorted` (a particle without a slot, dead or beyond a cell's
+  occupancy, takes a fallback: a gravity-only prediction, zero warm starts,
+  rho0). The loop state that the next step consumes in the same slots
+  (v*, kappa, stiffness) also stays padded, as in JAX.
+
+Both share `DFSPHSlotSolver`: the pair forms, the pair context, the pair
+passes and both pressure loops, so their arithmetic is one. A step is the
+viscosity pass, the CFL
 update, the constant-density loop, advection, the neighbourhood rebuild, a new
 pair context and the divergence-free loop. Every pair pass runs on a kernel
 that reads the carry in place; `DenseGridConfig.use_pallas_slotmajor` picks
@@ -19,11 +33,11 @@ which one:
            cell-relative bf16 pair math, f32 sums; the glue stays f32), which
            K3 refuses as JAX does
 
-and the rebuild is K4 (ops/sm_rebucket.py) with the payload
+and the padded carry's rebuild is K4 (ops/sm_rebucket.py) with the payload
 [v*(2) | kappa | stiffness] on both (the JAX package's XLA rebucket is
-bit-equal to it). The viscosity form is the model's: dfsph_visc (XSPH) or
-dfsph_visc_phys (PhysicalViscosityModel) on either kernel; any other model
-is refused. The JAX `lax.while_loop`s become host loops that read one
+bit-equal to it); the sorted carry's is the sort. The viscosity form is the
+model's: dfsph_visc (XSPH) or dfsph_visc_phys (PhysicalViscosityModel) on
+either kernel; any other model is refused. The JAX `lax.while_loop`s become host loops that read one
 residual back per iteration, with the JAX exit test (a loop may run max + 1
 times).
 
@@ -42,8 +56,10 @@ the CFL max `_max_vel_from_sq`, `_sum_counts`) run over the shards.
 
 Also here: the static boundary index space (`build_boundary_dense`), the
 padded initial layout (`_padded_init`) and `simulate`, which the plane solver
-(models/dfsph_plane.py) builds on. Not ported: the sorted-carry
-`DFSPHDenseSolver` and its cached / MXU loop gradients.
+(models/dfsph_plane.py) builds on. Not ported: the sorted solver's cached
+and MXU loop gradients (`cache_loop_gradients`, `mxu_loop_gradients`, which
+raise), and its sharded form (JAX parallel/shard_dense.py
+DFSPHShardMapSolver).
 """
 
 import dataclasses
@@ -56,10 +72,12 @@ import torch
 from ..ops.cuda_build import PairConsts
 from ..ops.dense_grid import (
     DenseGridConfig,
+    SlotGrid,
     build_slot_grid,
     cell_keys,
     pad_to_slots,
     require_float32_pairs,
+    slots_to_sorted,
     sort_by_dense_keys,
 )
 from ..ops.pair_reduce import PairForm
@@ -137,6 +155,9 @@ class DenseCtx(NamedTuple):
     num_dropped: torch.Tensor  # () int32
     # under sharding: the neighbour shards' rows of (pos_pad, mask), (2, nx, P[, 2])
     halo: Optional[Halo] = None
+    # the sorted carry's slot grid (sorted <-> padded conversions); None on
+    # the padded-resident carry
+    slots: Optional[SlotGrid] = None
 
 
 class DFSPHPaddedCarry(NamedTuple):
@@ -162,8 +183,12 @@ class PaddedForms(NamedTuple):
 
 
 @dataclass(frozen=True)
-class DFSPHPaddedSolver:
-    """DFSPH with the padded-resident carry (tolerances as dfsph.rs:49-55)."""
+class DFSPHSlotSolver:
+    """What the DFSPH slot-layout solvers share (tolerances as
+    dfsph.rs:49-55): the pair forms of the route, the pair context, the pair
+    passes, both pressure loops and `simulate`. The subclasses own the
+    carry: DFSPHPaddedSolver (padded-resident), DFSPHDenseSolver (sorted) and,
+    through the padded one, DFSPHPlaneSolver (planes)."""
 
     viscosity_model: ViscosityModel
     properties: FluidProperties
@@ -473,7 +498,11 @@ class DFSPHPaddedSolver:
             num += 1
         return v_pad, s_sum, num, avg
 
-    # ------------------------------------------------------------- host bounds
+
+@dataclass(frozen=True)
+class DFSPHPaddedSolver(DFSPHSlotSolver):
+    """DFSPH with the padded-resident carry: the state never leaves the slot
+    layout, and the rebuild is K4's re-bucket."""
 
     def init_carry(self, state: ParticleState, boundary: BoundaryDense
                    ) -> DFSPHPaddedCarry:
@@ -564,6 +593,178 @@ class DFSPHPaddedSolver:
             dt=dt,
             max_velocity=max_velocity,
             neighbor_drops=int(ctx.num_dropped),
+            density_iterations=density_iters,
+            divergence_iterations=divergence_iters,
+            avg_density_error=avg_density_error,
+            avg_divergence=avg_divergence,
+            migration_drops=0,
+        )
+        return new_carry, diagnostics
+
+
+# ----------------------------------------------------------------- sorted carry
+
+
+class DFSPHDenseCarry(NamedTuple):
+    """The sorted carry: particles in cell-sorted order, and the loop state
+    that the next step consumes in the same slot layout (`ctx.slots`) kept
+    padded: v_pad is the velocities, kappa_pad and stiff_pad the warm starts."""
+
+    particles: ParticleState  # sorted by cell key
+    alpha: torch.Tensor  # (N,) sorted
+    warmstart_stiffness: torch.Tensor  # (N,) sorted (the rebuild's input)
+    v_pad: torch.Tensor  # (ny, nx, P, 2) in ctx.slots
+    kappa_pad: torch.Tensor  # (ny, nx, P) in ctx.slots
+    stiff_pad: torch.Tensor  # (ny, nx, P) in ctx.slots (a stale step's input)
+    ctx: DenseCtx  # with its slots
+    prev_density_iterations: int
+    prev_divergence_iterations: int
+    time: TimeState
+
+
+@dataclass(frozen=True)
+class DFSPHDenseSolver(DFSPHSlotSolver):
+    """DFSPH with the sorted carry (module docstring): a per-step sort and
+    slot build instead of K4, the pair passes on K3 or K5."""
+
+    # the JAX loop-gradient variants (a cached (ny, nx, P, 9P, 2) gradient
+    # tensor; its bf16 MXU contraction): not ported, they raise
+    cache_loop_gradients: bool = False
+    mxu_loop_gradients: bool = False
+
+    def __post_init__(self):
+        for flag in ("cache_loop_gradients", "mxu_loop_gradients"):
+            if getattr(self, flag):
+                raise ValueError(
+                    f"DFSPHDenseSolver: {flag} is not ported (ROADMAP Queue 1, "
+                    "'The loop-gradient variants of the sorted solver')")
+        super().__post_init__()
+
+    def _slot_ctx(self, pos_pad, slots: SlotGrid, boundary: BoundaryDense,
+                  dropped=None) -> DenseCtx:
+        """The pair context of padded positions in `slots` (JAX
+        `_ctx_from_slots`); its drops are the slot grid's and the boundary's
+        unless `dropped` is given (a stale step keeps the carry's)."""
+        g = self.grid
+        if dropped is None:
+            dropped = self._sum_counts(slots.num_dropped) + boundary.num_dropped
+        mask = slots.slot_mask.reshape(g.ny, g.nx, g.occupancy)
+        return self._ctx_from_padded(pos_pad, mask, boundary, dropped)._replace(slots=slots)
+
+    def init_carry(self, state: ParticleState, boundary: BoundaryDense) -> DFSPHDenseCarry:
+        g = self.grid
+        sorted_state, sorted_keys = self._sort(tuple(state), state.positions, state.alive)
+        state = ParticleState(*sorted_state)
+        slots = build_slot_grid(sorted_keys, g)
+        ctx = self._slot_ctx(pad_to_slots(state.positions, slots, g), slots, boundary)
+        zeros = torch.zeros(ctx.mask.shape, dtype=REAL, device=ctx.mask.device)
+        return DFSPHDenseCarry(
+            particles=state._replace(densities=slots_to_sorted(
+                ctx.densities_pad, slots, g, self.properties.fluid_density)),
+            alpha=slots_to_sorted(ctx.alpha_pad, slots, g),
+            warmstart_stiffness=torch.zeros_like(state.densities),
+            v_pad=pad_to_slots(state.velocities, slots, g),
+            kappa_pad=zeros,
+            stiff_pad=zeros.clone(),
+            ctx=ctx,
+            prev_density_iterations=1,
+            prev_divergence_iterations=0,
+            time=TimeState.initial(self.step_config),
+        )
+
+    def export_state(self, carry: DFSPHDenseCarry) -> ParticleState:
+        """The particles, N rows in cell order (`alive` marks the real ones)."""
+        return carry.particles
+
+    def step(self, carry: DFSPHDenseCarry, boundary: BoundaryDense, rebuild: bool = True):
+        """One simulation step in the JAX sorted step's order (dfsph.rs:414-525).
+        A stale step (`rebuild` False) keeps the sort order and the slots and
+        refreshes the pair context from the advected positions."""
+        g = self.grid
+        positions, velocities, _, alive = carry.particles
+        ctx = carry.ctx
+        time_state = carry.time
+        dt = time_state.dt
+        n = self._count_live(alive)
+        rho_pad = ctx.densities_pad
+
+        gvec = torch.tensor(self.gravity, dtype=REAL, device=positions.device)
+        accel_pad = self._viscosity_pass(ctx, carry.v_pad, rho_pad, dt) + gvec
+
+        # CFL with the old-dt estimate (dfsph.rs:472-481)
+        max_velocity = self._max_velocity(carry.v_pad + accel_pad * float(dt), ctx.mask)
+        time_state = update_simulation_step(
+            self.step_config, time_state,
+            self.properties.particle_radius * 2.0, max_velocity,
+        )
+        dt = time_state.dt
+
+        # v* with the new dt, constant-density loop (dfsph.rs:484-496)
+        pred_pad = carry.v_pad + accel_pad * float(dt)
+        pred_pad, kappa_pad, density_iters, avg_density_error = self._correct_density_error(
+            dt, rho_pad, ctx.alpha_pad, pred_pad, carry.kappa_pad,
+            carry.prev_density_iterations, ctx, n,
+        )
+        # one unpad of (v*, kappa): a particle without a slot falls back to a
+        # gravity-only prediction and zero kappa; dead particles stay frozen
+        fallback = torch.where(alive[:, None], velocities + gvec * float(dt), velocities)
+        pk = slots_to_sorted(torch.cat([pred_pad, kappa_pad[..., None]], dim=-1), ctx.slots,
+                             g, torch.cat([fallback, torch.zeros_like(fallback[:, :1])], 1))
+        predicted = pk[:, :2]
+
+        # advect, re-sort, new slots and pair context (dfsph.rs:499-512)
+        positions = positions + predicted * float(dt)
+        if rebuild:
+            # everything that crosses the rebuild in one matrix:
+            # [pos(2) | v*(2) | kappa | stiffness | alive]
+            packed = torch.cat([positions, predicted, pk[:, 2:3],
+                                carry.warmstart_stiffness[:, None],
+                                alive.to(REAL)[:, None]], dim=1)
+            (packed,), sorted_keys = self._sort((packed,), packed[:, :2], alive)
+            alive = packed[:, 6] > 0.5
+            positions = packed[:, :2]
+            predicted = packed[:, 2:4]
+            slots = build_slot_grid(sorted_keys, g)
+            pad6 = pad_to_slots(packed[:, :6], slots, g)
+            pred_pad = pad6[..., 2:4].contiguous()
+            kappa_pad = pad6[..., 4].contiguous()  # next step's warm start, new slots
+            stiff_pad = pad6[..., 5].contiguous()
+            ctx = self._slot_ctx(pad6[..., :2].contiguous(), slots, boundary)
+        else:
+            stiff_pad = carry.stiff_pad
+            ctx = self._slot_ctx(ctx.pos_pad + pred_pad * float(dt), ctx.slots, boundary,
+                                 ctx.num_dropped)
+
+        # divergence-free loop (dfsph.rs:521)
+        pred_pad, stiff_pad, divergence_iters, avg_divergence = self._correct_divergence_error(
+            dt, ctx.alpha_pad, pred_pad, stiff_pad, carry.prev_divergence_iterations, ctx, n,
+        )
+        # one unpad of everything that leaves the slots:
+        # [v*(2) | stiffness | density | alpha]
+        zeros1 = torch.zeros_like(predicted[:, :1])
+        out = slots_to_sorted(
+            torch.cat([pred_pad, stiff_pad[..., None], ctx.densities_pad[..., None],
+                       ctx.alpha_pad[..., None]], dim=-1), ctx.slots, g,
+            torch.cat([predicted, zeros1, torch.full_like(zeros1, self.properties.fluid_density),
+                       zeros1], 1))
+
+        new_carry = DFSPHDenseCarry(
+            particles=ParticleState(positions, out[:, :2], out[:, 3], alive),
+            alpha=out[:, 4],
+            warmstart_stiffness=out[:, 2],
+            v_pad=pred_pad,  # the next step consumes it in these slots
+            kappa_pad=kappa_pad,
+            stiff_pad=stiff_pad,
+            ctx=ctx,
+            prev_density_iterations=density_iters,
+            prev_divergence_iterations=divergence_iters,
+            time=time_state,
+        )
+        diagnostics = Diagnostics(
+            dt=dt,
+            max_velocity=max_velocity,
+            # both grids the step consumed: the carried-in and the rebuilt
+            neighbor_drops=max(int(carry.ctx.num_dropped), int(ctx.num_dropped)),
             density_iterations=density_iters,
             divergence_iterations=divergence_iters,
             avg_density_error=avg_density_error,

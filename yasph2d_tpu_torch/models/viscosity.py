@@ -17,6 +17,11 @@ from ..ops.smoothing_kernels import Poly6, Viscosity
 class ViscosityModel:
     """Interface (reference: viscositymodel/mod.rs:11-18)."""
 
+    def compute_viscous_acceleration(self, dt, r_sq, r, mass_j, rho_j, velocity_diff):
+        """c (v_j - v_i) on (..., 2) pair tiles (the table solvers' form);
+        `velocity_diff` is v_j - v_i."""
+        return self.viscous_coefficient(dt, r_sq, r, mass_j, rho_j)[..., None] * velocity_diff
+
     def viscous_coefficient(self, dt, r_sq, r, mass_j, rho_j):
         raise NotImplementedError
 

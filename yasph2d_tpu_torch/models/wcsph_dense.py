@@ -1,14 +1,24 @@
-"""WCSPH with the padded slot-major carry (PyTorch port of WCSPHPaddedSolver in
-yasph2d_tpu/models/wcsph_dense.py; algorithm: Becker & Teschner 2007,
-reference src/sph/solver/wscsph.rs:126-179).
+"""WCSPH on the dense slot grid (PyTorch port of yasph2d_tpu/models/
+wcsph_dense.py; algorithm: Becker & Teschner 2007, reference
+src/sph/solver/wscsph.rs:126-179), with two carries:
 
-Leapfrog, Tait EOS (gamma 7), symmetric pressure forces with the Spiky kernel,
-Poly6 density, XSPH or physical viscosity, Monaghan-Kajtar boundary penalty.
-The state stays in the (ny, nx, P[, 2]) slot layout between steps, and every
-pass runs on a kernel that reads it in place. The rebuild is K4 sm_rebucket
-(ops/sm_rebucket.py); `DenseGridConfig.use_pallas_slotmajor` picks the pair
-kernel of the three passes (fluid Poly6 density, boundary density + penalty
-force against the boundary, symmetric pressure + viscosity):
+- `WCSPHPaddedSolver`, the padded-resident carry: the state stays in the
+  (ny, nx, P[, 2]) slot layout between steps, and the rebuild is K4
+  sm_rebucket (ops/sm_rebucket.py);
+- `WCSPHDenseSolver`, the sorted carry (JAX `WCSPHDenseSolver`): the
+  particles live in cell-sorted (N, ...) arrays; each step sorts them after
+  the first half-kick (`sort_by_dense_keys`, stable), builds the slot grid,
+  pads positions and velocities into it, runs the pair passes there and
+  brings densities and accelerations back through `slots_to_sorted` (a
+  particle without a slot takes rho0 and no pair force).
+
+Both share `WCSPHSlotSolver`'s pair passes. Leapfrog, Tait EOS (gamma 7),
+symmetric pressure forces with the Spiky kernel, Poly6 density, XSPH or
+physical viscosity, Monaghan-Kajtar boundary penalty. Every pass runs on a
+kernel that reads the slot layout in place;
+`DenseGridConfig.use_pallas_slotmajor` picks the pair kernel of the three
+passes (fluid Poly6 density, boundary density + penalty force against the
+boundary, symmetric pressure + viscosity):
 
     True   K3 (ops/sm_pair_reduce.py) wcsph_density, wcsph_stat, wcsph_forces,
            in the JAX slot-major closures' order
@@ -27,7 +37,7 @@ density, velocity) once per step; K4 and K5 then run their halo forms.
 The JAX package runs the boundary pass through the XLA dense_grid.pair_reduce
 on both of its routes; here it is the route's kernel, so its f32 sums come in
 the kernel's order and agree with the JAX package to f32 tolerance, not
-bitwise. The sorted-carry WCSPHDenseSolver is not ported.
+bitwise.
 
 dt lives on the host as np.float32 (timemanager.py); each step reads the CFL
 velocity and the drop count back from the device.
@@ -45,6 +55,7 @@ from ..ops.dense_grid import (
     build_slot_grid,
     pad_to_slots,
     require_float32_pairs,
+    slots_to_sorted,
 )
 from ..ops.pair_reduce import PairForm
 from ..ops.pallas_pair import bf16_consts, bf16_form, pallas_pair_reduce, rebase_of
@@ -55,7 +66,7 @@ from ..timemanager import StepConfig, TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
 from ..world import GRAVITY, FluidProperties, ParticleState
-from .dfsph_dense import BoundaryDense, DFSPHPaddedSolver
+from .dfsph_dense import BoundaryDense, DFSPHSlotSolver
 from .viscosity import ViscosityModel, kernel_coefficient
 from .wcsph import compute_stiffness, tait_pressure
 
@@ -84,8 +95,11 @@ class WCSPHForms(NamedTuple):
 
 
 @dataclass(frozen=True)
-class WCSPHPaddedSolver:
-    """WCSPH, padded slot-major carry, every pass through K3 or K5, and K4."""
+class WCSPHSlotSolver:
+    """What the WCSPH slot-layout solvers share: the pair forms of the route
+    and the three pair passes (`_density_and_forces`). The subclasses own the
+    carry: WCSPHPaddedSolver (padded-resident), WCSPHDenseSolver (sorted) and,
+    through the padded one, WCSPHPlaneSolver (planes)."""
 
     viscosity_model: ViscosityModel
     properties: FluidProperties
@@ -205,7 +219,21 @@ class WCSPHPaddedSolver:
                          s_vals=(pres, dens, v), scalars=(float(dt),))
         return dens, accel_dyn + stat[..., 1:3]
 
-    # ------------------------------------------------------------- host bounds
+    # the host loop of the DFSPH solvers: account each step's dt, then step;
+    # their pair pass and the hooks of the shard solvers
+    simulate = DFSPHSlotSolver.simulate
+    _slot_pair = DFSPHSlotSolver._slot_pair
+    _sort = DFSPHSlotSolver._sort
+    _sum_counts = DFSPHSlotSolver._sum_counts
+    _rebucket_row0 = DFSPHSlotSolver._rebucket_row0
+    _halo = DFSPHSlotSolver._halo
+    _max_vel_from_sq = DFSPHSlotSolver._max_vel_from_sq
+
+
+@dataclass(frozen=True)
+class WCSPHPaddedSolver(WCSPHSlotSolver):
+    """WCSPH with the padded-resident carry: every pass through K3 or K5,
+    the rebuild through K4."""
 
     def init_carry(self, state: ParticleState, boundary=None) -> WCSPHPaddedCarry:
         """Cell-sort, slot grid, padded positions and velocities, zero cached
@@ -239,16 +267,6 @@ class WCSPHPaddedSolver:
                                   self.properties.fluid_density),
             alive=mask,
         )
-
-    # the host loop of the DFSPH solvers: account each step's dt, then step;
-    # their pair pass and the hooks of the shard solvers
-    simulate = DFSPHPaddedSolver.simulate
-    _slot_pair = DFSPHPaddedSolver._slot_pair
-    _sort = DFSPHPaddedSolver._sort
-    _sum_counts = DFSPHPaddedSolver._sum_counts
-    _rebucket_row0 = DFSPHPaddedSolver._rebucket_row0
-    _halo = DFSPHPaddedSolver._halo
-    _max_vel_from_sq = DFSPHPaddedSolver._max_vel_from_sq
 
     # -------------------------------------------------------------------- step
 
@@ -292,3 +310,82 @@ class WCSPHPaddedSolver:
             neighbor_drops=int(self._sum_counts(drops) + boundary.num_dropped),
         )
         return new_carry, diagnostics
+
+
+class WCSPHDenseCarry(NamedTuple):
+    """The sorted carry: particles in cell-sorted order and the accelerations
+    the leapfrog carries across steps (wscsph.rs:21-22), in the same order."""
+
+    particles: ParticleState
+    accelerations: torch.Tensor  # (N, 2)
+    time: TimeState
+
+
+@dataclass(frozen=True)
+class WCSPHDenseSolver(WCSPHSlotSolver):
+    """WCSPH with the sorted carry (module docstring): a per-step sort and
+    slot build instead of K4, the pair passes on K3 or K5."""
+
+    def init_carry(self, state: ParticleState, boundary=None) -> WCSPHDenseCarry:
+        """Zero accelerations (clear_cached_data, wscsph.rs:122-124); `boundary`
+        is accepted as the other solvers' init_carry takes it, and ignored."""
+        return WCSPHDenseCarry(particles=state,
+                               accelerations=torch.zeros_like(state.velocities),
+                               time=TimeState.initial(self.step_config))
+
+    def export_state(self, carry: WCSPHDenseCarry) -> ParticleState:
+        """The particles, N rows in cell order (`alive` marks the real ones)."""
+        return carry.particles
+
+    def step(self, carry: WCSPHDenseCarry, boundary: BoundaryDense):
+        """One simulation step (reference: wscsph.rs:126-179), in the JAX
+        sorted step's order."""
+        g = self.grid
+        particles, accel, time_state = carry
+        dt = time_state.dt
+
+        # leapfrog part 1 (wscsph.rs:141-151)
+        velocities = particles.velocities + float(f32(0.5) * dt) * accel
+        positions = particles.positions + velocities * float(dt)
+
+        # sort + slot rebuild (dead particles take the sentinel key and leave
+        # the grid), one matrix [pos | v | alive] through the sort
+        packed = torch.cat([positions, velocities, particles.alive.to(REAL)[:, None]], 1)
+        (packed,), sorted_keys = self._sort((packed,), packed[:, :2], particles.alive)
+        positions, velocities = packed[:, :2], packed[:, 2:4]
+        alive = packed[:, 4] > 0.5
+        slots = build_slot_grid(sorted_keys, g)
+        pv_pad = pad_to_slots(packed[:, :4], slots, g)
+        mask = slots.slot_mask.reshape(g.ny, g.nx, g.occupancy)
+
+        dens_pad, accel_pad = self._density_and_forces(
+            pv_pad[..., :2].contiguous(), pv_pad[..., 2:4].contiguous(), mask, boundary, dt)
+        # one unpad of [accel | density]; no slot: no pair force, rho0
+        zeros1 = torch.zeros_like(positions[:, :1])
+        out = slots_to_sorted(
+            torch.cat([accel_pad, dens_pad[..., None]], dim=-1), slots, g,
+            torch.cat([zeros1, zeros1, torch.full_like(zeros1, self.properties.fluid_density)],
+                      1))
+        gvec = torch.tensor(self.gravity, dtype=REAL, device=positions.device)
+        # dead (padding) particles are frozen: no gravity, no advection
+        accel = torch.where(alive[:, None], out[:, :2] + gvec[None, :], 0.0)
+
+        # CFL with the *old* dt estimate (wscsph.rs:158-167), live particles only
+        v_estimate = velocities + accel * float(dt)
+        max_velocity = self._max_velocity((v_estimate * v_estimate).sum(dim=-1), alive)
+        time_state = update_simulation_step(
+            self.step_config, time_state,
+            self.properties.particle_radius * 2.0, max_velocity,
+        )
+
+        # leapfrog part 2 with the NEW dt (wscsph.rs:169-178)
+        velocities = velocities + float(f32(0.5) * time_state.dt) * accel
+
+        new_carry = WCSPHDenseCarry(
+            particles=ParticleState(positions, velocities, out[:, 2], alive),
+            accelerations=accel,
+            time=time_state,
+        )
+        return new_carry, Diagnostics.zeros()._replace(
+            dt=dt, max_velocity=max_velocity,
+            neighbor_drops=int(self._sum_counts(slots.num_dropped) + boundary.num_dropped))

@@ -14,12 +14,14 @@ both are the one K5 route and the `use_pallas` flag is not ported (it would
 be a knob without effect). `pair_dtype` ("float32" or "bfloat16") is the
 JAX field: the plane solvers take "bfloat16" as K1's bf16 operands, the
 padded solvers on the K5 route as K5's bf16 math mode (the JAX XLA
-`pair_reduce`'s), and K3 refuses it, as JAX does. The port needs the slot
-build only to
-build the initial carry and the static boundary index space; the per-step
-neighbourhood rebuild is the windowed re-bucket (ops/rebucket.py in plane form,
-ops/sm_rebucket.py in this slot layout), which takes its move codes from
-`move_codes`.
+`pair_reduce`'s), and K3 refuses it, as JAX does. The slot build makes the
+initial carry and the static boundary index space, and the sorted
+carries (models/dfsph_dense.DFSPHDenseSolver, models/wcsph_dense.
+WCSPHDenseSolver) rebuild with it every step, converting between the sorted
+and the padded layout with `pad_to_slots` and `slots_to_sorted`; the padded
+and plane carries' per-step rebuild is the windowed re-bucket
+(ops/rebucket.py in plane form, ops/sm_rebucket.py in this slot layout),
+which takes its move codes from `move_codes`.
 
 The slot build is bit-for-bit the JAX package's: same f32 cell-coordinate
 arithmetic, a stable sort (jax.lax.sort is stable, so ties keep input order),
@@ -190,6 +192,17 @@ def pad_to_slots(values: torch.Tensor, slots: SlotGrid, grid: DenseGridConfig):
     if values.shape[0] == 0:
         return torch.zeros(shape, dtype=values.dtype, device=values.device)
     return values[slots.slot_idx.long()].reshape(shape)
+
+
+def slots_to_sorted(padded: torch.Tensor, slots: SlotGrid, grid: DenseGridConfig,
+                    fallback=0.0) -> torch.Tensor:
+    """Padded (ny, nx, P, ...) -> sorted per-particle (N, ...). A particle
+    with no slot (cell overflow, or dead) gets `fallback` (a per-particle
+    tensor or a scalar), never another particle's value."""
+    flat = padded.reshape((grid.num_cells * grid.occupancy,) + tuple(padded.shape[3:]))
+    gathered = flat[slots.inverse]
+    in_grid = slots.in_grid.reshape((-1,) + (1,) * (gathered.ndim - 1))
+    return torch.where(in_grid, gathered, fallback)
 
 
 def move_codes(positions_pad: torch.Tensor, mask: torch.Tensor,

@@ -59,8 +59,9 @@ scene, e.g. inside `comm.spawn`:
 
     rows = comm.spawn(run, 2, "gloo", ["cuda:0", "cuda:0"], world, 20)[0]
 
-Not ported: the sorted-carry `DFSPHShardMapSolver` / `ShardedDFSPHDense` and
-their bounded migration buffers (the port has no sorted carry); `SPACE_AXIS`
+Not ported yet: the sorted-carry `DFSPHShardMapSolver` / `ShardedDFSPHDense`
+and their bounded migration buffers (the one-device sorted solver is
+models/dfsph_dense.DFSPHDenseSolver); `SPACE_AXIS`
 and `make_space_mesh`, the names of a `shard_map` mesh (here the process
 group is the axis).
 """

@@ -48,10 +48,9 @@ def reference_dam_break(target_particles: int = 10_000) -> FluidParticleWorld:
 class SolverSpec(NamedTuple):
     """One of the bench's solver configurations."""
 
-    solver: str  # class name in yasph2d_tpu_torch
-    slotmajor: bool  # padded pair passes on K3 (use_pallas_slotmajor) or on K5
+    kind: str  # the solver kind (config.KINDS)
+    slotmajor: bool  # slot kinds: pair passes on K3 (use_pallas_slotmajor) or on K5
     cfl_factor: float  # adaptive CFL factor (bench.py:116-120)
-    plane_boundary: bool  # the solver takes the boundary in plane form
     pair_dtype: str = "float32"  # DenseGridConfig.pair_dtype
     # DFSPHPlaneSolver's fuse_loop_elementwise and fuse_ctx_elementwise (the
     # bench's YASPH_BENCH_FUSE_LOOPS / YASPH_BENCH_FUSE_CTX, bench.py:204-212)
@@ -60,34 +59,46 @@ class SolverSpec(NamedTuple):
 
 # The bench's solver configurations on one scene, by name. The bench's own
 # default operand dtype is bfloat16 (bench.py:83-88); the *_bf16 entries run
-# the plane solvers so (K1's bf16 operands) and the padded solvers' K5 route
-# (K5's bf16 math mode); `dfsph_plane_unfused` is the plane step with both
-# fuse switches off.
+# the plane solvers so (K1's bf16 operands) and the padded and sorted
+# solvers' K5 route (K5's bf16 math mode); `dfsph_plane_unfused` is the plane
+# step with both fuse switches off. The bench's `table` backend is
+# `dfsph_table` (bench.py:228-236), its `dense` backend `dfsph_dense`
+# (bench.py:214-217; K3, `*_k5` on K5); the WCSPH table and sorted solvers
+# are the config's kinds of the same names.
 SOLVERS = {
-    "dfsph_plane": SolverSpec("DFSPHPlaneSolver", True, 1.5, True),
-    "dfsph_padded": SolverSpec("DFSPHPaddedSolver", True, 1.5, False),
-    "dfsph_padded_k5": SolverSpec("DFSPHPaddedSolver", False, 1.5, False),
-    "wcsph_padded": SolverSpec("WCSPHPaddedSolver", True, 0.2, False),
-    "wcsph_padded_k5": SolverSpec("WCSPHPaddedSolver", False, 0.2, False),
-    "wcsph_plane": SolverSpec("WCSPHPlaneSolver", True, 0.2, True),
-    "dfsph_plane_bf16": SolverSpec("DFSPHPlaneSolver", True, 1.5, True, "bfloat16"),
-    "wcsph_plane_bf16": SolverSpec("WCSPHPlaneSolver", True, 0.2, True, "bfloat16"),
-    "dfsph_plane_unfused": SolverSpec("DFSPHPlaneSolver", True, 1.5, True, fused=False),
-    "dfsph_padded_k5_bf16": SolverSpec("DFSPHPaddedSolver", False, 1.5, False, "bfloat16"),
-    "wcsph_padded_k5_bf16": SolverSpec("WCSPHPaddedSolver", False, 0.2, False, "bfloat16"),
+    "dfsph_plane": SolverSpec("dfsph_plane", True, 1.5),
+    "dfsph_padded": SolverSpec("dfsph_padded", True, 1.5),
+    "dfsph_padded_k5": SolverSpec("dfsph_padded", False, 1.5),
+    "wcsph_padded": SolverSpec("wcsph_padded", True, 0.2),
+    "wcsph_padded_k5": SolverSpec("wcsph_padded", False, 0.2),
+    "wcsph_plane": SolverSpec("wcsph_plane", True, 0.2),
+    "dfsph_plane_bf16": SolverSpec("dfsph_plane", True, 1.5, "bfloat16"),
+    "wcsph_plane_bf16": SolverSpec("wcsph_plane", True, 0.2, "bfloat16"),
+    "dfsph_plane_unfused": SolverSpec("dfsph_plane", True, 1.5, fused=False),
+    "dfsph_padded_k5_bf16": SolverSpec("dfsph_padded", False, 1.5, "bfloat16"),
+    "wcsph_padded_k5_bf16": SolverSpec("wcsph_padded", False, 0.2, "bfloat16"),
+    "dfsph_table": SolverSpec("dfsph", False, 1.5),
+    "wcsph_table": SolverSpec("wcsph", False, 0.2),
+    "dfsph_dense": SolverSpec("dfsph_dense", True, 1.5),
+    "dfsph_dense_k5": SolverSpec("dfsph_dense", False, 1.5),
+    "wcsph_dense": SolverSpec("wcsph_dense", True, 0.2),
+    "wcsph_dense_k5": SolverSpec("wcsph_dense", False, 0.2),
+    "dfsph_dense_k5_bf16": SolverSpec("dfsph_dense", False, 1.5, "bfloat16"),
 }
 
 
 def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=7,
                  pair_dtype=None, ny_multiple=1):
     """(solver, boundary) of one of SOLVERS on `world`, as the bench builds them
-    (bench.py:125-150): occupancy 7, XSPH viscosity, the entry's adaptive CFL,
-    the boundary on `device` (in plane form for the plane solvers).
+    (bench.py:125-150, 228-236): occupancy 7, XSPH viscosity, the entry's
+    adaptive CFL, the boundary on `device` (the table kinds on `world.grid`
+    and `world.boundary_grid()`, the plane solvers' boundary in plane form).
     `pair_dtype` overrides the entry's operand dtype; `ny_multiple` rounds
     the grid's rows up to a multiple (the shard count of a sharded run)."""
     import dataclasses
 
     import yasph2d_tpu_torch as y
+    from .config import build_solver, solver_boundary
 
     spec = SOLVERS[kind]
     grid = dataclasses.replace(world.dense_grid(occupancy=occupancy, ny_multiple=ny_multiple),
@@ -95,7 +106,8 @@ def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=
                                pair_dtype=pair_dtype or spec.pair_dtype)
     switches = {} if spec.fused else dict(fuse_loop_elementwise=False,
                                           fuse_ctx_elementwise=False)
-    solver = getattr(y, spec.solver)(
+    solver = build_solver(
+        spec.kind, world,
         viscosity_model=y.XSPHViscosityModel(world.properties.smoothing_length),
         properties=world.properties,
         grid=grid,
@@ -105,7 +117,4 @@ def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=
         ),
         **switches,
     )
-    boundary = world.boundary_dense(grid, device=device)
-    if spec.plane_boundary:
-        boundary = solver.boundary_planes(boundary)
-    return solver, boundary
+    return solver, solver_boundary(spec.kind, world, solver, device)

@@ -3,14 +3,18 @@
     python -m yasph2d_tpu_torch.tools.trace_step
         [--solver dfsph_plane|dfsph_plane_bf16|dfsph_plane_unfused|dfsph_padded|
                   dfsph_padded_k5|dfsph_padded_k5_bf16|wcsph_padded|wcsph_padded_k5|
-                  wcsph_padded_k5_bf16|wcsph_plane|wcsph_plane_bf16]
+                  wcsph_padded_k5_bf16|wcsph_plane|wcsph_plane_bf16|dfsph_table|
+                  wcsph_table|dfsph_dense|dfsph_dense_k5|dfsph_dense_k5_bf16|
+                  wcsph_dense|wcsph_dense_k5]
         [--particles 100000]
         [--settle 50] [--steps 20] [--trace out.json]
 
-Runs the double dam-break through the CUDA kernels, with the solver as
-`scenes.bench_solver` builds it (`*_k5`: the padded solver on K5 instead of
-K3; `*_bf16`: K1's bf16 operands or K5's bf16 math mode; `*_unfused`: the
-DFSPH plane step's glue in torch; adaptive CFL 1.5 for DFSPH, 0.2 for WCSPH): `--settle` steps first
+Runs the double dam-break on the card, with the solver as
+`scenes.bench_solver` builds it (`*_table`: the neighbour-table solvers, in
+torch operations; `*_dense`: the sorted carries; `*_k5`: the padded or sorted
+solver on K5 instead of K3; `*_bf16`: K1's bf16 operands or K5's bf16 math
+mode; `*_unfused`: the DFSPH plane step's glue in torch; adaptive CFL 1.5 for
+DFSPH, 0.2 for WCSPH): `--settle` steps first
 (per-window ms/step, iteration counts and drops are printed), then `--steps`
 steps under torch.profiler. Reports the host-clock ms/step of the profiled
 window, the device time per kernel name (per step and per launch), and the
@@ -55,9 +59,10 @@ def main():
     grid = solver.grid
     carry = solver.init_carry(world.initial_state(device=device), boundary)
     n = int(solver.export_state(carry).alive.sum())
+    layout = (f"grid {grid.nx}x{grid.ny} P {grid.occupancy}" if hasattr(grid, "nx")
+              else f"cell grid h {grid.cell_size:.5f}, K {grid.max_neighbors_dynamic}")
     print(f"scene: {args.solver}, {n} fluid / {world.num_boundary_particles} boundary, "
-          f"grid {grid.nx}x{grid.ny} P {grid.occupancy}, {torch.cuda.get_device_name(0)}",
-          flush=True)
+          f"{layout}, {torch.cuda.get_device_name(0)}", flush=True)
 
     done = 0
     while done < args.settle:

@@ -9,11 +9,12 @@ scalars that are state, not configuration: the warm-start iteration counts
 (`prev_*_iterations`, Python ints) and the clock (`TimeState`, numpy
 scalars); both are saved, as 0-d arrays.
 
-The padded carries (DFSPHPaddedCarry, WCSPHPaddedCarry) have the JAX leaf
-paths and dtypes, so a checkpoint of the JAX package's padded carry loads
-into the port and the reverse (the JAX slot-major route's carry also holds
-its TPU band geometry, `ctx/sm/...`, which the port neither writes nor
-reads). The plane carries round-trip within the port: the JAX `PlaneCtx`
+The padded carries (DFSPHPaddedCarry, WCSPHPaddedCarry), the table carries
+(DFSPHCarry with its neighbour tables, WCSPHCarry) and the sorted carries
+(DFSPHDenseCarry with its slot grid, WCSPHDenseCarry) have the JAX leaf
+paths and dtypes, so a checkpoint of the JAX package's carry loads into the
+port and the reverse (the JAX slot-major route's carry also holds its TPU
+band geometry, `ctx/sm/...`, which the port neither writes nor reads). The plane carries round-trip within the port: the JAX `PlaneCtx`
 holds TPU geometry. A bfloat16 tensor (K1's bf16 geometry) is stored as its
 int16 bits.
 """

@@ -1,4 +1,4 @@
-"""Convert the JAX package's plane-solver state into the port's (no JAX needed).
+"""Convert the JAX package's solver state into the port's (no JAX needed).
 
 The JAX plane carry stores its planes padded for the TPU, (P, NYP, NXP) with
 NYP a multiple of the row band and NXP of the 128-lane vreg; the padded region
@@ -22,6 +22,21 @@ already in the port's (ny, nx, P[, 2]) layout): pos_pad, v_pad, accel_pad,
   dens_pad, mask, time.*.
 `wcsph_plane_carry_from_numpy` keys (fields of yasph2d_tpu WCSPHPlaneCarry,
 cropped): pos, v, accel, dens, mask, time.*.
+`dfsph_table_carry_from_numpy` keys (field paths of yasph2d_tpu DFSPHCarry):
+  particles.{positions, velocities, densities, alive}, alpha,
+  warmstart_kappa, warmstart_stiffness, neighborhood.{dynamic, static}.{idx,
+  mask, count, num_dropped}, prev_density_iterations,
+  prev_divergence_iterations, time.*.
+`wcsph_table_carry_from_numpy` (yasph2d_tpu WCSPHCarry) and
+`wcsph_dense_carry_from_numpy` (WCSPHDenseCarry) keys: particles.*,
+  accelerations, time.*.
+`dfsph_dense_carry_from_numpy` keys (field paths of yasph2d_tpu
+DFSPHDenseCarry): particles.*, alpha, warmstart_stiffness, v_pad, kappa_pad,
+  stiff_pad, ctx.{pos_pad, mask, sum_grad_stat, neighbor_total,
+  densities_pad, alpha_pad, num_dropped}, ctx.slots.{slot_idx, slot_mask,
+  inverse, in_grid, num_dropped}, prev_density_iterations,
+  prev_divergence_iterations, time.* (the JAX slot-major route's TPU band
+  geometry, ctx.sm.*, has no counterpart and is not read).
 
 Every converter makes its tensors on the card unless given a `device` (the
 CPU tests pass device="cpu"). `carry_from_numpy` and `boundary_from_numpy`
@@ -32,14 +47,18 @@ so a bfloat16 grid gets the rebased bf16 geometry the plane solvers use.
 import numpy as np
 import torch
 
-from ..models.dfsph_dense import BoundaryDense, DenseCtx, DFSPHPaddedCarry
+from ..models.dfsph import DFSPHCarry
+from ..models.dfsph_dense import BoundaryDense, DenseCtx, DFSPHDenseCarry, DFSPHPaddedCarry
 from ..models.dfsph_plane import BoundaryPlanes, DFSPHPlaneCarry, PlaneCtx
-from ..models.wcsph_dense import WCSPHPaddedCarry
+from ..models.wcsph import WCSPHCarry
+from ..models.wcsph_dense import WCSPHDenseCarry, WCSPHPaddedCarry
 from ..models.wcsph_plane import WCSPHPlaneCarry
-from ..ops.dense_grid import DenseGridConfig
+from ..ops.dense_grid import DenseGridConfig, SlotGrid
+from ..ops.neighborhood import Neighborhood, NeighborTable
 from ..ops.planes import PlaneGeom, plane_geom, to_planes
 from ..timemanager import TimeState
 from ..units import INDEX, REAL
+from ..world import ParticleState
 
 
 def carry_from_numpy(leaves: dict, grid: DenseGridConfig, device="cuda") -> DFSPHPlaneCarry:
@@ -126,6 +145,61 @@ def wcsph_plane_carry_from_numpy(leaves: dict, grid: DenseGridConfig,
     return WCSPHPlaneCarry(
         pos=plane("pos"), v=plane("v"), accel=plane("accel"), dens=plane("dens"),
         mask=plane("mask", torch.bool), time=_time(leaves),
+    )
+
+
+def _leaf_tree(cls, leaves: dict, prefix: str, device):
+    """`cls` (a NamedTuple of tensors) from the leaves `prefix` + field, each
+    in its stored dtype."""
+    return cls(*(torch.as_tensor(np.array(leaves[prefix + f]), device=device)
+                 for f in cls._fields))
+
+
+def dfsph_table_carry_from_numpy(leaves: dict, device="cuda") -> DFSPHCarry:
+    def tensor(key):
+        return torch.as_tensor(np.array(leaves[key]), device=device)
+
+    return DFSPHCarry(
+        particles=_leaf_tree(ParticleState, leaves, "particles.", device),
+        alpha=tensor("alpha"),
+        warmstart_kappa=tensor("warmstart_kappa"),
+        warmstart_stiffness=tensor("warmstart_stiffness"),
+        neighborhood=Neighborhood(*(_leaf_tree(NeighborTable, leaves, f"neighborhood.{t}.",
+                                               device) for t in Neighborhood._fields)),
+        prev_density_iterations=int(leaves["prev_density_iterations"]),
+        prev_divergence_iterations=int(leaves["prev_divergence_iterations"]),
+        time=_time(leaves),
+    )
+
+
+def wcsph_table_carry_from_numpy(leaves: dict, device="cuda") -> WCSPHCarry:
+    return WCSPHCarry(
+        particles=_leaf_tree(ParticleState, leaves, "particles.", device),
+        accelerations=torch.as_tensor(np.array(leaves["accelerations"]), device=device),
+        time=_time(leaves),
+    )
+
+
+def wcsph_dense_carry_from_numpy(leaves: dict, device="cuda") -> WCSPHDenseCarry:
+    return WCSPHDenseCarry(*wcsph_table_carry_from_numpy(leaves, device))
+
+
+def dfsph_dense_carry_from_numpy(leaves: dict, device="cuda") -> DFSPHDenseCarry:
+    def tensor(key):
+        return torch.as_tensor(np.array(leaves[key]), device=device)
+
+    padded = dfsph_padded_carry_from_numpy(leaves, device)
+    return DFSPHDenseCarry(
+        particles=_leaf_tree(ParticleState, leaves, "particles.", device),
+        alpha=tensor("alpha"),
+        warmstart_stiffness=tensor("warmstart_stiffness"),
+        v_pad=padded.v_pad,
+        kappa_pad=padded.kappa_pad,
+        stiff_pad=padded.stiff_pad,
+        ctx=padded.ctx._replace(slots=_leaf_tree(SlotGrid, leaves, "ctx.slots.", device)),
+        prev_density_iterations=padded.prev_density_iterations,
+        prev_divergence_iterations=padded.prev_divergence_iterations,
+        time=padded.time,
     )
 
 

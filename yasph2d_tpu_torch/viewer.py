@@ -141,7 +141,7 @@ def main(argv=None):
     import sys
 
     argv = argv if argv is not None else sys.argv[1:]
-    solver = argv[0] if argv else "dfsph_padded"
+    solver = argv[0] if argv else "dfsph_dense"
     density = float(argv[1]) if len(argv) > 1 else 2500.0
     device = argv[2] if len(argv) > 2 else "cuda"
     from .app import default_world
