@@ -69,10 +69,12 @@ Phases, each reported on its own line:
   4. small reference: a 3k-particle scene stepped through the kernels on the
      GPU and through the twins on the CPU must agree, for every solver path
      (the table paths, plain tensor operations, on the card against the
-     CPU):
+     CPU; the loop-gradient kinds' loop passes, plain tensor operations, the
+     MXU form's contraction a cuBLAS f32 matmul on the card):
      5 steps from rest with XSPH and with physical viscosity, and for the
-     DFSPH paths, with either viscosity (the table and sorted paths with XSPH
-     only: their physical forms are the padded paths'), 5 more from the
+     DFSPH paths, with either viscosity (the table, sorted and loop-gradient
+     paths with XSPH only: their physical forms are the padded paths'; the
+     loop-gradient paths from contact only), 5 more from the
      GPU's state after
      55 steps, where the columns touch the walls, the divergence loop
      iterates and warm-starts, and the fluid -> boundary pass sums something;
@@ -81,7 +83,10 @@ Phases, each reported on its own line:
      the launch count of every kernel of that path > 0 (the table paths
      `dfsph_table`, `wcsph_table` have none; the sorted paths `dfsph_dense`,
      `wcsph_dense` run K3, their `_k5` twins and `dfsph_dense_k5_bf16` K5,
-     and neither launches a re-bucket, which is checked), every tensor of the
+     and neither launches a re-bucket, which is checked; the loop-gradient
+     kinds `dfsph_dense_cached`, `dfsph_padded_cached` and `dfsph_dense_mxu`
+     run K5's ctx and viscosity forms only, and their pressure loops launch
+     no K5 div or corr form, which is checked), every tensor of the
      final carry on the card, no dropped particle,
      all 99,372 particles live, finite state and densities in [rho0, 1.3 rho0]
      (the columns are still falling; after the impact, by step 60, the
@@ -91,6 +96,15 @@ Phases, each reported on its own line:
      rows are bit-equal is logged), the K5 bf16 paths with sorted positions
      within 0.2 h of the K5 f32 paths'; the table and sorted paths' sorted
      positions beside the padded path of the same step (logged). Then the
+     loop-gradient kinds against their exact paths (`dfsph_dense_k5`,
+     `dfsph_padded_k5`): LOOP_STEPS (20) steps of each from the exact
+     path's state after LOOP_SETTLE (50) steps from rest, the state's pair
+     context built anew with the cache: no drop, every particle live,
+     finite; the cached f32 form with the exact path's per-step iterations,
+     the MXU form within 2 density and 4 divergence iterations of its
+     summed iterations (JAX's test bounds); both paths' iterations, busy
+     ms per step (the profiler's device time) and host ms per step, and the
+     cache's bytes, are logged. Then the
      tools of TOOL_PATHS
      through their entry points, each with its launch counts > 0: the K6
      rates (FMA, mix, HBM stream), the K7 probe beside K1 ctx, and the
@@ -122,19 +136,28 @@ Phases, each reported on its own line:
      one-device solver's), two gloo ranks sharing the card, spawned (the
      plane solvers: DFSPH f32, DFSPH bf16, WCSPH f32, and the unfused DFSPH
      step; the padded K5 solvers: DFSPH and WCSPH, each with XSPH and with
-     physical viscosity, and DFSPH in bf16; halo rows
-     staged through the host), and two NCCL ranks on two cards (DFSPH plane
-     and padded K5) where the machine has two (else a line says why not).
+     physical viscosity, and DFSPH in bf16; the sorted K5 solver
+     (ShardedDFSPHDense) with migration_slots = nx * P, the edge row's
+     slots, its migration drops 0 and the most particles one step sent each
+     way logged, then SHARD_DEFAULT_STEPS (10; the tops first cross at step
+     7) steps at the JAX default of 256 slots, whose migration drops are
+     logged, not gated; halo rows
+     staged through the host), and two NCCL ranks on two cards (DFSPH plane,
+     padded K5 and sorted K5) where the machine has two (else a line says
+     why not).
      Each run must give the one-device per-step iterations and drops, every
      fluid particle live, the live rows bit-equal (a padded run may instead
      give the same iterations with live positions within 5e-5, the JAX
-     test's tolerance, should a residual average move an exit; the log says
-     which held), and with two shards a net seam crossing above 0; the
+     test's tolerance, should a residual average move an exit, and so may a
+     sorted run, whose arrivals can take other slots in their cells than on
+     one device; the log says which held; the sorted run's rows are
+     compared in lexicographic order), and with two shards a net seam
+     crossing above 0; the
      largest relative difference of the residual averages (sums of
      per-shard sums) is logged. The two-rank runs' launches are the halo
      forms' (K1 `<form>[_bf16]_halo`, K2 `rebucket_halo`, K5
-     `tile_pair_reduce_<form>[_bf16]_halo`, K4 `sm_rebucket_halo`), summed over the
-     ranks; the one-rank mesh has no halo and launches the one-device
+     `tile_pair_reduce_<form>[_bf16]_halo`, K4 `sm_rebucket_halo`; the
+     sorted route K5's only, no re-bucket), summed over the ranks; the one-rank mesh has no halo and launches the one-device
      kernels, whose records count the 100k solver paths only. Then the halo
      forms against their twins on the two shards' states (the one-device
      final state, equal to the gathered sharded one, cut at the seam), K1,
@@ -254,6 +277,7 @@ DFSPH_TILE_FORMS = ("dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc")
 # form on fluid sources too, and the passes without an epilogue
 DFSPH_UNFUSED_FORMS = ("ctx", "visc", "div", "corr")
 BF16 = "_bf16"  # the suffix of K1's bf16-operand and K5's bf16-math launchers
+LOOP_GRADIENT_FORMS = ("dfsph_ctx", "dfsph_visc")  # K5's forms under a loop-gradient flag
 # the kernels each main path must launch: the solvers' steps, then the tools
 SOLVER_PATHS = {
     "dfsph_plane": [f"pair_reduce_{f}" for f in DFSPH_FORMS] + ["rebucket"],
@@ -279,11 +303,31 @@ SOLVER_PATHS = {
     "wcsph_dense": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS],
     "wcsph_dense_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS],
     "dfsph_dense_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in DFSPH_TILE_FORMS],
+    # the loop-gradient variants (K5 route): K5 for the ctx and viscosity
+    # passes only, the pressure loops' passes plain tensor operations over
+    # the cached gradients
+    "dfsph_dense_cached": [f"tile_pair_reduce_{f}" for f in LOOP_GRADIENT_FORMS],
+    "dfsph_padded_cached": [f"tile_pair_reduce_{f}" for f in LOOP_GRADIENT_FORMS]
+    + ["sm_rebucket"],
+    "dfsph_dense_mxu": [f"tile_pair_reduce_{f}" for f in LOOP_GRADIENT_FORMS],
 }
+# the loop-gradient kinds and the exact path of each: the same solver on the
+# same route without the flag. Their loops must launch no K5 div or corr form
+LOOP_GRADIENT_OF = {"dfsph_dense_cached": "dfsph_dense_k5",
+                    "dfsph_padded_cached": "dfsph_padded_k5",
+                    "dfsph_dense_mxu": "dfsph_dense_k5"}
+LOOP_FORMS = ("tile_pair_reduce_dfsph_div", "tile_pair_reduce_dfsph_corr")
+# their comparison with the exact path: LOOP_STEPS steps of each from the
+# exact path's state after LOOP_SETTLE steps from rest (the columns on the
+# floor, the divergence loop iterating); the MXU form within JAX's bounds
+# (tests/test_dfsph_padded.py:228-229) of the exact path's summed iterations
+LOOP_SETTLE, LOOP_STEPS = 50, 20
+MXU_ITERATION_BOUNDS = (2, 4)  # density, divergence
 # the paths that must launch no re-bucket (K2, K4): the table and sorted ones
 NO_REBUCKET = ("dfsph_table", "wcsph_table", "dfsph_dense", "dfsph_dense_k5", "wcsph_dense",
-               "wcsph_dense_k5", "dfsph_dense_k5_bf16", "config_dfsph", "config_wcsph",
-               "config_dfsph_dense", "config_wcsph_dense")
+               "wcsph_dense_k5", "dfsph_dense_k5_bf16", "dfsph_dense_cached", "dfsph_dense_mxu",
+               "config_dfsph", "config_wcsph", "config_dfsph_dense", "config_wcsph_dense",
+               "sharded2_gloo_dfsph_dense_k5", "sharded2_nccl_dfsph_dense_k5")
 # the main paths held against a path of the same step: the unfused DFSPH
 # plane step against the fused one (the same per-step iterations and drops;
 # whether the live rows are bit-equal is logged), the K5 bf16 paths against
@@ -375,16 +419,25 @@ SHARD_RANKS = 2
 SHARD_KINDS = ("dfsph_plane", "dfsph_plane_bf16", "wcsph_plane", "dfsph_plane_unfused")
 PADDED_SHARD_KINDS = ("dfsph_padded_k5", "wcsph_padded_k5", "dfsph_padded_k5" + PHYS,
                       "wcsph_padded_k5" + PHYS, "dfsph_padded_k5_bf16")
+# the sorted route (ShardedDFSPHDense, K5's halo forms, bounded migration),
+# with migration_slots = nx * P, the edge row's slots, which bound what the
+# padded route moves across a seam in a step; then SHARD_DEFAULT_STEPS steps
+# at the JAX default of 256 slots, whose migration drops are logged (the
+# kicked tops first cross the seam at step 7, ~360 particles a step)
+SORTED_SHARD_KINDS = ("dfsph_dense_k5",)
+SHARD_DEFAULT_SLOTS, SHARD_DEFAULT_STEPS = 256, 10
 HALO = "_halo"
 
 
 def halo_path(kind):
     variant = BF16 if kind.endswith(BF16) else ""
-    if "padded" in kind:
+    if "padded" in kind or "dense" in kind:
         phys = kind.endswith(PHYS)
         forms = ((DFSPH_TILE_PHYS_FORMS if phys else DFSPH_TILE_FORMS)
                  if kind.startswith("dfsph") else (WCSPH_PHYS_FORMS if phys else WCSPH_FORMS))
-        return [f"tile_pair_reduce_{f}{variant}{HALO}" for f in forms] + ["sm_rebucket" + HALO]
+        # the sorted route rebuilds by its sort: no re-bucket
+        rebucket = [] if "dense" in kind else ["sm_rebucket" + HALO]
+        return [f"tile_pair_reduce_{f}{variant}{HALO}" for f in forms] + rebucket
     forms = (DFSPH_UNFUSED_FORMS if kind.endswith("_unfused") else DFSPH_FORMS) \
         if kind.startswith("dfsph") else WCSPH_FORMS
     return [f"pair_reduce_{f}{variant}{HALO}" for f in forms] + ["rebucket" + HALO]
@@ -394,10 +447,11 @@ def halo_path(kind):
 # whose records count the 100k solver paths only), two gloo ranks sharing the
 # card, and two NCCL ranks on two cards where there are two
 ONE_RANK = "sharded1_nccl_dfsph_plane"
-NCCL_KINDS = ("dfsph_plane", "dfsph_padded_k5")
+NCCL_KINDS = ("dfsph_plane", "dfsph_padded_k5", "dfsph_dense_k5")
 SHARDED_PATHS = {
     ONE_RANK: SOLVER_PATHS["dfsph_plane"],
-    **{f"sharded2_gloo_{kind}": halo_path(kind) for kind in SHARD_KINDS + PADDED_SHARD_KINDS},
+    **{f"sharded2_gloo_{kind}": halo_path(kind)
+       for kind in SHARD_KINDS + PADDED_SHARD_KINDS + SORTED_SHARD_KINDS},
     **{f"sharded2_nccl_{kind}": halo_path(kind) for kind in NCCL_KINDS},
 }
 # the app phase: `python -m yasph2d_tpu_torch record` on BASELINE config 3's
@@ -1276,14 +1330,16 @@ def phase_small_reference(device):
     """Kernels on the GPU against the twins on the CPU on a 3k scene: 5 steps
     from rest for every path, with XSPH and with physical viscosity (the
     *_phys forms), and for the DFSPH paths 5 more from the GPU's state in
-    wall contact, copied to the CPU, with either viscosity."""
+    wall contact, copied to the CPU, with either viscosity (the
+    loop-gradient paths from contact only, with XSPH)."""
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 
     sides = {"gpu": device, "cpu": torch.device("cpu")}
-    # the table and sorted paths with XSPH only: their physical forms are
-    # the padded paths' (and the config paths run them at 100k)
+    # the table, sorted and loop-gradient paths with XSPH only: their
+    # physical forms are the padded paths' (and the config paths run them
+    # at 100k)
     for kind, phys in [(k, p) for k in SOLVER_PATHS for p in (False, True)
-                       if not (p and k in NO_REBUCKET)]:
+                       if not (p and (k in NO_REBUCKET or k in LOOP_GRADIENT_OF))]:
         solvers = {side: bench_solver(kind, double_dam_break(3_000), dev)
                    for side, dev in sides.items()}
         if phys:
@@ -1296,6 +1352,10 @@ def phase_small_reference(device):
             solver, boundary = solvers["gpu"]
             carry, _ = run_steps(solver, starts["rest"]["gpu"], boundary, CONTACT_STEPS_3K)
             starts["contact"] = {"gpu": carry, "cpu": to_device(carry, sides["cpu"])}
+        if kind in LOOP_GRADIENT_OF:
+            # from rest their loops run one pass a step (phase 5 covers that
+            # at 100k): the contact start alone, to keep the phase's time
+            del starts["rest"]
         for start, carries in starts.items():
             runs = {}
             for side, carry in carries.items():
@@ -1444,6 +1504,93 @@ def phase_main_path(device, kind) -> tuple:
     return path, run
 
 
+def loop_gradient_carry(solver, carry, boundary):
+    """The exact path's `carry` with its pair context built anew by `solver`,
+    the same solver with a loop-gradient flag: the same K5 ctx passes on the
+    same positions, and the cached gradients."""
+    ctx = carry.ctx
+    if ctx.slots is not None:  # the sorted carry
+        return carry._replace(ctx=solver._slot_ctx(ctx.pos_pad, ctx.slots, boundary,
+                                                   ctx.num_dropped))
+    return carry._replace(ctx=solver._ctx_from_padded(ctx.pos_pad, ctx.mask, boundary,
+                                                      ctx.num_dropped))
+
+
+def busy_run(solver, boundary, carry, steps):
+    """`steps` steps, one simulate call each, under the profiler: per-step
+    (density its, divergence its, drops), the device's busy ms and the host
+    ms per step, whether the final state is finite."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yasph2d_tpu_torch.tools.trace_step import _device_us
+
+    counts = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            carry, d = solver.simulate(carry, boundary, 1)
+            counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / steps * 1e3
+    busy_ms = sum(_device_us(e) for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / steps
+    s = solver.export_state(carry)
+    finite = all(bool(torch.isfinite(t[s.alive]).all())
+                 for t in (s.positions, s.velocities, s.densities))
+    return dict(counts=counts, busy_ms=busy_ms, host_ms=host_ms, finite=finite,
+                live=int(s.alive.sum()))
+
+
+def phase_loop_gradients(device):
+    """The loop-gradient kinds against their exact paths on the 100k double
+    dam-break: LOOP_STEPS steps of each from the exact path's state after
+    LOOP_SETTLE steps from rest (the state's pair context built anew with the
+    cache). No drop, every particle live, finite; the cached f32 form with
+    the exact path's per-step iterations, the MXU form within
+    MXU_ITERATION_BOUNDS of its summed iterations. Logs both paths'
+    iterations, busy and host ms per step, and the cache's bytes."""
+    from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
+
+    world = double_dam_break(100_000)
+    settled = {}
+    for kind, exact in LOOP_GRADIENT_OF.items():
+        if exact not in settled:
+            solver, boundary = bench_solver(exact, world, device)
+            carry = solver.init_carry(world.initial_state(device=device), boundary)
+            carry, _ = solver.simulate(carry, boundary, LOOP_SETTLE)
+            ref = busy_run(solver, boundary, carry, LOOP_STEPS)
+            log(f"phase 5 loop gradients [{exact}]: after {LOOP_SETTLE} steps, {LOOP_STEPS} "
+                f"steps: busy {ref['busy_ms']:.3f} ms/step host {ref['host_ms']:.3f} ms/step, "
+                f"(iterations, drops) per step {ref['counts']}")
+            settled[exact] = (carry, boundary, ref)
+        carry, boundary, ref = settled[exact]
+        solver, _ = bench_solver(kind, world, device)
+        start = loop_gradient_carry(solver, carry, boundary)
+        same_ctx = torch.equal(start.ctx.densities_pad, carry.ctx.densities_pad) and \
+            torch.equal(start.ctx.alpha_pad, carry.ctx.alpha_pad)
+        g = start.ctx.grad_dyn
+        cache_bytes = g.numel() * g.element_size()
+        run = busy_run(solver, boundary, start, LOOP_STEPS)
+        sums = [sum(c[i] for c in run["counts"]) for i in (0, 1)]
+        ref_sums = [sum(c[i] for c in ref["counts"]) for i in (0, 1)]
+        log(f"phase 5 loop gradients [{kind}]: cache {tuple(g.shape)} {g.dtype} "
+            f"{cache_bytes} bytes; ctx rebuilt bit-equal {same_ctx}; busy "
+            f"{run['busy_ms']:.3f} ms/step host {run['host_ms']:.3f} ms/step ({exact}: busy "
+            f"{ref['busy_ms']:.3f} host {ref['host_ms']:.3f}); iterations (density, "
+            f"divergence) summed {sums} against {exact}'s {ref_sums}; per step "
+            f"{run['counts']}")
+        if (any(c[2] for c in run["counts"]) or not run["finite"] or run["live"] != N_FLUID):
+            raise RuntimeError(f"{kind}: drops, non-finite state or lost particles after "
+                               f"{LOOP_STEPS} steps: {run['counts']} live {run['live']}")
+        if kind.endswith("_mxu"):
+            if any(abs(a - b) > t for a, b, t in zip(sums, ref_sums, MXU_ITERATION_BOUNDS)):
+                raise RuntimeError(f"{kind}: iterations {sums} outside {MXU_ITERATION_BOUNDS} "
+                                   f"of {exact}'s {ref_sums}")
+        elif run["counts"] != ref["counts"]:
+            raise RuntimeError(f"{kind}: per-step iterations differ from {exact}'s")
+
+
 def compare_main_paths(runs: dict):
     """The unfused DFSPH plane path against the fused one: the same per-step
     iterations and drops (else it fails), and whether the live rows are
@@ -1488,6 +1635,11 @@ def check_launches(kind, launches) -> dict:
         if rebuckets:
             raise RuntimeError(f"{kind}: a table or sorted path launched re-buckets: "
                                f"{rebuckets}")
+    if kind in LOOP_GRADIENT_OF:
+        loops = {k: launches.get(k, 0) for k in LOOP_FORMS}
+        log(f"phase 5 main path [{kind}]: K5 loop-pass launches {loops} (must be 0)")
+        if any(loops.values()):
+            raise RuntimeError(f"{kind}: the pressure loops launched K5 passes: {loops}")
     return path
 
 
@@ -1650,6 +1802,8 @@ def sharded_driver(kind):
     from yasph2d_tpu_torch.parallel import shard_dense, shard_plane
 
     dfsph = kind.startswith("dfsph")
+    if "dense" in kind:
+        return shard_dense.ShardedDFSPHDense
     if "padded" in kind:
         return shard_dense.ShardedDFSPHPadded if dfsph else shard_dense.ShardedWCSPHPadded
     return shard_plane.ShardedDFSPHPlane if dfsph else shard_plane.ShardedWCSPHPlane
@@ -1667,11 +1821,12 @@ def fluid_mask(carry):
     return carry.ctx.mask if hasattr(carry, "ctx") else carry.mask
 
 
-def step_run(solver, boundary, carry, steps):
+def step_run(solver, boundary, carry, steps, migration=None):
     """`steps` steps, each by `simulate(.., 1)` (so each step's diagnostics
     are read); (carry, per-step (density its, divergence its, drops),
     per-step (avg density error, avg divergence), live slots before and after
-    each step, host ms/step)."""
+    each step, host ms/step). A list `migration` (the sorted sharded route)
+    gets each step's (migration drops, particles sent up, sent down)."""
     counts, avgs, live = [], [], [int(fluid_mask(carry).sum())]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1680,6 +1835,9 @@ def step_run(solver, boundary, carry, steps):
         counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
         avgs.append((float(d.avg_density_error), float(d.avg_divergence)))
         live.append(int(fluid_mask(carry).sum()))
+        if migration is not None:
+            sent = solver.solver.last_migration
+            migration.append((d.migration_drops, int(sent["up"]), int(sent["down"])))
     torch.cuda.synchronize()
     return carry, counts, avgs, live, (time.perf_counter() - t0) / steps * 1e3
 
@@ -1697,18 +1855,29 @@ def sharded_rank(group, kinds, scene):
         # the DFSPH plane solver's fuse switches reach the shard solver
         switches = {f: getattr(solver, f) for f in ("fuse_loop_elementwise",
                                                     "fuse_ctx_elementwise") if hasattr(solver, f)}
-        sharded = sharded_driver(kind)(group, viscosity_model=solver.viscosity_model,
-                                       properties=solver.properties, full_grid=solver.grid,
-                                       step_config=solver.step_config, **switches)
+        sorted_route = "dense" in kind
+        if sorted_route:  # the edge row's slots
+            switches["migration_slots"] = solver.grid.nx * solver.grid.occupancy
+        driver = partial(sharded_driver(kind), group, viscosity_model=solver.viscosity_model,
+                         properties=solver.properties, full_grid=solver.grid,
+                         step_config=solver.step_config)
+        sharded = driver(**switches)
         state = kicked_state(world, group.device, kick)
         torch.cuda.synchronize()
         reset_launch_counts()
         carry, b = sharded.init(state, boundary)
-        carry, counts, avgs, live, ms = step_run(sharded, b, carry, steps)
+        migration = [] if sorted_route else None
+        carry, counts, avgs, live, ms = step_run(sharded, b, carry, steps, migration)
         launches = launch_counts()
         rows = sharded.gather_live_rows(carry).cpu()
         out[kind] = dict(counts=counts, avgs=avgs, live=live, ms=ms, launches=launches,
-                         rows=rows, shard_rows=sharded.solver.grid.ny)
+                         rows=rows, shard_rows=sharded.solver.grid.ny, migration=migration,
+                         slots=switches.get("migration_slots"))
+        if sorted_route:  # the JAX default of 256 slots: its drops are logged
+            default = driver(migration_slots=SHARD_DEFAULT_SLOTS)
+            carry, b = default.init(state, boundary)
+            out[kind]["default_migration"] = []
+            step_run(default, b, carry, SHARD_DEFAULT_STEPS, out[kind]["default_migration"])
     return out
 
 
@@ -1731,6 +1900,12 @@ def sorted_positions(rows):
     return p[np.lexsort(p.T)]
 
 
+def lex_rows(rows):
+    """`rows` (on the CPU) in lexicographic order of their columns."""
+    r = rows.numpy()
+    return torch.from_numpy(r[np.lexsort(r.T[::-1])])
+
+
 def compare_sharded(name, kind, ref, run, ranks) -> dict:
     """A sharded run against the one-device reference: equal per-step
     iterations and drops, every fluid particle live, a net seam crossing
@@ -1744,10 +1919,15 @@ def compare_sharded(name, kind, ref, run, ranks) -> dict:
                for a, b in zip(sa, sb)), default=0.0)
     crossed = [abs(b - a) for a, b in zip(run[0]["live"], run[0]["live"][1:])]
     same_counts = all(r["counts"] == ref["counts"] for r in run)
+    sorted_route = "dense" in kind
+    # the sorted route gathers each shard's block in its own cell order:
+    # its rows are compared in one order (lexicographic)
+    order = lex_rows if sorted_route else (lambda rows: rows)
     equal_rows = all(r["rows"].shape == ref["rows"].shape
-                     and torch.equal(r["rows"].view(torch.int32), ref["rows"].view(torch.int32))
+                     and torch.equal(order(r["rows"]).view(torch.int32),
+                                     order(ref["rows"]).view(torch.int32))
                      for r in run)
-    close = "padded" in kind and same_counts and all(
+    close = ("padded" in kind or sorted_route) and same_counts and all(
         r["rows"].shape == ref["rows"].shape
         and np.abs(sorted_positions(r["rows"]) - sorted_positions(ref["rows"])).max() <= 5e-5
         for r in run)
@@ -1766,6 +1946,18 @@ def compare_sharded(name, kind, ref, run, ranks) -> dict:
         raise RuntimeError(f"{name}: particles dropped")
     if ranks > 1 and sum(crossed) == 0:
         raise RuntimeError(f"{name}: no particle crossed the seam")
+    if sorted_route:
+        migration = [r["migration"] for r in run]
+        drops = max(m[0] for m in migration[0])
+        log(f"phase 6 sharded [{name}]: migration_slots {run[0]['slots']}; migration drops "
+            f"per step {[m[0] for m in migration[0]]}; the most one step sent up / down "
+            f"(per rank) {[(max(m[1] for m in r), max(m[2] for m in r)) for r in migration]}")
+        default = [r["default_migration"] for r in run]
+        log(f"phase 6 sharded [{name}]: {SHARD_DEFAULT_STEPS} steps at {SHARD_DEFAULT_SLOTS} "
+            f"slots (not gated): migration drops per step {[m[0] for m in default[0]]}, sent "
+            f"up / down per step (rank 0) {[(m[1], m[2]) for m in default[0]]}")
+        if drops != 0:
+            raise RuntimeError(f"{name}: migration drops {drops} at {run[0]['slots']} slots")
     launches = {k: sum(r["launches"].get(k, 0) for r in run) for k in run[0]["launches"]}
     return check_launches(name, launches)
 
@@ -2108,7 +2300,7 @@ def phase_sharded(device, rec: Records) -> dict:
 
     t0 = time.perf_counter()
     scene = (SHARD_PARTICLES, SHARD_STEPS, SHARD_KICK)
-    kinds = SHARD_KINDS + PADDED_SHARD_KINDS
+    kinds = SHARD_KINDS + PADDED_SHARD_KINDS + SORTED_SHARD_KINDS
     refs = {kind: one_device_reference(kind, device, scene) for kind in kinds}
     path_launches = {}
     name = ONE_RANK
@@ -2381,6 +2573,8 @@ def main():
         runs = {kind: phase_main_path(device, kind) for kind in SOLVER_PATHS}
     path_launches = {kind: path for kind, (path, _) in runs.items()}
     compare_main_paths({kind: run for kind, (_, run) in runs.items()})
+    with phase_clock("5 loop gradients"):
+        phase_loop_gradients(device)
     with phase_clock("5 main paths (tools)"):
         path_launches.update({kind: phase_tool_path(device, kind) for kind in TOOL_PATHS})
     with phase_clock("5 main paths (configs)"):

@@ -284,7 +284,8 @@ def test_wcsph_solver_gpu_matches_cpu(device, kind):
 @pytest.mark.parametrize("kind", ["dfsph_plane", "dfsph_padded", "dfsph_padded_k5",
                                   "dfsph_plane_bf16", "dfsph_plane_unfused",
                                   "dfsph_padded_k5_bf16", "dfsph_table", "dfsph_dense",
-                                  "dfsph_dense_k5", "dfsph_dense_k5_bf16"])
+                                  "dfsph_dense_k5", "dfsph_dense_k5_bf16", "dfsph_dense_cached",
+                                  "dfsph_padded_cached", "dfsph_dense_mxu"])
 def test_solver_gpu_matches_cpu(device, kind):
     """Five adaptive steps of a 3k double dam-break: kernels on the GPU, twins
     on the CPU; equal iteration counts and live rows."""
@@ -1499,16 +1500,22 @@ def test_sm_rebucket_halo_kernel_bit_equal(device, p, widths, overflow):
 def _sharded_padded_rank(group, kind, steps, kick):
     """One gloo rank of test_sharded_padded_steps_equal_one_device: the 3k
     double dam-break, fluid kicked upward by `kick` m/s, `steps` sharded
-    steps of the padded driver; (per-step counts, gathered live rows, the
-    launches of the run)."""
+    steps of the padded driver (the sorted one for a `dense` kind);
+    (per-step counts, gathered live rows, the launches of the run)."""
     from yasph2d_tpu_torch.parallel.shard_dense import ShardedDFSPHPadded, ShardedWCSPHPadded
+
+    from yasph2d_tpu_torch.parallel.shard_dense import ShardedDFSPHDense
 
     world = double_dam_break(3_000)
     solver, boundary = bench_solver(kind, world, device=group.device, ny_multiple=group.size)
-    cls = ShardedDFSPHPadded if kind.startswith("dfsph") else ShardedWCSPHPadded
+    kw = {}
+    if "dense" in kind:  # the sorted route, with the edge row's slots
+        cls, kw = ShardedDFSPHDense, dict(migration_slots=solver.grid.nx * solver.grid.occupancy)
+    else:
+        cls = ShardedDFSPHPadded if kind.startswith("dfsph") else ShardedWCSPHPadded
     sharded = cls(group, viscosity_model=solver.viscosity_model,
                   properties=solver.properties, full_grid=solver.grid,
-                  step_config=solver.step_config)
+                  step_config=solver.step_config, **kw)
     state = world.initial_state(device=group.device)
     state = state._replace(velocities=state.velocities + torch.tensor(
         [0.0, kick], device=group.device))
@@ -1550,6 +1557,38 @@ def test_sharded_padded_steps_equal_one_device(device, kind):
         assert torch.equal(got_rows.view(torch.int32), rows.view(torch.int32))
         assert launches and all(k.endswith("_halo") for k in launches)
         assert "sm_rebucket_halo" in launches
+
+
+def test_sharded_sorted_steps_match_one_device(device):
+    """Two gloo ranks sharing the card: 40 steps of the 3k double dam-break
+    kicked 3 m/s upward through the sorted route (ShardedDFSPHDense) give the
+    one-device sorted solver's per-step iterations and drops and its sorted
+    live positions within 5e-5, through K5's halo launchers only (no
+    re-bucket)."""
+    from yasph2d_tpu_torch.parallel import comm
+
+    kind, steps, kick = "dfsph_dense_k5", 40, 3.0
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver(kind, world, device=device, ny_multiple=2)
+    state = world.initial_state(device=device)
+    state = state._replace(velocities=state.velocities + torch.tensor([0.0, kick],
+                                                                        device=device))
+    carry = solver.init_carry(state, boundary)
+    counts = []
+    for _ in range(steps):
+        carry, d = solver.simulate(carry, boundary, 1)
+        counts.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
+    s = solver.export_state(carry)
+    pos = s.positions[s.alive].cpu().numpy()
+    results = comm.spawn(_sharded_padded_rank, 2, "gloo", [device, device], kind, steps, kick)
+    for got_counts, got_rows, launches in results:
+        assert got_counts == counts
+        got = got_rows[:, :2].numpy()
+        assert got.shape == pos.shape
+        np.testing.assert_allclose(got[np.lexsort(got.T)], pos[np.lexsort(pos.T)], rtol=0,
+                                   atol=5e-5)
+        assert launches and all(k.endswith("_halo") for k in launches)
+        assert not any("rebucket" in k for k in launches)
 
 
 def _recorded_app(kind, device, directory, frames, first):

@@ -27,7 +27,10 @@ positions atol 1e-5 and densities rtol 1e-5 / atol 1e-3.
   frozen, as in JAX.
 - A JAX carry's leaves (utils/interop.py) and checkpoints cross the packages,
   every leaf bit-equal; the runs from there agree.
-- `cache_loop_gradients` and `mxu_loop_gradients` raise.
+
+The loop-gradient variants (`cache_loop_gradients`, `mxu_loop_gradients`)
+and their refusals are tests/test_torch_loop_gradients.py's; the sharded
+sorted route is tests/test_torch_shard_sorted.py's.
 """
 
 import dataclasses
@@ -246,8 +249,3 @@ def test_carries_cross_the_packages(tmp_path, kind):
     assert_runs_agree(run(1, ts, loaded, tb, 4), run(0, js, jloaded, jb, 4),
                       world.num_dynamic_particles)
 
-
-@pytest.mark.parametrize("flag", ["cache_loop_gradients", "mxu_loop_gradients"])
-def test_loop_gradient_variants_raise(flag):
-    with pytest.raises(ValueError, match=f"{flag} is not ported.*ROADMAP"):
-        solver(1, "dfsph", **{flag: True})

@@ -54,14 +54,35 @@ boundary's once at init (`BoundaryDense.halo`) and the source values' once
 per pass; and the reductions over live slots (`_count_live`, `_mean_live`,
 the CFL max `_max_vel_from_sq`, `_sum_counts`) run over the shards.
 
+The sorted step's rebuild calls the hook `_migrate` before its sort: one
+device has nothing to move (`(tree, 0)`); the sharded sorted solver
+(parallel/shard_dense.DFSPHShardMapSolver) sends the particles that left
+its rows to the neighbour shards in bounded buffers and reports the
+particles it could not move in `Diagnostics.migration_drops`. The padded
+step's migration is structural (K4's halo rows), so it reports 0.
+
+The JAX loop-gradient variants run on both carries, as in JAX, where both
+solvers inherit them: `cache_loop_gradients` keeps the f32 kernel gradient
+of every fluid pair, `pair_map`'s (ny, nx, P, 9P, 2), in the pair context
+(`DenseCtx.grad_dyn`) and runs the pressure loops' divergence and
+k-correction passes as `cached_pair_reduce` sums over it;
+`mxu_loop_gradients` keeps it rounded to bf16 with the f32 row sums
+(`DenseCtx.sum_grad_dyn`, the ctx pass's) and runs those passes as batched
+contractions over the (9P, 2) candidate axes, bf16 operands summed in f32
+(JAX: `lax.dot_general` with an f32 result on the MXU; here a torch matmul
+of the bf16 values as f32, TF32 off, whose products are exact). The
+viscosity pass stays K5's. They are plain tensor passes, as in JAX, where
+they are XLA outside any Pallas kernel. Refused, each with a ValueError:
+the cache with bf16 pair math, the two together, either on the K3 route,
+and either under sharding (JAX refuses the MXU form there; its cache would
+zero the neighbours' rows across a seam, a fault the port does not copy).
+
 Also here: the static boundary index space (`build_boundary_dense`), the
 padded initial layout (`_padded_init`) and `simulate`, which the plane solver
-(models/dfsph_plane.py) builds on. Not ported: the sorted solver's cached
-and MXU loop gradients (`cache_loop_gradients`, `mxu_loop_gradients`, which
-raise), and its sharded form (JAX parallel/shard_dense.py
-DFSPHShardMapSolver).
+(models/dfsph_plane.py) builds on.
 """
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
@@ -74,8 +95,11 @@ from ..ops.dense_grid import (
     DenseGridConfig,
     SlotGrid,
     build_slot_grid,
+    cached_pair_reduce,
     cell_keys,
+    neighbor_windows,
     pad_to_slots,
+    pair_map,
     require_float32_pairs,
     slots_to_sorted,
     sort_by_dense_keys,
@@ -158,6 +182,13 @@ class DenseCtx(NamedTuple):
     # the sorted carry's slot grid (sorted <-> padded conversions); None on
     # the padded-resident carry
     slots: Optional[SlotGrid] = None
+    # (ny, nx, P, 9P, 2) masked kernel gradients of the fluid pairs, for the
+    # pressure loops: f32 under cache_loop_gradients, bf16 under
+    # mxu_loop_gradients, else None
+    grad_dyn: Optional[torch.Tensor] = None
+    # (ny, nx, P, 2) f32 row sums of grad_dyn (mxu_loop_gradients only): the
+    # v_i and k_i terms of the loop passes
+    sum_grad_dyn: Optional[torch.Tensor] = None
 
 
 class DFSPHPaddedCarry(NamedTuple):
@@ -202,12 +233,18 @@ class DFSPHSlotSolver:
     # rebuild the neighbourhood every k-th step only (the JAX field; 1, the
     # default, rebuilds every step as the reference does): `simulate`
     rebuild_every: int = 1
+    # the JAX loop-gradient variants (module docstring): the pressure loops'
+    # divergence and k-correction passes over a cached gradient tensor (f32),
+    # or as bf16 contractions summed in f32
+    cache_loop_gradients: bool = False
+    mxu_loop_gradients: bool = False
 
     # K3 takes float32 only (K5 takes bf16 as its math mode); the plane
     # solver's K1 takes bf16 operands
     _bf16_operands = False
 
     def __post_init__(self):
+        self._check_loop_gradients()
         if not self._bf16_operands:
             require_float32_pairs(self.grid, type(self).__name__)
         kernel = WendlandQuinticC2(self.properties.smoothing_length)
@@ -237,6 +274,20 @@ class DFSPHSlotSolver:
             object.__setattr__(self, "_consts", bf16_consts(self._consts))
             forms = PaddedForms(*(bf16_form(f, self._consts) for f in forms))
         object.__setattr__(self, "_padded_forms", forms)
+
+    def _check_loop_gradients(self):
+        """The JAX asserts on the loop-gradient flags
+        (models/dfsph_dense.py:186-205), as ValueErrors."""
+        name = type(self).__name__
+        if self.cache_loop_gradients and self.grid.pair_dtype != "float32":
+            raise ValueError(f"{name}: cache_loop_gradients caches f32 gradients; bfloat16 "
+                             "pair math is not implemented with it")
+        if self.cache_loop_gradients and self.mxu_loop_gradients:
+            raise ValueError(f"{name}: mxu_loop_gradients excludes cache_loop_gradients")
+        if self.grid.use_pallas_slotmajor and (self.cache_loop_gradients
+                                               or self.mxu_loop_gradients):
+            raise ValueError(f"{name}: the slot-major route (use_pallas_slotmajor) excludes "
+                             "cache_loop_gradients and mxu_loop_gradients")
 
     def _make_padded_forms(self, m: float, slotmajor: bool) -> PaddedForms:
         """The pair terms as Python callables (the twins'), op for op the JAX
@@ -407,6 +458,16 @@ class DFSPHSlotSolver:
         # a tensor divisor: a Python one would become a reciprocal multiply on
         # CUDA, one ulp away from the JAX package's true division
         m_t = torch.tensor(m, dtype=REAL, device=pos_pad.device)
+        grad_dyn = sum_grad_dyn = None
+        if self.cache_loop_gradients or self.mxu_loop_gradients:
+            def gradient(ri_to_rj, r_sq, r):
+                grad = self.kernel.gradient(ri_to_rj, r_sq, r)
+                return grad.to(torch.bfloat16) if self.mxu_loop_gradients else grad
+
+            grad_dyn = pair_map(gradient, pos_pad, mask, pos_pad, mask, self.grid)
+            if self.mxu_loop_gradients:
+                # the exact f32 row sums: the ctx pass's m * sum grad
+                sum_grad_dyn = dyn[..., 1:3] / m_t
         return DenseCtx(
             pos_pad=pos_pad,
             mask=mask,
@@ -416,21 +477,47 @@ class DFSPHSlotSolver:
             alpha_pad=1.0 / torch.clamp(denom, min=ALPHA_EPSILON),
             num_dropped=dropped,
             halo=halo,
+            grad_dyn=grad_dyn,
+            sum_grad_dyn=sum_grad_dyn,
         )
 
     # --------------------------------------------------------------- pair ops
 
     def _velocity_divergence(self, ctx: DenseCtx, v_pad):
         """sum_dyn (v_i - v_j).grad + v_i.sum_grad_stat (dfsph.rs:99-126, 249-280)."""
-        dyn = self._slot_pair(self._padded_forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
-                              ctx.mask, ctx.halo, q_vals=(v_pad,), s_vals=(v_pad,))
         sgs = ctx.sum_grad_stat
-        return dyn[..., 0] + (v_pad[..., 0] * sgs[..., 0] + v_pad[..., 1] * sgs[..., 1])
+        if self.mxu_loop_gradients:
+            # sum_j (v_i - v_j).grad = v_i . sum_j grad - sum_j v_j . grad, the
+            # second term one contraction over the (9P, 2) candidate axes
+            vwin = neighbor_windows(v_pad).to(torch.bfloat16)
+            with _exact_f32_matmul():
+                term2 = torch.einsum("yxpkc,yxkc->yxp", ctx.grad_dyn.float(), vwin.float())
+            sgd = ctx.sum_grad_dyn
+            dyn = (v_pad[..., 0] * sgd[..., 0] + v_pad[..., 1] * sgd[..., 1]) - term2
+        elif ctx.grad_dyn is not None:
+            dyn = cached_pair_reduce(lambda grads, v_i, v_j: ((v_i - v_j) * grads).sum(dim=-1),
+                                     ctx.grad_dyn, source_values=(v_pad,),
+                                     query_values=(v_pad,))
+        else:
+            dyn = self._slot_pair(self._padded_forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                                  ctx.mask, ctx.halo, q_vals=(v_pad,), s_vals=(v_pad,))[..., 0]
+        return dyn + (v_pad[..., 0] * sgs[..., 0] + v_pad[..., 1] * sgs[..., 1])
 
     def _k_correction(self, ctx: DenseCtx, k_pad):
         """sum_dyn (k_i + k_j) grad + k_i sum_grad_stat (dfsph.rs:128-161)."""
-        dyn = self._slot_pair(self._padded_forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
-                              ctx.mask, ctx.halo, q_vals=(k_pad,), s_vals=(k_pad,))
+        if self.mxu_loop_gradients:
+            # sum_j (k_i + k_j) grad = k_i sum_j grad + sum_j k_j grad
+            kwin = neighbor_windows(k_pad).to(torch.bfloat16)
+            with _exact_f32_matmul():
+                term2 = torch.einsum("yxpkc,yxk->yxpc", ctx.grad_dyn.float(), kwin.float())
+            return k_pad[..., None] * (ctx.sum_grad_dyn + ctx.sum_grad_stat) + term2
+        if ctx.grad_dyn is not None:
+            dyn = cached_pair_reduce(lambda grads, k_i, k_j: (k_i + k_j)[..., None] * grads,
+                                     ctx.grad_dyn, source_values=(k_pad,),
+                                     query_values=(k_pad,))
+        else:
+            dyn = self._slot_pair(self._padded_forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                                  ctx.mask, ctx.halo, q_vals=(k_pad,), s_vals=(k_pad,))
         return dyn + k_pad[..., None] * ctx.sum_grad_stat
 
     def _viscosity_pass(self, ctx: DenseCtx, v_pad, rho_pad, dt):
@@ -497,6 +584,20 @@ class DFSPHSlotSolver:
             avg = self._mean_live(delta, ctx, n_particles) / rho0
             num += 1
         return v_pad, s_sum, num, avg
+
+
+@contextlib.contextmanager
+def _exact_f32_matmul():
+    """f32 matmuls in full f32 inside the block (no TF32 on the card), as
+    the JAX contraction's f32 result type asks."""
+    precision = torch.get_float32_matmul_precision()
+    if precision != "highest":
+        torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if precision != "highest":
+            torch.set_float32_matmul_precision(precision)
 
 
 @dataclass(frozen=True)
@@ -597,6 +698,7 @@ class DFSPHPaddedSolver(DFSPHSlotSolver):
             divergence_iterations=divergence_iters,
             avg_density_error=avg_density_error,
             avg_divergence=avg_divergence,
+            # migration is structural here: K4's halo rows
             migration_drops=0,
         )
         return new_carry, diagnostics
@@ -627,18 +729,11 @@ class DFSPHDenseSolver(DFSPHSlotSolver):
     """DFSPH with the sorted carry (module docstring): a per-step sort and
     slot build instead of K4, the pair passes on K3 or K5."""
 
-    # the JAX loop-gradient variants (a cached (ny, nx, P, 9P, 2) gradient
-    # tensor; its bf16 MXU contraction): not ported, they raise
-    cache_loop_gradients: bool = False
-    mxu_loop_gradients: bool = False
-
-    def __post_init__(self):
-        for flag in ("cache_loop_gradients", "mxu_loop_gradients"):
-            if getattr(self, flag):
-                raise ValueError(
-                    f"DFSPHDenseSolver: {flag} is not ported (ROADMAP Queue 1, "
-                    "'The loop-gradient variants of the sorted solver')")
-        super().__post_init__()
+    def _migrate(self, tree, positions, alive):
+        """Move the particles that left this shard's rows to the neighbour
+        shards (the sharded sorted solver); one device has nothing to move.
+        Returns (tree, particles that could not move)."""
+        return tree, 0
 
     def _slot_ctx(self, pos_pad, slots: SlotGrid, boundary: BoundaryDense,
                   dropped=None) -> DenseCtx:
@@ -720,6 +815,10 @@ class DFSPHDenseSolver(DFSPHSlotSolver):
             packed = torch.cat([positions, predicted, pk[:, 2:3],
                                 carry.warmstart_stiffness[:, None],
                                 alive.to(REAL)[:, None]], dim=1)
+            (packed, alive), migration_drops = self._migrate((packed, alive), positions, alive)
+            # migration may have deadened the rows it sent away: refresh the
+            # alive column
+            packed = torch.cat([packed[:, :6], alive.to(REAL)[:, None]], dim=1)
             (packed,), sorted_keys = self._sort((packed,), packed[:, :2], alive)
             alive = packed[:, 6] > 0.5
             positions = packed[:, :2]
@@ -731,6 +830,7 @@ class DFSPHDenseSolver(DFSPHSlotSolver):
             stiff_pad = pad6[..., 5].contiguous()
             ctx = self._slot_ctx(pad6[..., :2].contiguous(), slots, boundary)
         else:
+            migration_drops = 0
             stiff_pad = carry.stiff_pad
             ctx = self._slot_ctx(ctx.pos_pad + pred_pad * float(dt), ctx.slots, boundary,
                                  ctx.num_dropped)
@@ -769,6 +869,6 @@ class DFSPHDenseSolver(DFSPHSlotSolver):
             divergence_iterations=divergence_iters,
             avg_density_error=avg_density_error,
             avg_divergence=avg_divergence,
-            migration_drops=0,
+            migration_drops=migration_drops,
         )
         return new_carry, diagnostics

@@ -23,6 +23,13 @@ and plane carries' per-step rebuild is the windowed re-bucket
 (ops/rebucket.py in plane form, ops/sm_rebucket.py in this slot layout),
 which takes its move codes from `move_codes`.
 
+The DFSPH solvers' loop-gradient variants (`cache_loop_gradients`,
+`mxu_loop_gradients`, models/dfsph_dense.py) run on three plain tensor
+functions here, as in the JAX package, where they are XLA and no Pallas
+kernel: `neighbor_windows` (the 3 x 3 cell views as one candidate axis),
+`pair_map` (a per-pair map, invalid pairs exact zeros) and
+`cached_pair_reduce` (a sum over the candidate axis of a cached map).
+
 The slot build is bit-for-bit the JAX package's: same f32 cell-coordinate
 arithmetic, a stable sort (jax.lax.sort is stable, so ties keep input order),
 same clamped slot indices, same overflow accounting.
@@ -223,3 +230,47 @@ def move_codes(positions_pad: torch.Tensor, mask: torch.Tensor,
     dx = torch.clamp(cx - ix, -1, 1)
     code = (dy + 1) * 3 + (dx + 1) + 1
     return torch.where(mask, code, 0).to(torch.uint8)
+
+
+def neighbor_windows(padded: torch.Tensor) -> torch.Tensor:
+    """(ny, nx, P, ...) -> (ny, nx, 9P, ...): each cell's candidates, the slots
+    of its 3 x 3 cells in (dy, dx) order, zero rows and columns at the border
+    (the JAX function; under sharding too: no halo)."""
+    ny, nx = padded.shape[:2]
+    full = padded.new_zeros((ny + 2, nx + 2) + tuple(padded.shape[2:]))
+    full[1:-1, 1:-1] = padded
+    return torch.cat([full[dy:dy + ny, dx:dx + nx] for dy in range(3) for dx in range(3)],
+                     dim=2)
+
+
+def pair_map(fn, query_pos: torch.Tensor, query_mask: torch.Tensor,
+             source_pos: torch.Tensor, source_mask: torch.Tensor, grid: DenseGridConfig):
+    """fn(ri_to_rj, r_sq, r) on every (query, candidate) pair, without a sum:
+    each output leaf (a tensor or a tuple of them) is (ny, nx, P, 9Ps[, D]),
+    zero where the pair is invalid (a dead slot, out of the radius, or the
+    particle itself: r_sq <= radius_sq and r_sq > MIN_DISTANCE_SQ, as in JAX).
+    9Ps times the slot count: the caller owns the memory."""
+    cand_pos = neighbor_windows(source_pos)
+    cand_mask = neighbor_windows(source_mask)
+    ri_to_rj = cand_pos[:, :, None, :, :] - query_pos[:, :, :, None, :]
+    r_sq = (ri_to_rj * ri_to_rj).sum(dim=-1)
+    valid = (query_mask[:, :, :, None] & cand_mask[:, :, None, :]
+             & (r_sq <= f32_scalar(grid.radius_sq)) & (r_sq > f32_scalar(MIN_DISTANCE_SQ)))
+    out = fn(ri_to_rj, r_sq, torch.sqrt(r_sq))
+
+    def mask_leaf(leaf):
+        m = valid if leaf.ndim == valid.ndim else valid[..., None]
+        return torch.where(m, leaf, torch.zeros((), dtype=leaf.dtype, device=leaf.device))
+
+    return tuple(mask_leaf(t) for t in out) if isinstance(out, tuple) else mask_leaf(out)
+
+
+def cached_pair_reduce(fn, cache, source_values=(), query_values=()):
+    """The sum over the candidate axis of fn(cache, *query values, *candidate
+    values): candidates arrive windowed as (ny, nx, 1, 9Ps[, D]), queries as
+    (ny, nx, P, 1[, D]). The cache (pair_map's) is zero on invalid pairs, so
+    each term of fn must be proportional to it (the JAX contract)."""
+    cand = [neighbor_windows(v)[:, :, None] for v in source_values]
+    q = [v[:, :, :, None] if v.ndim == 3 else v[:, :, :, None, :] for v in query_values]
+    out = fn(cache, *q, *cand)
+    return tuple(t.sum(dim=3) for t in out) if isinstance(out, tuple) else out.sum(dim=3)

@@ -14,6 +14,12 @@ global grid. `SpaceGroup` is one process's view of the group:
   `halo2d_multi` send all their operands in one `ppermute` pair. At the ends
   of the mesh the received rows are zero bytes: mask False, zero values,
   dead.
+- `shift(up, down)` sends the tensors `up` to the next shard and `down` to
+  the previous one and returns what the neighbours sent this shard (the JAX
+  `lax.ppermute` pair of `fwd` (i -> i + 1) and `bwd` (i + 1 -> i)
+  permutations), one packed exchange pair; the sorted route's migration
+  buffers travel so. At the ends of the mesh the received tensors are
+  zeros, as `ppermute` fills the shards it does not address.
 - `sum(x)` and `max(x)` all-reduce a 0-d tensor; `all_gather(x)` stacks every
   shard's tensor along dim 0 in shard order.
 
@@ -83,9 +89,19 @@ class SpaceGroup:
         ends of the mesh. One packed exchange pair for all tensors."""
         first = [p.narrow(dim, 0, 1) for p in planes]
         last = [p.narrow(dim, p.shape[dim] - 1, 1) for p in planes]
+        return self.shift(last, first)
+
+    def shift(self, up: Sequence[torch.Tensor], down: Sequence[torch.Tensor]
+              ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """(from_below, from_above): the tensors `up` that the previous shard
+        sent and the tensors `down` that the next shard sent, shaped and
+        typed as this shard's own, on this device; zeros at the ends of the
+        mesh. `up` goes to the next shard, `down` to the previous one, in one
+        packed exchange pair. Every shard's tensors must have the same
+        shapes."""
         recv_below, recv_above = None, None
         if self.size > 1:
-            send_up, send_down = self._wire(_pack(last)), self._wire(_pack(first))
+            send_up, send_down = self._wire(_pack(up)), self._wire(_pack(down))
             recv_below, recv_above = torch.empty_like(send_up), torch.empty_like(send_down)
             ops = []
             if self.rank + 1 < self.size:
@@ -100,9 +116,7 @@ class SpaceGroup:
                 recv_below = None
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        below = _unpack(recv_below, last, self.device)
-        above = _unpack(recv_above, first, self.device)
-        return below, above
+        return _unpack(recv_below, up, self.device), _unpack(recv_above, down, self.device)
 
     def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         if self.size == 1:

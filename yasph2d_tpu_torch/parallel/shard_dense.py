@@ -16,7 +16,7 @@ of `shard_map`:
   against the global origin and clamped to the global rows, then to the
   shard's (JAX `_SpatialCollectives._sort`).
 
-Two shard routes share these collectives and one driver (`_ShardedBase`):
+Three shard routes share these collectives and one driver (`_ShardedBase`):
 
 - **DFSPHPaddedShardSolver / ShardedDFSPHPadded** and **WCSPHPaddedShardSolver
   / ShardedWCSPHPadded** (here): the padded steps (models/dfsph_dense.py,
@@ -37,6 +37,27 @@ Two shard routes share these collectives and one driver (`_ShardedBase`):
   form: each shard rebases its positions on its global cell rows
   (`row0`), and the halo rows on the neighbours' rows, as the JAX XLA
   route rebases before it exchanges.
+- **DFSPHShardMapSolver / ShardedDFSPHDense** (here; JAX's conformance
+  bridge): the sorted step (models/dfsph_dense.DFSPHDenseSolver) on each
+  shard's block of a fixed capacity (dead rows behind the live ones), its
+  pair passes on K5's halo forms through the same hooks (a bf16 grid:
+  K5's bf16 halo form, rebased on the shard's global rows). Each rebuild
+  first migrates: the particles whose global cell row left the shard's
+  rows go to the neighbour shard, at most `migration_slots` each way, in
+  one (m, K+1) f32 buffer a direction (the carry's packed columns and a
+  valid flag) through one exchange pair (`SpaceGroup.shift`), the senders
+  taken in block order (a stable sort) and the rest left alive where they
+  are until a later rebuild; the shard's rows, then the arrivals from
+  below and from above, are compacted live-first (stable) into the
+  block's fixed rows. The senders left behind and the live rows beyond the
+  capacity (those are lost) are `Diagnostics.migration_drops`, summed
+  over the shards. The JAX route (shard_dense.py:170-438) is this,
+  operation for operation; with `grid.use_pallas` its passes would pad
+  zeros where the neighbour's rows belong, which the port does not copy.
+  The result is the one-device sorted step's iterations and drops, and its
+  positions to f32 drift, not bit for bit: an arrival is appended behind
+  the shard's rows before the stable cell sort, so it can take another
+  slot in its cell than on one device, and K5 sums in slot order.
 - **the plane route** (parallel/shard_plane.py): K1's and K2's halo forms.
 
 The result is the one-device step's on the same grid: the same iterations and
@@ -59,11 +80,11 @@ scene, e.g. inside `comm.spawn`:
 
     rows = comm.spawn(run, 2, "gloo", ["cuda:0", "cuda:0"], world, 20)[0]
 
-Not ported yet: the sorted-carry `DFSPHShardMapSolver` / `ShardedDFSPHDense`
-and their bounded migration buffers (the one-device sorted solver is
-models/dfsph_dense.DFSPHDenseSolver); `SPACE_AXIS`
-and `make_space_mesh`, the names of a `shard_map` mesh (here the process
-group is the axis).
+The loop-gradient variants (`cache_loop_gradients`, `mxu_loop_gradients`)
+are refused under sharding: their cached pair map has no halo exchange.
+
+Not ported: `SPACE_AXIS` and `make_space_mesh`, the names of a `shard_map`
+mesh (here the process group is the axis).
 """
 
 import dataclasses
@@ -72,11 +93,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..models.dfsph_dense import BoundaryDense, DFSPHPaddedSolver
+from ..models.dfsph_dense import BoundaryDense, DenseCtx, DFSPHDenseSolver, DFSPHPaddedSolver
 from ..models.wcsph_dense import WCSPHPaddedSolver
 from ..ops.dense_grid import DenseGridConfig, cell_coords, sort_by_dense_keys
 from ..ops.planes import Halo
-from ..units import REAL_NP
+from ..units import REAL, REAL_NP
 from ..world import ParticleState
 from .comm import SpaceGroup
 
@@ -90,23 +111,44 @@ def make_local_grid(full_grid: DenseGridConfig, n_shards: int) -> DenseGridConfi
     return dataclasses.replace(full_grid, ny=full_grid.ny // n_shards)
 
 
-def distribute(state: ParticleState, full_grid: DenseGridConfig,
-               n_shards: int) -> List[ParticleState]:
+def _owners(state: ParticleState, full_grid: DenseGridConfig, n_shards: int):
+    """The shard that owns each particle's cell row (the f32 row the solvers
+    compute, dense_grid.cell_coords), and each shard's live count."""
+    _, cy = cell_coords(state.positions, full_grid)
+    shard = torch.clamp(cy // (full_grid.ny // n_shards), 0, n_shards - 1)
+    return shard, torch.bincount(shard[state.alive], minlength=n_shards)
+
+
+def default_capacity(state: ParticleState, full_grid: DenseGridConfig, n_shards: int) -> int:
+    """The sorted route's rows a shard (JAX ShardedDFSPHDense.distribute):
+    the fullest shard's live count with a quarter of slack for migration,
+    plus 64."""
+    return int(int(_owners(state, full_grid, n_shards)[1].max()) * 1.25) + 64
+
+
+def distribute(state: ParticleState, full_grid: DenseGridConfig, n_shards: int,
+               capacity: Optional[int] = None) -> List[ParticleState]:
     """Host side: the live particles of `state` bucketed by the shard that owns
     their cell row, in input order; one ParticleState per shard. The cell row
     is the f32 one the solvers compute (dense_grid.cell_coords), so no
-    particle starts on a shard that does not own its cell. The JAX version
-    pads each block to a fixed capacity for shard_map; the port's shapes
-    need not be equal."""
-    ny_l = full_grid.ny // n_shards
-    _, cy = cell_coords(state.positions, full_grid)
-    shard = torch.clamp(cy // ny_l, 0, n_shards - 1)
+    particle starts on a shard that does not own its cell. With a `capacity`
+    (the sorted route's fixed rows a shard) each block is padded with dead
+    rows (zeros, alive False) to that length, as in JAX, and a shard with
+    more live particles raises; without one the blocks hold the live rows
+    only (the padded and plane routes)."""
+    shard, counts = _owners(state, full_grid, n_shards)
+    if capacity is not None and int(counts.max()) > capacity:
+        raise ValueError(f"shard overflow: {int(counts.max())} live particles > "
+                         f"capacity {capacity}")
     blocks = []
     for d in range(n_shards):
         sel = torch.nonzero((shard == d) & state.alive).reshape(-1)
-        blocks.append(ParticleState(
-            positions=state.positions[sel], velocities=state.velocities[sel],
-            densities=state.densities[sel], alive=state.alive[sel]))
+        block = ParticleState(*(t[sel] for t in state))
+        if capacity is not None:
+            block = ParticleState(*(torch.cat([t, t.new_zeros((capacity - t.shape[0],)
+                                                               + tuple(t.shape[1:]))])
+                                    for t in block))
+        blocks.append(block)
     return blocks
 
 
@@ -160,9 +202,10 @@ class _SpatialCollectives:
         return self.group.sum(count)
 
 
-class _PaddedCollectives(_SpatialCollectives):
-    """The padded solvers' sharding hooks; K5 is their only pair kernel with
-    a halo form."""
+class _SlotCollectives(_SpatialCollectives):
+    """The slot-layout (padded and sorted) solvers' sharding hooks; K5 is
+    their only pair kernel with a halo form, and the loop-gradient variants
+    have none."""
 
     def __post_init__(self):
         if self.grid.use_pallas_slotmajor:
@@ -170,11 +213,20 @@ class _PaddedCollectives(_SpatialCollectives):
             raise ValueError("the vector-last slot-major (sm_*) path has no halo "
                              "collectives; sharded slot-major runs through the plane-form "
                              "solvers (parallel/shard_plane.py)")
+        if getattr(self, "mxu_loop_gradients", False):
+            # the JAX package's assert (models/dfsph_dense.py:199-202)
+            raise ValueError("mxu_loop_gradients under sharding: pair_map has no halo "
+                             "exchange (a one-device variant)")
+        if getattr(self, "cache_loop_gradients", False):
+            # JAX runs it, its pair_map zero-padding the neighbour's rows
+            raise ValueError("cache_loop_gradients under sharding: the cached pair map has "
+                             "no halo exchange, so an edge row would lose its neighbours "
+                             "across the seam")
         super().__post_init__()
 
 
 @dataclasses.dataclass(frozen=True)
-class DFSPHPaddedShardSolver(_PaddedCollectives, DFSPHPaddedSolver):
+class DFSPHPaddedShardSolver(_SlotCollectives, DFSPHPaddedSolver):
     """The padded DFSPH step on one shard; `grid` is the shard's
     (make_local_grid), `group` its SpaceGroup."""
 
@@ -182,11 +234,82 @@ class DFSPHPaddedShardSolver(_PaddedCollectives, DFSPHPaddedSolver):
 
 
 @dataclasses.dataclass(frozen=True)
-class WCSPHPaddedShardSolver(_PaddedCollectives, WCSPHPaddedSolver):
+class WCSPHPaddedShardSolver(_SlotCollectives, WCSPHPaddedSolver):
     """The padded WCSPH step on one shard: the halo exchanges, the CFL max and
     the drop sum are its only collectives (WCSPH has no residual loops)."""
 
     group: SpaceGroup = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DFSPHShardMapSolver(_SlotCollectives, DFSPHDenseSolver):
+    """The sorted DFSPH step on one shard's block (module docstring); `grid`
+    is the shard's (make_local_grid), `group` its SpaceGroup. After each
+    step `last_migration` holds the particles this shard sent up and down
+    at its last rebuild (0-d tensors)."""
+
+    group: SpaceGroup = None
+    migration_slots: int = 256
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "last_migration", {})
+
+    def _migrate(self, tree, positions, alive):
+        """Bounded migration to the neighbour shards (JAX
+        DFSPHShardMapSolver._migrate, operation for operation). `tree` is
+        (*data, alive), data (N, ...) per-particle tensors; returns the new
+        tree (the same N rows) and the migration drops summed over the
+        shards."""
+        g = self.grid
+        m = self.migration_slots
+        n_local = positions.shape[0]
+        _, cy = cell_coords(positions, dataclasses.replace(g, ny=g.ny * self._n_shards))
+        ly = cy - self._rebucket_row0()
+        *data, _ = tree
+
+        def pack(flags):
+            # senders first, in block order (a stable sort), the first m sent
+            idx = torch.argsort((~flags).to(torch.uint8), stable=True)[:m]
+            valid = flags[idx]
+            unsent = flags.sum() - valid.sum()
+            packed = torch.cat([a[idx].reshape(idx.shape[0], -1).to(REAL) for a in data]
+                               + [valid[:, None].to(REAL)], dim=1)
+            if idx.shape[0] < m:  # a block of fewer than m rows: empty buffer rows
+                packed = torch.cat([packed, packed.new_zeros((m - idx.shape[0],
+                                                              packed.shape[1]))])
+            sent = torch.zeros_like(flags)
+            sent[idx] = valid
+            return packed, sent, unsent
+
+        def unpack(buf):
+            out, o = [], 0
+            for a in data:
+                k = int(np.prod(a.shape[1:], dtype=np.int64))
+                out.append(buf[:, o:o + k].reshape((m,) + tuple(a.shape[1:])).to(a.dtype))
+                o += k
+            return out, buf[:, -1] > 0.5
+
+        up, sent_up, unsent_up = pack(alive & (ly >= g.ny))
+        down, sent_down, unsent_down = pack(alive & (ly < 0))
+        # one exchange pair: up to the next shard, down to the previous; the
+        # ends of the mesh receive zeros (valid 0)
+        (from_below,), (from_above,) = self.group.shift([up], [down])
+        below, valid_below = unpack(from_below)
+        above, valid_above = unpack(from_above)
+
+        # the shard's rows, then the arrivals from below and from above,
+        # compacted live-first (stable) into the block's fixed rows; the
+        # live rows beyond them are lost and counted
+        stay = alive & ~sent_up & ~sent_down
+        big = [torch.cat([a, b, c]) for a, b, c in zip(data, below, above)]
+        big_alive = torch.cat([stay, valid_below, valid_above])
+        keep = torch.argsort((~big_alive).to(torch.uint8), stable=True)[:n_local]
+        kept_alive = big_alive[keep]
+        capacity_drops = big_alive.sum() - kept_alive.sum()
+        drops = self.group.sum(unsent_up + unsent_down + capacity_drops)
+        self.last_migration.update(up=sent_up.sum(), down=sent_down.sum())
+        return tuple(a[keep] for a in big) + (kept_alive,), int(drops)
 
 
 class _ShardedBase:
@@ -227,9 +350,14 @@ class _ShardedBase:
         """(carry, boundary) of this shard. `state` is the whole scene and
         `boundary` the full grid's (world.boundary_dense(full_grid)), the same
         on every shard; pass the returned boundary to step / simulate."""
-        local = distribute(state, self.full_grid, self.group.size)[self.group.rank]
+        local = distribute(state, self.full_grid, self.group.size,
+                           self._capacity(state))[self.group.rank]
         b = self._boundary(self.local_boundary(boundary))
         return self.solver.init_carry(local, b), b
+
+    def _capacity(self, state: ParticleState) -> Optional[int]:
+        """The rows of a shard's block: the live rows only (None)."""
+        return None
 
     # step / simulate: the API of the JAX sharded classes, so that a sharded run
     # is driven as a one-device solver is
@@ -238,6 +366,16 @@ class _ShardedBase:
 
     def simulate(self, carry, boundary, num_steps: int):
         return self.solver.simulate(carry, boundary, num_steps)
+
+    def resume(self, carry):
+        """A DFSPH slot carry (padded or sorted) loaded from a checkpoint or
+        converted from the JAX package's leaves, with its pair context's halo
+        rows exchanged anew: a checkpoint holds none (the JAX carry has no
+        such field), and the first passes of a step read them."""
+        if not isinstance(getattr(carry, "ctx", None), DenseCtx):
+            raise TypeError(f"resume takes a DFSPH slot carry, got {type(carry).__name__}")
+        ctx = carry.ctx
+        return carry._replace(ctx=ctx._replace(halo=self.solver._halo((ctx.pos_pad, ctx.mask))))
 
     def export_state(self, carry) -> ParticleState:
         """The one-device solver's export_state of the full grid (slot order:
@@ -263,3 +401,24 @@ class ShardedWCSPHPadded(_ShardedBase):
     """The padded WCSPH solver over the spatial group (JAX ShardedWCSPHPadded)."""
 
     SOLVER_CLS = WCSPHPaddedShardSolver
+
+
+class ShardedDFSPHDense(_ShardedBase):
+    """The sorted DFSPH solver over the spatial group (JAX ShardedDFSPHDense):
+    each shard's block has `capacity` rows (None: default_capacity of the
+    scene), and each rebuild migrates at most `migration_slots` particles
+    each way. `export_state` gathers every shard's block (capacity rows
+    each, dead rows included) in shard order; `gather_live_rows` its live
+    rows."""
+
+    SOLVER_CLS = DFSPHShardMapSolver
+
+    def __init__(self, group: SpaceGroup, viscosity_model, properties,
+                 full_grid: DenseGridConfig, step_config, capacity: Optional[int] = None,
+                 migration_slots: int = 256, **solver_kwargs):
+        super().__init__(group, viscosity_model, properties, full_grid, step_config,
+                         migration_slots=migration_slots, **solver_kwargs)
+        self.capacity = capacity
+
+    def _capacity(self, state: ParticleState) -> int:
+        return self.capacity or default_capacity(state, self.full_grid, self.group.size)

@@ -55,6 +55,10 @@ class SolverSpec(NamedTuple):
     # DFSPHPlaneSolver's fuse_loop_elementwise and fuse_ctx_elementwise (the
     # bench's YASPH_BENCH_FUSE_LOOPS / YASPH_BENCH_FUSE_CTX, bench.py:204-212)
     fused: bool = True
+    # a DFSPH slot solver's loop-gradient variant switched on: "" (none),
+    # "cache_loop_gradients" or "mxu_loop_gradients" (the bench's
+    # YASPH_BENCH_MXU, bench.py:220)
+    loop_gradients: str = ""
 
 
 # The bench's solver configurations on one scene, by name. The bench's own
@@ -64,7 +68,9 @@ class SolverSpec(NamedTuple):
 # step with both fuse switches off. The bench's `table` backend is
 # `dfsph_table` (bench.py:228-236), its `dense` backend `dfsph_dense`
 # (bench.py:214-217; K3, `*_k5` on K5); the WCSPH table and sorted solvers
-# are the config's kinds of the same names.
+# are the config's kinds of the same names. The `*_cached` and `*_mxu`
+# entries are the DFSPH slot solvers' loop-gradient variants on the K5
+# route, f32 grid.
 SOLVERS = {
     "dfsph_plane": SolverSpec("dfsph_plane", True, 1.5),
     "dfsph_padded": SolverSpec("dfsph_padded", True, 1.5),
@@ -84,6 +90,12 @@ SOLVERS = {
     "wcsph_dense": SolverSpec("wcsph_dense", True, 0.2),
     "wcsph_dense_k5": SolverSpec("wcsph_dense", False, 0.2),
     "dfsph_dense_k5_bf16": SolverSpec("dfsph_dense", False, 1.5, "bfloat16"),
+    "dfsph_dense_cached": SolverSpec("dfsph_dense", False, 1.5,
+                                     loop_gradients="cache_loop_gradients"),
+    "dfsph_padded_cached": SolverSpec("dfsph_padded", False, 1.5,
+                                      loop_gradients="cache_loop_gradients"),
+    "dfsph_dense_mxu": SolverSpec("dfsph_dense", False, 1.5,
+                                  loop_gradients="mxu_loop_gradients"),
 }
 
 
@@ -106,6 +118,8 @@ def bench_solver(kind: str, world: FluidParticleWorld, device="cuda", occupancy=
                                pair_dtype=pair_dtype or spec.pair_dtype)
     switches = {} if spec.fused else dict(fuse_loop_elementwise=False,
                                           fuse_ctx_elementwise=False)
+    if spec.loop_gradients:
+        switches[spec.loop_gradients] = True
     solver = build_solver(
         spec.kind, world,
         viscosity_model=y.XSPHViscosityModel(world.properties.smoothing_length),

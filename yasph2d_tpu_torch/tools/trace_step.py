@@ -5,7 +5,8 @@
                   dfsph_padded_k5|dfsph_padded_k5_bf16|wcsph_padded|wcsph_padded_k5|
                   wcsph_padded_k5_bf16|wcsph_plane|wcsph_plane_bf16|dfsph_table|
                   wcsph_table|dfsph_dense|dfsph_dense_k5|dfsph_dense_k5_bf16|
-                  wcsph_dense|wcsph_dense_k5]
+                  wcsph_dense|wcsph_dense_k5|dfsph_dense_cached|
+                  dfsph_padded_cached|dfsph_dense_mxu]
         [--particles 100000]
         [--settle 50] [--steps 20] [--trace out.json]
 
@@ -13,7 +14,8 @@ Runs the double dam-break on the card, with the solver as
 `scenes.bench_solver` builds it (`*_table`: the neighbour-table solvers, in
 torch operations; `*_dense`: the sorted carries; `*_k5`: the padded or sorted
 solver on K5 instead of K3; `*_bf16`: K1's bf16 operands or K5's bf16 math
-mode; `*_unfused`: the DFSPH plane step's glue in torch; adaptive CFL 1.5 for
+mode; `*_unfused`: the DFSPH plane step's glue in torch; `*_cached`,
+`*_mxu`: the loop-gradient variants on K5, f32; adaptive CFL 1.5 for
 DFSPH, 0.2 for WCSPH): `--settle` steps first
 (per-window ms/step, iteration counts and drops are printed), then `--steps`
 steps under torch.profiler. Reports the host-clock ms/step of the profiled

@@ -15,12 +15,22 @@ The padded carries (DFSPHPaddedCarry, WCSPHPaddedCarry), the table carries
 paths and dtypes, so a checkpoint of the JAX package's carry loads into the
 port and the reverse (the JAX slot-major route's carry also holds its TPU
 band geometry, `ctx/sm/...`, which the port neither writes nor reads). The plane carries round-trip within the port: the JAX `PlaneCtx`
-holds TPU geometry. A bfloat16 tensor (K1's bf16 geometry) is stored as its
-int16 bits.
+holds TPU geometry. The loop-gradient variants' cache (`ctx/grad_dyn`,
+`ctx/sum_grad_dyn`) is a leaf like any other. A bfloat16 tensor (K1's bf16
+geometry, the MXU form's gradient cache) is stored as its int16 bits; a
+bfloat16 leaf that the JAX package saved reads back as two raw bytes an
+element (numpy's void `|V2`: numpy has no bfloat16) and loads bit for bit.
+(The JAX package cannot load its own bfloat16 leaves: it casts the raw bytes.)
+
+A sharded carry's halo rows (`DenseCtx.halo`, the neighbour shards' rows)
+are derived from the carry by an exchange: they are not saved, a loaded
+carry has none, and the sharded driver's `resume` exchanges them anew.
 """
 
 import numpy as np
 import torch
+
+from ..ops.planes import Halo
 
 
 def _is_node(tree) -> bool:
@@ -29,8 +39,8 @@ def _is_node(tree) -> bool:
 
 def _leaves(tree, prefix=""):
     """[(path, leaf)] of a nested NamedTuple in field order; None fields
-    have no leaf."""
-    if tree is None:
+    and halo rows have no leaf."""
+    if tree is None or isinstance(tree, Halo):
         return []
     if _is_node(tree):
         out = []
@@ -41,8 +51,8 @@ def _leaves(tree, prefix=""):
 
 
 def _rebuild(tree, values, prefix=""):
-    """`tree` with each leaf replaced by values[path]."""
-    if tree is None:
+    """`tree` with each leaf replaced by values[path]; halo rows become None."""
+    if tree is None or isinstance(tree, Halo):
         return None
     if _is_node(tree):
         return type(tree)(*(_rebuild(getattr(tree, name), values, f"{prefix}{name}/")
@@ -62,7 +72,10 @@ def _to_numpy(leaf) -> np.ndarray:
 def _from_numpy(stored: np.ndarray, leaf):
     """`stored` as the template leaf's type, dtype and device."""
     if isinstance(leaf, torch.Tensor):
-        t = torch.from_numpy(np.array(stored))
+        stored = np.array(stored)
+        if stored.dtype.kind == "V" and stored.dtype.itemsize == 2:  # JAX's bfloat16
+            stored = stored.view(np.int16)
+        t = torch.from_numpy(stored)
         t = t.view(torch.bfloat16) if leaf.dtype == torch.bfloat16 else t.to(leaf.dtype)
         return t.to(leaf.device)
     return type(leaf)(stored[()])  # a numpy scalar, or a Python int, float or bool

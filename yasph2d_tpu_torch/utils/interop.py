@@ -16,7 +16,10 @@ as numpy arrays and crop them to the port's (P, ny, nx) layout.
 DFSPHPaddedCarry, already in the port's (ny, nx, P[, 2]) layout):
   ctx.pos_pad, ctx.mask, ctx.sum_grad_stat, ctx.neighbor_total,
   ctx.densities_pad, ctx.alpha_pad, ctx.num_dropped, v_pad, kappa_pad,
-  stiff_pad, prev_density_iterations, prev_divergence_iterations, time.*.
+  stiff_pad, prev_density_iterations, prev_divergence_iterations, time.*;
+  and, where the loop-gradient variants cached them, ctx.grad_dyn (f32, or
+  bfloat16 as numpy holds it: the ml_dtypes type or two raw bytes) and
+  ctx.sum_grad_dyn.
 `wcsph_padded_carry_from_numpy` keys (fields of yasph2d_tpu WCSPHPaddedCarry,
 already in the port's (ny, nx, P[, 2]) layout): pos_pad, v_pad, accel_pad,
   dens_pad, mask, time.*.
@@ -36,7 +39,10 @@ DFSPHDenseCarry): particles.*, alpha, warmstart_stiffness, v_pad, kappa_pad,
   densities_pad, alpha_pad, num_dropped}, ctx.slots.{slot_idx, slot_mask,
   inverse, in_grid, num_dropped}, prev_density_iterations,
   prev_divergence_iterations, time.* (the JAX slot-major route's TPU band
-  geometry, ctx.sm.*, has no counterpart and is not read).
+  geometry, ctx.sm.*, has no counterpart and is not read), ctx.grad_dyn and
+  ctx.sum_grad_dyn as for the padded carry. One shard's block of a JAX
+  sharded sorted carry converts the same way; the sharded driver's
+  `resume` then exchanges its halo rows.
 
 Every converter makes its tensors on the card unless given a `device` (the
 CPU tests pass device="cpu"). `carry_from_numpy` and `boundary_from_numpy`
@@ -102,9 +108,21 @@ def _time(leaves: dict) -> TimeState:
     )
 
 
+def _bf16_or_f32(a, device) -> torch.Tensor:
+    """A float leaf as a tensor: bfloat16 (numpy's ml_dtypes type, or the
+    raw two bytes an element of an .npz) bit for bit, else f32."""
+    a = np.array(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.as_tensor(a.view(np.int16), device=device).view(torch.bfloat16)
+    return torch.as_tensor(a, device=device).to(REAL)
+
+
 def dfsph_padded_carry_from_numpy(leaves: dict, device="cuda") -> DFSPHPaddedCarry:
     def slots(key, dtype=REAL):
         return torch.as_tensor(np.array(leaves[key]), device=device).to(dtype)
+
+    def cached(key):
+        return _bf16_or_f32(leaves[key], device) if key in leaves else None
 
     ctx = DenseCtx(
         pos_pad=slots("ctx.pos_pad"),
@@ -114,6 +132,8 @@ def dfsph_padded_carry_from_numpy(leaves: dict, device="cuda") -> DFSPHPaddedCar
         densities_pad=slots("ctx.densities_pad"),
         alpha_pad=slots("ctx.alpha_pad"),
         num_dropped=slots("ctx.num_dropped", INDEX),
+        grad_dyn=cached("ctx.grad_dyn"),
+        sum_grad_dyn=cached("ctx.sum_grad_dyn"),
     )
     return DFSPHPaddedCarry(
         ctx=ctx,
