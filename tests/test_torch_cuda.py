@@ -16,7 +16,10 @@ K2 (spatial sharding) are bit-equal to their twins and, band by band, to the
 one-device kernels on the whole grid; the sharded plane steps on two gloo
 ranks sharing the card equal the one-device step. So do the halo forms of K5
 (to its twin at K5's tolerance, to the one-device kernel's rows bit for bit)
-and K4 (bit for bit), and the sharded padded K5 steps. The table solvers
+and K4 (bit for bit, also on a band whose arrivals all come from its halo
+rows), and the sharded padded K5 steps. K5's bf16 math mode equals its twin
+bit for bit where each view holds at most one live source (no sum has an
+order to differ in), at every launch shape tile_shape can pick. The table solvers
 (plain tensor operations) and the sorted solvers (K3 or K5, no K4) on the
 card agree with themselves on the CPU, and keep every tensor on the card."""
 
@@ -1441,17 +1444,137 @@ def test_tile_pair_kernel_bf16_forms_match_twin(device, k3case, form, source):
     assert float(full.abs().sum()) > 0
 
 
-@pytest.mark.parametrize("overflow", [False, True], ids=["seams", "overflow"])
+def _halvings(tile):
+    """Every launch shape that tile_shape can pick starting from `tile`: it
+    halves the longer side (TY on a tie) down to 1 x 1."""
+    ty, tx, threads = tile
+    out = [tile]
+    while (ty, tx) != (1, 1):
+        if ty >= tx:
+            ty //= 2
+        else:
+            tx //= 2
+        out.append((ty, tx, threads))
+    return out
+
+
+@pytest.fixture(scope="module")
+def sparse(device, k3case):
+    """A P = 4 slot space on K3's ragged 23 x 37 grid holding at most one live
+    slot a cell (dead slots' rho NaN): every view of a query holds at most one
+    candidate, so no sum has an order in which to differ."""
+    h = k3case[0].grid.cell_size
+    (pos, mask), vals = _slot_space(np.random.default_rng(31), 23, 37, 4, h, 0.5, np.nan)
+    mask &= np.cumsum(mask, axis=-1) == 1
+    pos = np.where(mask[..., None], pos, 0.0).astype(np.float32)
+    assert int(mask.sum(-1).max()) == 1 and int(mask.sum()) > 300
+    t = lambda a: torch.as_tensor(a).to(device)  # noqa: E731
+    return (t(pos), t(mask)), {k: t(v) for k, v in vals.items()}
+
+
+@pytest.mark.parametrize("halo", [False, True], ids=["one_device", "halo"])
+@pytest.mark.parametrize("form", list(tpp.cuda_build.TILE_PAIR_FORMS))
+def test_tile_pair_kernel_bf16_forms_bit_equal_to_twin(device, k3case, sparse, form, halo):
+    """Every K5 launcher in its bf16 math mode, one-device and halo form (the
+    row bands of SLOT_BANDS), on a space with at most one live source a cell:
+    per pair the kernel's bf16 instructions give the bits of the twin's f32
+    operations rounded to bf16, and no sum has an order to differ in, so the
+    kernel equals its twin bit for bit; so does it at every launch shape that
+    tile_shape can pick from TILE, whose blocks stage bf16."""
+    dfsph, wcsph, _ = k3case
+    k5 = [dataclasses.replace(s, grid=dataclasses.replace(
+        s.grid, use_pallas_slotmajor=False, pair_dtype="bfloat16")) for s in (dfsph, wcsph)]
+    grid = k5[0].grid
+    (pos, mask), vals = sparse
+    pform, consts, kw = _k3_form(*k5, form, vals, vals)
+    assert consts.radius_sq == tpp.bf16_float(grid.radius_sq)
+    n_sv = len(tpp._comps(kw.get("s_vals", ())))
+    tiles = _halvings(tpp.TILE)
+    assert all(tpp.smem_bytes(*t[:2], 4, 4, n_sv, True) <= tpp.SMEM_LIMIT for t in tiles)
+    total = 0.0
+    for r0, r1 in SLOT_BANDS if halo else ((0, 23),):
+        band = lambda t: t[r0:r1].contiguous()  # noqa: E731
+        args = tuple(band(t) for t in (pos, mask, pos, mask))
+        call = {k: tuple(band(t) for t in kw[k]) for k in ("q_vals", "s_vals") if k in kw}
+        call["scalars"] = kw.get("scalars", ())
+        if halo:
+            call["halo"] = Halo(tuple(_slot_halo(t, r0, r1)
+                                      for t in (pos, mask, *kw.get("s_vals", ()))), r0, 23)
+        call["rebase"] = tpp.rebase_of(grid, r0)
+        name = form + "_bf16" + ("_halo" if halo else "")
+        before = tpp.LAUNCHES[name]
+        out = tpp.pallas_pair_reduce(pform, *args, consts, **call)
+        assert tpp.LAUNCHES[name] == before + 1
+        twin = tpp.pallas_pair_reduce_ref(pform.term_fn, pform.n_out, *args, consts.radius_sq,
+                                          **call)
+        outs = [tpp.launch(pform, *args, consts, call.get("q_vals", ()),
+                           call.get("s_vals", ()), call["scalars"], tile, call.get("halo"),
+                           call["rebase"]) for tile in tiles]
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), twin.view(torch.int32)), f"[{r0}, {r1})"
+        for tile, o in zip(tiles, outs):
+            assert torch.equal(o.view(torch.int32), out.view(torch.int32)), f"tile {tile}"
+        total += float(out.abs().sum())
+    assert total > 0
+
+
+def _halo_only_arrivals(device, p, widths):
+    """K4's halo form on a band whose own rows are empty, so that its arrivals
+    come only from its halo rows: slots of row -1 move into the band's first
+    row (the first block row's tiles on the staged route), those of row ny
+    into its last row (the last block row's); bit-equal to its twin and to the
+    one-device kernel's rows of the whole grid."""
+    staged = p <= 40
+    ny, nx, (r0, r1) = (40, 37, (10, 30)) if staged else (6, 7, (2, 4))
+    grid, pos, mask, vals = _k4_case(device, p, ny, nx, 0.9, seed=60 + p)
+    h = grid.cell_size
+    rows = torch.zeros(ny, dtype=torch.bool, device=device)
+    rows[[r0 - 1, r1]] = True
+    mask = mask & rows[:, None, None]
+    adv = torch.where(mask[..., None], pos, 0.0)
+    adv[r0 - 1, ..., 1] += h  # into the band's first row
+    adv[r1, ..., 1] -= h  # into its last row
+    parts, k = [], 0
+    for c in widths:
+        parts.append(vals[..., k].contiguous() if c == 1 else vals[..., k:k + c].contiguous())
+        k += c
+    full = smr.sm_rebucket_parts(adv, mask, tuple(parts), grid)
+    halo = Halo(tuple(_slot_halo(t, r0, r1) for t in (mask, adv, *parts)), r0, ny)
+    args = (adv[r0:r1].contiguous(), mask[r0:r1].contiguous(),
+            tuple(t[r0:r1].contiguous() for t in parts), dataclasses.replace(grid, ny=r1 - r0))
+    assert not bool(args[1].any())
+    out = smr.sm_rebucket_parts(*args, halo=halo)
+    ref = smr.sm_rebucket_ref(args[0], args[1], vals[r0:r1, :, :, :k].contiguous(), args[3],
+                              halo._replace(planes=(*halo.planes[:2], _slot_halo(
+                                  vals[..., :k].contiguous(), r0, r1))))
+    torch.cuda.synchronize()
+    stacked = torch.cat([v[..., None] if v.ndim == 3 else v for v in out[2]], dim=-1)
+    for what, a, b in zip(("positions", "mask", "payload", "drops"),
+                          _bits((out[0], out[1], stacked, out[3])), _bits(ref)):
+        assert torch.equal(a, b), what
+    for a, b in zip((out[0], out[1], *out[2]), (full[0], full[1], *full[2])):
+        assert torch.equal(_bits((a,))[0], _bits((b[r0:r1],))[0])
+    arrived = out[1].sum(dim=(1, 2))
+    assert int(arrived[0]) > 0 and int(arrived[-1]) > 0 and int(arrived[1:-1].sum()) == 0
+    assert int(arrived.sum()) == int(mask.sum()) and int(out[3]) == 0
+
+
+@pytest.mark.parametrize("case", ["seams", "overflow", "halo_only"])
 @pytest.mark.parametrize("widths", [(2,), (2, 1, 1)], ids=["d2", "d4"])
 @pytest.mark.parametrize("p", [6, 40, smr.STAGED_MAX_P + 8], ids=["p6", "p40", "p_direct"])
-def test_sm_rebucket_halo_kernel_bit_equal(device, p, widths, overflow):
+def test_sm_rebucket_halo_kernel_bit_equal(device, p, widths, case):
     """K4's halo form through the parts entry on row bands of a ragged grid
     (slots moved up to a row across each seam, or crowded into cells), the
     last band the whole grid with dead halo rows (a one-shard mesh): one
     launch counted under sm_rebucket_halo, bit-equal to its twin, and the
     bands' outputs are the one-device kernel's rows with the same total
     drops; the staged route (P = 6, P = 40) and the one-thread-per-cell
-    route (P beyond the staged limit)."""
+    route (P beyond the staged limit). `halo_only`: a band whose arrivals
+    all come from its halo rows (_halo_only_arrivals)."""
+    if case == "halo_only":
+        _halo_only_arrivals(device, p, widths)
+        return
+    overflow = case == "overflow"
     ny = 23 if p <= 40 else 6
     bands = SLOT_BANDS if p <= 40 else ((0, 3), (3, 6), (0, 6))
     grid, pos, mask, vals = _k4_case(device, p, ny, 37 if p <= 40 else 7, 0.7, seed=40 + p,

@@ -324,6 +324,34 @@ def test_tile_width_fits_shared_memory():
         tpp.tile_shape(7, 5000, 4)
 
 
+def test_bf16_mode_stages_half_the_bytes():
+    """The bf16 mode stages positions as bf16 pairs (4 B a slot, 8 in f32) and
+    each source value as 2 B (4 in f32); the live words, the list and the warp
+    counts are the same. Its launch shape starts from TILE and halves to fit
+    its own bytes, so a source space that no f32 tile takes may fit in
+    bf16."""
+    hc = 10 * 10
+    for ps, nsv in ((7, 3), (8, 0), (40, 4)):
+        f32 = tpp.smem_bytes(8, 8, 7, ps, nsv)
+        bf16 = tpp.smem_bytes(8, 8, 7, ps, nsv, True)
+        words = -(-hc * -(-ps // 32) * 4 // 16) * 16
+        rest = words + 8 * 8 * 8 * 2 + 32 * 4
+        assert f32 == -(-hc * ps * 8 // 16) * 16 + -(-hc * ps * 4 * nsv // 16) * 16 + rest
+        assert bf16 == -(-hc * ps * 4 // 16) * 16 + -(-hc * ps * 2 * nsv // 16) * 16 + rest
+    assert tpp.tile_shape(7, 7, 4, True) == tpp.TILE
+    assert tpp.tile_shape(7, 8, 0, True) == tpp.TILE
+    assert tpp.tile_shape(7, 7, 4) == tpp.tile_shape(7, 7, 4, False) == tpp.TILE
+    for ps, nsv in ((300, 4), (860, 0), (2000, 4)):
+        ty, tx, _ = tpp.tile_shape(7, ps, nsv, True)
+        assert tpp.smem_bytes(ty, tx, 7, ps, nsv, True) <= tpp.SMEM_LIMIT
+        if (ty, tx) != tpp.TILE[:2]:
+            assert tpp.smem_bytes(2 * ty, tx, 7, ps, nsv, True) > tpp.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        tpp.tile_shape(7, 2000, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        tpp.tile_shape(7, 9000, 4, True)
+
+
 # a source space deeper than one 32-bit live word (Ps > 32), crowded into a few
 # cells, on the 20 x 10 grid, a multiple of no tile side (ragged tiles)
 PS_DEEP = 40

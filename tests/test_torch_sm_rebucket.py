@@ -200,3 +200,17 @@ def test_wrapper_dispatch_is_by_device():
         tsr.sm_rebucket_parts(pos.to("meta"), m.to("meta"), (v.to("meta"),), tgrid)
     with pytest.raises(ValueError):
         tsr.sm_rebucket_parts(pos, m, (), tgrid)
+
+
+def test_slot_index_limit():
+    """The kernel numbers slots in 32 bits: (ny + 2) nx P times the widest
+    part (at least 2) must fit, which the 100k shard and the 1M grid do
+    (`sm_rebucket_parts` checks it on the CUDA route before it launches)."""
+    assert tsr.index_fits(163 + 2, 515, 7, (2, 1, 1))  # a 100k shard of two
+    assert tsr.index_fits(1010, 1612, 7, (2, 1, 1))  # the 1M grid
+    assert tsr.index_fits(1010, 1612, 7, (8,))
+    assert not tsr.index_fits(20_000, 20_000, 7, (1,))
+    assert not tsr.index_fits(1010, 1612, 7, (200,))
+    ny, nx, p = 1000, 1000, 1100  # (ny + 2) nx P x 2 passes 2^31 - 1
+    assert not tsr.index_fits(ny, nx, p, (1,))
+    assert tsr.index_fits(ny // 2, nx, p, (1,))

@@ -471,7 +471,7 @@ __global__ void __launch_bounds__(K1_MAX_THREADS, K1_MIN_BLOCKS)
             if (!(r_sq <= a.c.radius_sq && r_sq > MIN_DISTANCE_SQ)) continue;
             float sv[Term::NSV > 0 ? Term::NSV : 1];
             for (int k = 0; k < Term::NSV; ++k) sv[k] = Ops::up(t_val[k * a.Ps * hc + s]);
-            Term::term(acc, dx, dy, r_sq, sqrtf(r_sq), qv, sv, a.c, a.scalar);
+            Term::term(acc, make_float2(dx, dy), r_sq, sqrtf(r_sq), qv, sv, a.c, a.scalar);
           }
         }
       }

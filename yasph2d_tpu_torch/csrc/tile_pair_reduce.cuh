@@ -95,28 +95,35 @@
 // (pallas_pair.py halo2d), which would lose every neighbour across the seam.
 // Nothing else changes (the halo rows stage into the ring the tile already
 // has, so the shared memory is the same), so a shard's rows get the sums of
-// the one-device kernel on the whole grid, bit for bit. The one-device
-// kernels keep their staging statements verbatim under `if constexpr`, so
-// that their code does not change.
+// the one-device kernel on the whole grid, bit for bit. One staging loop
+// serves both forms: a staged row -1 or ny of the halo form takes the halo
+// rows' pointers, the one-device form compiles that choice away.
 //
 // bf16 math mode (template parameter M = Bf16Math, K5 only; launchers
 // tile_pair_reduce_<form>_bf16 and their halo forms), the JAX package's XLA
 // dense_grid.pair_reduce with pair_dtype "bfloat16", which K5 stands in for
 // on the padded route: positions are read in f32 and rebased onto their own
 // cell's centre ((i + 0.5) h + origin in f32, i the global cell row under
-// sharding: args RebaseArgs), then rounded to bf16; query and source values
-// are rounded to bf16 where they are loaded; the difference of two rebased
-// positions plus the view's centre offset (dxv - 1) bf16(h) is rounded after
-// each operation, and so are r^2, r and every operation of the term
-// (csrc/pair_terms.cuh Bf16Math); h^2, 1e-10 and the constants compare and
-// compute in bf16 (the caller passes them rounded, ops/pallas_pair.py
-// bf16_consts). The per-view sums and their sum stay f32. A halo row's
-// positions are rebased on the neighbour's cell centres (its global row),
-// as the JAX sharded route exchanges rows that the neighbour rebased. Each
-// operation is the f32 operation rounded to nearest even, as torch's bf16
-// operations do, so per pair the kernel computes its twin's values; the
-// sums differ by f32 summation order, as in f32 mode. Positions stay f32 in
-// memory and are staged as f32 (bf16 staging is later speed work).
+// sharding: args RebaseArgs), then the pair rounded to bf16 by one
+// instruction; query and source values are rounded to bf16 where they are
+// loaded, two by one instruction. The tile is staged in bf16: positions as
+// __nv_bfloat162 (4 B a slot, 8 in f32), values 2 B each (StagedVals; the
+// components of a vector share one 4-byte word). Per pair the geometry is
+// packed: (dx, dy) is one HSUB2 of the staged pair and the query's, plus the
+// view's centre offsets ((dxv - 1), (dyv - 1)) bf16(h) one HADD2, both
+// squares one HMUL2, r^2 their bf16 sum; h^2, 1e-10 and the constants compare
+// and compute in bf16 (the caller passes them rounded, ops/pallas_pair.py
+// bf16_consts; the launcher converts them to PairConstsBf16). Every
+// operation of the term is a bf16 operation (csrc/pair_terms.cuh Bf16Math),
+// each (x, y) pair of it one packed instruction, and per pair the kernel
+// computes its twin's bits (every bf16 operation is the f32 operation
+// rounded to nearest even, as torch's bf16 operations). The per-view sums and
+// their sum stay f32, in K5's order; the twin's differ by f32 summation
+// order, as in f32 mode. A halo row's positions are rebased on the
+// neighbour's cell centres (its global row), as the JAX sharded route
+// exchanges rows that the neighbour rebased. Native bf16 instructions,
+// because an f32 operation rounded to bf16 costs two conversions beside it
+// (1.4-1.8x the f32 forms' time on the H100, with f32 staging).
 //
 // Build: yasph2d_tpu_torch/ops/cuda_build.py (sm_90a, -fmad=false, no fast
 // math): each term is rounded as in the plain PyTorch twins
@@ -125,6 +132,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -180,6 +188,8 @@ struct Rebase {
 template <class Base>
 struct RebaseArgs : Base {
   Rebase rb;
+  PairConstsBf16 cb;       // the terms' constants (Base::c keeps the f32 cut-off)
+  __nv_bfloat16 scalar_b;  // the scalar
 };
 
 template <bool HALO, class M = F32Math>
@@ -187,12 +197,49 @@ using TileKernelArgs = std::conditional_t<
     M::BF16, RebaseArgs<std::conditional_t<HALO, HaloTileArgs, TileArgs>>,
     std::conditional_t<HALO, HaloTileArgs, TileArgs>>;
 
+// the terms' constants and scalar in the mode's types
+template <class M, class A>
+__device__ __forceinline__ const typename M::Consts& term_consts(const A& a) {
+  if constexpr (M::BF16) return a.cb;
+  else return a.c;
+}
+template <class M, class A>
+__device__ __forceinline__ typename M::T term_scalar(const A& a) {
+  if constexpr (M::BF16) return a.scalar_b;
+  else return a.scalar;
+}
+
 // bf16 mode: position p of cell column gx, local row gy (-1 and ny are the
-// halo rows) relative to that cell's centre, rounded to bf16
-__device__ __forceinline__ float2 rebased(const Rebase& rb, float2 p, int gx, int gy) {
+// halo rows) relative to that cell's centre, the pair rounded to bf16 by one
+// instruction
+__device__ __forceinline__ __nv_bfloat162 rebased(const Rebase& rb, float2 p, int gx, int gy) {
   const float cx = ((float)gx + 0.5f) * rb.cell + rb.ox;
   const float cy = ((float)(rb.row0 + gy) + 0.5f) * rb.cell + rb.oy;
-  return make_float2(Bf16Math::r(p.x - cx), Bf16Math::r(p.y - cy));
+  return __floats2bfloat162_rn(p.x - cx, p.y - cy);
+}
+// a position read from memory as the mode computes with it: f32 as it is,
+// bf16 rebased
+template <class M, class A>
+__device__ __forceinline__ typename M::T2 mode_pos(const A& a, float2 p, int gx, int gy) {
+  if constexpr (M::BF16) return rebased(a.rb, p, gx, gy);
+  else return p;
+}
+// N values read from memory (f32) as the mode's values; bf16 rounds two with
+// one instruction
+template <class M, int N>
+__device__ __forceinline__ void mode_vals(const float* v, typename M::T* out) {
+  if constexpr (M::BF16) {
+#pragma unroll
+    for (int k = 0; k + 1 < N; k += 2) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(v[k], v[k + 1]);
+      out[k] = __low2bfloat16(p);
+      out[k + 1] = __high2bfloat16(p);
+    }
+    if constexpr (N % 2 == 1) out[N - 1] = __float2bfloat16_rn(v[N - 1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = v[k];
+  }
 }
 
 // ---------------------------------------------------------------- shared memory
@@ -200,17 +247,58 @@ __device__ __forceinline__ float2 rebased(const Rebase& rb, float2 p, int gx, in
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 // Byte offsets of one block's shared-memory regions; ops/pallas_pair.py
-// smem_bytes computes the same total.
+// smem_bytes computes the same total. f32: positions float2 (8 B), each
+// source value a float plane (4 B a slot); bf16: positions __nv_bfloat162
+// (4 B), values 2 B each (StagedVals)
 struct TileSmem {
   size_t pos, val, bits, qlist, warps, total;
-  __host__ __device__ TileSmem(int ty, int tx, int Ps, int nsv, int W, int q_round) {
+  __host__ __device__ TileSmem(int ty, int tx, int Ps, int nsv, int W, int q_round, bool bf16) {
     const size_t n_src = (size_t)(ty + 2) * (tx + 2) * Ps;
-    pos = 0;                                                  // float2 [hc][Ps]
-    val = pos + align16(n_src * sizeof(float2));              // float [nsv][hc][Ps]
-    bits = val + align16(n_src * nsv * sizeof(float));        // uint32 [hc][W]
+    pos = 0;                                                         // [hc][Ps]
+    val = pos + align16(n_src * (bf16 ? 4 : 8));                     // [nsv][hc][Ps]
+    bits = val + align16(n_src * nsv * (bf16 ? 2 : 4));              // uint32 [hc][W]
     qlist = bits + align16((size_t)(ty + 2) * (tx + 2) * W * sizeof(unsigned));
     warps = qlist + align16((size_t)q_round * sizeof(uint16_t));  // int [32]
     total = warps + 32 * sizeof(int);
+  }
+};
+
+// The staged source values of n_src slots: f32, one float plane per value;
+// bf16, values (2j, 2j + 1) as one __nv_bfloat162 plane (one shared-memory
+// load gives both), then for an odd NSV a bf16 plane of the last
+template <class M, int NSV>
+struct StagedVals {
+  __device__ static void put(unsigned char* base, int n_src, int s, const float* v) {
+    if constexpr (M::BF16) {
+      __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(base);
+#pragma unroll
+      for (int j = 0; j < NSV / 2; ++j)
+        pairs[j * n_src + s] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      if constexpr (NSV % 2 == 1)
+        reinterpret_cast<__nv_bfloat16*>(pairs + (NSV / 2) * n_src)[s] =
+            __float2bfloat16_rn(v[NSV - 1]);
+    } else {
+      float* t = reinterpret_cast<float*>(base);
+#pragma unroll
+      for (int k = 0; k < NSV; ++k) t[k * n_src + s] = v[k];
+    }
+  }
+  __device__ static void get(const unsigned char* base, int n_src, int s, typename M::T* sv) {
+    if constexpr (M::BF16) {
+      const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(base);
+#pragma unroll
+      for (int j = 0; j < NSV / 2; ++j) {
+        const __nv_bfloat162 p = pairs[j * n_src + s];
+        sv[2 * j] = __low2bfloat16(p);
+        sv[2 * j + 1] = __high2bfloat16(p);
+      }
+      if constexpr (NSV % 2 == 1)
+        sv[NSV - 1] = reinterpret_cast<const __nv_bfloat16*>(pairs + (NSV / 2) * n_src)[s];
+    } else {
+      const float* t = reinterpret_cast<const float*>(base);
+#pragma unroll
+      for (int k = 0; k < NSV; ++k) sv[k] = t[k * n_src + s];
+    }
   }
 };
 
@@ -222,10 +310,13 @@ struct TileSmem {
 template <class Term, bool PER_VIEW, bool HALO, class M = F32Math>
 __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
     tile_pair_reduce_kernel(const TileKernelArgs<HALO, M> a) {
+  using T = typename M::T;
+  using T2 = typename M::T2;
+  using Vals = StagedVals<M, Term::NSV>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const TileSmem L(a.ty, a.tx, a.Ps, Term::NSV, a.W, a.q_round);
-  float2* t_pos = reinterpret_cast<float2*>(smem + L.pos);
-  float* t_val = reinterpret_cast<float*>(smem + L.val);
+  const TileSmem L(a.ty, a.tx, a.Ps, Term::NSV, a.W, a.q_round, M::BF16);
+  T2* t_pos = reinterpret_cast<T2*>(smem + L.pos);
+  unsigned char* t_val = smem + L.val;
   unsigned* t_bits = reinterpret_cast<unsigned*>(smem + L.bits);
   uint16_t* t_q = reinterpret_cast<uint16_t*>(smem + L.qlist);
   int* t_warp = reinterpret_cast<int*>(smem + L.warps);
@@ -325,18 +416,22 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
       lx = cell & (a.tx - 1);
       return ((long)(y0 + ly) * a.nx + (x0 + lx)) * a.P + (i & pp_mask);
     };
+    // a live query's position and values in the mode's types
+    auto load_query = [&](long idx, int ly, int lx, T2& q, T* qv) {
+      q = mode_pos<M>(a, __ldg(a.q_pos + idx), x0 + lx, y0 + ly);
+      float v[Term::NQV > 0 ? Term::NQV : 1];
+#pragma unroll
+      for (int k = 0; k < Term::NQV; ++k) v[k] = __ldg(a.qv.p[k] + idx * a.qv.stride[k]);
+      mode_vals<M, Term::NQV>(v, qv);
+    };
     // this thread's first live query: its loads go out with the staging's
     int ly0 = 0, lx0 = 0;
     long idx0 = -1;
-    float2 qp0 = make_float2(0.0f, 0.0f);
-    float qv0[Term::NQV > 0 ? Term::NQV : 1];
+    T2 qp0 = M::splat(M::k(0.0f));
+    T qv0[Term::NQV > 0 ? Term::NQV : 1];
     if (tid < n_live) {
       idx0 = query(tid, ly0, lx0);
-      qp0 = __ldg(a.q_pos + idx0);
-      if constexpr (M::BF16) qp0 = rebased(a.rb, qp0, x0 + lx0, y0 + ly0);
-#pragma unroll
-      for (int k = 0; k < Term::NQV; ++k)
-        qv0[k] = M::r(__ldg(a.qv.p[k] + idx0 * a.qv.stride[k]));
+      load_query(idx0, ly0, lx0, qp0, qv0);
     }
     if (!staged) {
       // 2. stage the haloed source tile and 3. its live words: staging index
@@ -350,7 +445,7 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
       for (int t0 = warp * 32; t0 < n_stage; t0 += CHUNK * stride) {
         int cell[CHUNK], sp[CHUNK];
         bool ok[CHUNK], m[CHUNK];
-        float2 pos[CHUNK];
+        T2 pos[CHUNK];
         float v[CHUNK][Term::NSV > 0 ? Term::NSV : 1];
 #pragma unroll
         for (int u = 0; u < CHUNK; ++u) {
@@ -362,33 +457,37 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
           cell[u] = hy < a.ty + 2 && hxi < hx ? hy * hx + hxi : -1;
           const int gy = y0 + hy - 1;
           const int gx = x0 + hxi - 1;
+          // rows -1 and ny: dead on one device, in the halo form the
+          // neighbouring shards' edge rows
+          bool halo_row = false;
+          bool row_ok = gy >= 0 && gy < a.ny;
           if constexpr (HALO) {
-            // rows -1 and ny: the neighbouring shards' edge rows
-            const bool grid_row = gy >= 0 && gy < a.ny;
-            ok[u] = cell[u] >= 0 && sp[u] < a.Ps && (grid_row || gy == -1 || gy == a.ny) &&
-                    gx >= 0 && gx < a.nx;
-            m[u] = false;
-            if (ok[u]) {
-              const long g = ((long)(grid_row ? gy : (gy < 0 ? 0 : 1)) * a.nx + gx) * a.Ps + sp[u];
-              const bool* mk = grid_row ? a.s_mask : a.h_mask;
-              m[u] = __ldg(reinterpret_cast<const unsigned char*>(mk) + g) != 0;
-              pos[u] = __ldg((grid_row ? a.s_pos : a.h_pos) + g);
-              if constexpr (M::BF16) pos[u] = rebased(a.rb, pos[u], gx, gy);
-#pragma unroll
-              for (int k = 0; k < Term::NSV; ++k)
-                v[u][k] = __ldg((grid_row ? a.sv.p[k] : a.hv.p[k]) + g * a.sv.stride[k]);
+            halo_row = gy == -1 || gy == a.ny;
+            row_ok = row_ok || halo_row;
+          }
+          ok[u] = cell[u] >= 0 && sp[u] < a.Ps && row_ok && gx >= 0 && gx < a.nx;
+          m[u] = false;
+          if (ok[u]) {
+            const bool* mk = a.s_mask;
+            const float2* pp = a.s_pos;
+            int row = gy;
+            if constexpr (HALO) {
+              if (halo_row) {
+                mk = a.h_mask;
+                pp = a.h_pos;
+                row = gy < 0 ? 0 : 1;
+              }
             }
-          } else {
-            ok[u] = cell[u] >= 0 && sp[u] < a.Ps && gy >= 0 && gy < a.ny && gx >= 0 &&
-                    gx < a.nx;
-            m[u] = false;
-            if (ok[u]) {
-              const long g = ((long)gy * a.nx + gx) * a.Ps + sp[u];
-              m[u] = __ldg(reinterpret_cast<const unsigned char*>(a.s_mask) + g) != 0;
-              pos[u] = __ldg(a.s_pos + g);
-              if constexpr (M::BF16) pos[u] = rebased(a.rb, pos[u], gx, gy);
+            const long g = ((long)row * a.nx + gx) * a.Ps + sp[u];
+            m[u] = __ldg(reinterpret_cast<const unsigned char*>(mk) + g) != 0;
+            pos[u] = mode_pos<M>(a, __ldg(pp + g), gx, gy);
 #pragma unroll
-              for (int k = 0; k < Term::NSV; ++k) v[u][k] = __ldg(a.sv.p[k] + g * a.sv.stride[k]);
+            for (int k = 0; k < Term::NSV; ++k) {
+              const float* vp = a.sv.p[k];
+              if constexpr (HALO) {
+                if (halo_row) vp = a.hv.p[k];
+              }
+              v[u][k] = __ldg(vp + g * a.sv.stride[k]);
             }
           }
         }
@@ -397,8 +496,7 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
           if (ok[u]) {
             const int s = cell[u] * a.Ps + sp[u];
             t_pos[s] = pos[u];
-#pragma unroll
-            for (int k = 0; k < Term::NSV; ++k) t_val[k * n_src + s] = M::r(v[u][k]);
+            Vals::put(t_val, n_src, s, v[u]);
           }
           const unsigned ballot = __ballot_sync(0xffffffffu, m[u]);
           // one lane per word writes it; cells off the grid are dead
@@ -415,25 +513,24 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
     }
     __syncthreads();
 
+    const typename M::Consts& tc = term_consts<M>(a);
+    const T scalar = term_scalar<M>(a);
+    const float min_sq = M::f(M::k(MIN_DISTANCE_SQ));
     // bf16 mode: the views' centre offsets (dxv - 1) bf16(h)
-    float cell_b = 0.0f;
-    if constexpr (M::BF16) cell_b = M::r(a.rb.cell);
-    const float delta[3] = {-cell_b, 0.0f, cell_b};
+    T cell_b = M::k(0.0f);
+    if constexpr (M::BF16) cell_b = __float2bfloat16_rn(a.rb.cell);
+    const T delta[3] = {M::neg(cell_b), M::k(0.0f), cell_b};
     // the live queries, one per thread, in slot order
     for (int jj = tid; jj < n_live; jj += blockDim.x) {
       int ly = ly0, lx = lx0;
       long idx = idx0;
-      float2 q = qp0;
-      float qv[Term::NQV > 0 ? Term::NQV : 1];
+      T2 q = qp0;
+      T qv[Term::NQV > 0 ? Term::NQV : 1];
 #pragma unroll
       for (int k = 0; k < Term::NQV; ++k) qv[k] = qv0[k];
       if (jj != tid) {
         idx = query(jj, ly, lx);
-        q = __ldg(a.q_pos + idx);
-        if constexpr (M::BF16) q = rebased(a.rb, q, x0 + lx, y0 + ly);
-#pragma unroll
-        for (int k = 0; k < Term::NQV; ++k)
-          qv[k] = M::r(__ldg(a.qv.p[k] + idx * a.qv.stride[k]));
+        load_query(idx, ly, lx, q, qv);
       }
       float acc[Term::NACC];
       for (int k = 0; k < Term::NACC; ++k) acc[k] = 0.0f;
@@ -443,22 +540,21 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
           float* sum = PER_VIEW ? view : acc;
           if (PER_VIEW)
             for (int k = 0; k < Term::NACC; ++k) view[k] = 0.0f;
+          T2 off = M::splat(M::k(0.0f));
+          if constexpr (M::BF16) off = M::pair(delta[dxv], delta[dyv]);
           const int c = (ly + dyv) * hx + (lx + dxv);
           for (int w = 0; w < a.W; ++w) {
             for (unsigned bits = t_bits[c * a.W + w]; bits != 0u; bits &= bits - 1u) {
               const int s = c * a.Ps + w * 32 + __ffs(bits) - 1;
-              const float2 src = t_pos[s];
-              float dx = M::r(src.x - q.x);
-              float dy = M::r(src.y - q.y);
-              if constexpr (M::BF16) {  // the views' centre offsets
-                dx = M::r(dx + delta[dxv]);
-                dy = M::r(dy + delta[dyv]);
-              }
-              const float r_sq = M::r(M::r(dx * dx) + M::r(dy * dy));
-              if (!(r_sq <= a.c.radius_sq && r_sq > M::r(MIN_DISTANCE_SQ))) continue;
-              float sv[Term::NSV > 0 ? Term::NSV : 1];
-              for (int k = 0; k < Term::NSV; ++k) sv[k] = t_val[k * n_src + s];
-              Term::term(sum, dx, dy, r_sq, M::r(sqrtf(r_sq)), qv, sv, a.c, a.scalar);
+              // (dx, dy) packed; in bf16 plus the view's centre offsets
+              T2 d = M::sub2(t_pos[s], q);
+              if constexpr (M::BF16) d = M::add2(d, off);
+              const T r_sq = M::sum(M::mul2(d, d));
+              const float r_sq_f = M::f(r_sq);
+              if (!(r_sq_f <= a.c.radius_sq && r_sq_f > min_sq)) continue;
+              T sv[Term::NSV > 0 ? Term::NSV : 1];
+              Vals::get(t_val, n_src, s, sv);
+              Term::term(sum, d, r_sq, M::sqrt(r_sq), qv, sv, tc, scalar);
             }
           }
           if (PER_VIEW)
@@ -488,7 +584,7 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
   if (n_vals != Term::NQV + Term::NSV || P < 1 || Ps < 1 || ty < 1 || tx < 1 ||
       (ty & (ty - 1)) || (tx & (tx - 1)) || threads < 32 || threads > K5_MAX_THREADS ||
       threads % 32 || q_round < 1 || q_round > K5_MAX_LIST ||
-      (size_t)smem != TileSmem(ty, tx, Ps, Term::NSV, W, q_round).total)
+      (size_t)smem != TileSmem(ty, tx, Ps, Term::NSV, W, q_round, M::BF16).total)
     return (int)cudaErrorInvalidValue;
   TileKernelArgs<HALO, M> a;
   a.q_pos = static_cast<const float2*>(q_pos);
@@ -532,7 +628,11 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
       a.hv.stride[k] = k < Term::NSV ? a.sv.stride[k] : 0;
     }
   }
-  if constexpr (M::BF16) a.rb = rb;
+  if constexpr (M::BF16) {
+    a.rb = rb;
+    a.cb = bf16_consts_of(*consts);
+    a.scalar_b = __float2bfloat16_rn(scalar);
+  }
   if ((long)ny * nx * P == 0) return (int)cudaSuccess;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(tile_pair_reduce_kernel<Term, PER_VIEW, HALO, M>,

@@ -59,12 +59,15 @@ forces and forces with physical viscosity):
   f32, and WCSPH's pressure term (bf16) + that viscosity term adds in f32;
 - where(valid, term, 0) in the term's dtype, cast to f32, summed in f32.
 Each bf16 operation is its f32 result rounded to bf16 (round to nearest
-even), in the kernel (csrc/pair_terms.cuh Bf16Math) and in the twin
-(`bf16_terms`, on f32 tensors through `_rd`), so that per pair both compute
-the same values. The sums are f32 in K5's order: per view over Ps, then the
-views; the JAX pass sums one 9 Ps axis. The constants come rounded
-(`bf16_consts`), the scalar is rounded here. The CUDA forms of this mode
-launch and count under `<form>_bf16` and `<form>_bf16_halo`.
+even): in the twin (`bf16_terms`, on f32 tensors through `_rd`) literally, in
+the kernel (csrc/pair_terms.cuh Bf16Math) as Hopper's own bf16 instructions,
+which give those bits (tests/test_torch_bf16_rounding.py), so that per pair
+both compute the same values. The kernel stages the tile in bf16
+(`smem_bytes(..., bf16=True)`).
+The sums are f32 in K5's order: per view over Ps, then the views; the JAX
+pass sums one 9 Ps axis. The constants come rounded (`bf16_consts`), the
+scalar is rounded here. The CUDA forms of this mode launch and count under
+`<form>_bf16` and `<form>_bf16_halo`.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -84,7 +87,9 @@ LAUNCHES = {f"{form}{suffix}": 0 for suffix in ("", "_bf16", "_halo", "_bf16_hal
 # (TY, TX, threads) of a launch, both sides powers of two, at most 256 threads
 # (csrc/tile_pair_reduce.cu K5_MAX_THREADS): tools/tile_sweep.py --kernel k5
 # on the 100k padded states, and for K3 --kernel k3 (within 1% of the best
-# shape on every loop form); tile_shape halves it where it does not fit
+# shape on every loop form; so it is in the bf16 mode, --kinds
+# dfsph_padded_k5_bf16,wcsph_padded_k5_bf16); tile_shape halves it where it
+# does not fit
 TILE = (8, 8, 256)
 MAX_ROUND = 8192  # query slots whose live list a block holds at once
 SMEM_LIMIT = cuda_build.SMEM_LIMIT
@@ -331,28 +336,31 @@ def query_round(ty: int, tx: int, p: int) -> int:
     return min(ty * tx * _pow2(p), MAX_ROUND)
 
 
-def smem_bytes(ty: int, tx: int, p: int, ps: int, n_source_comps: int) -> int:
+def smem_bytes(ty: int, tx: int, p: int, ps: int, n_source_comps: int,
+               bf16: bool = False) -> int:
     """Dynamic shared memory of one K5 block (csrc/tile_pair_reduce.cu
-    TileSmem): the haloed source tile's float2 positions and source values,
-    its live words (ceil(Ps / 32) a cell), the round's live list (uint16) and
-    32 warp counts."""
+    TileSmem): the haloed source tile's positions (float2, or __nv_bfloat162
+    in the bf16 mode) and source values (4 B each, or 2 B), its live words
+    (ceil(Ps / 32) a cell), the round's live list (uint16) and 32 warp
+    counts."""
     hc = (ty + 2) * (tx + 2)
-    return (_align16(hc * ps * 8) + _align16(hc * ps * 4 * n_source_comps)
+    pos, val = (4, 2) if bf16 else (8, 4)
+    return (_align16(hc * ps * pos) + _align16(hc * ps * val * n_source_comps)
             + _align16(hc * -(-ps // 32) * 4) + _align16(query_round(ty, tx, p) * 2) + 32 * 4)
 
 
-def tile_shape(p: int, ps: int, n_source_comps: int) -> tuple:
-    """(TY, TX, threads) of a launch: TILE, halved (the longer side, TY on a tie)
-    until its block fits in the shared memory of one block; raises if not
-    even a 1 x 1 tile fits."""
+def tile_shape(p: int, ps: int, n_source_comps: int, bf16: bool = False) -> tuple:
+    """(TY, TX, threads) of a launch: TILE, halved (the longer side, TY on a
+    tie) until its block fits in the shared memory of one block (`bf16`: the
+    bf16 mode's staging); raises if not even a 1 x 1 tile fits."""
     ty, tx, threads = TILE
-    while smem_bytes(ty, tx, p, ps, n_source_comps) > SMEM_LIMIT:
+    while smem_bytes(ty, tx, p, ps, n_source_comps, bf16) > SMEM_LIMIT:
         if ty == tx == 1:
             raise ValueError(
                 f"pallas_pair_reduce: a 1 x 1 cell tile with Ps = {ps} source slots and "
                 f"{n_source_comps} source values needs "
-                f"{smem_bytes(1, 1, p, ps, n_source_comps)} bytes of shared memory; a "
-                f"block has {SMEM_LIMIT}")
+                f"{smem_bytes(1, 1, p, ps, n_source_comps, bf16)} bytes of shared memory; "
+                f"a block has {SMEM_LIMIT}")
         if ty >= tx:
             ty //= 2
         else:
@@ -451,7 +459,7 @@ def tile_launch(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
         q_pos.data_ptr(), q_mask.data_ptr(), s_pos.data_ptr(), s_mask.data_ptr(),
         cuda_build.pointer_array(ptrs), cuda_build.int_array(strides), len(ptrs),
         out.data_ptr(), p, ps, ny, nx, ty, tx, threads, query_round(ty, tx, p),
-        smem_bytes(ty, tx, p, ps, n_sv), scalar, *extra, consts,
+        smem_bytes(ty, tx, p, ps, n_sv, rebase is not None), scalar, *extra, consts,
         torch.cuda.current_stream(q_pos.device).cuda_stream,
     )
     cuda_build.check(err, name)
@@ -490,7 +498,7 @@ def pallas_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,
                                       rebase=rebase)
     if device.type != "cuda":
         raise ValueError(f"pallas_pair_reduce: unsupported device {device}")
-    tile = tile_shape(q_mask.shape[2], s_mask.shape[2], len(_comps(s_vals)))
+    tile = tile_shape(q_mask.shape[2], s_mask.shape[2], len(_comps(s_vals)), rebase is not None)
     out = launch(form, q_pos, q_mask, s_pos, s_mask, consts, q_vals, s_vals, scalars,
                  tile, halo, rebase)
     LAUNCHES[form.name + ("" if rebase is None else "_bf16")

@@ -24,7 +24,10 @@ taken against global rows (`Halo.row0`, `Halo.ny_total`). The drops are
 this shard's; the caller sums them over the shards. This is the JAX
 package's XLA `dense_grid.rebucket(row0=...)`, which its sharded padded
 route runs; K4 computes the halo rows' codes itself instead of receiving
-them. The launches count under "sm_rebucket_halo".
+them. The launches count under "sm_rebucket_halo". The kernel runs the
+one-device path on every tile that does not reach the halo rows.
+
+The kernel numbers slots in 32 bits; a grid past that (`index_fits`) raises.
 """
 
 from typing import Optional, Sequence
@@ -43,6 +46,15 @@ MAX_PARTS = 8  # csrc/sm_rebucket.cu SR_MAX_PARTS
 # above this occupancy the kernel's words no longer fit one block's shared
 # memory and it scans in device memory, one thread per target cell
 STAGED_MAX_P = 32 * 18
+# the kernel numbers slots in 32 bits: (ny + 2) nx P times the widest part
+# (at least 2, the positions' float2) must not pass this
+MAX_INDEX = 2**31 - 1
+
+
+def index_fits(ny: int, nx: int, p: int, widths: Sequence[int]) -> bool:
+    """Whether K4's 32-bit slot indices cover a grid of (ny, nx, P) slots, two
+    halo rows and payload parts of `widths` components (the launcher's test)."""
+    return (ny + 2) * nx * p * max(2, *widths) <= MAX_INDEX
 
 
 def reset_launch_counts():
@@ -152,6 +164,9 @@ def sm_rebucket_parts(pos, mask, parts: Sequence[torch.Tensor], grid: DenseGridC
             raise ValueError("sm_rebucket: a payload part has no component")
         widths.append(c)
         outs.append(torch.empty_like(v))
+    if not index_fits(ny, nx, p, widths):
+        raise ValueError(f"sm_rebucket: {ny} x {nx} x {p} slots with parts of widths {widths} "
+                         f"pass the kernel's 32-bit slot index")
     new_pos = torch.empty_like(pos)
     new_mask = torch.empty_like(mask)
     dropped = torch.empty((), dtype=INDEX, device=device)

@@ -8,7 +8,7 @@ times whole kernels only).
 Builds truncated copies of the kernel's source (csrc/pair_reduce.cuh for a
 plane kind, K1, and for `--kind probe_ctx`, K7; csrc/tile_pair_reduce.cu for
 a padded kind: K3 on dfsph_padded or wcsph_padded, K5 on dfsph_padded_k5 or
-wcsph_padded_k5), each ending its blocks after one phase of the kernel, and
+wcsph_padded_k5, and in its bf16 math mode on their _bf16 kinds), each ending its blocks after one phase of the kernel, and
 times them beside the full kernel on the same operands (the step's calls on
 a settled double dam-break state, as tools/kernel_times.py builds them; K7
 on the probe's planes at its gpu shape, tools/probe_pallas_slotmajor.py):
@@ -35,7 +35,7 @@ CUTS = {
                  "  return;"),
         "staged": ("  // the live queries, one per thread, in slot order", "  return;"),
     }),
-    "tile": ("tile_pair_reduce.cu", "tile_pair_reduce.cu", {
+    "tile": ("tile_pair_reduce.cu", "tile_pair_reduce.cuh", {
         "scan": ("    __syncthreads();   // the list is complete", "    return;"),
         "staged": ("    // the live queries, one per thread, in slot order", "    return;"),
     }),
@@ -64,7 +64,8 @@ def build_variant(kernel: str, name: str):
                           str(cuda_build.CSRC), "-shared", "-o", str(lib_path), str(cu)]])
     lib = ctypes.CDLL(str(lib_path))
     ref = cuda_build.library()
-    names = ([f"tile_pair_reduce_{f}" for f in cuda_build.TILE_PAIR_FORMS]
+    names = ([f"tile_pair_reduce_{f}{x}" for f in cuda_build.TILE_PAIR_FORMS
+              for x in ("", "_bf16")]
              + [f"sm_pair_reduce_{f}" for f in cuda_build.SM_PAIR_FORMS]) if kernel == "tile" \
         else [f"pair_reduce_{f}{x}" for f in cuda_build.PAIR_FORMS for x in ("", "_bf16")] \
         + ["probe_ctx"]
@@ -82,14 +83,16 @@ def padded_runs(solver, boundary, carry) -> dict:
     from yasph2d_tpu_torch.tools.kernel_times import padded_calls
 
     launch = smp.launch if solver.grid.use_pallas_slotmajor else tpp.launch
+    rebase = None if solver.grid.use_pallas_slotmajor else tpp.rebase_of(solver.grid)
+    mode = {} if rebase is None else dict(rebase=rebase)
     runs = {}
     for label, (form, q, s, kw) in padded_calls(
             solver, boundary, carry, np.random.default_rng(0)).items():
         tile = tpp.tile_shape(q[1].shape[2], s[1].shape[2],
-                              len(tpp._comps(kw.get("s_vals", ()))))
+                              len(tpp._comps(kw.get("s_vals", ()))), rebase is not None)
         runs[label] = (lambda form=form, q=q, s=s, kw=kw, tile=tile: launch(
             form, *q, *s, solver._consts, kw.get("q_vals", ()), kw.get("s_vals", ()),
-            kw.get("scalars", ()), tile))
+            kw.get("scalars", ()), tile, **mode))
     return runs
 
 

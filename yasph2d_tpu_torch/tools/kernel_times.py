@@ -1,10 +1,12 @@
 """Device times of a solver step's kernels on a double dam-break state, through
 the public wrappers only.
 
-    python -m yasph2d_tpu_torch.tools.kernel_times [--kind dfsph_plane_bf16]
-        [--particles 1000000] [--steps 100] [--save out.pt]
+    python -m yasph2d_tpu_torch.tools.kernel_times [--kind dfsph_plane_bf16[,...]]
+        [--particles 1000000] [--steps 100] [--shard K] [--save out.pt]
+    python -m yasph2d_tpu_torch.tools.kernel_times --compare OLD.pt NEW.pt
 
-`--kind` is a solver of `scenes.SOLVERS`, or `probe_ctx`: K7 on the probe's
+`--kind` is a solver of `scenes.SOLVERS` (several, comma-separated, run one
+after another in the process), or `probe_ctx`: K7 on the probe's
 planes at its check shape and at its gpu shape, and K1's ctx form beside it
 (tools/probe_pallas_slotmajor.py), with no scene. The scene runs init_carry +
 `--steps` steps (the per-step iteration counts and drops are reported), then
@@ -17,13 +19,26 @@ wcsph_padded, wcsph_padded_k5, and the *_k5_bf16 kinds in K5's bf16 math
 mode) K3's or K5's forms (`sm_pair_reduce`, `pallas_pair_reduce`) and K4
 with its glue: `sm_rebucket_parts` where the
 tree has it, else the concatenation, `sm_rebucket` and the splits that the
-step around it made. Times are device milliseconds per call: 10 calls in a
-CUDA graph, CUDA events, median of 7. It calls only wrappers and the scene
-API that every tree of the package since the padded K5 has, so the same file
-times two trees in one run: put the other tree first on PYTHONPATH and run
-this file by its path. `--save` writes each call's output (and the state's
-positions and mask) with torch.save, for a bitwise comparison of two trees.
-Needs a CUDA device; prints one JSON line.
+step around it made; the sorted DFSPH kinds (dfsph_dense*) their K3 or K5
+forms (they launch no K4).
+`--shard K` (0 or 1) times the halo forms instead: the padded kind's grid
+gets an even row count (`ny_multiple=2`, as a sharded run), and after the
+steps shard K's rows of the one-device state, with its rows -1 and ny as the
+halo (dead at the ends of the grid), go through K5's halo forms (in the
+kind's math mode; the bf16 mode rebased on the shard's global rows) and K4's
+halo form, through the same wrappers with a `planes.Halo`; every tree since
+the sharded padded route has them. Beside them, `sm_rebucket_rows_alone` is
+the one-device K4 on the shard's rows without the halo (the halo form's
+yardstick: the same slots). Times are device milliseconds per call:
+10 calls in a CUDA graph, CUDA events, median of 7. It calls only wrappers
+and the scene API that every tree of the package since the padded K5 has, so
+the same file times two trees in one run: put the other tree first on
+PYTHONPATH and run this file by its path. `--save` writes each call's output
+(and the state's positions and mask) with torch.save, a dict by kind, for a
+bitwise comparison of two trees: `--compare` prints, for each kind and call
+of two such files, whether they hold the same bits, and exits 1 if any
+differ (no device needed). Timing needs a CUDA device; prints one JSON line a
+kind.
 """
 
 import argparse
@@ -117,18 +132,68 @@ def _cpu(x):
     return x.cpu() if isinstance(x, torch.Tensor) else tuple(_cpu(y) for y in x)
 
 
-def padded_rebucket(solver, carry):
-    """K4 on the padded step's own advection and payload, with the glue the
-    step of this tree puts around it; returns a function of no argument."""
-    from yasph2d_tpu_torch.ops import sm_rebucket as smr
+def halo_rows(t, r0, r1):
+    """Rows r0 - 1 and r1 of an (ny, nx, ...) slot tensor as (2, nx, ...), zero
+    (dead) off the grid, as the ends of a mesh receive them."""
+    rows = [t[r:r + 1] if 0 <= r < t.shape[0] else torch.zeros_like(t[:1])
+            for r in (r0 - 1, r1)]
+    return torch.cat(rows).contiguous()
 
-    grid, dt = solver.grid, float(carry.time.dt)
+
+def shard_call(call, r0: int, r1: int, ny: int):
+    """A padded_calls entry on rows [r0, r1) of the grid, the source's rows
+    r0 - 1 and r1 as its halo (`halo` keyword, a planes.Halo of ny global
+    rows)."""
+    from yasph2d_tpu_torch.ops.planes import Halo
+
+    form, (qp, qm), (sp, sm), kw = call
+    band = lambda t: t[r0:r1].contiguous()  # noqa: E731
+    halo = Halo(tuple(halo_rows(t, r0, r1) for t in (sp, sm, *kw.get("s_vals", ()))), r0, ny)
+    kb = {k: tuple(band(t) for t in v) if k in ("q_vals", "s_vals") else v
+          for k, v in kw.items()}
+    return form, (band(qp), band(qm)), (band(sp), band(sm)), dict(kb, halo=halo)
+
+
+def rebucket_operands(solver, carry):
+    """(advected positions, mask, payload parts) of the padded step's K4 call."""
+    dt = float(carry.time.dt)
     if hasattr(carry, "ctx"):
         pos, mask = carry.ctx.pos_pad, carry.ctx.mask
         parts = (carry.v_pad, carry.kappa_pad, carry.stiff_pad)
     else:
         pos, mask, parts = carry.pos_pad, carry.mask, (carry.v_pad,)
-    adv = pos + carry.v_pad * dt
+    return pos + carry.v_pad * dt, mask, parts
+
+
+def shard_rebucket(solver, carry, r0: int, r1: int) -> tuple:
+    """K4's halo form on rows [r0, r1) of the padded step's advection and
+    payload, the rows r0 - 1 and r1 as its halo, and the one-device K4 on the
+    same rows alone (a grid of those rows, its origin moved up to row r0: the
+    same slots without the halo, the halo form's yardstick); two functions of
+    no argument."""
+    import dataclasses
+
+    from yasph2d_tpu_torch.ops import sm_rebucket as smr
+    from yasph2d_tpu_torch.ops.planes import Halo
+
+    adv, mask, parts = rebucket_operands(solver, carry)
+    grid = solver.grid
+    halo = Halo(tuple(halo_rows(t, r0, r1) for t in (mask, adv, *parts)), r0, grid.ny)
+    band = tuple(t[r0:r1].contiguous() for t in (adv, mask, *parts))
+    band_grid = dataclasses.replace(grid, ny=r1 - r0)
+    alone = dataclasses.replace(band_grid, origin=(grid.origin[0],
+                                                   grid.origin[1] + r0 * grid.cell_size))
+    return (lambda: smr.sm_rebucket_parts(band[0], band[1], band[2:], band_grid, halo=halo),
+            lambda: smr.sm_rebucket_parts(band[0], band[1], band[2:], alone))
+
+
+def padded_rebucket(solver, carry):
+    """K4 on the padded step's own advection and payload, with the glue the
+    step of this tree puts around it; returns a function of no argument."""
+    from yasph2d_tpu_torch.ops import sm_rebucket as smr
+
+    grid = solver.grid
+    adv, mask, parts = rebucket_operands(solver, carry)
     if hasattr(smr, "sm_rebucket_parts"):
         return lambda: smr.sm_rebucket_parts(adv, mask, parts, grid)
 
@@ -159,58 +224,57 @@ def probe_runs(device) -> tuple:
     return runs, planes["probe_ctx"]
 
 
-def main(argv=None):
+def kind_runs(kind, args, device) -> tuple:
+    """({label: function of no argument}, (positions, mask) of the state, the
+    per-step (density iterations, divergence iterations, drops)) of one kind:
+    its step's kernel calls on the state after `args.steps` steps (shard
+    `args.shard`'s halo forms if set)."""
     from yasph2d_tpu_torch.ops.pair_reduce import pair_reduce
     from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
-    from yasph2d_tpu_torch.utils.cuda_timing import graph_ms
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kind", default="dfsph_plane_bf16")
-    ap.add_argument("--particles", type=int, default=1_000_000)
-    ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--save", default=None, help="torch.save each call's output here")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_times needs a CUDA device")
-    device = torch.device("cuda", 0)
-
-    if args.kind == "probe_ctx":
-        runs, q = probe_runs(device)
-        if args.save:
-            torch.save({"state": _cpu((q,)),
-                        "outputs": {label: _cpu(run()) for label, run in runs.items()}},
-                       args.save)
-        times = {label: graph_ms(run) for label, run in runs.items()}
-        print(json.dumps({"kind": args.kind, "live": int((q[2] > 0).sum()),
-                          "device": torch.cuda.get_device_name(0), "ms": times}), flush=True)
-        return
+    slot = "padded" in kind or "dense" in kind
+    if args.shard is not None and "padded" not in kind:
+        raise SystemExit(f"kernel_times: --shard needs a padded kind, not {kind}")
     world = double_dam_break(args.particles)
-    solver, boundary = bench_solver(args.kind, world, device=device)
+    solver, boundary = bench_solver(kind, world, device=device,
+                                    **({} if args.shard is None else dict(ny_multiple=2)))
     carry = solver.init_carry(world.initial_state(device=device), boundary)
     per_step = []
     for _ in range(args.steps):
         carry, d = solver.simulate(carry, boundary, 1)
         per_step.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
-    torch.cuda.synchronize()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
     c = solver._consts
     rng = np.random.default_rng(0)
     runs = {}
-    if "padded" in args.kind:
+    if slot:
         from yasph2d_tpu_torch.ops.pallas_pair import pallas_pair_reduce
         from yasph2d_tpu_torch.ops.sm_pair_reduce import sm_pair_reduce
 
         pair = sm_pair_reduce if solver.grid.use_pallas_slotmajor else pallas_pair_reduce
+        calls = padded_calls(solver, boundary, carry, rng)
+        state = (carry.ctx.pos_pad, carry.ctx.mask) if hasattr(carry, "ctx") \
+            else (carry.pos_pad, carry.mask)
+        r0 = 0
+        if args.shard is not None:  # shard k of two: its rows, the halo forms
+            ny = solver.grid.ny
+            r0, r1 = args.shard * ny // 2, (args.shard + 1) * ny // 2
+            calls = {label: shard_call(call, r0, r1, ny) for label, call in calls.items()}
+            state = tuple(t[r0:r1] for t in state)
         mode = {}
         if solver.grid.pair_dtype == "bfloat16":  # K5's bf16 math mode
             from yasph2d_tpu_torch.ops.pallas_pair import rebase_of
 
-            mode = dict(rebase=rebase_of(solver.grid))
-        for label, (form, q, s, kw) in padded_calls(solver, boundary, carry, rng).items():
+            mode = dict(rebase=rebase_of(solver.grid, r0))
+        for label, (form, q, s, kw) in calls.items():
             kw = dict(kw, **mode)
             runs[label] = (lambda form=form, q=q, s=s, kw=kw: pair(form, *q, *s, c, **kw))
-        runs["sm_rebucket"] = padded_rebucket(solver, carry)
-        state = (carry.ctx.pos_pad, carry.ctx.mask) if hasattr(carry, "ctx") \
-            else (carry.pos_pad, carry.mask)
+        if "padded" in kind and args.shard is None:
+            runs["sm_rebucket"] = padded_rebucket(solver, carry)
+        elif "padded" in kind:
+            runs["sm_rebucket"], runs["sm_rebucket_rows_alone"] = shard_rebucket(
+                solver, carry, r0, r1)
     else:
         from yasph2d_tpu_torch.ops.rebucket import rebucket
 
@@ -225,13 +289,75 @@ def main(argv=None):
         adv = pos + carry.v * float(carry.time.dt)
         runs["rebucket"] = lambda: rebucket(adv, mask, values, solver.grid)
         state = (pos, mask)
+    return runs, state, per_step
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                                b.view(torch.int32) if b.dtype == torch.float32 else b))
+    return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+
+
+def compare(old_path, new_path) -> bool:
+    """Print, for each kind and call of two `--save` files, whether they hold
+    the same bits (floats compared as their bit patterns); True if all do."""
+    old, new = torch.load(old_path), torch.load(new_path)
+    ok = set(old) == set(new)
+    for kind in sorted(set(old) & set(new)):
+        a, b = old[kind], new[kind]
+        calls = {label: label in b["outputs"] and _same_bits(out, b["outputs"][label])
+                 for label, out in a["outputs"].items()}
+        state = _same_bits(a["state"], b["state"])
+        ok &= state and all(calls.values()) and set(a["outputs"]) == set(b["outputs"])
+        print(f"{kind}: state {'=' if state else 'DIFFERS'} " + " ".join(
+            f"{label}{'=' if same else ':DIFFERS'}" for label, same in calls.items()))
+    print("all bitwise equal" if ok else "outputs differ")
+    return ok
+
+
+def main(argv=None):
+    from yasph2d_tpu_torch.utils.cuda_timing import graph_ms
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kind", default="dfsph_plane_bf16")
+    ap.add_argument("--particles", type=int, default=1_000_000)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--shard", type=int, choices=(0, 1), default=None,
+                    help="time the halo forms on this shard's rows (of two)")
+    ap.add_argument("--save", default=None, help="torch.save each call's output here")
+    ap.add_argument("--compare", nargs=2, metavar=("OLD", "NEW"), default=None,
+                    help="compare two --save files bit for bit")
+    args = ap.parse_args(argv)
+    if args.compare:
+        raise SystemExit(0 if compare(*args.compare) else 1)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    device = torch.device("cuda", 0)
+
+    saved = {}
+    for kind in args.kind.split(","):
+        if kind == "probe_ctx":
+            runs, q = probe_runs(device)
+            if args.save:
+                saved[kind] = {"state": _cpu((q,)),
+                               "outputs": {label: _cpu(run()) for label, run in runs.items()}}
+            times = {label: graph_ms(run) for label, run in runs.items()}
+            print(json.dumps({"kind": kind, "live": int((q[2] > 0).sum()),
+                              "device": torch.cuda.get_device_name(0), "ms": times}), flush=True)
+            continue
+        runs, state, per_step = kind_runs(kind, args, device)
+        if args.save:
+            saved[kind] = {"state": _cpu(state),
+                           "outputs": {label: _cpu(run()) for label, run in runs.items()}}
+        times = {label: graph_ms(run) for label, run in runs.items()}
+        print(json.dumps({"kind": kind, "particles": args.particles, "steps": args.steps,
+                          "shard": args.shard, "live": int(state[1].sum()),
+                          "device": torch.cuda.get_device_name(0),
+                          "iterations_drops_per_step": per_step, "ms": times}), flush=True)
     if args.save:
-        torch.save({"state": _cpu(state),
-                    "outputs": {label: _cpu(run()) for label, run in runs.items()}}, args.save)
-    times = {label: graph_ms(run) for label, run in runs.items()}
-    print(json.dumps({"kind": args.kind, "particles": args.particles, "steps": args.steps,
-                      "live": int(state[1].sum()), "device": torch.cuda.get_device_name(0),
-                      "iterations_drops_per_step": per_step, "ms": times}), flush=True)
+        torch.save(saved, args.save)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
     python -m yasph2d_tpu_torch.tools.sass_compare OLD.so NEW.so
         [--match 'void pair_reduce_kernel<'] [--rename 'ViscTerm<XsphCoef>=ViscTerm' ...]
-        [--sub 'PATTERN=REPLACEMENT' ...] [--show N]
+        [--sub 'PATTERN=REPLACEMENT' ...] [--show N] [--counts HADD2,HMUL2,...]
 
 Disassembles both libraries with `cuobjdump -sass` (CUDA toolkit; on the card's
 host), demangles each kernel's name with `cu++filt`, applies the renames (plain
@@ -12,7 +12,10 @@ compares each kernel whose name starts with `--match`, instruction
 by instruction, addresses and encodings dropped. Prints one line per kernel
 (same, differs, or only in one build), with `--show` the first N differing
 instruction pairs of each kernel that differs, and a JSON summary; exits 1
-when a kernel of OLD differs or is missing in NEW.
+when a kernel of OLD differs or is missing in NEW. `--counts` prints instead,
+for every matched kernel of both builds, its instruction count and how many
+of its instructions start with each given opcode prefix (one JSON line a
+kernel).
 """
 
 import argparse
@@ -71,12 +74,22 @@ def main(argv=None) -> int:
                     help="PATTERN=REPLACEMENT regular expression applied after the renames")
     ap.add_argument("--show", type=int, default=0,
                     help="differing instruction pairs to print per kernel")
+    ap.add_argument("--counts", default=None,
+                    help="comma-separated opcode prefixes to count in each matched kernel")
     args = ap.parse_args(argv)
     renames = [tuple(r.split("=", 1)) for r in args.rename]
     subs = [tuple(r.split("=", 1)) for r in args.sub]
     old = {k: v for k, v in kernels(args.old).items() if k.startswith(args.match)}
     new = {k: v for k, v in kernels(args.new, renames, subs).items()
            if k.startswith(args.match)}
+    if args.counts:
+        prefixes = args.counts.split(",")
+        for build, found in (("old", old), ("new", new)):
+            for name, instrs in sorted(found.items()):
+                ops = [next(t for t in i.split() if not t.startswith("@")) for i in instrs]
+                print(json.dumps({"build": build, "kernel": name, "instructions": len(ops),
+                                  **{p: sum(o.startswith(p) for o in ops) for p in prefixes}}))
+        return 0
     same, differs, missing = [], [], []
     for name, instrs in sorted(old.items()):
         if name not in new:

@@ -6,7 +6,10 @@ and K1 (csrc/pair_reduce.cu) on one GPU.
 
 K5: steps the double dam-break through the DFSPH and WCSPH padded solvers on
 their K5 route, then times K5's call forms on those states (seeded noise, as
-chip_smoke.py phase 3) for every (TY, TX, threads) shape of SHAPES.
+chip_smoke.py phase 3) for every (TY, TX, threads) shape of SHAPES whose
+block fits; a bf16 kind (`--kinds dfsph_padded_k5_bf16,wcsph_padded_k5_bf16`)
+times the forms in K5's bf16 math mode (ops/pallas_pair.py tile_shape with
+the mode's staging bytes).
 K3: the same on the padded solvers' K3 route, K3's call forms; K3 takes
 K5's launch shape (ops/pallas_pair.py tile_shape) unless this shows another.
 K1: steps the scene through the DFSPH plane solver in float32 and in bfloat16
@@ -107,20 +110,24 @@ def sweep_tiles(args, device) -> list:
         if solver.grid.use_pallas_slotmajor != (args.kernel == "k3"):
             raise SystemExit(f"tile_sweep: {kind} is not on the {args.kernel} route")
         launch = smp.launch if args.kernel == "k3" else tpp.launch
+        mode = {} if args.kernel == "k3" or tpp.rebase_of(solver.grid) is None \
+            else dict(rebase=tpp.rebase_of(solver.grid))
         calls = padded_calls(solver, boundary, carry, np.random.default_rng(2))
         q_pos, q_mask = next(iter(calls.values()))[1]
         print(f"state: {kind}, {int(q_mask.sum())} live, grid {solver.grid.nx}x"
               f"{solver.grid.ny} P {solver.grid.occupancy}, boundary Pb "
               f"{boundary.mask.shape[2]}, {args.steps} steps", flush=True)
         for label, (form, q, src, kw) in calls.items():
-            default = tpp.tile_shape(q[1].shape[2], src[1].shape[2],
-                                     len(tpp._comps(kw.get("s_vals", ()))))
+            sizes = (q[1].shape[2], src[1].shape[2], len(tpp._comps(kw.get("s_vals", ()))),
+                     bool(mode))
+            default = tpp.tile_shape(*sizes)
+            shapes = [t for t in SHAPES if tpp.smem_bytes(*t[:2], *sizes) <= tpp.SMEM_LIMIT]
 
             def run(tile, form=form, q=q, src=src, kw=kw, launch=launch):
                 return launch(form, *q, *src, solver._consts, kw.get("q_vals", ()),
-                              kw.get("s_vals", ()), kw.get("scalars", ()), tile)
+                              kw.get("s_vals", ()), kw.get("scalars", ()), tile, **mode)
 
-            _time_shapes(f"{kind}:{label}", run, default, SHAPES, results)
+            _time_shapes(f"{kind}:{label}", run, default, shapes, results)
     return results
 
 
