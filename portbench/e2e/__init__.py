@@ -1,0 +1,1 @@
+"""End-to-end metric readers, one a file, found by the metric's name."""

@@ -1,0 +1,8 @@
+"""pressure_iterations_per_step (layer: solver step, host loop): density
+plus divergence solve iterations a step over the traced replay, from each
+step's Diagnostics. None where no step iterates (a WCSPH cell)."""
+
+
+def read(r):
+    its = sum(s.density_iterations + s.divergence_iterations for s in r.records)
+    return its / len(r.records) if its else None
