@@ -21,9 +21,13 @@ rows), and the sharded padded K5 steps. K5's bf16 math mode equals its twin
 bit for bit where each view holds at most one live source (no sum has an
 order to differ in), at every launch shape tile_shape can pick. The table solvers
 (plain tensor operations) and the sorted solvers (K3 or K5, no K4) on the
-card agree with themselves on the CPU, and keep every tensor on the card."""
+card agree with themselves on the CPU, and keep every tensor on the card. In
+a traced padded WCSPH step every device-to-host copy is a counted read-back
+(utils/profiling.read_back), and K5 and K4 launch inside their phase
+scopes."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -49,8 +53,9 @@ from yasph2d_tpu_torch.ops.dense_grid import DenseGridConfig
 from yasph2d_tpu_torch.ops.planes import Halo, PlaneGeom, plane_geom, to_planes
 from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 from yasph2d_tpu_torch.tools import probe_pallas_slotmajor as pc
-from yasph2d_tpu_torch.tools import tile_sweep
+from yasph2d_tpu_torch.tools import step_phases, tile_sweep
 from yasph2d_tpu_torch.tools import vpu_probe as vp
+from yasph2d_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -799,6 +804,31 @@ def test_sm_rebucket_parts_kernel_bit_equal(device, p, ny, nx, widths, overflow)
     else:
         assert int(new_mask.sum()) + int(drops) == int(mask.sum())
     assert not torch.signbit(stacked[stacked == 0]).any()  # -0.0 comes out +0.0
+
+
+def test_padded_read_backs_are_the_device_to_host_copies(device, tmp_path):
+    """Five traced steps of the WCSPH padded solver on K5: the read-back
+    counter grows by the trace's device-to-host copies (2 a step), every K5
+    launch is made inside "WCSPH.pairs" and every K4 launch inside
+    "K4.rebucket" (utils/profiling.py scopes)."""
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver("wcsph_padded_k5", world, device=device)
+    carry = solver.init_carry(world.initial_state(device=device), boundary)
+    carry, _ = solver.simulate(carry, boundary, 2)
+    torch.cuda.synchronize()
+    before = sum(profiling.READBACKS.values())
+    with profiling.trace(str(tmp_path)):
+        carry, _ = solver.simulate(carry, boundary, 5)
+        torch.cuda.synchronize()
+    read = sum(profiling.READBACKS.values()) - before
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    ops = step_phases.operations(events)
+    copies = [e for e, _ in ops if e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]]
+    assert read == len(copies) == 10
+    k5 = [scopes for e, scopes in ops if "tile_pair_reduce_kernel" in e["name"]]
+    k4 = [scopes for e, scopes in ops if "sm_rebucket_" in e["name"]]
+    assert len(k5) == 15 and all(s[-1] == "WCSPH.pairs" for s in k5)
+    assert len(k4) == 5 and all(s[-1] == "K4.rebucket" for s in k4)
 
 
 def test_sm_rebucket_steps_are_one_launch(device):

@@ -113,6 +113,7 @@ from ..ops.smoothing_kernels import WendlandQuinticC2
 from ..timemanager import StepConfig, TimeState, update_simulation_step
 from ..units import INDEX, REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
+from ..utils.profiling import read_back, scope
 from ..world import GRAVITY, FluidProperties, ParticleState
 from .viscosity import ViscosityModel, kernel_coefficient
 
@@ -384,7 +385,7 @@ class DFSPHSlotSolver:
     def _count_live(self, mask: torch.Tensor) -> np.float32:
         """Live-particle count, the residual-average denominator (the reference
         averages over its exact particle count, dfsph.rs:221, 376-377)."""
-        return REAL_NP(int(mask.sum()))
+        return REAL_NP(read_back("live_count", mask.sum()))
 
     def _rebucket_row0(self) -> int:
         """This shard's first global cell row: 0 on one device."""
@@ -398,7 +399,7 @@ class DFSPHSlotSolver:
     def _max_vel_from_sq(self, v_est_sq) -> np.float32:
         """CFL velocity from the live slots' squared speeds (dead slots 0); the
         one hook of the CFL max that the shard solvers override."""
-        return f32(float(torch.sqrt(v_est_sq.max())))
+        return f32(read_back("max_velocity", torch.sqrt(v_est_sq.max())))
 
     def _slot_pair(self, form: PairForm, q_pos, q_mask, s_pos, s_mask, s_halo=None,
                    q_vals=(), s_vals=(), scalars=()):
@@ -528,7 +529,7 @@ class DFSPHSlotSolver:
 
     def _mean_live(self, value_pad, ctx: DenseCtx, n_particles) -> np.float32:
         total = torch.where(ctx.mask, value_pad, 0.0).sum()
-        return f32(float(total)) / f32(n_particles)
+        return f32(read_back("mean_residual", total)) / f32(n_particles)
 
     def _max_velocity(self, vstar_pad, mask) -> np.float32:
         """CFL velocity estimate over live slots (dfsph.rs:474-477)."""
@@ -635,73 +636,82 @@ class DFSPHPaddedSolver(DFSPHSlotSolver):
 
     def step(self, carry: DFSPHPaddedCarry, boundary: BoundaryDense,
              rebuild: bool = True):
-        """One simulation step in the JAX step's order (dfsph.rs:414-525). A
-        stale step (`rebuild` False) keeps the slot layout and refreshes the
-        pair context from the advected positions, its drop count the carry's."""
-        ctx = carry.ctx
-        time_state = carry.time
-        dt = time_state.dt
-        n = self._count_live(ctx.mask)
-        v_pad = carry.v_pad
-        rho_pad = ctx.densities_pad
+        """One simulation step in the JAX step's order (dfsph.rs:414-525), its
+        phases in profiler scopes "DFSPH.<phase>" inside "DFSPH.step"
+        (utils/profiling.py). A stale step (`rebuild` False) keeps the slot
+        layout and refreshes the pair context from the advected positions,
+        its drop count the carry's."""
+        with scope("DFSPH", "step"):
+            ctx = carry.ctx
+            time_state = carry.time
+            dt = time_state.dt
+            n = self._count_live(ctx.mask)
+            v_pad = carry.v_pad
+            rho_pad = ctx.densities_pad
 
-        gvec = torch.tensor(self.gravity, dtype=REAL, device=v_pad.device)
-        accel = self._viscosity_pass(ctx, v_pad, rho_pad, dt) + gvec
+            with scope("DFSPH", "viscosity"):
+                gvec = torch.tensor(self.gravity, dtype=REAL, device=v_pad.device)
+                accel = self._viscosity_pass(ctx, v_pad, rho_pad, dt) + gvec
 
-        # CFL with the old-dt estimate (dfsph.rs:472-481)
-        vstar = v_pad + accel * float(dt)
-        max_velocity = self._max_velocity(vstar, ctx.mask)
-        time_state = update_simulation_step(
-            self.step_config, time_state,
-            self.properties.particle_radius * 2.0, max_velocity,
-        )
-        dt = time_state.dt
+            # CFL with the old-dt estimate (dfsph.rs:472-481)
+            with scope("DFSPH", "cfl"):
+                vstar = v_pad + accel * float(dt)
+                max_velocity = self._max_velocity(vstar, ctx.mask)
+                time_state = update_simulation_step(
+                    self.step_config, time_state,
+                    self.properties.particle_radius * 2.0, max_velocity,
+                )
+                dt = time_state.dt
 
-        # predict v* with the new dt, constant-density loop (dfsph.rs:484-496)
-        pred = v_pad + accel * float(dt)
-        pred, kappa, density_iters, avg_density_error = self._correct_density_error(
-            dt, rho_pad, ctx.alpha_pad, pred, carry.kappa_pad,
-            carry.prev_density_iterations, ctx, n,
-        )
+            # predict v* with the new dt, constant-density loop (dfsph.rs:484-496)
+            pred = v_pad + accel * float(dt)
+            with scope("DFSPH", "density_loop"):
+                pred, kappa, density_iters, avg_density_error = self._correct_density_error(
+                    dt, rho_pad, ctx.alpha_pad, pred, carry.kappa_pad,
+                    carry.prev_density_iterations, ctx, n,
+                )
 
-        # advect + re-bucket (dfsph.rs:499-512): [v*(2) | kappa | stiffness]
-        pos = ctx.pos_pad + pred * float(dt)
-        if rebuild:
-            payload = (pred, kappa, carry.stiff_pad)
-            pos, mask, (pred, kappa, stiff), drops = sm_rebucket_parts(
-                pos, ctx.mask, payload, self.grid, halo=self._halo((ctx.mask, pos, *payload)))
-            ctx = self._ctx_from_padded(pos, mask, boundary,
-                                        self._sum_counts(drops) + boundary.num_dropped)
-        else:
-            stiff = carry.stiff_pad
-            ctx = self._ctx_from_padded(pos, ctx.mask, boundary, ctx.num_dropped)
+            # advect + re-bucket (dfsph.rs:499-512): [v*(2) | kappa | stiffness]
+            with scope("DFSPH", "advect"):
+                pos = ctx.pos_pad + pred * float(dt)
+            if rebuild:
+                payload = (pred, kappa, carry.stiff_pad)
+                pos, mask, (pred, kappa, stiff), drops = sm_rebucket_parts(
+                    pos, ctx.mask, payload, self.grid,
+                    halo=self._halo((ctx.mask, pos, *payload)))
+                dropped = self._sum_counts(drops) + boundary.num_dropped
+            else:
+                mask, stiff, dropped = ctx.mask, carry.stiff_pad, ctx.num_dropped
+            with scope("DFSPH", "context"):
+                ctx = self._ctx_from_padded(pos, mask, boundary, dropped)
 
-        # divergence-free loop (dfsph.rs:521)
-        pred, stiff, divergence_iters, avg_divergence = self._correct_divergence_error(
-            dt, ctx.alpha_pad, pred, stiff, carry.prev_divergence_iterations, ctx, n,
-        )
+            # divergence-free loop (dfsph.rs:521)
+            with scope("DFSPH", "divergence_loop"):
+                pred, stiff, divergence_iters, avg_divergence = self._correct_divergence_error(
+                    dt, ctx.alpha_pad, pred, stiff, carry.prev_divergence_iterations, ctx, n,
+                )
 
-        new_carry = DFSPHPaddedCarry(
-            ctx=ctx,
-            v_pad=pred,
-            kappa_pad=kappa,
-            stiff_pad=stiff,
-            prev_density_iterations=density_iters,
-            prev_divergence_iterations=divergence_iters,
-            time=time_state,
-        )
-        diagnostics = Diagnostics(
-            dt=dt,
-            max_velocity=max_velocity,
-            neighbor_drops=int(ctx.num_dropped),
-            density_iterations=density_iters,
-            divergence_iterations=divergence_iters,
-            avg_density_error=avg_density_error,
-            avg_divergence=avg_divergence,
-            # migration is structural here: K4's halo rows
-            migration_drops=0,
-        )
-        return new_carry, diagnostics
+            new_carry = DFSPHPaddedCarry(
+                ctx=ctx,
+                v_pad=pred,
+                kappa_pad=kappa,
+                stiff_pad=stiff,
+                prev_density_iterations=density_iters,
+                prev_divergence_iterations=divergence_iters,
+                time=time_state,
+            )
+            diagnostics = Diagnostics(
+                dt=dt,
+                max_velocity=max_velocity,
+                neighbor_drops=read_back("drops", ctx.num_dropped),
+                density_iterations=density_iters,
+                divergence_iterations=divergence_iters,
+                avg_density_error=avg_density_error,
+                avg_divergence=avg_divergence,
+                # migration is structural here: K4's halo rows
+                migration_drops=0,
+            )
+            return new_carry, diagnostics
 
 
 # ----------------------------------------------------------------- sorted carry

@@ -40,7 +40,8 @@ the kernel's order and agree with the JAX package to f32 tolerance, not
 bitwise.
 
 dt lives on the host as np.float32 (timemanager.py); each step reads the CFL
-velocity and the drop count back from the device.
+velocity and the drop count back from the device (`read_back`,
+utils/profiling.py: two a step).
 """
 
 from dataclasses import dataclass
@@ -65,6 +66,7 @@ from ..ops.smoothing_kernels import Poly6, Spiky
 from ..timemanager import StepConfig, TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
+from ..utils.profiling import read_back, scope
 from ..world import GRAVITY, FluidProperties, ParticleState
 from .dfsph_dense import BoundaryDense, DFSPHSlotSolver
 from .viscosity import ViscosityModel, kernel_coefficient
@@ -272,44 +274,49 @@ class WCSPHPaddedSolver(WCSPHSlotSolver):
 
     def step(self, carry: WCSPHPaddedCarry, boundary: BoundaryDense):
         """One simulation step (reference: wscsph.rs:126-179), in the JAX step's
-        order."""
-        time_state = carry.time
-        dt = time_state.dt
+        order, its phases in profiler scopes "WCSPH.<phase>" inside
+        "WCSPH.step" (utils/profiling.py)."""
+        with scope("WCSPH", "step"):
+            time_state = carry.time
+            dt = time_state.dt
 
-        # leapfrog part 1 in the OLD layout (wscsph.rs:141-151)
-        v = carry.v_pad + float(f32(0.5) * dt) * carry.accel_pad
-        pos = carry.pos_pad + v * float(dt)
+            # leapfrog part 1 in the OLD layout (wscsph.rs:141-151)
+            with scope("WCSPH", "kick_drift"):
+                v = carry.v_pad + float(f32(0.5) * dt) * carry.accel_pad
+                pos = carry.pos_pad + v * float(dt)
 
-        # neighbourhood rebuild = windowed re-bucket (wscsph.rs:153)
-        pos, mask, (v,), drops = sm_rebucket_parts(pos, carry.mask, (v,), self.grid,
-                                                   halo=self._halo((carry.mask, pos, v)))
+            # neighbourhood rebuild = windowed re-bucket (wscsph.rs:153)
+            pos, mask, (v,), drops = sm_rebucket_parts(pos, carry.mask, (v,), self.grid,
+                                                       halo=self._halo((carry.mask, pos, v)))
 
-        dens, accel = self._density_and_forces(pos, v, mask, boundary, dt)
-        gvec = torch.tensor(self.gravity, dtype=REAL, device=pos.device)
-        # dead slots stay frozen: no gravity, no advection
-        accel = torch.where(mask[..., None], accel + gvec, 0.0)
+            with scope("WCSPH", "pairs"):
+                dens, accel = self._density_and_forces(pos, v, mask, boundary, dt)
 
-        # CFL with the *old* dt estimate (wscsph.rs:158-167)
-        vstar = v + accel * float(dt)
-        max_velocity = self._max_velocity((vstar * vstar).sum(dim=-1), mask)
-        time_state = update_simulation_step(
-            self.step_config, time_state,
-            self.properties.particle_radius * 2.0, max_velocity,
-        )
+            with scope("WCSPH", "cfl"):
+                gvec = torch.tensor(self.gravity, dtype=REAL, device=pos.device)
+                # dead slots stay frozen: no gravity, no advection
+                accel = torch.where(mask[..., None], accel + gvec, 0.0)
 
-        # leapfrog part 2 with the NEW dt (wscsph.rs:169-178)
-        v = v + float(f32(0.5) * time_state.dt) * accel
+                # CFL with the *old* dt estimate (wscsph.rs:158-167)
+                vstar = v + accel * float(dt)
+                max_velocity = self._max_velocity((vstar * vstar).sum(dim=-1), mask)
+                time_state = update_simulation_step(
+                    self.step_config, time_state,
+                    self.properties.particle_radius * 2.0, max_velocity,
+                )
 
-        new_carry = WCSPHPaddedCarry(
-            pos_pad=pos, v_pad=v, accel_pad=accel, dens_pad=dens, mask=mask,
-            time=time_state,
-        )
-        diagnostics = Diagnostics.zeros()._replace(
-            dt=dt,
-            max_velocity=max_velocity,
-            neighbor_drops=int(self._sum_counts(drops) + boundary.num_dropped),
-        )
-        return new_carry, diagnostics
+            # leapfrog part 2 with the NEW dt (wscsph.rs:169-178)
+            with scope("WCSPH", "kick"):
+                v = v + float(f32(0.5) * time_state.dt) * accel
+                drops = read_back("drops", self._sum_counts(drops) + boundary.num_dropped)
+
+            new_carry = WCSPHPaddedCarry(
+                pos_pad=pos, v_pad=v, accel_pad=accel, dens_pad=dens, mask=mask,
+                time=time_state,
+            )
+            diagnostics = Diagnostics.zeros()._replace(
+                dt=dt, max_velocity=max_velocity, neighbor_drops=drops)
+            return new_carry, diagnostics
 
 
 class WCSPHDenseCarry(NamedTuple):

@@ -35,6 +35,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..units import INDEX, REAL
+from ..utils.profiling import scope
 from . import cuda_build
 from .dense_grid import DenseGridConfig, f32_scalar, move_codes
 from .planes import Halo
@@ -131,7 +132,14 @@ def sm_rebucket_parts(pos, mask, parts: Sequence[torch.Tensor], grid: DenseGridC
     the new parts in the input's shapes, num_dropped); dispatches on device.
     The CPU route concatenates the parts for `sm_rebucket_ref`; the CUDA route
     passes one pointer per part and copies nothing. `halo`: the neighbours'
-    rows of (mask, pos, *parts) as `Halo.planes` (module docstring)."""
+    rows of (mask, pos, *parts) as `Halo.planes` (module docstring). Runs in
+    the profiler scope "K4.rebucket" (utils/profiling.py), which every
+    padded route's re-bucket shares."""
+    with scope("K4", "rebucket"):
+        return _rebucket_parts(pos, mask, parts, grid, halo)
+
+
+def _rebucket_parts(pos, mask, parts, grid, halo):
     if not parts:
         raise ValueError("sm_rebucket: the payload needs at least one part")
     device = pos.device

@@ -98,6 +98,7 @@ from ..models.wcsph_dense import WCSPHPaddedSolver
 from ..ops.dense_grid import DenseGridConfig, cell_coords, sort_by_dense_keys
 from ..ops.planes import Halo
 from ..units import REAL, REAL_NP
+from ..utils.profiling import read_back
 from ..world import ParticleState
 from .comm import SpaceGroup
 
@@ -189,14 +190,14 @@ class _SpatialCollectives:
         # the reference's global residual average: the sum of the shards'
         # partial sums, so every shard takes the same loop exit
         total = self.group.sum(torch.where(ctx.mask, value, 0.0).sum())
-        return REAL_NP(float(total)) / REAL_NP(n_particles)
+        return REAL_NP(read_back("mean_residual", total)) / REAL_NP(n_particles)
 
     def _count_live(self, mask: torch.Tensor) -> np.float32:
-        return REAL_NP(int(self.group.sum(mask.sum())))
+        return REAL_NP(read_back("live_count", self.group.sum(mask.sum())))
 
     def _max_vel_from_sq(self, v_est_sq) -> np.float32:
         # the CFL velocity: the largest over the shards
-        return REAL_NP(float(torch.sqrt(self.group.max(v_est_sq.max()))))
+        return REAL_NP(read_back("max_velocity", torch.sqrt(self.group.max(v_est_sq.max()))))
 
     def _sum_counts(self, count: torch.Tensor) -> torch.Tensor:
         return self.group.sum(count)

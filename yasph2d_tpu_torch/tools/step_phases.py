@@ -1,0 +1,175 @@
+"""Which phase of a solver step each device operation and idle gap belongs to.
+
+    python -m yasph2d_tpu_torch.tools.step_phases TRACE.json
+
+reads a Chrome trace of the port's steps taken with both host and device
+activity (`utils/profiling.trace`, `tools/trace_step.py --trace`) and
+prints, for each program scope (`utils/profiling.scope`), the device time,
+launches, glue time and idle time that fall to it, a step's worth each, then
+the split that the scopes' names give. It needs no device: a trace from the
+card can be read anywhere.
+
+The rules, on the trace's one timeline:
+
+- a device operation (a kernel, memcpy or memset) belongs to the innermost
+  scope open at the start of the runtime call that launched it, joined by
+  its `correlation` id;
+- an idle gap between device operations belongs to the innermost scope open
+  on the host when the device went idle, that is at the gap's start: inside
+  a "sync.*" scope (`profiling.read_back`) the device ran dry while the step
+  waited on it; inside a step scope but outside "sync.*" the host's launches
+  fell behind; outside every step scope the gap is the caller's;
+- glue is every device operation that is not one of the port's kernels
+  (`KERNELS`); pair glue is glue launched inside one of `PAIR_SCOPES`, and
+  integrate glue the rest of a step's.
+
+The steps counted are the step scopes (`STEP_SCOPES`) in the trace.
+"""
+
+import argparse
+import json
+from typing import NamedTuple
+
+STEP_SCOPES = ("WCSPH.step", "DFSPH.step")
+# the phases of a padded step that run pair passes, and the glue between them
+PAIR_SCOPES = ("WCSPH.pairs", "DFSPH.viscosity", "DFSPH.context", "DFSPH.density_loop",
+               "DFSPH.divergence_loop")
+SYNC_PREFIX = "sync."
+# the port's kernels, as substrings of their traced names: K1 / K3 / K5
+# (pair_reduce_kernel, tile_pair_reduce_kernel), K2 (rebucket_kernel), K4
+KERNELS = ("pair_reduce_kernel", "rebucket_kernel", "sm_rebucket_staged",
+           "sm_rebucket_direct")
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+NO_SCOPE = "(no scope)"
+
+
+class Span(NamedTuple):
+    start: float
+    end: float
+    name: str
+
+
+def _complete(events, categories):
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") in categories]
+
+
+def _open_at(spans: list, times: list) -> list:
+    """For each time of `times`, the names of the spans open there
+    (start <= t < end), outermost first. `spans` nest, as one thread's
+    scopes do."""
+    order = sorted(range(len(times)), key=times.__getitem__)
+    out = [()] * len(times)
+    stack, i = [], 0
+    for k in order:
+        t = times[k]
+        while i < len(spans) and spans[i].start <= t:
+            while stack and stack[-1].end <= spans[i].start:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1].end <= t:
+            stack.pop()
+        out[k] = tuple(s.name for s in stack)
+    return out
+
+
+def _spans(events) -> list:
+    # by start, the outer of two spans that start together first
+    return sorted((Span(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
+                   for e in _complete(events, ("user_annotation",))),
+                  key=lambda s: (s.start, -s.end))
+
+
+def operations(events: list, spans=None) -> list:
+    """The device operations in start order, each with the names of the
+    scopes open at its launch, outermost first."""
+    spans = _spans(events) if spans is None else spans
+    launch_at = {e["args"]["correlation"]: float(e["ts"])
+                 for e in _complete(events, LAUNCH_CATEGORIES)
+                 if "correlation" in e.get("args", {})}
+    ops = sorted(_complete(events, DEVICE_CATEGORIES), key=lambda e: float(e["ts"]))
+    # an operation whose launch the trace lacks is placed at its own start
+    return list(zip(ops, _open_at(spans, [launch_at.get(e.get("args", {}).get("correlation"),
+                                                        float(e["ts"])) for e in ops])))
+
+
+def attribute(events: list) -> dict:
+    """The per-scope table and the split of a trace's events (the module
+    docstring's rules); times in ms a step, None where the trace holds no
+    step scope."""
+    spans = _spans(events)
+    op_stacks = operations(events, spans)
+    ops = [e for e, _ in op_stacks]
+    gaps, end = [], None
+    for e in ops:
+        start, stop = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+        if end is not None and start > end:
+            gaps.append((end, start - end))
+        end = stop if end is None else max(end, stop)
+    gap_stacks = _open_at(spans, [g[0] for g in gaps])
+
+    steps = sum(s.name in STEP_SCOPES for s in spans)
+    if not steps:
+        return {"steps": 0, "scopes": {}, "split": None}
+    scopes = {}
+
+    def row(stack):
+        name = stack[-1] if stack else NO_SCOPE
+        return scopes.setdefault(name, {"device_ms": 0.0, "launches": 0, "glue_ms": 0.0,
+                                        "glue_launches": 0, "idle_ms": 0.0})
+
+    split = dict.fromkeys(("pair_glue_ms", "integrate_glue_ms", "outside_glue_ms",
+                           "sync_idle_ms", "dispatch_idle_ms", "caller_idle_ms"), 0.0)
+    for e, stack in op_stacks:
+        ms = float(e.get("dur", 0.0)) * 1e-3 / steps
+        r = row(stack)
+        r["device_ms"] += ms
+        r["launches"] += 1
+        if e["cat"] == "kernel" and any(k in e["name"] for k in KERNELS):
+            continue
+        r["glue_ms"] += ms
+        r["glue_launches"] += 1
+        if any(s in PAIR_SCOPES for s in stack):
+            split["pair_glue_ms"] += ms
+        elif any(s in STEP_SCOPES for s in stack):
+            split["integrate_glue_ms"] += ms
+        else:
+            split["outside_glue_ms"] += ms
+    for (_, us), stack in zip(gaps, gap_stacks):
+        ms = us * 1e-3 / steps
+        row(stack)["idle_ms"] += ms
+        if any(s.startswith(SYNC_PREFIX) for s in stack):
+            split["sync_idle_ms"] += ms
+        elif any(s in STEP_SCOPES for s in stack):
+            split["dispatch_idle_ms"] += ms
+        else:
+            split["caller_idle_ms"] += ms
+    for r in scopes.values():
+        r["launches"] /= steps
+        r["glue_launches"] /= steps
+    split["syncs"] = sum(s.name.startswith(SYNC_PREFIX) for s in spans) / steps
+    return {"steps": steps, "scopes": scopes, "split": split}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trace", help="a Chrome trace (JSON) of the port's steps")
+    args = ap.parse_args(argv)
+    with open(args.trace) as f:
+        data = json.load(f)
+    result = attribute(data["traceEvents"] if isinstance(data, dict) else data)
+    if not result["steps"]:
+        raise SystemExit(f"{args.trace}: no step scope ({', '.join(STEP_SCOPES)})")
+    print(f"{result['steps']} steps; a step's ms and launches by innermost scope:")
+    print(f"  {'scope':24s} {'device ms':>10s} {'launches':>9s} {'glue ms':>9s} "
+          f"{'glue launches':>14s} {'idle ms':>9s}")
+    for name, r in result["scopes"].items():
+        print(f"  {name:24s} {r['device_ms']:10.4f} {r['launches']:9.2f} {r['glue_ms']:9.4f} "
+              f"{r['glue_launches']:14.2f} {r['idle_ms']:9.4f}")
+    print("  " + ", ".join(f"{k} {v:.4f}" for k, v in result["split"].items()))
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

@@ -6,6 +6,12 @@ Counterpart of the reference's microprofile instrumentation (SURVEY.md section
 `torch.profiler.record_function` range named "Group.name", which a
 `torch.profiler` trace shows on the host timeline around the device work it
 launched; a trace is a Chrome trace file (chrome://tracing, Perfetto).
+
+The padded solvers' steps (models/wcsph_dense.py, models/dfsph_dense.py)
+open a scope around the step and each of its phases, K4's re-bucket
+(ops/sm_rebucket.py) one around itself, and every read of a device value
+back to the host goes through `read_back`, which counts it in `READBACKS`
+and opens a "sync.<what>" scope: the one place a step waits on the device.
 """
 
 import collections
@@ -18,10 +24,35 @@ from typing import Optional
 import torch
 
 
+# read-backs by what they read (`read_back`'s `what`), since the process
+# started or `reset_readbacks`
+READBACKS = collections.Counter()
+
+# what `scope` returns while no profiler records: entering a
+# `record_function` costs an operator call even then
+_OFF = contextlib.nullcontext(True)
+
+
 def scope(group: str, name: str):
     """`microprofile::scope!(group, name)` equivalent: a "group.name" range on
-    the profiler's timeline (free of cost while no profiler is recording)."""
+    the profiler's timeline while a profiler records, else a shared context
+    that does nothing."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(f"{group}.{name}")
+
+
+def read_back(what: str, value: torch.Tensor):
+    """The host number of a 0-d tensor (`.item()`: a device value waits for
+    the device), counted in READBACKS[what] and inside a "sync.<what>"
+    scope."""
+    READBACKS[what] += 1
+    with scope("sync", what):
+        return value.item()
+
+
+def reset_readbacks():
+    READBACKS.clear()
 
 
 @contextlib.contextmanager
