@@ -21,7 +21,14 @@ Phases, each reported on its own line:
      K1's three forms without an epilogue of the unfused DFSPH plane step
      (visc, div, corr; f32 records, bf16 operands checked only, visc_phys
      timed); and K3's and K5's physical forms
-     (dfsph_visc_phys, wcsph_forces_phys). The physical forms are checked
+     (dfsph_visc_phys, wcsph_forces_phys); and the padded WCSPH step's four
+     glue kernels (slot_kick_drift, slot_density_tait, slot_accel_cfl,
+     slot_kick: ops/slot_glue.py) on the operands the step gives them, on
+     its K5 state (records) and its K3 state (checked only), bit-equal to
+     their twins (slot_kick_drift on the live slots, the only ones it
+     writes), their bounds by bytes (tools/roofline.py `glue_bytes`: the
+     mask, the live slots' reads, the writes) and their launches those of
+     the WCSPH padded solver paths. The physical forms are checked
      and timed here beside their XSPH forms on the same operands, but their
      records come from phase 5, where they launch. The WCSPH states
      are taken after 3 steps, the DFSPH states after 60, when the columns
@@ -247,6 +254,7 @@ SOURCES = {
     "sm_rebucket_halo": CSRC + "sm_rebucket.cu",
     "vpu_probe": CSRC + "vpu_probe.cu",
     "probe_ctx": CSRC + "pair_reduce.cu",
+    "slot_glue": CSRC + "slot_glue.cu",
 }
 REPLACES = {
     "pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:821",  # pf_pair_reduce
@@ -267,7 +275,16 @@ REPLACES = {
     "vpu_probe_fma": "tools/vpu_probe.py:39",  # fma_probe
     "vpu_probe_mix": "tools/vpu_probe.py:76",  # mix_probe
     "probe_ctx": "tools/probe_pallas_slotmajor.py:113",  # ctx_pass_slotmajor
+    # the padded WCSPH step's XLA glue: the kick-drift, the density and Tait
+    # pressure, gravity and the CFL max, the kick
+    "slot_kick_drift": "yasph2d_tpu/models/wcsph_dense.py:366",
+    "slot_density_tait": "yasph2d_tpu/models/wcsph_dense.py:159",
+    "slot_accel_cfl": "yasph2d_tpu/models/wcsph_dense.py:389",
+    "slot_kick": "yasph2d_tpu/models/wcsph_dense.py:403",
 }
+# the padded WCSPH step's glue kernels (ops/slot_glue.py); the sorted WCSPH
+# step runs the density and Tait one
+SLOT_GLUE = ["slot_kick_drift", "slot_density_tait", "slot_accel_cfl", "slot_kick"]
 BIT_EQUAL = ("pair_reduce", "sm_pair_reduce")  # pair kernels whose twins sum in their order
 DFSPH_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v")
 WCSPH_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces")
@@ -281,27 +298,28 @@ LOOP_GRADIENT_FORMS = ("dfsph_ctx", "dfsph_visc")  # K5's forms under a loop-gra
 # the kernels each main path must launch: the solvers' steps, then the tools
 SOLVER_PATHS = {
     "dfsph_plane": [f"pair_reduce_{f}" for f in DFSPH_FORMS] + ["rebucket"],
-    "wcsph_padded": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"],
+    "wcsph_padded": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"] + SLOT_GLUE,
     "wcsph_plane": [f"pair_reduce_{f}" for f in WCSPH_FORMS] + ["rebucket"],
     "dfsph_padded": [f"sm_pair_reduce_{f}" for f in DFSPH_SM_FORMS] + ["sm_rebucket"],
     "dfsph_padded_k5": [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_FORMS]
     + ["sm_rebucket"],
-    "wcsph_padded_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"],
+    "wcsph_padded_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"]
+    + SLOT_GLUE,
     "dfsph_plane_bf16": [f"pair_reduce_{f}_bf16" for f in DFSPH_FORMS] + ["rebucket"],
     "wcsph_plane_bf16": [f"pair_reduce_{f}_bf16" for f in WCSPH_FORMS] + ["rebucket"],
     "dfsph_plane_unfused": [f"pair_reduce_{f}" for f in DFSPH_UNFUSED_FORMS] + ["rebucket"],
     "dfsph_padded_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in DFSPH_TILE_FORMS]
     + ["sm_rebucket"],
     "wcsph_padded_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in WCSPH_FORMS]
-    + ["sm_rebucket"],
+    + ["sm_rebucket"] + SLOT_GLUE,
     # the table solvers: plain tensor operations, no kernel; the sorted
     # solvers: K3 or K5, rebuilt by a sort (no re-bucket)
     "dfsph_table": [],
     "wcsph_table": [],
     "dfsph_dense": [f"sm_pair_reduce_{f}" for f in DFSPH_SM_FORMS],
     "dfsph_dense_k5": [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_FORMS],
-    "wcsph_dense": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS],
-    "wcsph_dense_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS],
+    "wcsph_dense": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS] + ["slot_density_tait"],
+    "wcsph_dense_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS] + ["slot_density_tait"],
     "dfsph_dense_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in DFSPH_TILE_FORMS],
     # the loop-gradient variants (K5 route): K5 for the ctx and viscosity
     # passes only, the pressure loops' passes plain tensor operations over
@@ -385,10 +403,10 @@ CONFIG_PATHS = {
                                 + ["rebucket"]),
     "config_wcsph_padded": ("wcsph_padded", {"use_pallas_slotmajor": True}, 10,
                             [f"sm_pair_reduce_{f}" for f in WCSPH_PHYS_FORMS]
-                            + ["sm_rebucket"]),
+                            + ["sm_rebucket"] + SLOT_GLUE),
     "config_wcsph_padded_k5": ("wcsph_padded", {}, 10,
                                [f"tile_pair_reduce_{f}" for f in WCSPH_PHYS_FORMS]
-                               + ["sm_rebucket"]),
+                               + ["sm_rebucket"] + SLOT_GLUE),
     "config_dfsph_padded_k5_rebuild3": (
         "dfsph_padded", {"rebuild_every": 3}, CONTACT_CONFIG,
         [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]),
@@ -397,14 +415,15 @@ CONFIG_PATHS = {
                                      for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]),
     "config_wcsph_padded_k5_bf16": ("wcsph_padded", {"pair_dtype": "bfloat16"}, 10,
                                     [f"tile_pair_reduce_{f}{BF16}" for f in WCSPH_PHYS_FORMS]
-                                    + ["sm_rebucket"]),
+                                    + ["sm_rebucket"] + SLOT_GLUE),
     # the table kinds (no kernel) and the sorted kinds (K5, the config's route)
     "config_dfsph": ("dfsph", {}, 10, []),
     "config_wcsph": ("wcsph", {}, 10, []),
     "config_dfsph_dense": ("dfsph_dense", {}, 10,
                            [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS]),
     "config_wcsph_dense": ("wcsph_dense", {}, 10,
-                           [f"tile_pair_reduce_{f}" for f in WCSPH_PHYS_FORMS]),
+                           [f"tile_pair_reduce_{f}" for f in WCSPH_PHYS_FORMS]
+                           + ["slot_density_tait"]),
 }
 # the sharded phase: the 100k double dam-break on a grid whose rows split over
 # two shards (515 x 326, P 7), every fluid particle kicked SHARD_KICK m/s
@@ -997,6 +1016,36 @@ def phase_kernels_wcsph(device, rec: Records):
     phase_kernels_wcsph_plane(device, rec, "wcsph_plane", rng)
 
 
+def phase_kernels_slot_glue(device, rec: Records):
+    """The padded WCSPH step's four glue kernels on the operands the step
+    gives them (tools/kernel_times.py `glue_calls`), each bit-equal to its
+    twin (slot_kick_drift on the live slots, the only ones it writes): on the
+    K5 state (RECORD: kernel ms, twin ms, the byte bound of
+    tools/roofline.py `glue_bytes`) and the K3 state (checked only;
+    slot_density_tait there loads every slot)."""
+    from yasph2d_tpu_torch.tools.kernel_times import glue_calls, glue_check
+    from yasph2d_tpu_torch.tools.roofline import glue_bytes
+
+    for kind, mode in (("wcsph_padded_k5", RECORD), ("wcsph_padded", CHECK)):
+        solver, boundary, carry = moving_state(kind, device, WARMUP_STEPS)
+        for name, (operands, live) in glue_calls(solver, boundary, carry).items():
+            run_kernel, run_twin, equal = glue_check(name, operands, live)
+            torch.cuda.synchronize()
+            log(f"phase 3 kernels: {name}[{kind}] bit-equal {equal}, {int(live.sum())} live "
+                f"of {live.numel()} slots")
+            if not equal:
+                raise RuntimeError(f"{name}[{kind}] is not bit-equal to its twin")
+            if mode == CHECK:
+                continue
+            ms, plain_ms = graph_ms(run_kernel), event_ms(run_twin)
+            n_bytes = glue_bytes(name, live, name == "slot_density_tait" and not operands[-1])
+            bound_ms, bound_by = bound(n_bytes, 0)
+            bound_line(f"{name}[{kind}]", bound_ms, bound_by, f"{n_bytes} bytes", ms)
+            log(f"phase 3 kernels: {name}[{kind}] kernel {ms:.5f} ms twin {plain_ms:.4f} ms")
+            rec.add(name, "slot_glue", 0.0, ms, plain_ms, bound_ms, bound_by, counter=name,
+                    replaces=name)
+
+
 def phase_kernels_wcsph_plane(device, rec: Records, kind, rng):
     """K1's WCSPH forms and wcsph_forces_phys on the plane state of `kind`
     (f32 or bf16 operands) and, in f32, K2 with the velocity payload."""
@@ -1419,14 +1468,14 @@ def carry_tensors(tree) -> list:
 
 def _kernel_modules():
     from yasph2d_tpu_torch.ops import (
-        pair_reduce, pallas_pair, rebucket, sm_pair_reduce, sm_rebucket,
+        pair_reduce, pallas_pair, rebucket, slot_glue, sm_pair_reduce, sm_rebucket,
     )
     from yasph2d_tpu_torch.tools import probe_pallas_slotmajor, vpu_probe
 
     return {"pair_reduce": pair_reduce, "sm_pair_reduce": sm_pair_reduce,
             "tile_pair_reduce": pallas_pair, "rebucket": rebucket,
             "sm_rebucket": sm_rebucket, "vpu_probe": vpu_probe,
-            "probe_ctx": probe_pallas_slotmajor}
+            "probe_ctx": probe_pallas_slotmajor, "slot": slot_glue}
 
 
 def reset_launch_counts():
@@ -2561,6 +2610,7 @@ def main():
     with phase_clock("3 kernels"):
         phase_kernels_dfsph(device, rec)
         phase_kernels_wcsph(device, rec)
+        phase_kernels_slot_glue(device, rec)
         phase_kernels_dfsph_padded(device, rec)
         phase_kernels_dfsph(device, rec, "dfsph_plane_bf16")
         phase_kernels_wcsph_plane(device, rec, "wcsph_plane_bf16", np.random.default_rng(4))

@@ -24,7 +24,9 @@ order to differ in), at every launch shape tile_shape can pick. The table solver
 card agree with themselves on the CPU, and keep every tensor on the card. In
 a traced padded WCSPH step every device-to-host copy is a counted read-back
 (utils/profiling.read_back), and K5 and K4 launch inside their phase
-scopes."""
+scopes. The padded WCSPH step's four glue kernels (ops/slot_glue.py) give
+their twins' bits on every slot a later reader sees, and 300 steps through
+them the twins' carries and dt sequence."""
 
 import dataclasses
 import json
@@ -48,6 +50,7 @@ from yasph2d_tpu_torch.ops import pair_reduce as pr
 from yasph2d_tpu_torch.ops import pallas_pair as tpp
 from yasph2d_tpu_torch.ops import rebucket as rb
 from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
+from yasph2d_tpu_torch.ops import slot_glue as sg
 from yasph2d_tpu_torch.ops import sm_rebucket as smr
 from yasph2d_tpu_torch.ops.dense_grid import DenseGridConfig
 from yasph2d_tpu_torch.ops.planes import Halo, PlaneGeom, plane_geom, to_planes
@@ -1803,3 +1806,187 @@ def test_app_records_on_the_card(device, kind, tmp_path):
     for a, b in zip(g_images, c_images):
         assert (a != b).any(axis=-1).mean() < 0.01
     assert sorted(p.name for p in (tmp_path / "gpu").iterdir()) == ["0.png", "1.png"]
+
+
+# ------------------------------------------------------------------ slot glue
+
+GLUE_CASES = {  # a padded WCSPH state: kind, rows of a shard (of two) or None
+    "k5": ("wcsph_padded_k5", None), "k3": ("wcsph_padded", None),
+    "k5_bf16": ("wcsph_padded_k5_bf16", None), "k5_shard": ("wcsph_padded_k5", 0)}
+
+
+@pytest.fixture(scope="module")
+def glue_states(device):
+    """{case: (solver, boundary, carry, operands)} of GLUE_CASES after 30
+    steps of the 3k double dam-break (the columns falling, slots moving
+    between cells): each glue call's operands as the step makes them (K4's
+    outputs, the route's pair passes, slot_accel_cfl's accel for the kick);
+    a shard case takes its rows of the one-device state and K5's halo forms
+    over rows -1 and ny (tools/kernel_times.py's cut)."""
+    from yasph2d_tpu_torch.tools import kernel_times as kt
+
+    out = {}
+    for case, (kind, shard) in GLUE_CASES.items():
+        world = double_dam_break(3_000)
+        solver, boundary = bench_solver(kind, world, device=device,
+                                        ny_multiple=1 if shard is None else 2)
+        carry = solver.init_carry(world.initial_state(device=device), boundary)
+        carry, _ = solver.simulate(carry, boundary, 30)
+        g, f, c = solver.grid, solver._forms, solver._consts
+        dt = float(carry.time.dt)
+        half = float(np.float32(0.5) * carry.time.dt)
+        pos, v = sg.kick_drift_ref(carry.pos_pad, carry.v_pad, carry.accel_pad, carry.mask,
+                                   half, dt)
+        pos, mask, (v,), _ = smr.sm_rebucket_parts(pos, carry.mask, (v,), g)
+        pair = smp.sm_pair_reduce if g.use_pallas_slotmajor else tpp.pallas_pair_reduce
+        dz = not g.use_pallas_slotmajor
+        glue = (float(solver.properties.particle_mass), solver._w0,
+                solver.properties.fluid_density, solver.stiffness)
+        fluid, walls = (pos, mask), (boundary.pos_pad, boundary.mask)
+        dens, pres = sg.density_tait_ref(
+            pair(f.density, *fluid, *fluid, c, **_mode(g))[..., 0],
+            pair(f.stat, *fluid, *walls, c, **_mode(g)), mask, *glue)
+        wv = (pres, dens, v)
+        calls = {"density": (f.density, fluid, fluid, {}), "stat": (f.stat, fluid, walls, {}),
+                 "forces": (f.forces, fluid, fluid, dict(q_vals=wv, s_vals=wv, scalars=(dt,)))}
+        r0 = 0
+        if shard is not None:
+            ny = g.ny
+            r0, r1 = shard * ny // 2, (shard + 1) * ny // 2
+            calls = {k: kt.shard_call(call, r0, r1, ny) for k, call in calls.items()}
+            band = lambda t: t[r0:r1].contiguous()  # noqa: E731
+            carry = carry._replace(**{k: band(getattr(carry, k))
+                                      for k in ("pos_pad", "v_pad", "accel_pad", "mask")})
+            v, mask = band(v), band(mask)
+        res = {k: tpp.pallas_pair_reduce(form, *q, *s, c, **kw, **_mode(g, r0))
+               if shard is not None else pair(form, *q, *s, c, **kw, **_mode(g))
+               for k, (form, q, s, kw) in calls.items()}
+        accel = sg.slot_accel_cfl(res["forces"], res["stat"], v, mask, solver.gravity, dt)[0]
+        out[case] = dict(
+            kick_drift=(carry.pos_pad, carry.v_pad, carry.accel_pad, carry.mask, half, dt),
+            density_tait=(res["density"][..., 0], res["stat"], mask, *glue, dz),
+            accel_cfl=(res["forces"], res["stat"], v, mask, solver.gravity, dt),
+            kick=(v, accel, mask, float(np.float32(0.5) * np.float32(0.9) * carry.time.dt)),
+            solver=solver, row0=r0)
+    return out
+
+
+def _mode(grid, row0=0):
+    rebase = tpp.rebase_of(grid, row0)
+    return {} if rebase is None else {"rebase": rebase}
+
+
+@pytest.mark.parametrize("name", ["kick_drift", "density_tait", "accel_cfl", "kick"])
+@pytest.mark.parametrize("case", list(GLUE_CASES))
+def test_slot_glue_kernels_bit_equal_to_twins(device, glue_states, case, name):
+    """Each glue kernel (ops/slot_glue.py, csrc/slot_glue.cu) gives its
+    twin's bits over the whole of every output, dead slots included, on the
+    operands the step gives it: K5's and K3's states, the bf16 grid's, a
+    shard's rows with K5's halo forms. slot_kick_drift leaves dead slots
+    unwritten (only K4 reads its outputs), so its live slots are compared,
+    and K4 after it in the next test."""
+    ops = glue_states[case][name]
+    before = sg.LAUNCHES[f"slot_{name}"]
+    got = getattr(sg, f"slot_{name}")(*ops)
+    ref = getattr(sg, f"{name}_ref")(*ops)
+    torch.cuda.synchronize()
+    assert sg.LAUNCHES[f"slot_{name}"] == before + 1
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    if name == "kick_drift":
+        mask = ops[3]
+        got, ref = [t[mask] for t in got], [t[mask] for t in ref]
+    for a, b in zip(_bits(got), _bits(ref)):
+        assert a.shape == b.shape and torch.equal(a, b), f"{int((a != b).sum())} differ"
+    assert any(bool(t.ne(0).any()) for t in ref)
+
+
+@pytest.mark.parametrize("case", ["k5", "k3", "k5_shard"])
+def test_slot_kick_drift_then_k4_bit_equal_to_twin_then_k4(device, glue_states, case):
+    """K4 after slot_kick_drift gives K4's outputs after the twin, every
+    slot: K4 reads no dead slot of the kernel's outputs (the shard case: K4's
+    halo form, its rows -1 and ny dead)."""
+    ops = glue_states[case]["kick_drift"]
+    grid = glue_states[case]["solver"].grid
+    mask = ops[3]
+    halo = None
+    if case == "k5_shard":
+        grid = dataclasses.replace(grid, ny=mask.shape[0])
+        dead = lambda t: torch.zeros((2,) + tuple(t.shape[1:]), dtype=t.dtype,  # noqa: E731
+                                     device=t.device)
+        halo = Halo((dead(mask), dead(ops[0]), dead(ops[1])), glue_states[case]["row0"],
+                    2 * mask.shape[0])
+    outs = []
+    for fn in (sg.slot_kick_drift, sg.kick_drift_ref):
+        pos, v = fn(*ops)
+        outs.append(smr.sm_rebucket_parts(pos, mask, (v,), grid, halo=halo))
+    got, ref = outs
+    torch.cuda.synchronize()
+    for a, b in zip(_bits((got[0], got[1], got[2][0], got[3])),
+                    _bits((ref[0], ref[1], ref[2][0], ref[3]))):
+        assert torch.equal(a, b)
+    assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("label", ["all_dead", "nan"])
+def test_slot_accel_cfl_max_of_dead_grid_and_nan(device, label):
+    """The CFL max of a grid with no live slot is 0 (its accel all 0); a
+    NaN velocity at one live slot gives a NaN max, as torch's max does;
+    grids of 1 to 70,000 slots, several blocks."""
+    for ny, nx, p in ((1, 1, 1), (7, 9, 3), (100, 100, 7)):
+        rng = np.random.default_rng(ny)
+        mask = torch.zeros((ny, nx, p), dtype=torch.bool, device=device)
+        v = torch.as_tensor(rng.normal(size=(ny, nx, p, 2)).astype(np.float32), device=device)
+        stat = torch.zeros((ny, nx, p, 3), device=device)
+        if label == "nan":
+            mask[-1, -1, -1] = mask[0, 0, 0] = True
+            v[-1, -1, -1, 1] = float("nan")
+        accel, max_sq = sg.slot_accel_cfl(v, stat, v, mask, (0.0, -9.81), 1e-3)
+        ref = sg.accel_cfl_ref(v, stat, v, mask, (0.0, -9.81), 1e-3)
+        if label == "all_dead":
+            assert float(max_sq) == 0.0 and not bool(accel.ne(0).any())
+            assert not torch.signbit(max_sq) and float(ref[1]) == 0.0
+        else:
+            assert bool(torch.isnan(max_sq)) and bool(torch.isnan(ref[1]))
+        assert torch.equal(_bits([accel])[0], _bits([ref[0]])[0])
+
+
+def test_slot_glue_refuses_strided_operands(device):
+    """On the card a wrapper refuses a strided operand (the kernels read
+    slot-major memory) and one on another device than its mask."""
+    mask = torch.ones((4, 5, 2), dtype=torch.bool, device=device)
+    v = torch.zeros((4, 5, 2, 2), device=device)
+    strided = torch.zeros((4, 5, 2, 4), device=device)[..., ::2]
+    for bad in (strided, v.cpu()):
+        with pytest.raises(ValueError, match="slot_kick"):
+            sg.slot_kick(bad, v, mask, 0.5)
+
+
+@pytest.mark.parametrize("kind", ["wcsph_padded_k5", "wcsph_padded", "wcsph_padded_k5_bf16"])
+def test_padded_wcsph_300_steps_kernels_equal_twins(device, kind, monkeypatch):
+    """300 steps of the padded WCSPH step from rest through the impact on
+    the floor, with the glue kernels and with their twins on the card: the
+    same carry, every slot's bits, and the same dt at every step; 4 glue
+    launches a step, none with the twins."""
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver(kind, world, device=device)
+    start = solver.init_carry(world.initial_state(device=device), boundary)
+    runs = []
+    for twins in (False, True):
+        if twins:
+            for name in ("kick_drift", "density_tait", "accel_cfl", "kick"):
+                monkeypatch.setattr(sg, f"slot_{name}", getattr(sg, f"{name}_ref"))
+        sg.reset_launch_counts()
+        carry, dts = start, []
+        for _ in range(300):
+            carry, d = solver.simulate(carry, boundary, 1)
+            dts.append(np.float32(d.dt).tobytes())
+        torch.cuda.synchronize()
+        runs.append((carry, dts, dict(sg.LAUNCHES)))
+    (got, got_dts, launches), (ref, ref_dts, twin_launches) = runs
+    assert launches == dict.fromkeys(sg.LAUNCHES, 300)
+    assert twin_launches == dict.fromkeys(sg.LAUNCHES, 0)
+    assert got_dts == ref_dts and got.time == ref.time
+    for name in ("pos_pad", "v_pad", "accel_pad", "dens_pad", "mask"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert torch.equal(_bits([a])[0], _bits([b])[0]), name
+    assert float(got.dens_pad.max()) > solver.properties.fluid_density

@@ -63,10 +63,10 @@ def test_shard_runs_and_their_refusal():
     """`--shard` builds the kind on an even row count and times the halo
     forms on the shard's rows; a plane kind has none and is refused."""
     args = argparse.Namespace(particles=3000, steps=2, shard=1)
-    runs, state, per_step = kt.kind_runs("dfsph_padded_k5", args, CPU)
+    runs, state, per_step, glue = kt.kind_runs("dfsph_padded_k5", args, CPU)
     assert set(runs) == {"ctx", "stat", "div", "corr", "visc", "sm_rebucket",
                          "sm_rebucket_rows_alone"}
-    assert len(per_step) == 2 and state[0].shape[0] == state[1].shape[0]
+    assert len(per_step) == 2 and state[0].shape[0] == state[1].shape[0] and glue == {}
     out = runs["sm_rebucket"]()
     assert out[0].shape == state[0].shape
     assert runs["ctx"]().shape[:3] == state[1].shape
@@ -93,3 +93,20 @@ def test_compare_tells_saves_apart_by_their_bits(tmp_path, capsys):
     with pytest.raises(SystemExit) as stop:
         kt.main(["--compare", str(tmp_path / "a.pt"), str(tmp_path / "b.pt")])
     assert stop.value.code == 0
+
+
+def test_glue_records_of_the_padded_wcsph_kinds():
+    """A padded WCSPH kind times its four glue calls apart from its pair
+    calls and K4 (not saved), each with its byte bound, whether it gives its
+    twin's bits and its launches a step (none on CPU tensors, where the call
+    is the twin)."""
+    args = argparse.Namespace(particles=3000, steps=2, shard=None)
+    runs, state, per_step, glue = kt.kind_runs("wcsph_padded_k5", args, CPU)
+    names = ["slot_kick_drift", "slot_density_tait", "slot_accel_cfl", "slot_kick"]
+    assert list(glue) == names and not set(names) & set(runs)
+    n = state[1].numel()
+    for name, r in glue.items():
+        assert r["bit_equal"] and r["launches_per_step"] == 0.0
+        assert n < r["bytes"] and r["bound_ms"] > 0
+        r["kernel"]()
+        r["twin"]()

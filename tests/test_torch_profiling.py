@@ -199,15 +199,15 @@ def _launch(corr, ts, op, start, dur, cat="kernel"):
 
 
 def _synthetic_step():
-    """One WCSPH step in microseconds: glue in kick_drift, K4, K5 and glue in
-    pairs, a read-back in cfl, glue in kick; then two operations launched
-    outside any step scope."""
+    """One WCSPH step in microseconds: glue in kick_drift (a slot glue
+    kernel), K4, K5 and glue in pairs, a read-back in cfl, glue in kick;
+    then two operations launched outside any step scope."""
     return [
         _span("WCSPH.step", 0, 100), _span("WCSPH.kick_drift", 1, 9),
         _span("K4.rebucket", 10, 10), _span("WCSPH.pairs", 20, 30),
         _span("WCSPH.cfl", 50, 20), _span("sync.max_velocity", 60, 9),
         _span("WCSPH.kick", 70, 20),
-        *_launch(1, 2, "void at::elementwise_kernel<128, 4>(int)", 20, 5),
+        *_launch(1, 2, "slot_kick_drift_kernel(unsigned char const*, int)", 20, 5),
         *_launch(2, 11, "void sm_rebucket_staged<false>(SrKernelArgs<false>)", 25, 5),
         *_launch(3, 21, "void tile_pair_reduce_kernel<false, F32Math>(args)", 30, 10),
         *_launch(4, 22, "void at::vectorized_elementwise_kernel<4>(int)", 40, 2),
@@ -241,7 +241,8 @@ def test_step_phases_put_operations_and_gaps_to_scopes():
                      "outside_glue_ms": pytest.approx(0.002),
                      "sync_idle_ms": pytest.approx(0.014),
                      "dispatch_idle_ms": pytest.approx(0.043),
-                     "caller_idle_ms": pytest.approx(0.027), "syncs": 1.0}
+                     "caller_idle_ms": pytest.approx(0.027), "syncs": 1.0,
+                     "slot_glue_launches": 1.0}
     # the split's glue is every row's glue, and its idle every gap
     assert sum(r["glue_ms"] for r in rows.values()) == pytest.approx(0.012)
     assert sum(r["idle_ms"] for r in rows.values()) == pytest.approx(0.084)

@@ -29,6 +29,7 @@ import torch
 from ..ops import pair
 from ..ops.dense_grid import f32_scalar
 from ..ops.neighborhood import CellGrid, GridConfig
+from ..ops.slot_glue import tait_pressure
 from ..ops.smoothing_kernels import Poly6, Spiky
 from ..timemanager import StepConfig, TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
@@ -58,19 +59,6 @@ def compute_stiffness(
     (reference: set_compressibility, wscsph.rs:45-49; defaults from wscsph.rs:39)."""
     speed_of_sound = expected_max_flow_speed / (target_density_variation**0.5)
     return properties.fluid_density * speed_of_sound**2 / TAIT_EQUATION_GAMMA
-
-
-def tait_pressure(stiffness, fluid_density, local_density: torch.Tensor):
-    """Tait EOS with pressure clamp for particle deficiency
-    (reference: wscsph.rs:52-57), in the JAX package's f32 operations: the
-    ratio divides by a tensor (a Python divisor becomes a reciprocal multiply
-    on CUDA) and ratio**7 is XLA's integer_pow expansion."""
-    rho0 = torch.tensor(fluid_density, dtype=REAL, device=local_density.device)
-    ratio = torch.clamp(local_density / rho0, min=1.0)
-    r2 = ratio * ratio
-    r3 = ratio * r2
-    r4 = r2 * r2
-    return float(stiffness) * (r3 * r4 - 1.0)
 
 
 class WCSPHCarry(NamedTuple):

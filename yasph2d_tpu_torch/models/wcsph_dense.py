@@ -39,6 +39,11 @@ on both of its routes; here it is the route's kernel, so its f32 sums come in
 the kernel's order and agree with the JAX package to f32 tolerance, not
 bitwise.
 
+The glue between the kernels is ops/slot_glue.py: the density and Tait
+pressure between the boundary and forces passes (`slot_density_tait`, both
+carries) and, in the padded step, the kick-drift, the accelerations with
+the CFL's squared-speed max, and the kick, one launch each on the card.
+
 dt lives on the host as np.float32 (timemanager.py); each step reads the CFL
 velocity and the drop count back from the device (`read_back`,
 utils/profiling.py: two a step).
@@ -50,6 +55,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import slot_glue
 from ..ops.cuda_build import PairConsts
 from ..ops.dense_grid import (
     DenseGridConfig,
@@ -70,7 +76,7 @@ from ..utils.profiling import read_back, scope
 from ..world import GRAVITY, FluidProperties, ParticleState
 from .dfsph_dense import BoundaryDense, DFSPHSlotSolver
 from .viscosity import ViscosityModel, kernel_coefficient
-from .wcsph import compute_stiffness, tait_pressure
+from .wcsph import compute_stiffness
 
 f32 = REAL_NP
 
@@ -209,17 +215,22 @@ class WCSPHSlotSolver:
         """The three pair passes (K3 or K5): Poly6 density with self-contribution
         and clamp, boundary density + Monaghan-Kajtar penalty in one pass
         (wscsph.rs:108-116), symmetric pressure + viscosity forces
-        (wscsph.rs:59-105). Returns (dens (ny, nx, P), accel (ny, nx, P, 2))
-        with accel EXCLUDING gravity."""
+        (wscsph.rs:59-105). Returns (dens (ny, nx, P), the forces pass's
+        accel (ny, nx, P, 2), the boundary pass's (ny, nx, P, 3) output,
+        whose last two components are the penalty's accel); the density and
+        pressure come from `slot_density_tait`."""
         f, pair = self._forms, self._slot_pair
         halo = self._halo((pos, mask))
         dyn_w = pair(f.density, pos, mask, pos, mask, halo)[..., 0]
         stat = pair(f.stat, pos, mask, boundary.pos_pad, boundary.mask, boundary.halo)
-        dens = self._density(dyn_w, stat[..., 0])
-        pres = tait_pressure(self.stiffness, self.properties.fluid_density, dens)
+        # K5 writes +0.0 at dead query slots, so its dead slots need no load
+        dens, pres = slot_glue.slot_density_tait(
+            dyn_w, stat, mask, float(self.properties.particle_mass), self._w0,
+            self.properties.fluid_density, self.stiffness,
+            dead_zero=not self.grid.use_pallas_slotmajor)
         accel_dyn = pair(f.forces, pos, mask, pos, mask, halo, q_vals=(pres, dens, v),
                          s_vals=(pres, dens, v), scalars=(float(dt),))
-        return dens, accel_dyn + stat[..., 1:3]
+        return dens, accel_dyn, stat
 
     # the host loop of the DFSPH solvers: account each step's dt, then step;
     # their pair pass and the hooks of the shard solvers
@@ -282,24 +293,23 @@ class WCSPHPaddedSolver(WCSPHSlotSolver):
 
             # leapfrog part 1 in the OLD layout (wscsph.rs:141-151)
             with scope("WCSPH", "kick_drift"):
-                v = carry.v_pad + float(f32(0.5) * dt) * carry.accel_pad
-                pos = carry.pos_pad + v * float(dt)
+                pos, v = slot_glue.slot_kick_drift(carry.pos_pad, carry.v_pad, carry.accel_pad,
+                                                   carry.mask, float(f32(0.5) * dt), float(dt))
 
             # neighbourhood rebuild = windowed re-bucket (wscsph.rs:153)
             pos, mask, (v,), drops = sm_rebucket_parts(pos, carry.mask, (v,), self.grid,
                                                        halo=self._halo((carry.mask, pos, v)))
 
             with scope("WCSPH", "pairs"):
-                dens, accel = self._density_and_forces(pos, v, mask, boundary, dt)
+                dens, accel_dyn, stat = self._density_and_forces(pos, v, mask, boundary, dt)
 
             with scope("WCSPH", "cfl"):
-                gvec = torch.tensor(self.gravity, dtype=REAL, device=pos.device)
-                # dead slots stay frozen: no gravity, no advection
-                accel = torch.where(mask[..., None], accel + gvec, 0.0)
-
-                # CFL with the *old* dt estimate (wscsph.rs:158-167)
-                vstar = v + accel * float(dt)
-                max_velocity = self._max_velocity((vstar * vstar).sum(dim=-1), mask)
+                # gravity and the boundary penalty; dead slots stay frozen (no
+                # gravity, no advection). CFL with the *old* dt estimate
+                # (wscsph.rs:158-167)
+                accel, max_sq = slot_glue.slot_accel_cfl(accel_dyn, stat, v, mask, self.gravity,
+                                                         float(dt))
+                max_velocity = self._max_vel_from_sq(max_sq)
                 time_state = update_simulation_step(
                     self.step_config, time_state,
                     self.properties.particle_radius * 2.0, max_velocity,
@@ -307,7 +317,7 @@ class WCSPHPaddedSolver(WCSPHSlotSolver):
 
             # leapfrog part 2 with the NEW dt (wscsph.rs:169-178)
             with scope("WCSPH", "kick"):
-                v = v + float(f32(0.5) * time_state.dt) * accel
+                v = slot_glue.slot_kick(v, accel, mask, float(f32(0.5) * time_state.dt))
                 drops = read_back("drops", self._sum_counts(drops) + boundary.num_dropped)
 
             new_carry = WCSPHPaddedCarry(
@@ -365,8 +375,9 @@ class WCSPHDenseSolver(WCSPHSlotSolver):
         pv_pad = pad_to_slots(packed[:, :4], slots, g)
         mask = slots.slot_mask.reshape(g.ny, g.nx, g.occupancy)
 
-        dens_pad, accel_pad = self._density_and_forces(
+        dens_pad, accel_pad, stat = self._density_and_forces(
             pv_pad[..., :2].contiguous(), pv_pad[..., 2:4].contiguous(), mask, boundary, dt)
+        accel_pad = accel_pad + stat[..., 1:3]
         # one unpad of [accel | density]; no slot: no pair force, rho0
         zeros1 = torch.zeros_like(positions[:, :1])
         out = slots_to_sorted(

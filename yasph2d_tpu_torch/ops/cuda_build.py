@@ -187,6 +187,15 @@ def library() -> ctypes.CDLL:
     lib.sm_rebucket_halo.argtypes = lib.sm_rebucket.argtypes[:-1] + [
         _P, _P, ctypes.POINTER(_P), _I, _P]
     lib.sm_rebucket_halo.restype = _I
+    # the padded WCSPH step's glue (csrc/slot_glue.cu): mask, the inputs, the
+    # outputs, slot count, the float arguments, [dead_zero], stream
+    _F = ctypes.c_float
+    for name, args in (("slot_kick_drift", [_P] * 6 + [_I, _F, _F]),
+                       ("slot_density_tait", [_P] * 5 + [_I, _F, _F, _F, _F, _I]),
+                       ("slot_accel_cfl", [_P] * 6 + [_I, _F, _F, _F]),
+                       ("slot_kick", [_P] * 4 + [_I, _F])):
+        getattr(lib, name).argtypes = args + [_P]
+        getattr(lib, name).restype = _I
     for probe in ("vpu_fma_probe", "vpu_mix_probe"):  # K6
         # x, out, n, chains, inner, trips, stream
         getattr(lib, probe).argtypes = [_P, _P, _I, _I, _I, _I, _P]

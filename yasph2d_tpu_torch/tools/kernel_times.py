@@ -20,7 +20,11 @@ mode) K3's or K5's forms (`sm_pair_reduce`, `pallas_pair_reduce`) and K4
 with its glue: `sm_rebucket_parts` where the
 tree has it, else the concatenation, `sm_rebucket` and the splits that the
 step around it made; the sorted DFSPH kinds (dfsph_dense*) their K3 or K5
-forms (they launch no K4).
+forms (they launch no K4). The padded WCSPH kinds also time the step's
+four glue kernels (ops/slot_glue.py) on the operands the step gives them
+(`glue_calls`), and print for each, under "glue", its ms and its twin's,
+its byte bound (tools/roofline.py `glue_bytes`), whether it gives the
+twin's bits, and its launches a step in the `--steps` run (not saved).
 `--shard K` (0 or 1) times the halo forms instead: the padded kind's grid
 gets an even row count (`ny_multiple=2`, as a sharded run), and after the
 steps shard K's rows of the one-device state, with its rows -1 and ny as the
@@ -209,6 +213,53 @@ def padded_rebucket(solver, carry):
     return stacked
 
 
+def glue_calls(solver, boundary, carry) -> dict:
+    """{name: (operands, slot mask)} of the padded WCSPH step's four glue
+    calls (ops/slot_glue.py) on `carry`, each on the operands the step gives
+    it: the kick-drift on the carry, the density and Tait pressure on the
+    re-bucketed state's density and boundary passes, the accelerations and
+    CFL max on its forces pass, the kick on those accelerations."""
+    from yasph2d_tpu_torch.ops import slot_glue as sg
+    from yasph2d_tpu_torch.ops.sm_rebucket import sm_rebucket_parts
+
+    g, f = solver.grid, solver._forms
+    dt = float(carry.time.dt)
+    half = float(np.float32(0.5) * carry.time.dt)
+    kick_drift = (carry.pos_pad, carry.v_pad, carry.accel_pad, carry.mask, half, dt)
+    pos, v = sg.slot_kick_drift(*kick_drift)
+    pos, mask, (v,), _ = sm_rebucket_parts(pos, carry.mask, (v,), g)
+    fluid = (pos, mask)
+    stat = solver._slot_pair(f.stat, *fluid, boundary.pos_pad, boundary.mask)
+    density_tait = (solver._slot_pair(f.density, *fluid, *fluid)[..., 0], stat, mask,
+                    float(solver.properties.particle_mass), solver._w0,
+                    solver.properties.fluid_density, solver.stiffness,
+                    not g.use_pallas_slotmajor)
+    dens, pres = sg.slot_density_tait(*density_tait)
+    wv = (pres, dens, v)
+    accel_cfl = (solver._slot_pair(f.forces, *fluid, *fluid, q_vals=wv, s_vals=wv,
+                                   scalars=(dt,)), stat, v, mask, solver.gravity, dt)
+    accel = sg.slot_accel_cfl(*accel_cfl)[0]
+    return {"slot_kick_drift": (kick_drift, carry.mask),
+            "slot_density_tait": (density_tait, mask),
+            "slot_accel_cfl": (accel_cfl, mask),
+            "slot_kick": ((v, accel, mask, half), mask)}
+
+
+def glue_check(name: str, operands, mask) -> tuple:
+    """(kernel call, twin call, bit-equal) of glue kernel `name` on
+    `operands`: every output's bits, slot_kick_drift's live slots only (it
+    writes no other)."""
+    from yasph2d_tpu_torch.ops import slot_glue as sg
+
+    kernel = lambda: getattr(sg, name)(*operands)  # noqa: E731
+    twin = lambda: getattr(sg, name.removeprefix("slot_") + "_ref")(*operands)  # noqa: E731
+    got, ref = kernel(), twin()
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    if name == "slot_kick_drift":
+        got, ref = [t[mask] for t in got], [t[mask] for t in ref]
+    return kernel, twin, _same_bits(tuple(got), tuple(ref))
+
+
 def probe_runs(device) -> tuple:
     """({label: function of no argument}, the planes) of K7 at the probe's
     check and gpu shapes and of K1 ctx at the gpu shape."""
@@ -240,6 +291,11 @@ def kind_runs(kind, args, device) -> tuple:
                                     **({} if args.shard is None else dict(ny_multiple=2)))
     carry = solver.init_carry(world.initial_state(device=device), boundary)
     per_step = []
+    try:  # the padded WCSPH step's glue kernels; a tree before them has none
+        from yasph2d_tpu_torch.ops import slot_glue as glue
+    except ImportError:
+        glue = None
+    glue_before = dict(glue.LAUNCHES) if glue else {}
     for _ in range(args.steps):
         carry, d = solver.simulate(carry, boundary, 1)
         per_step.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
@@ -247,7 +303,7 @@ def kind_runs(kind, args, device) -> tuple:
         torch.cuda.synchronize()
     c = solver._consts
     rng = np.random.default_rng(0)
-    runs = {}
+    runs, records = {}, {}
     if slot:
         from yasph2d_tpu_torch.ops.pallas_pair import pallas_pair_reduce
         from yasph2d_tpu_torch.ops.sm_pair_reduce import sm_pair_reduce
@@ -272,6 +328,19 @@ def kind_runs(kind, args, device) -> tuple:
             runs[label] = (lambda form=form, q=q, s=s, kw=kw: pair(form, *q, *s, c, **kw))
         if "padded" in kind and args.shard is None:
             runs["sm_rebucket"] = padded_rebucket(solver, carry)
+            if glue is not None and not hasattr(carry, "ctx"):
+                # the WCSPH glue kernels, apart from `runs`: slot_kick_drift
+                # leaves dead slots unwritten, which --save would compare
+                from yasph2d_tpu_torch.tools.roofline import bound, glue_bytes
+
+                for name, (operands, live) in glue_calls(solver, boundary, carry).items():
+                    kernel, twin, equal = glue_check(name, operands, live)
+                    n_bytes = glue_bytes(name, live, name == "slot_density_tait"
+                                         and not operands[-1])
+                    records[name] = dict(
+                        kernel=kernel, twin=twin, bytes=n_bytes, bound_ms=bound(n_bytes, 0)[0],
+                        bit_equal=equal, launches_per_step=(
+                            glue.LAUNCHES[name] - glue_before[name]) / max(args.steps, 1))
         elif "padded" in kind:
             runs["sm_rebucket"], runs["sm_rebucket_rows_alone"] = shard_rebucket(
                 solver, carry, r0, r1)
@@ -289,7 +358,7 @@ def kind_runs(kind, args, device) -> tuple:
         adv = pos + carry.v * float(carry.time.dt)
         runs["rebucket"] = lambda: rebucket(adv, mask, values, solver.grid)
         state = (pos, mask)
-    return runs, state, per_step
+    return runs, state, per_step, records
 
 
 def _same_bits(a, b) -> bool:
@@ -318,7 +387,7 @@ def compare(old_path, new_path) -> bool:
 
 
 def main(argv=None):
-    from yasph2d_tpu_torch.utils.cuda_timing import graph_ms
+    from yasph2d_tpu_torch.utils.cuda_timing import event_ms, graph_ms
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kind", default="dfsph_plane_bf16")
@@ -347,15 +416,18 @@ def main(argv=None):
             print(json.dumps({"kind": kind, "live": int((q[2] > 0).sum()),
                               "device": torch.cuda.get_device_name(0), "ms": times}), flush=True)
             continue
-        runs, state, per_step = kind_runs(kind, args, device)
+        runs, state, per_step, records = kind_runs(kind, args, device)
         if args.save:
             saved[kind] = {"state": _cpu(state),
                            "outputs": {label: _cpu(run()) for label, run in runs.items()}}
         times = {label: graph_ms(run) for label, run in runs.items()}
+        glue = {name: dict(ms=graph_ms(r.pop("kernel")), twin_ms=event_ms(r.pop("twin")), **r)
+                for name, r in records.items()}
         print(json.dumps({"kind": kind, "particles": args.particles, "steps": args.steps,
                           "shard": args.shard, "live": int(state[1].sum()),
                           "device": torch.cuda.get_device_name(0),
-                          "iterations_drops_per_step": per_step, "ms": times}), flush=True)
+                          "iterations_drops_per_step": per_step, "ms": times,
+                          **({"glue": glue} if glue else {})}), flush=True)
     if args.save:
         torch.save(saved, args.save)
 

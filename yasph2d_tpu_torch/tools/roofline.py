@@ -112,6 +112,28 @@ def rebucket_bytes(pos, mask, values, outputs) -> int:
             + sum(nbytes(o) for o in outputs))
 
 
+# the padded WCSPH step's glue kernels (ops/slot_glue.py): bytes a slot reads
+# where it is live (the density from the boundary pass's component 0, the
+# accelerations its components 1 and 2) and writes; slot_kick_drift writes
+# live slots only, the others every slot. A few float32 operations a slot:
+# bytes bound them
+GLUE_READ = {"slot_kick_drift": 24, "slot_density_tait": 8, "slot_accel_cfl": 24,
+             "slot_kick": 16}
+GLUE_WRITE = {"slot_kick_drift": 16, "slot_density_tait": 8, "slot_accel_cfl": 8,
+              "slot_kick": 8}
+
+
+def glue_bytes(name: str, mask, dead_loads: bool = False) -> int:
+    """Bytes glue kernel `name` must move on the slots of `mask`: the mask in
+    full, the reads of the live slots (every slot's with `dead_loads`:
+    slot_density_tait on K3's outputs), the writes (slot_accel_cfl's 4-byte
+    max too)."""
+    n, live = mask.numel(), int(mask.sum())
+    return (nbytes(mask) + GLUE_READ[name] * (n if dead_loads else live)
+            + GLUE_WRITE[name] * (live if name == "slot_kick_drift" else n)
+            + (4 if name == "slot_accel_cfl" else 0))
+
+
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the larger of the memory and FP32 times at the
     data-sheet rates."""

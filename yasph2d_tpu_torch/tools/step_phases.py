@@ -23,12 +23,17 @@ The rules, on the trace's one timeline:
   (`KERNELS`); pair glue is glue launched inside one of `PAIR_SCOPES`, and
   integrate glue the rest of a step's.
 
-The steps counted are the step scopes (`STEP_SCOPES`) in the trace.
+The steps counted are the step scopes (`STEP_SCOPES`) in the trace. Beside
+the read-backs a step ("sync.*" scopes, `profiling.READBACKS`) the split
+gives the launches of the padded WCSPH step's glue kernels a step
+(`SLOT_GLUE`, the kernels of ops/slot_glue.py `LAUNCHES`).
 """
 
 import argparse
 import json
 from typing import NamedTuple
+
+from ..ops import slot_glue
 
 STEP_SCOPES = ("WCSPH.step", "DFSPH.step")
 # the phases of a padded step that run pair passes, and the glue between them
@@ -39,6 +44,9 @@ SYNC_PREFIX = "sync."
 # (pair_reduce_kernel, tile_pair_reduce_kernel), K2 (rebucket_kernel), K4
 KERNELS = ("pair_reduce_kernel", "rebucket_kernel", "sm_rebucket_staged",
            "sm_rebucket_direct")
+# the glue kernels of ops/slot_glue.py, by their traced names' start: glue,
+# counted apart
+SLOT_GLUE = tuple(f"{name}_kernel" for name in slot_glue.LAUNCHES)
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
 NO_SCOPE = "(no scope)"
@@ -149,6 +157,9 @@ def attribute(events: list) -> dict:
         r["launches"] /= steps
         r["glue_launches"] /= steps
     split["syncs"] = sum(s.name.startswith(SYNC_PREFIX) for s in spans) / steps
+    split["slot_glue_launches"] = sum(
+        e["cat"] == "kernel" and e["name"].removeprefix("void ").startswith(SLOT_GLUE)
+        for e in ops) / steps
     return {"steps": steps, "scopes": scopes, "split": split}
 
 
