@@ -251,3 +251,56 @@ def test_step_phases_put_operations_and_gaps_to_scopes():
 def test_step_phases_without_a_step_scope():
     events = [e for e in _synthetic_step() if e["name"] != "WCSPH.step"]
     assert step_phases.attribute(events) == {"steps": 0, "scopes": {}, "split": None}
+
+
+def _synthetic_dfsph_step():
+    """One DFSPH step in microseconds: a density loop of two iterations and a
+    divergence loop of one, each iteration a K5 pass, a glue operation and
+    the read-back of its mean residual."""
+    return [
+        _span("DFSPH.step", 0, 200), _span("DFSPH.density_loop", 10, 100),
+        _span("sync.mean_residual", 40, 10), _span("sync.mean_residual", 90, 10),
+        _span("DFSPH.divergence_loop", 120, 60), _span("sync.mean_residual", 160, 10),
+        # density iteration 1: K5 at 20-30, glue at 30-32, the copy at 40-41;
+        # the device idles 32-40 behind the launches, 41-55 in the read-back
+        *_launch(1, 11, "void tile_pair_reduce_kernel<false, F32Math>(args)", 20, 10),
+        *_launch(2, 12, "void at::vectorized_elementwise_kernel<4>(int)", 30, 2),
+        *_launch(3, 40, "Memcpy DtoH (Device -> Pageable)", 40, 1, "gpu_memcpy"),
+        # density iteration 2: K5 at 55-65, glue at 65-69, the copy at 90-91;
+        # idle 69-90 behind the launches, 91-130 in the read-back
+        *_launch(4, 51, "void tile_pair_reduce_kernel<false, F32Math>(args)", 55, 10),
+        *_launch(5, 52, "void at::vectorized_elementwise_kernel<4>(int)", 65, 4),
+        *_launch(6, 90, "Memcpy DtoH (Device -> Pageable)", 90, 1, "gpu_memcpy"),
+        # divergence iteration: K5 at 130-150, the copy at 160-162
+        *_launch(7, 121, "void tile_pair_reduce_kernel<false, F32Math>(args)", 130, 20),
+        *_launch(8, 160, "Memcpy DtoH (Device -> Pageable)", 160, 2, "gpu_memcpy"),
+        *_launch(9, 185, "void at::elementwise_kernel<128, 2>(int)", 190, 1),
+    ]
+
+
+def test_step_phases_split_each_pressure_loop_by_its_iterations():
+    loops = step_phases.attribute(_synthetic_dfsph_step())["loops"]
+    assert list(loops) == ["DFSPH.density_loop", "DFSPH.divergence_loop"]
+    assert loops["DFSPH.density_loop"] == {
+        "iterations": 2.0, "device_ms": pytest.approx(0.014),
+        "glue_ms": pytest.approx(0.004), "idle_ms": pytest.approx((8 + 14 + 21 + 39) / 2e3)}
+    # idle behind its launch 150-160, and in its read-back from 162 until
+    # the next operation at 190
+    assert loops["DFSPH.divergence_loop"] == {
+        "iterations": 1.0, "device_ms": pytest.approx(0.022),
+        "glue_ms": pytest.approx(0.002), "idle_ms": pytest.approx(0.038)}
+
+
+def test_step_phases_count_the_loop_iterations_of_a_real_trace(tmp_path):
+    """The "sync.mean_residual" scopes inside each loop are the Diagnostics'
+    iterations, two steps of the padded DFSPH step in a CPU trace."""
+    solver, boundary, carry = _padded("dfsph_padded_k5")
+    its = {"DFSPH.density_loop": 0, "DFSPH.divergence_loop": 0}
+    with trace(str(tmp_path)):
+        for _ in range(2):
+            carry, diag = solver.simulate(carry, boundary, 1)
+            its["DFSPH.density_loop"] += diag.density_iterations
+            its["DFSPH.divergence_loop"] += diag.divergence_iterations
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    loops = step_phases.attribute(events)["loops"]
+    assert {name: loop["iterations"] * 2 for name, loop in loops.items()} == its

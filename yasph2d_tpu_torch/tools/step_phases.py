@@ -27,6 +27,13 @@ The steps counted are the step scopes (`STEP_SCOPES`) in the trace. Beside
 the read-backs a step ("sync.*" scopes, `profiling.READBACKS`) the split
 gives the launches of the padded WCSPH step's glue kernels a step
 (`SLOT_GLUE`, the kernels of ops/slot_glue.py `LAUNCHES`).
+
+A DFSPH pressure loop (`LOOP_SCOPES`) reads its mean residual back once an
+iteration (`LOOP_SYNC`), so the "sync.mean_residual" scopes inside a loop's
+scope count its iterations, as the step's Diagnostics count them. For each
+loop the table `loops` gives the iterations a step and the device, glue and
+idle ms an iteration: everything that falls inside the loop's scope, its
+read-backs' idle included, over its iterations.
 """
 
 import argparse
@@ -40,6 +47,9 @@ STEP_SCOPES = ("WCSPH.step", "DFSPH.step")
 PAIR_SCOPES = ("WCSPH.pairs", "DFSPH.viscosity", "DFSPH.context", "DFSPH.density_loop",
                "DFSPH.divergence_loop")
 SYNC_PREFIX = "sync."
+# the DFSPH pressure loops, and the read-back each of their iterations makes
+LOOP_SCOPES = ("DFSPH.density_loop", "DFSPH.divergence_loop")
+LOOP_SYNC = "sync.mean_residual"
 # the port's kernels, as substrings of their traced names: K1 / K3 / K5
 # (pair_reduce_kernel, tile_pair_reduce_kernel), K2 (rebucket_kernel), K4
 KERNELS = ("pair_reduce_kernel", "rebucket_kernel", "sm_rebucket_staged",
@@ -103,9 +113,10 @@ def operations(events: list, spans=None) -> list:
 
 
 def attribute(events: list) -> dict:
-    """The per-scope table and the split of a trace's events (the module
-    docstring's rules); times in ms a step, None where the trace holds no
-    step scope."""
+    """The per-scope table, the split and the loops of a trace's events (the
+    module docstring's rules); times in ms a step (the loops': an
+    iteration); split None and no loops where the trace holds no step
+    scope."""
     spans = _spans(events)
     op_stacks = operations(events, spans)
     ops = [e for e, _ in op_stacks]
@@ -129,14 +140,22 @@ def attribute(events: list) -> dict:
 
     split = dict.fromkeys(("pair_glue_ms", "integrate_glue_ms", "outside_glue_ms",
                            "sync_idle_ms", "dispatch_idle_ms", "caller_idle_ms"), 0.0)
+    # loop scope -> its ms a step
+    loops = {name: {"device_ms": 0.0, "glue_ms": 0.0, "idle_ms": 0.0}
+             for name in LOOP_SCOPES if any(s.name == name for s in spans)}
     for e, stack in op_stacks:
         ms = float(e.get("dur", 0.0)) * 1e-3 / steps
         r = row(stack)
         r["device_ms"] += ms
         r["launches"] += 1
+        loop = _loop_row(loops, stack)
+        if loop is not None:
+            loop["device_ms"] += ms
         if e["cat"] == "kernel" and any(k in e["name"] for k in KERNELS):
             continue
         r["glue_ms"] += ms
+        if loop is not None:
+            loop["glue_ms"] += ms
         r["glue_launches"] += 1
         if any(s in PAIR_SCOPES for s in stack):
             split["pair_glue_ms"] += ms
@@ -147,6 +166,9 @@ def attribute(events: list) -> dict:
     for (_, us), stack in zip(gaps, gap_stacks):
         ms = us * 1e-3 / steps
         row(stack)["idle_ms"] += ms
+        loop = _loop_row(loops, stack)
+        if loop is not None:
+            loop["idle_ms"] += ms
         if any(s.startswith(SYNC_PREFIX) for s in stack):
             split["sync_idle_ms"] += ms
         elif any(s in STEP_SCOPES for s in stack):
@@ -160,7 +182,17 @@ def attribute(events: list) -> dict:
     split["slot_glue_launches"] = sum(
         e["cat"] == "kernel" and e["name"].removeprefix("void ").startswith(SLOT_GLUE)
         for e in ops) / steps
-    return {"steps": steps, "scopes": scopes, "split": split}
+    for name, loop in loops.items():
+        its = sum(s.name == LOOP_SYNC and s.start >= o.start and s.end <= o.end
+                  for o in spans if o.name == name for s in spans) / steps
+        loops[name] = {"iterations": its,
+                       **{k: v / its if its else None for k, v in loop.items()}}
+    return {"steps": steps, "scopes": scopes, "split": split, "loops": loops}
+
+
+def _loop_row(loops: dict, stack):
+    """The row of the pressure loop open in `stack`, or None."""
+    return next((loops[s] for s in stack if s in loops), None)
 
 
 def main(argv=None):
@@ -179,6 +211,10 @@ def main(argv=None):
         print(f"  {name:24s} {r['device_ms']:10.4f} {r['launches']:9.2f} {r['glue_ms']:9.4f} "
               f"{r['glue_launches']:14.2f} {r['idle_ms']:9.4f}")
     print("  " + ", ".join(f"{k} {v:.4f}" for k, v in result["split"].items()))
+    for name, loop in result["loops"].items():
+        print(f"  {name}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in loop.items() if v is not None)
+            + " (ms an iteration; iterations a step)")
     print(json.dumps(result))
 
 
