@@ -28,7 +28,15 @@ Phases, each reported on its own line:
      their twins (slot_kick_drift on the live slots, the only ones it
      writes), their bounds by bytes (tools/roofline.py `glue_bytes`: the
      mask, the live slots' reads, the writes) and their launches those of
-     the WCSPH padded solver paths. The physical forms are checked
+     the WCSPH padded solver paths; and the DFSPH pressure loops' two glue
+     kernels (slot_pressure_err in both loops' modes, slot_pressure_kick:
+     ops/pressure_glue.py) on a density-loop iteration's operands, on the
+     padded K5 state (records), the K3 state (checked only) and the DFSPH
+     cell's 1M state (records `*_1m`: CELL_CONFIG after CELL_SETTLE steps),
+     bit-equal to their twins on every slot (the error's total, summed in
+     its own order, within 1e-6), their bounds by bytes (tools/roofline.py
+     `pressure_glue_bytes`), their launches those of the DFSPH slot paths,
+     and none on the plane and loop-gradient paths. The physical forms are checked
      and timed here beside their XSPH forms on the same operands, but their
      records come from phase 5, where they launch. The WCSPH states
      are taken after 3 steps, the DFSPH states after 60, when the columns
@@ -255,6 +263,7 @@ SOURCES = {
     "vpu_probe": CSRC + "vpu_probe.cu",
     "probe_ctx": CSRC + "pair_reduce.cu",
     "slot_glue": CSRC + "slot_glue.cu",
+    "pressure_glue": CSRC + "pressure_glue.cu",
 }
 REPLACES = {
     "pair_reduce": "yasph2d_tpu/ops/pallas_slotmajor.py:821",  # pf_pair_reduce
@@ -281,10 +290,22 @@ REPLACES = {
     "slot_density_tait": "yasph2d_tpu/models/wcsph_dense.py:159",
     "slot_accel_cfl": "yasph2d_tpu/models/wcsph_dense.py:389",
     "slot_kick": "yasph2d_tpu/models/wcsph_dense.py:403",
+    # the DFSPH pressure loops' XLA glue: an iteration's error, k_i, k_sum and
+    # residual (both loops), its velocity update
+    "slot_pressure_err": "yasph2d_tpu/models/dfsph_dense.py:544",
+    "slot_pressure_err_divergence": "yasph2d_tpu/models/dfsph_dense.py:580",
+    "slot_pressure_kick": "yasph2d_tpu/models/dfsph_dense.py:549",
 }
 # the padded WCSPH step's glue kernels (ops/slot_glue.py); the sorted WCSPH
 # step runs the density and Tait one
 SLOT_GLUE = ["slot_kick_drift", "slot_density_tait", "slot_accel_cfl", "slot_kick"]
+# the DFSPH pressure loops' glue kernels (ops/pressure_glue.py), on the padded
+# and sorted slot routes; the plane steps and the loop-gradient variants
+# launch neither
+PRESSURE_GLUE = ["slot_pressure_err", "slot_pressure_kick"]
+# the DFSPH cell's configuration and the steps to its segment's start: the
+# pressure glue records on its 1M state (`*_1m`)
+CELL_CONFIG, CELL_SETTLE = "portbench/configs/dfsph_converged_f32.json", 144
 BIT_EQUAL = ("pair_reduce", "sm_pair_reduce")  # pair kernels whose twins sum in their order
 DFSPH_FORMS = ("ctx", "ctx_post", "visc_gravity", "err_ki", "delta_ki", "corr_v")
 WCSPH_FORMS = ("wcsph_density", "wcsph_stat", "wcsph_forces")
@@ -300,27 +321,29 @@ SOLVER_PATHS = {
     "dfsph_plane": [f"pair_reduce_{f}" for f in DFSPH_FORMS] + ["rebucket"],
     "wcsph_padded": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"] + SLOT_GLUE,
     "wcsph_plane": [f"pair_reduce_{f}" for f in WCSPH_FORMS] + ["rebucket"],
-    "dfsph_padded": [f"sm_pair_reduce_{f}" for f in DFSPH_SM_FORMS] + ["sm_rebucket"],
+    "dfsph_padded": [f"sm_pair_reduce_{f}" for f in DFSPH_SM_FORMS] + ["sm_rebucket"]
+    + PRESSURE_GLUE,
     "dfsph_padded_k5": [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_FORMS]
-    + ["sm_rebucket"],
+    + ["sm_rebucket"] + PRESSURE_GLUE,
     "wcsph_padded_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS] + ["sm_rebucket"]
     + SLOT_GLUE,
     "dfsph_plane_bf16": [f"pair_reduce_{f}_bf16" for f in DFSPH_FORMS] + ["rebucket"],
     "wcsph_plane_bf16": [f"pair_reduce_{f}_bf16" for f in WCSPH_FORMS] + ["rebucket"],
     "dfsph_plane_unfused": [f"pair_reduce_{f}" for f in DFSPH_UNFUSED_FORMS] + ["rebucket"],
     "dfsph_padded_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in DFSPH_TILE_FORMS]
-    + ["sm_rebucket"],
+    + ["sm_rebucket"] + PRESSURE_GLUE,
     "wcsph_padded_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in WCSPH_FORMS]
     + ["sm_rebucket"] + SLOT_GLUE,
     # the table solvers: plain tensor operations, no kernel; the sorted
     # solvers: K3 or K5, rebuilt by a sort (no re-bucket)
     "dfsph_table": [],
     "wcsph_table": [],
-    "dfsph_dense": [f"sm_pair_reduce_{f}" for f in DFSPH_SM_FORMS],
-    "dfsph_dense_k5": [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_FORMS],
+    "dfsph_dense": [f"sm_pair_reduce_{f}" for f in DFSPH_SM_FORMS] + PRESSURE_GLUE,
+    "dfsph_dense_k5": [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_FORMS] + PRESSURE_GLUE,
     "wcsph_dense": [f"sm_pair_reduce_{f}" for f in WCSPH_FORMS] + ["slot_density_tait"],
     "wcsph_dense_k5": [f"tile_pair_reduce_{f}" for f in WCSPH_FORMS] + ["slot_density_tait"],
-    "dfsph_dense_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in DFSPH_TILE_FORMS],
+    "dfsph_dense_k5_bf16": [f"tile_pair_reduce_{f}{BF16}" for f in DFSPH_TILE_FORMS]
+    + PRESSURE_GLUE,
     # the loop-gradient variants (K5 route): K5 for the ctx and viscosity
     # passes only, the pressure loops' passes plain tensor operations over
     # the cached gradients
@@ -392,10 +415,10 @@ CONFIG_PATHS = {
                                 + ["rebucket"]),
     "config_dfsph_padded": ("dfsph_padded", {"use_pallas_slotmajor": True}, 10,
                             [f"sm_pair_reduce_{f}" for f in DFSPH_SM_PHYS_FORMS]
-                            + ["sm_rebucket"]),
+                            + ["sm_rebucket"] + PRESSURE_GLUE),
     "config_dfsph_padded_k5": ("dfsph_padded", {}, 10,
                                [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS]
-                               + ["sm_rebucket"]),
+                               + ["sm_rebucket"] + PRESSURE_GLUE),
     "config_wcsph_plane": ("wcsph_plane", {}, 10,
                            [f"pair_reduce_{f}" for f in WCSPH_PHYS_FORMS] + ["rebucket"]),
     "config_wcsph_plane_bf16": ("wcsph_plane", {"pair_dtype": "bfloat16"}, 10,
@@ -409,10 +432,12 @@ CONFIG_PATHS = {
                                + ["sm_rebucket"] + SLOT_GLUE),
     "config_dfsph_padded_k5_rebuild3": (
         "dfsph_padded", {"rebuild_every": 3}, CONTACT_CONFIG,
-        [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]),
+        [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]
+        + PRESSURE_GLUE),
     "config_dfsph_padded_k5_bf16": ("dfsph_padded", {"pair_dtype": "bfloat16"}, 10,
                                     [f"tile_pair_reduce_{f}{BF16}"
-                                     for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]),
+                                     for f in DFSPH_TILE_PHYS_FORMS] + ["sm_rebucket"]
+                                    + PRESSURE_GLUE),
     "config_wcsph_padded_k5_bf16": ("wcsph_padded", {"pair_dtype": "bfloat16"}, 10,
                                     [f"tile_pair_reduce_{f}{BF16}" for f in WCSPH_PHYS_FORMS]
                                     + ["sm_rebucket"] + SLOT_GLUE),
@@ -420,7 +445,8 @@ CONFIG_PATHS = {
     "config_dfsph": ("dfsph", {}, 10, []),
     "config_wcsph": ("wcsph", {}, 10, []),
     "config_dfsph_dense": ("dfsph_dense", {}, 10,
-                           [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS]),
+                           [f"tile_pair_reduce_{f}" for f in DFSPH_TILE_PHYS_FORMS]
+                           + PRESSURE_GLUE),
     "config_wcsph_dense": ("wcsph_dense", {}, 10,
                            [f"tile_pair_reduce_{f}" for f in WCSPH_PHYS_FORMS]
                            + ["slot_density_tait"]),
@@ -1046,6 +1072,56 @@ def phase_kernels_slot_glue(device, rec: Records):
                     replaces=name)
 
 
+def phase_kernels_pressure_glue(device, rec: Records):
+    """The DFSPH pressure loops' two glue kernels on the operands a
+    density-loop iteration gives them (tools/kernel_times.py
+    `pressure_glue_calls`: the error in both loops' modes, the kick), each
+    bit-equal to its twin on every slot, the error's total within 1e-6 of
+    the twin's (`pressure_glue_check`): on the padded K5 state (RECORD: kernel ms, twin
+    ms, the byte bound of tools/roofline.py `pressure_glue_bytes`), the K3
+    state (checked only; every slot loaded) and the DFSPH cell's 1M state
+    (records `*_1m`: the K5 kind under CELL_CONFIG after CELL_SETTLE
+    steps, as the cell's set-up settles it)."""
+    from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
+    from yasph2d_tpu_torch.tools.kernel_times import (
+        configured, pressure_glue_calls, pressure_glue_check,
+    )
+    from yasph2d_tpu_torch.tools.roofline import pressure_glue_bytes
+
+    for kind, mode, size in (("dfsph_padded_k5", RECORD, ""), ("dfsph_padded", CHECK, ""),
+                             ("dfsph_padded_k5", RECORD, SIZE_1M)):
+        if size:
+            t0 = time.perf_counter()
+            world = double_dam_break(1_000_000)
+            solver, boundary = bench_solver(kind, world, device=device)
+            solver = configured(solver, CELL_CONFIG)
+            carry = solver.init_carry(world.initial_state(device=device), boundary)
+            carry, _ = solver.simulate(carry, boundary, CELL_SETTLE)
+            torch.cuda.synchronize()
+            log(f"phase 3 kernels: the DFSPH cell's 1M state settled in "
+                f"{time.perf_counter() - t0:.2f} s, {int(carry.ctx.mask.sum())} live")
+        else:
+            solver, boundary, carry = moving_state(kind, device, CONTACT_STEPS)
+        for label, (name, operands, live) in pressure_glue_calls(solver, carry).items():
+            run_kernel, run_twin, equal = pressure_glue_check(name, operands)
+            torch.cuda.synchronize()
+            where = f"{label}{size}[{kind}]"
+            log(f"phase 3 kernels: {where} bit-equal {equal}, {int(live.sum())} live of "
+                f"{live.numel()} slots")
+            if not equal:
+                raise RuntimeError(f"{where} is not bit-equal to its twin (its total: "
+                                   "not within 1e-6)")
+            if mode == CHECK:
+                continue
+            ms, plain_ms = graph_ms(run_kernel), event_ms(run_twin)
+            n_bytes = pressure_glue_bytes(name, live, operands[-1])
+            bound_ms, bound_by = bound(n_bytes, 0)
+            bound_line(where, bound_ms, bound_by, f"{n_bytes} bytes", ms)
+            log(f"phase 3 kernels: {where} kernel {ms:.5f} ms twin {plain_ms:.4f} ms")
+            rec.add(label + size, "pressure_glue", 0.0, ms, plain_ms, bound_ms, bound_by,
+                    counter=name, replaces=label)
+
+
 def phase_kernels_wcsph_plane(device, rec: Records, kind, rng):
     """K1's WCSPH forms and wcsph_forces_phys on the plane state of `kind`
     (f32 or bf16 operands) and, in f32, K2 with the velocity payload."""
@@ -1468,14 +1544,16 @@ def carry_tensors(tree) -> list:
 
 def _kernel_modules():
     from yasph2d_tpu_torch.ops import (
-        pair_reduce, pallas_pair, rebucket, slot_glue, sm_pair_reduce, sm_rebucket,
+        pair_reduce, pallas_pair, pressure_glue, rebucket, slot_glue, sm_pair_reduce,
+        sm_rebucket,
     )
     from yasph2d_tpu_torch.tools import probe_pallas_slotmajor, vpu_probe
 
     return {"pair_reduce": pair_reduce, "sm_pair_reduce": sm_pair_reduce,
             "tile_pair_reduce": pallas_pair, "rebucket": rebucket,
             "sm_rebucket": sm_rebucket, "vpu_probe": vpu_probe,
-            "probe_ctx": probe_pallas_slotmajor, "slot": slot_glue}
+            "probe_ctx": probe_pallas_slotmajor, "slot": slot_glue,
+            "slot_pressure": pressure_glue}
 
 
 def reset_launch_counts():
@@ -1689,6 +1767,11 @@ def check_launches(kind, launches) -> dict:
         log(f"phase 5 main path [{kind}]: K5 loop-pass launches {loops} (must be 0)")
         if any(loops.values()):
             raise RuntimeError(f"{kind}: the pressure loops launched K5 passes: {loops}")
+    if kind in LOOP_GRADIENT_OF or kind.startswith("dfsph_plane"):
+        glue = {k: launches.get(k, 0) for k in PRESSURE_GLUE}
+        log(f"phase 5 main path [{kind}]: pressure glue launches {glue} (must be 0)")
+        if any(glue.values()):
+            raise RuntimeError(f"{kind}: its pressure loops launched glue kernels: {glue}")
     return path
 
 
@@ -2611,6 +2694,7 @@ def main():
         phase_kernels_dfsph(device, rec)
         phase_kernels_wcsph(device, rec)
         phase_kernels_slot_glue(device, rec)
+        phase_kernels_pressure_glue(device, rec)
         phase_kernels_dfsph_padded(device, rec)
         phase_kernels_dfsph(device, rec, "dfsph_plane_bf16")
         phase_kernels_wcsph_plane(device, rec, "wcsph_plane_bf16", np.random.default_rng(4))

@@ -26,7 +26,10 @@ a traced padded WCSPH step every device-to-host copy is a counted read-back
 (utils/profiling.read_back), and K5 and K4 launch inside their phase
 scopes. The padded WCSPH step's four glue kernels (ops/slot_glue.py) give
 their twins' bits on every slot a later reader sees, and 300 steps through
-them the twins' carries and dt sequence."""
+them the twins' carries and dt sequence. So do the DFSPH pressure loops' two
+glue kernels (ops/pressure_glue.py) on every slot, on the K5, K3, bf16 and
+sorted routes, through an impact, with a residual total of fixed bits; the
+plane steps and the loop-gradient variants launch neither."""
 
 import dataclasses
 import json
@@ -48,6 +51,7 @@ from yasph2d_tpu_torch import (
 from yasph2d_tpu_torch.models.dfsph_plane import PlaneCtx
 from yasph2d_tpu_torch.ops import pair_reduce as pr
 from yasph2d_tpu_torch.ops import pallas_pair as tpp
+from yasph2d_tpu_torch.ops import pressure_glue as pg
 from yasph2d_tpu_torch.ops import rebucket as rb
 from yasph2d_tpu_torch.ops import sm_pair_reduce as smp
 from yasph2d_tpu_torch.ops import slot_glue as sg
@@ -1990,3 +1994,195 @@ def test_padded_wcsph_300_steps_kernels_equal_twins(device, kind, monkeypatch):
         a, b = getattr(got, name), getattr(ref, name)
         assert torch.equal(_bits([a])[0], _bits([b])[0]), name
     assert float(got.dens_pad.max()) > solver.properties.fluid_density
+
+
+# ----------------------------------------------------- pressure loops' glue
+
+PRESSURE_KINDS = {"k5": "dfsph_padded_k5", "k3": "dfsph_padded", "k5_bf16": "dfsph_padded_k5_bf16",
+                  "k5_sorted": "dfsph_dense_k5"}
+
+
+@pytest.fixture(scope="module")
+def pressure_states(device):
+    """{case: (solver, ctx, v, k, k_sum)} of PRESSURE_KINDS on the card: the
+    1000-particle double dam-break under the converged knobs after the
+    impact (tests/test_torch_pressure_glue.py), v the carry's velocities
+    with noise at live slots, k and k_sum noise at live slots and the
+    carry's +0.0 (K4's, the loops') elsewhere."""
+    from test_torch_pressure_glue import SETTLE, converged_solver
+
+    rng = np.random.default_rng(5)
+    out = {}
+    for case, kind in PRESSURE_KINDS.items():
+        solver, boundary, carry = converged_solver(kind, device=device)
+        carry, _ = solver.simulate(carry, boundary, SETTLE + 2)
+        ctx = carry.ctx
+        live = ctx.mask
+
+        def noise(t, scale):
+            return torch.where(live if t.ndim == 3 else live[..., None], t + torch.as_tensor(
+                rng.normal(0.0, scale, tuple(t.shape)).astype(np.float32), device=device), t)
+
+        out[case] = (solver, ctx, noise(carry.v_pad, 0.5), noise(torch.zeros_like(carry.kappa_pad),
+                                                                 50.0),
+                     noise(carry.kappa_pad, 50.0))
+    return out
+
+
+def _pressure_calls(solver, ctx, v, k, k_sum, density):
+    """(err arguments, kick arguments) of one loop iteration on a state; the
+    arguments that the kernels update in place are fresh copies each call."""
+    m = float(np.float32(solver.properties.particle_mass))
+    dt, rho0 = 1.5e-4, float(solver.properties.fluid_density)
+    # the divergence loop's neighbour totals raised by 2: at ~1000 particles
+    # a fluid slot counts at most 8, and the guard would zero every error
+    rho = ctx.densities_pad if density else ctx.neighbor_total + 2.0
+    div = solver._div_pass(ctx, v)
+    corr = solver._corr_pass(ctx, k)
+    dz = solver._dead_zero
+    err = lambda: (div, v, ctx.sum_grad_stat, rho, ctx.alpha_pad, k_sum.clone(),  # noqa: E731
+                   pg.loop_work(ctx.mask), ctx.mask, m, dt, rho0, density, dz)
+    kick = lambda: (v.clone(), corr, k, ctx.sum_grad_stat, ctx.mask,  # noqa: E731
+                    float(np.float32(m / dt)), dz)
+    return err, kick
+
+
+@pytest.mark.parametrize("nan", ["finite", "nan"])
+@pytest.mark.parametrize("density", [True, False], ids=["density", "divergence"])
+@pytest.mark.parametrize("case", list(PRESSURE_KINDS))
+def test_pressure_glue_kernels_bit_equal_to_twins(device, pressure_states, case, density, nan):
+    """slot_pressure_err (both loops) and slot_pressure_kick give their
+    twins' bits over every slot, dead ones too, on K5's, K3's, the bf16
+    grid's and the sorted route's states; with `nan`, NaN at live slots and
+    at dead slots (K3: anywhere; K5: beside a live slot, the quads it
+    loads) gives the twins' NaNs. The residual's total is within 1e-6 of
+    the twin's and the same bits at a second launch; one launch a call."""
+    solver, ctx, v, k, k_sum = pressure_states[case]
+    if nan == "nan":
+        mask = ctx.mask.reshape(-1)
+        n = mask.numel()
+        quads = torch.cat([mask, mask.new_zeros(-n % 4)]).reshape(-1, 4).any(1)
+        loaded = quads.repeat_interleave(4)[:n] if solver._dead_zero else torch.ones_like(mask)
+        picks = torch.cat([torch.nonzero(mask)[::97, 0], torch.nonzero(~mask & loaded)[::89, 0]])
+        v = v.clone().reshape(-1, 2)
+        v[picks, 1] = float("nan")
+        v = v.reshape(ctx.mask.shape + (2,))
+        k = k.clone().reshape(-1)
+        k[picks] = float("nan")
+        k = k.reshape(ctx.mask.shape)
+    err, kick = _pressure_calls(solver, ctx, v, k, k_sum, density)
+    before = dict(pg.LAUNCHES)
+    got = pg.slot_pressure_err(*err())
+    again = pg.slot_pressure_err(*err())
+    ref = pg.pressure_err_ref(*err())
+    got_v = pg.slot_pressure_kick(*kick())
+    ref_v = pg.pressure_kick_ref(*kick())
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES == {"slot_pressure_err": before["slot_pressure_err"] + 2,
+                           "slot_pressure_kick": before["slot_pressure_kick"] + 1}
+    for a, b in zip(_bits([got[0], got[1], got_v]), _bits([ref[0], ref[1], ref_v])):
+        assert a.shape == b.shape and torch.equal(a, b), f"{int((a != b).sum())} differ"
+    assert torch.equal(_bits([got[2]])[0], _bits([again[2]])[0])
+    if nan == "nan":
+        assert bool(torch.isnan(got[2])) and bool(torch.isnan(ref[2]))
+        assert bool(torch.isnan(got_v).any())
+    else:
+        assert float(ref[2]) > 0
+        assert abs(float(got[2]) - float(ref[2])) <= 1e-6 * abs(float(ref[2]))
+        assert bool(got[0].ne(0).any()) and bool(got_v.ne(v).any())
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (7, 9, 3), (300, 301, 7)])
+def test_pressure_err_total_is_fixed_over_launches(device, shape):
+    """The residual's total over grids of 1 to 632,100 slots (one quad to 309
+    blocks, a last quad past the end): the same bits at every launch, within
+    1e-6 of the twin's where-sum; with no live slot 0, and nothing written
+    with `dead_zero`."""
+    rng = np.random.default_rng(shape[0])
+    t = lambda *s, lo=0.0: torch.as_tensor(  # noqa: E731
+        rng.uniform(lo, 1.0, shape + s).astype(np.float32), device=device)
+    mask = torch.as_tensor(rng.random(shape) < 0.3, device=device)
+    mask.reshape(-1)[-1] = True
+    div, v, sgs, alpha = t(lo=-1.0), t(2, lo=-1.0), t(2, lo=-1.0), t()
+    rho = t() * 50.0 + 100.0
+    args = (0.01, 1e-3, 100.0, True, True)
+    k_sum = torch.zeros_like(alpha)
+    totals = {pg.slot_pressure_err(div, v, sgs, rho, alpha, k_sum.clone(), pg.loop_work(mask),
+                                   mask, *args)[2].view(torch.int32).item() for _ in range(5)}
+    ref = pg.pressure_err_ref(div, v, sgs, rho, alpha, k_sum, None, mask, *args)[2]
+    assert len(totals) == 1
+    total = np.array(list(totals), np.int32).view(np.float32)[0]
+    assert float(ref) > 0 and abs(total - float(ref)) <= 1e-6 * float(ref)
+    dead = torch.zeros_like(mask)
+    out = pg.slot_pressure_err(div, v, sgs, rho, alpha, k_sum.clone(), pg.loop_work(dead),
+                               dead, *args)
+    assert float(out[2]) == 0.0 and not bool(out[0].ne(0).any()) and not bool(out[1].ne(0).any())
+
+
+def test_pressure_glue_refuses_strided_and_misaligned_operands(device):
+    """On the card a wrapper refuses a strided operand, one that is not
+    16-byte aligned (the kernels load quads as float4), one on another
+    device than its mask, and a `work` that is not loop_work(mask)'s."""
+    mask = torch.ones((4, 5, 2), dtype=torch.bool, device=device)
+    s = torch.zeros((4, 5, 2), device=device)
+    v = torch.zeros((4, 5, 2, 2), device=device)
+    strided = torch.zeros((4, 5, 2, 4), device=device)[..., ::2]
+    shifted = torch.zeros(81, device=device)[1:].view(4, 5, 2, 2)
+    for bad in (strided, shifted, v.cpu()):
+        with pytest.raises(ValueError, match="slot_pressure_kick"):
+            pg.slot_pressure_kick(bad, v, s, v, mask, 0.5)
+    with pytest.raises(ValueError, match="slot_pressure_err"):
+        pg.slot_pressure_err(s, v, v, s, s, s, torch.zeros(40, device=device), mask, 0.01,
+                             1e-3, 100.0, True)
+
+
+@pytest.mark.parametrize("case", list(PRESSURE_KINDS))
+def test_dfsph_steps_kernels_equal_twins(device, case, monkeypatch):
+    """31 steps from rest through the impact (the converged knobs), with the
+    pressure loops' glue kernels and with their twins on the card: the same
+    carry, every slot's bits, the same iterations and dt at every step; two
+    glue launches an iteration (the error and the kick) and one a warm start,
+    none with the twins."""
+    from test_torch_pressure_glue import SETTLE, STEPS, carry_tensors, converged_solver
+
+    solver, boundary, start = converged_solver(PRESSURE_KINDS[case], device=device)
+    runs = []
+    for twins in (False, True):
+        if twins:
+            monkeypatch.setattr(pg, "slot_pressure_err", pg.pressure_err_ref)
+            monkeypatch.setattr(pg, "slot_pressure_kick", pg.pressure_kick_ref)
+        pg.reset_launch_counts()
+        carry, steps = start, []
+        for _ in range(SETTLE + STEPS):
+            carry, d = solver.simulate(carry, boundary, 1)
+            steps.append((d.density_iterations, d.divergence_iterations,
+                          np.float32(d.dt).tobytes()))
+        torch.cuda.synchronize()
+        runs.append((carry, steps, dict(pg.LAUNCHES)))
+    (got, got_steps, launches), (ref, ref_steps, twin_launches) = runs
+    assert got_steps == ref_steps
+    iterations = sum(s[0] + s[1] for s in got_steps)
+    warm = sum(a[0] > 1 for a in got_steps[:-1]) + sum(a[1] > 1 for a in got_steps[:-1])
+    assert max(s[0] for s in got_steps) > 2 and warm > 0
+    assert launches == {"slot_pressure_err": iterations, "slot_pressure_kick": iterations + warm}
+    assert twin_launches == dict.fromkeys(pg.LAUNCHES, 0)
+    a, b = carry_tensors(got), carry_tensors(ref)
+    assert len(a) == len(b) > 5
+    for x, y in zip(_bits(a), _bits(b)):
+        assert x.shape == y.shape and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["dfsph_plane_unfused", "dfsph_padded_cached",
+                                  "dfsph_dense_mxu", "dfsph_plane"])
+def test_other_dfsph_routes_launch_no_pressure_glue(device, kind):
+    """The plane steps (their unfused loops' torch glue, the fused step's
+    K1 epilogues) and the loop-gradient variants launch no pressure-loop
+    glue kernel on the card."""
+    world = double_dam_break(3_000)
+    solver, boundary = bench_solver(kind, world, device=device)
+    carry = solver.init_carry(world.initial_state(device=device), boundary)
+    before = dict(pg.LAUNCHES)
+    solver.simulate(carry, boundary, 3)
+    torch.cuda.synchronize()
+    assert pg.LAUNCHES == before
+

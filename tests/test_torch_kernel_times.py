@@ -7,6 +7,7 @@ the same cut times K5's and K4's halo forms. `--compare` tells two trees'
 `--save` files apart by their bits."""
 
 import argparse
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from yasph2d_tpu_torch.scenes import bench_solver, double_dam_break
 from yasph2d_tpu_torch.tools import kernel_times as kt
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _state(kind, steps=3):
@@ -110,3 +112,25 @@ def test_glue_records_of_the_padded_wcsph_kinds():
         assert n < r["bytes"] and r["bound_ms"] > 0
         r["kernel"]()
         r["twin"]()
+
+
+def test_glue_records_of_the_padded_dfsph_kinds():
+    """A padded DFSPH kind times the pressure loops' glue calls (both loops'
+    error and the kick) apart from its pair calls and K4, each with its byte
+    bound, whether it gives its twin's bits and its launches a step (none on
+    CPU tensors); `--config` gives the solver the configuration's loop
+    knobs and CFL."""
+    config = ROOT / "portbench/configs/dfsph_converged_f32.json"
+    args = argparse.Namespace(particles=1000, steps=2, shard=None, config=str(config))
+    runs, state, per_step, glue = kt.kind_runs("dfsph_padded_k5", args, CPU)
+    names = ["slot_pressure_err", "slot_pressure_err_divergence", "slot_pressure_kick"]
+    assert list(glue) == names and not set(names) & set(runs)
+    n = state[1].numel()
+    for name, r in glue.items():
+        assert r["bit_equal"] and r["launches_per_step"] == 0.0
+        assert n < r["bytes"] and r["bound_ms"] > 0
+        r["kernel"]()
+        r["twin"]()
+    world = double_dam_break(1000)
+    solver = kt.configured(bench_solver("dfsph_padded_k5", world, device=CPU)[0], config)
+    assert solver.max_avg_density_error == 1e-8 and solver.step_config.cfl_factor == 0.75

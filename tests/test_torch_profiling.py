@@ -255,8 +255,9 @@ def test_step_phases_without_a_step_scope():
 
 def _synthetic_dfsph_step():
     """One DFSPH step in microseconds: a density loop of two iterations and a
-    divergence loop of one, each iteration a K5 pass, a glue operation and
-    the read-back of its mean residual."""
+    divergence loop of one, each iteration a K5 pass, a glue operation (in
+    the second density iteration a pressure glue kernel) and the read-back
+    of its mean residual."""
     return [
         _span("DFSPH.step", 0, 200), _span("DFSPH.density_loop", 10, 100),
         _span("sync.mean_residual", 40, 10), _span("sync.mean_residual", 90, 10),
@@ -269,7 +270,8 @@ def _synthetic_dfsph_step():
         # density iteration 2: K5 at 55-65, glue at 65-69, the copy at 90-91;
         # idle 69-90 behind the launches, 91-130 in the read-back
         *_launch(4, 51, "void tile_pair_reduce_kernel<false, F32Math>(args)", 55, 10),
-        *_launch(5, 52, "void at::vectorized_elementwise_kernel<4>(int)", 65, 4),
+        *_launch(5, 52, "void slot_pressure_err_kernel<true>(unsigned char const*, int)", 65,
+                 4),
         *_launch(6, 90, "Memcpy DtoH (Device -> Pageable)", 90, 1, "gpu_memcpy"),
         # divergence iteration: K5 at 130-150, the copy at 160-162
         *_launch(7, 121, "void tile_pair_reduce_kernel<false, F32Math>(args)", 130, 20),
@@ -283,12 +285,14 @@ def test_step_phases_split_each_pressure_loop_by_its_iterations():
     assert list(loops) == ["DFSPH.density_loop", "DFSPH.divergence_loop"]
     assert loops["DFSPH.density_loop"] == {
         "iterations": 2.0, "device_ms": pytest.approx(0.014),
-        "glue_ms": pytest.approx(0.004), "idle_ms": pytest.approx((8 + 14 + 21 + 39) / 2e3)}
+        "glue_ms": pytest.approx(0.004), "idle_ms": pytest.approx((8 + 14 + 21 + 39) / 2e3),
+        "glue_launches": 2.0, "slot_glue_launches": 0.5}
     # idle behind its launch 150-160, and in its read-back from 162 until
     # the next operation at 190
     assert loops["DFSPH.divergence_loop"] == {
         "iterations": 1.0, "device_ms": pytest.approx(0.022),
-        "glue_ms": pytest.approx(0.002), "idle_ms": pytest.approx(0.038)}
+        "glue_ms": pytest.approx(0.002), "idle_ms": pytest.approx(0.038),
+        "glue_launches": 1.0, "slot_glue_launches": 0.0}
 
 
 def test_step_phases_count_the_loop_iterations_of_a_real_trace(tmp_path):

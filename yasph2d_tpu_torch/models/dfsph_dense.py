@@ -33,7 +33,13 @@ which one:
            cell-relative bf16 pair math, f32 sums; the glue stays f32), which
            K3 refuses as JAX does
 
-and the padded carry's rebuild is K4 (ops/sm_rebucket.py) with the payload
+The glue of a pressure-loop iteration between its div and corr passes is
+two kernels on either route (ops/pressure_glue.py: the error, k_i, k_sum and
+the residual's sum, then the velocity update, in place on the loop's own
+tensors), their twins on CPU tensors; the loop-gradient variants and the
+plane step keep torch operations.
+
+The padded carry's rebuild is K4 (ops/sm_rebucket.py) with the payload
 [v*(2) | kappa | stiffness] on both (the JAX package's XLA rebucket is
 bit-equal to it); the sorted carry's is the sort. The viscosity form is the
 model's: dfsph_visc (XSPH) or dfsph_visc_phys (PhysicalViscosityModel) on
@@ -51,8 +57,9 @@ neighbour shards' rows -1 and ny, None here) and `_rebucket_row0`: then
 every K5 pass and the K4 rebuild take the kernels' halo forms, with the
 fluid's rows exchanged once per pair context (kept in `DenseCtx.halo`), the
 boundary's once at init (`BoundaryDense.halo`) and the source values' once
-per pass; and the reductions over live slots (`_count_live`, `_mean_live`,
-the CFL max `_max_vel_from_sq`, `_sum_counts`) run over the shards.
+per pass; and the reductions over live slots (`_count_live`, the CFL max
+`_max_vel_from_sq`, `_sum_counts`, which also sums the loops' residuals in
+`_mean_of_sum`) run over the shards.
 
 The sorted step's rebuild calls the hook `_migrate` before its sort: one
 device has nothing to move (`(tree, 0)`); the sharded sorted solver
@@ -90,6 +97,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import pressure_glue
 from ..ops.cuda_build import PairConsts
 from ..ops.dense_grid import (
     DenseGridConfig,
@@ -275,6 +283,11 @@ class DFSPHSlotSolver:
             object.__setattr__(self, "_consts", bf16_consts(self._consts))
             forms = PaddedForms(*(bf16_form(f, self._consts) for f in forms))
         object.__setattr__(self, "_padded_forms", forms)
+        # the pressure loops' glue kernels skip quads of dead slots where
+        # K5's +0.0 at dead query slots make them identities: a dead slot's
+        # density m (W(0) + 0 + 0) clamps to rho0 (ops/pressure_glue.py)
+        object.__setattr__(self, "_dead_zero", not slotmajor and f32(m) * f32(w0)
+                           <= f32(self.properties.fluid_density))
 
     def _check_loop_gradients(self):
         """The JAX asserts on the loop-gradient flags
@@ -378,8 +391,8 @@ class DFSPHSlotSolver:
         return sort_by_dense_keys(tensors, positions, self.grid, alive)
 
     def _sum_counts(self, count: torch.Tensor) -> torch.Tensor:
-        """Sum of a per-shard counter (drops) over the shards: the count itself
-        on one device."""
+        """Sum of a per-shard counter (drops) or total (a residual's) over the
+        shards: the count itself on one device."""
         return count
 
     def _count_live(self, mask: torch.Tensor) -> np.float32:
@@ -484,6 +497,16 @@ class DFSPHSlotSolver:
 
     # --------------------------------------------------------------- pair ops
 
+    def _div_pass(self, ctx: DenseCtx, v_pad):
+        """The div pass's (ny, nx, P) sums sum_dyn (v_i - v_j).grad."""
+        return self._slot_pair(self._padded_forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                               ctx.mask, ctx.halo, q_vals=(v_pad,), s_vals=(v_pad,))[..., 0]
+
+    def _corr_pass(self, ctx: DenseCtx, k_pad):
+        """The corr pass's (ny, nx, P, 2) sums sum_dyn (k_i + k_j) grad."""
+        return self._slot_pair(self._padded_forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+                               ctx.mask, ctx.halo, q_vals=(k_pad,), s_vals=(k_pad,))
+
     def _velocity_divergence(self, ctx: DenseCtx, v_pad):
         """sum_dyn (v_i - v_j).grad + v_i.sum_grad_stat (dfsph.rs:99-126, 249-280)."""
         sgs = ctx.sum_grad_stat
@@ -500,8 +523,7 @@ class DFSPHSlotSolver:
                                      ctx.grad_dyn, source_values=(v_pad,),
                                      query_values=(v_pad,))
         else:
-            dyn = self._slot_pair(self._padded_forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
-                                  ctx.mask, ctx.halo, q_vals=(v_pad,), s_vals=(v_pad,))[..., 0]
+            dyn = self._div_pass(ctx, v_pad)
         return dyn + (v_pad[..., 0] * sgs[..., 0] + v_pad[..., 1] * sgs[..., 1])
 
     def _k_correction(self, ctx: DenseCtx, k_pad):
@@ -517,8 +539,7 @@ class DFSPHSlotSolver:
                                      ctx.grad_dyn, source_values=(k_pad,),
                                      query_values=(k_pad,))
         else:
-            dyn = self._slot_pair(self._padded_forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
-                                  ctx.mask, ctx.halo, q_vals=(k_pad,), s_vals=(k_pad,))
+            dyn = self._corr_pass(ctx, k_pad)
         return dyn + k_pad[..., None] * ctx.sum_grad_stat
 
     def _viscosity_pass(self, ctx: DenseCtx, v_pad, rho_pad, dt):
@@ -528,8 +549,12 @@ class DFSPHSlotSolver:
                                scalars=(float(dt),))
 
     def _mean_live(self, value_pad, ctx: DenseCtx, n_particles) -> np.float32:
-        total = torch.where(ctx.mask, value_pad, 0.0).sum()
-        return f32(read_back("mean_residual", total)) / f32(n_particles)
+        return self._mean_of_sum(torch.where(ctx.mask, value_pad, 0.0).sum(), n_particles)
+
+    def _mean_of_sum(self, total, n_particles) -> np.float32:
+        """A residual's average over the live particles from its 0-d sum over
+        this device's live slots (`_sum_counts` sums it over the shards)."""
+        return f32(read_back("mean_residual", self._sum_counts(total))) / f32(n_particles)
 
     def _max_velocity(self, vstar_pad, mask) -> np.float32:
         """CFL velocity estimate over live slots (dfsph.rs:474-477)."""
@@ -538,51 +563,82 @@ class DFSPHSlotSolver:
 
     # ---------------------------------------------------------- pressure loops
 
+    @staticmethod
+    def _slot_glue(ctx) -> bool:
+        """Whether the pressure loops' glue runs through ops/pressure_glue.py's
+        kernels (its twins on CPU tensors): on the slot layout's K3 and K5
+        passes; the loop-gradient variants and the plane layout keep their
+        torch glue."""
+        return isinstance(ctx, DenseCtx) and ctx.grad_dyn is None
+
+    def _loop_error(self, ctx, v_pad, rho_or_count, alpha_pad, k_sum, work, dt,
+                    density: bool):
+        """One iteration's error of the velocity divergence of v (the
+        density loop's with `density`, `rho_or_count` the densities; else the
+        divergence loop's, the neighbour totals) -> (k_i, k_sum + k_i, the
+        error's 0-d sum over the live slots). `work`: the loop's buffer
+        (`pressure_glue.loop_work`)."""
+        args = (float(f32(self.properties.particle_mass)), float(dt),
+                float(f32(self.properties.fluid_density)), density)
+        if self._slot_glue(ctx):
+            return pressure_glue.slot_pressure_err(
+                self._div_pass(ctx, v_pad), v_pad, ctx.sum_grad_stat, rho_or_count, alpha_pad,
+                k_sum, work, ctx.mask, *args, self._dead_zero)
+        return pressure_glue.loop_error(self._velocity_divergence(ctx, v_pad), rho_or_count,
+                                        alpha_pad, k_sum, ctx.mask, *args)
+
+    def _kick(self, ctx, v_pad, k_pad, scale: float):
+        """v - scale (the k-correction of k): the velocity update of a loop
+        iteration and of a warm start."""
+        if self._slot_glue(ctx):
+            return pressure_glue.slot_pressure_kick(v_pad, self._corr_pass(ctx, k_pad), k_pad,
+                                                    ctx.sum_grad_stat, ctx.mask, scale,
+                                                    self._dead_zero)
+        return v_pad - scale * self._k_correction(ctx, k_pad)
+
     def _correct_density_error(self, dt, dens_pad, alpha_pad, v_pad, kappa_pad,
                                prev_iterations, ctx: DenseCtx, n_particles):
         """Constant-density loop (dfsph_dense.py:529-561); returns
-        (v, kappa sum, iterations, last average density error)."""
+        (v, kappa sum, iterations, last average density error). `v_pad` is
+        the step's own: on CUDA the loop's kernels update it in place."""
         rho0 = f32(self.properties.fluid_density)
         m = f32(self.properties.particle_mass)
         scale = float((f32(1.0) / f32(dt)) * m)
         tol = f32(self.max_avg_density_error)
         if prev_iterations > 1:  # warm start
             k = 0.5 * torch.clamp(kappa_pad, min=float(f32(-0.5) * rho0 * rho0))
-            v_pad = v_pad - scale * self._k_correction(ctx, k)
+            v_pad = self._kick(ctx, v_pad, k, scale)
         k_sum = torch.zeros_like(kappa_pad)
+        work = pressure_glue.loop_work(ctx.mask) if self._slot_glue(ctx) else None
         num, avg = 0, f32(np.inf)
         while num == 0 or (
             (avg / rho0) * dt >= tol and num <= self.max_density_iterations
         ):
-            delta = self._velocity_divergence(ctx, v_pad)
-            err = torch.clamp(dens_pad + delta * float(m) * float(dt),
-                              min=float(rho0)) - float(rho0)
-            ki = err * alpha_pad
-            k_sum = k_sum + ki
-            v_pad = v_pad - scale * self._k_correction(ctx, ki)
-            avg = self._mean_live(err, ctx, n_particles)
+            ki, k_sum, total = self._loop_error(ctx, v_pad, dens_pad, alpha_pad, k_sum, work,
+                                                dt, density=True)
+            v_pad = self._kick(ctx, v_pad, ki, scale)
+            avg = self._mean_of_sum(total, n_particles)
             num += 1
         return v_pad, k_sum, num, avg
 
     def _correct_divergence_error(self, dt, alpha_pad, v_pad, stiff_pad,
                                   prev_iterations, ctx: DenseCtx, n_particles):
-        """Divergence-free loop (dfsph_dense.py:565-598)."""
+        """Divergence-free loop (dfsph_dense.py:565-598); `v_pad` as in the
+        constant-density loop."""
         rho0 = f32(self.properties.fluid_density)
         m = float(f32(self.properties.particle_mass))
         tol = f32(self.max_divergence_error)
         if prev_iterations > 1:  # warm start
             s = 0.5 * torch.clamp(stiff_pad, min=float(f32(-0.5) * rho0 * rho0))
-            v_pad = v_pad - m * self._k_correction(ctx, s)
+            v_pad = self._kick(ctx, v_pad, s, m)
         s_sum = torch.zeros_like(stiff_pad)
+        work = pressure_glue.loop_work(ctx.mask) if self._slot_glue(ctx) else None
         num, avg = 0, f32(np.inf)
         while num == 0 or (avg * dt >= tol and num <= self.max_divergence_iterations):
-            delta = torch.clamp(self._velocity_divergence(ctx, v_pad) * m, min=0.0)
-            # particle-deficiency guard (<9 total neighbours, dfsph.rs:260-264)
-            delta = torch.where(ctx.neighbor_total < 9, 0.0, delta)
-            ki = delta * alpha_pad
-            s_sum = s_sum + ki
-            v_pad = v_pad - m * self._k_correction(ctx, ki)
-            avg = self._mean_live(delta, ctx, n_particles) / rho0
+            ki, s_sum, total = self._loop_error(ctx, v_pad, ctx.neighbor_total, alpha_pad,
+                                                s_sum, work, dt, density=False)
+            v_pad = self._kick(ctx, v_pad, ki, m)
+            avg = self._mean_of_sum(total, n_particles) / rho0
             num += 1
         return v_pad, s_sum, num, avg
 

@@ -43,8 +43,9 @@ positions in the old layout, as the padded solver does.
 Spatial sharding (parallel/shard_plane.py) overrides the hooks `_halo` (the
 neighbour shards' rows -1 and ny of a set of planes, None here), which makes
 every geometry, pass and re-bucket take the kernels' halo forms, and the
-reductions over live slots (`_count_live`, `_mean_live`, `_max_vel_from_sq`,
-`_sum_counts`); their defaults here are the one-device code.
+reductions over live slots (`_count_live`, `_max_vel_from_sq`, `_sum_counts`,
+which also sums the loops' residuals); their defaults here are the one-device
+code.
 """
 
 from dataclasses import dataclass

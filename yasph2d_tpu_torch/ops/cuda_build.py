@@ -196,6 +196,15 @@ def library() -> ctypes.CDLL:
                        ("slot_kick", [_P] * 4 + [_I, _F])):
         getattr(lib, name).argtypes = args + [_P]
         getattr(lib, name).restype = _I
+    # the DFSPH pressure loops' glue (csrc/pressure_glue.cu): mask, the
+    # inputs, the in-place outputs, [scratch, total], slot count, the float
+    # arguments, [density], dead_zero, stream; the scratch's block count
+    lib.slot_pressure_err.argtypes = [_P] * 10 + [_I, _F, _F, _F, _I, _I, _P]
+    lib.slot_pressure_err.restype = _I
+    lib.slot_pressure_kick.argtypes = [_P] * 5 + [_I, _F, _I, _P]
+    lib.slot_pressure_kick.restype = _I
+    lib.slot_pressure_blocks.argtypes = [_I]
+    lib.slot_pressure_blocks.restype = _I
     for probe in ("vpu_fma_probe", "vpu_mix_probe"):  # K6
         # x, out, n, chains, inner, trips, stream
         getattr(lib, probe).argtypes = [_P, _P, _I, _I, _I, _I, _P]

@@ -186,12 +186,6 @@ class _SpatialCollectives:
                                   row0=self._rebucket_row0(),
                                   ny_total=self.grid.ny * self._n_shards)
 
-    def _mean_live(self, value, ctx, n_particles) -> np.float32:
-        # the reference's global residual average: the sum of the shards'
-        # partial sums, so every shard takes the same loop exit
-        total = self.group.sum(torch.where(ctx.mask, value, 0.0).sum())
-        return REAL_NP(read_back("mean_residual", total)) / REAL_NP(n_particles)
-
     def _count_live(self, mask: torch.Tensor) -> np.float32:
         return REAL_NP(read_back("live_count", self.group.sum(mask.sum())))
 
@@ -200,6 +194,9 @@ class _SpatialCollectives:
         return REAL_NP(read_back("max_velocity", torch.sqrt(self.group.max(v_est_sq.max()))))
 
     def _sum_counts(self, count: torch.Tensor) -> torch.Tensor:
+        # the drop counts, and the residuals' sums (`_mean_of_sum`): the
+        # reference's global average is the sum of the shards' partial sums,
+        # so every shard takes the same loop exit
         return self.group.sum(count)
 
 

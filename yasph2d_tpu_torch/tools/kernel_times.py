@@ -3,6 +3,7 @@ the public wrappers only.
 
     python -m yasph2d_tpu_torch.tools.kernel_times [--kind dfsph_plane_bf16[,...]]
         [--particles 1000000] [--steps 100] [--shard K] [--save out.pt]
+        [--config portbench/configs/dfsph_converged_f32.json]
     python -m yasph2d_tpu_torch.tools.kernel_times --compare OLD.pt NEW.pt
 
 `--kind` is a solver of `scenes.SOLVERS` (several, comma-separated, run one
@@ -25,6 +26,18 @@ four glue kernels (ops/slot_glue.py) on the operands the step gives them
 (`glue_calls`), and print for each, under "glue", its ms and its twin's,
 its byte bound (tools/roofline.py `glue_bytes`), whether it gives the
 twin's bits, and its launches a step in the `--steps` run (not saved).
+The padded DFSPH kinds time the pressure loops' two glue kernels
+(ops/pressure_glue.py) the same way, on the operands a density-loop
+iteration gives them (`pressure_glue_calls`: slot_pressure_err in the
+density loop's mode, and in the divergence loop's as
+`slot_pressure_err_divergence`, slot_pressure_kick), their bounds by
+tools/roofline.py `pressure_glue_bytes`; their "bit_equal" holds every slot
+of k_i, k_sum and v to the twin's bits and the error's total to 1e-6 of the
+twin's (`pressure_glue_check`). `--config` takes a solver
+configuration in the benchmark's JSON form (portbench/configs/*.json): its
+pressure-loop tolerances and caps and its CFL factor replace the kind's, so
+that `--kind dfsph_padded_k5 --steps 144 --config
+portbench/configs/dfsph_converged_f32.json` reaches the DFSPH cell's state.
 `--shard K` (0 or 1) times the halo forms instead: the padded kind's grid
 gets an even row count (`ny_multiple=2`, as a sharded run), and after the
 steps shard K's rows of the one-device state, with its rows -1 and ny as the
@@ -245,6 +258,56 @@ def glue_calls(solver, boundary, carry) -> dict:
             "slot_kick": ((v, accel, mask, half), mask)}
 
 
+def pressure_glue_calls(solver, carry) -> dict:
+    """{record: (wrapper name, operands, slot mask)} of the pressure loops'
+    glue calls (ops/pressure_glue.py) on a padded DFSPH `carry`, as a
+    density-loop iteration makes them from the carry's velocities and warm
+    start: the error in the density loop's mode and in the divergence
+    loop's, the kick on the warm start's k. The wrapper updates k_sum and v
+    in place (the operands' own tensors: repeated calls keep moving them)."""
+    from yasph2d_tpu_torch.ops import pressure_glue as pg
+
+    ctx, dt = carry.ctx, float(carry.time.dt)
+    m = float(np.float32(solver.properties.particle_mass))
+    rho0 = float(solver.properties.fluid_density)
+    v, k = carry.v_pad.clone(), 0.5 * carry.kappa_pad
+    div, dz = solver._div_pass(ctx, v), solver._dead_zero
+
+    def err(rho, density):
+        return ("slot_pressure_err", (div, v, ctx.sum_grad_stat, rho, ctx.alpha_pad,
+                                      carry.kappa_pad.clone(), pg.loop_work(ctx.mask), ctx.mask,
+                                      m, dt, rho0, density, dz), ctx.mask)
+
+    return {"slot_pressure_err": err(ctx.densities_pad, True),
+            "slot_pressure_err_divergence": err(ctx.neighbor_total, False),
+            "slot_pressure_kick": ("slot_pressure_kick", (
+                v, solver._corr_pass(ctx, k), k, ctx.sum_grad_stat, ctx.mask,
+                float(np.float32(1.0) / np.float32(dt) * np.float32(m)), dz), ctx.mask)}
+
+
+def pressure_glue_check(name: str, operands) -> tuple:
+    """(kernel call, twin call, equal) of pressure glue kernel `name` on
+    `operands`: the kernel on copies of the tensors it updates in place
+    against the twin, every slot of every output bit for bit, and
+    slot_pressure_err's total within 1e-6 of the twin's (it sums in an
+    order of its own); the kernel call it returns updates the operands' own
+    tensors."""
+    from yasph2d_tpu_torch.ops import pressure_glue as pg
+
+    kernel = lambda: getattr(pg, name)(*operands)  # noqa: E731
+    twin = lambda: getattr(pg, name.replace("slot_", "") + "_ref")(*operands)  # noqa: E731
+    fresh = list(operands)
+    for i in ((0,) if name == "slot_pressure_kick" else (5, 6)):  # v; k_sum, work
+        if fresh[i] is not None:
+            fresh[i] = fresh[i].clone()
+    got, ref = getattr(pg, name)(*fresh), twin()
+    if name == "slot_pressure_kick":
+        return kernel, twin, _same_bits(got, ref)
+    total, ref_total = float(got[2]), float(ref[2])
+    return kernel, twin, (_same_bits(got[:2], ref[:2])
+                          and abs(total - ref_total) <= 1e-6 * abs(ref_total))
+
+
 def glue_check(name: str, operands, mask) -> tuple:
     """(kernel call, twin call, bit-equal) of glue kernel `name` on
     `operands`: every output's bits, slot_kick_drift's live slots only (it
@@ -291,11 +354,19 @@ def kind_runs(kind, args, device) -> tuple:
                                     **({} if args.shard is None else dict(ny_multiple=2)))
     carry = solver.init_carry(world.initial_state(device=device), boundary)
     per_step = []
+    if getattr(args, "config", None):
+        solver = configured(solver, args.config)
     try:  # the padded WCSPH step's glue kernels; a tree before them has none
         from yasph2d_tpu_torch.ops import slot_glue as glue
     except ImportError:
         glue = None
+    try:  # the DFSPH pressure loops' glue kernels; a tree before them has none
+        from yasph2d_tpu_torch.ops import pressure_glue
+    except ImportError:
+        pressure_glue = None
     glue_before = dict(glue.LAUNCHES) if glue else {}
+    if pressure_glue:
+        glue_before.update(pressure_glue.LAUNCHES)
     for _ in range(args.steps):
         carry, d = solver.simulate(carry, boundary, 1)
         per_step.append((d.density_iterations, d.divergence_iterations, d.neighbor_drops))
@@ -341,6 +412,17 @@ def kind_runs(kind, args, device) -> tuple:
                         kernel=kernel, twin=twin, bytes=n_bytes, bound_ms=bound(n_bytes, 0)[0],
                         bit_equal=equal, launches_per_step=(
                             glue.LAUNCHES[name] - glue_before[name]) / max(args.steps, 1))
+            if pressure_glue is not None and hasattr(carry, "ctx"):
+                from yasph2d_tpu_torch.tools.roofline import bound, pressure_glue_bytes
+
+                for label, (name, operands, live) in pressure_glue_calls(solver, carry).items():
+                    kernel, twin, equal = pressure_glue_check(name, operands)
+                    n_bytes = pressure_glue_bytes(name, live, operands[-1])
+                    records[label] = dict(
+                        kernel=kernel, twin=twin, bytes=n_bytes, bound_ms=bound(n_bytes, 0)[0],
+                        bit_equal=equal, launches_per_step=(
+                            pressure_glue.LAUNCHES[name] - glue_before[name])
+                        / max(args.steps, 1))
         elif "padded" in kind:
             runs["sm_rebucket"], runs["sm_rebucket_rows_alone"] = shard_rebucket(
                 solver, carry, r0, r1)
@@ -359,6 +441,19 @@ def kind_runs(kind, args, device) -> tuple:
         runs["rebucket"] = lambda: rebucket(adv, mask, values, solver.grid)
         state = (pos, mask)
     return runs, state, per_step, records
+
+
+def configured(solver, path):
+    """`solver` with the pressure-loop tolerances and caps and the CFL
+    factor of the solver configuration at `path` (the benchmark's JSON
+    form)."""
+    import dataclasses
+
+    with open(path) as f:
+        cfg = json.load(f)
+    knobs = {k: v for k, v in cfg["solver"].items() if k.startswith("max_")}
+    return dataclasses.replace(solver, **knobs, step_config=dataclasses.replace(
+        solver.step_config, cfl_factor=cfg["timestep"]["cfl_factor"]))
 
 
 def _same_bits(a, b) -> bool:
@@ -398,6 +493,9 @@ def main(argv=None):
     ap.add_argument("--save", default=None, help="torch.save each call's output here")
     ap.add_argument("--compare", nargs=2, metavar=("OLD", "NEW"), default=None,
                     help="compare two --save files bit for bit")
+    ap.add_argument("--config", default=None,
+                    help="a solver configuration (JSON) whose loop knobs and CFL replace "
+                         "the kind's")
     args = ap.parse_args(argv)
     if args.compare:
         raise SystemExit(0 if compare(*args.compare) else 1)

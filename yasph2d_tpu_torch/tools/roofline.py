@@ -134,6 +134,25 @@ def glue_bytes(name: str, mask, dead_loads: bool = False) -> int:
             + (4 if name == "slot_accel_cfl" else 0))
 
 
+# the DFSPH pressure loops' glue kernels (ops/pressure_glue.py): bytes a
+# slot reads and writes where it is live. slot_pressure_err reads the div
+# sums, v, sgs, the densities or neighbour totals, alpha and k_sum and
+# writes k_i and k_sum, and its 0-d total; slot_pressure_kick reads v, the
+# corr sums, k and sgs and writes v. Both write in place, live slots only
+# (every slot without `dead_zero`: K3's outputs)
+PRESSURE_GLUE_READ = {"slot_pressure_err": 32, "slot_pressure_kick": 28}
+PRESSURE_GLUE_WRITE = {"slot_pressure_err": 8, "slot_pressure_kick": 8}
+
+
+def pressure_glue_bytes(name: str, mask, dead_zero: bool = True) -> int:
+    """Bytes pressure glue kernel `name` must move on the slots of `mask`:
+    the mask in full, the reads and writes of the live slots (of every slot
+    without `dead_zero`), slot_pressure_err's 4-byte total."""
+    n = mask.numel() if not dead_zero else int(mask.sum())
+    return (nbytes(mask) + (PRESSURE_GLUE_READ[name] + PRESSURE_GLUE_WRITE[name]) * n
+            + (4 if name == "slot_pressure_err" else 0))
+
+
 def bound(n_bytes, n_ops):
     """(bound_ms, bound_by): the larger of the memory and FP32 times at the
     data-sheet rates."""

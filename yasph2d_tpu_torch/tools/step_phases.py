@@ -25,22 +25,24 @@ The rules, on the trace's one timeline:
 
 The steps counted are the step scopes (`STEP_SCOPES`) in the trace. Beside
 the read-backs a step ("sync.*" scopes, `profiling.READBACKS`) the split
-gives the launches of the padded WCSPH step's glue kernels a step
-(`SLOT_GLUE`, the kernels of ops/slot_glue.py `LAUNCHES`).
+gives the launches of the glue kernels a step (`SLOT_GLUE`: the padded
+WCSPH step's, ops/slot_glue.py `LAUNCHES`, and the DFSPH pressure loops',
+ops/pressure_glue.py `LAUNCHES`).
 
 A DFSPH pressure loop (`LOOP_SCOPES`) reads its mean residual back once an
 iteration (`LOOP_SYNC`), so the "sync.mean_residual" scopes inside a loop's
 scope count its iterations, as the step's Diagnostics count them. For each
 loop the table `loops` gives the iterations a step and the device, glue and
-idle ms an iteration: everything that falls inside the loop's scope, its
-read-backs' idle included, over its iterations.
+idle ms and the glue launches and glue kernel launches (`SLOT_GLUE`) an
+iteration: everything that falls inside the loop's scope, its read-backs'
+idle included, over its iterations.
 """
 
 import argparse
 import json
 from typing import NamedTuple
 
-from ..ops import slot_glue
+from ..ops import pressure_glue, slot_glue
 
 STEP_SCOPES = ("WCSPH.step", "DFSPH.step")
 # the phases of a padded step that run pair passes, and the glue between them
@@ -54,9 +56,9 @@ LOOP_SYNC = "sync.mean_residual"
 # (pair_reduce_kernel, tile_pair_reduce_kernel), K2 (rebucket_kernel), K4
 KERNELS = ("pair_reduce_kernel", "rebucket_kernel", "sm_rebucket_staged",
            "sm_rebucket_direct")
-# the glue kernels of ops/slot_glue.py, by their traced names' start: glue,
-# counted apart
-SLOT_GLUE = tuple(f"{name}_kernel" for name in slot_glue.LAUNCHES)
+# the glue kernels of ops/slot_glue.py and ops/pressure_glue.py, by their
+# traced names' start: glue, counted apart
+SLOT_GLUE = tuple(f"{name}_kernel" for name in (*slot_glue.LAUNCHES, *pressure_glue.LAUNCHES))
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
 NO_SCOPE = "(no scope)"
@@ -141,7 +143,8 @@ def attribute(events: list) -> dict:
     split = dict.fromkeys(("pair_glue_ms", "integrate_glue_ms", "outside_glue_ms",
                            "sync_idle_ms", "dispatch_idle_ms", "caller_idle_ms"), 0.0)
     # loop scope -> its ms a step
-    loops = {name: {"device_ms": 0.0, "glue_ms": 0.0, "idle_ms": 0.0}
+    loops = {name: {"device_ms": 0.0, "glue_ms": 0.0, "idle_ms": 0.0, "glue_launches": 0.0,
+                    "slot_glue_launches": 0.0}
              for name in LOOP_SCOPES if any(s.name == name for s in spans)}
     for e, stack in op_stacks:
         ms = float(e.get("dur", 0.0)) * 1e-3 / steps
@@ -156,6 +159,8 @@ def attribute(events: list) -> dict:
         r["glue_ms"] += ms
         if loop is not None:
             loop["glue_ms"] += ms
+            loop["glue_launches"] += 1 / steps
+            loop["slot_glue_launches"] += _slot_glue(e) / steps
         r["glue_launches"] += 1
         if any(s in PAIR_SCOPES for s in stack):
             split["pair_glue_ms"] += ms
@@ -179,15 +184,18 @@ def attribute(events: list) -> dict:
         r["launches"] /= steps
         r["glue_launches"] /= steps
     split["syncs"] = sum(s.name.startswith(SYNC_PREFIX) for s in spans) / steps
-    split["slot_glue_launches"] = sum(
-        e["cat"] == "kernel" and e["name"].removeprefix("void ").startswith(SLOT_GLUE)
-        for e in ops) / steps
+    split["slot_glue_launches"] = sum(map(_slot_glue, ops)) / steps
     for name, loop in loops.items():
         its = sum(s.name == LOOP_SYNC and s.start >= o.start and s.end <= o.end
                   for o in spans if o.name == name for s in spans) / steps
         loops[name] = {"iterations": its,
                        **{k: v / its if its else None for k, v in loop.items()}}
     return {"steps": steps, "scopes": scopes, "split": split, "loops": loops}
+
+
+def _slot_glue(e) -> bool:
+    """Whether device operation `e` is one of the glue kernels (`SLOT_GLUE`)."""
+    return e["cat"] == "kernel" and e["name"].removeprefix("void ").startswith(SLOT_GLUE)
 
 
 def _loop_row(loops: dict, stack):
