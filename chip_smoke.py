@@ -942,7 +942,7 @@ def wcsph_operands(solver, live, v_live, v, dens, rng):
     """Forces-pass operands of a WCSPH state: the barely compressed early state
     has rho = rho0 and p = 0 everywhere, so seeded density (up) and velocity
     noise on live slots gives the pressure and viscosity terms real work."""
-    from yasph2d_tpu_torch.models.wcsph import tait_pressure
+    from yasph2d_tpu_torch.ops.slot_glue import tait_pressure
 
     rho0 = solver.properties.fluid_density
     dens = torch.where(live, dens + noise(dens, 0.05 * rho0, rng).abs(), dens)
@@ -1146,7 +1146,7 @@ def dfsph_slot_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD
     velocity and stiffness noise (most of the lattice barely compresses
     yet); the boundary pass's instantiation (dfsph_stat on K3, dfsph_ctx on
     K5) also on the many more fluid -> fluid pairs."""
-    f, c, ctx = solver._padded_forms, solver._consts, carry.ctx
+    f, c, ctx = solver._forms, solver._consts, carry.ctx
     dt = float(carry.time.dt)
     mask = ctx.mask
     v = torch.where(mask[..., None], carry.v_pad + noise(carry.v_pad, 0.5, rng),
@@ -1164,7 +1164,7 @@ def dfsph_slot_calls(solver, boundary, carry, rng, mode=RECORD, visc_mode=RECORD
         ("", f.visc, fluid, visc_kw, c, visc_mode),
     ]
     if phys is not None:
-        calls.append(("", phys._padded_forms.visc, fluid, visc_kw, phys._consts, TIME))
+        calls.append(("", phys._forms.visc, fluid, visc_kw, phys._consts, TIME))
     return fluid, mask, [(sfx, form, src, slot_kw(solver, kw), cc, m)
                          for sfx, form, src, kw, cc, m in calls]
 
@@ -1347,7 +1347,7 @@ def phase_kernels_deep(device):
     # K3: the slot layout in place; (form, keyword operands, PairConsts)
     d, w = sv["dfsph_padded"], sv["wcsph_padded"]
     dphys, wphys = phys["dfsph_padded"], phys["wcsph_padded"]
-    f, fw = d._padded_forms, w._forms
+    f, fw = d._forms, w._forms
     wq, ws = (qv["pres"], qv["rho"], qv["v"]), (dv["pres"], dv["rho"], dv["v"])
     visc_kw = dict(q_vals=(qv["v"],), s_vals=(dv["v"], dv["rho"]), scalars=(dt,))
     forces_kw = dict(q_vals=wq, s_vals=ws, scalars=(dt,))
@@ -1356,7 +1356,7 @@ def phase_kernels_deep(device):
     k3 = [(form, kw, d._consts) for form, kw in k3] + [
         (fw.density, {}, w._consts), (fw.stat, {}, w._consts),
         (fw.forces, forces_kw, w._consts),
-        (dphys._padded_forms.visc, visc_kw, dphys._consts),
+        (dphys._forms.visc, visc_kw, dphys._consts),
         (wphys._forms.forces, forces_kw, wphys._consts)]
     for form, kw, c in k3:
         record(f"sm_pair_reduce_{form.name}",

@@ -382,7 +382,7 @@ def dcase(device):
 def _slot_operands(dcase, form, route):
     solvers, fluid, walls, vals = dcase
     v, k, rho = vals["v"], vals["k"], vals["rho"]
-    f = solvers[route]._padded_forms
+    f = solvers[route]._forms
     return {
         "ctx": (f.ctx, fluid, {}),
         "stat": (f.stat, walls, {}),
@@ -467,7 +467,7 @@ def test_tile_pair_kernel_refuses_what_cannot_fit(device, dcase):
     deep_mask = torch.zeros((ny, nx, 5000), dtype=torch.bool, device=device)
     before = dict(tpp.LAUNCHES)
     with pytest.raises(ValueError, match="shared memory"):
-        tpp.pallas_pair_reduce(solvers["k5"]._padded_forms.ctx, pos, mask, deep, deep_mask,
+        tpp.pallas_pair_reduce(solvers["k5"]._forms.ctx, pos, mask, deep, deep_mask,
                                solvers["k5"]._consts)
     assert tpp.LAUNCHES == before
 
@@ -889,7 +889,7 @@ def test_tile_pair_kernel_deep_sources_match_twin(device, dcase, deep, form):
     whatever the tile)."""
     _, (pos, mask), _, _ = dcase
     k5, wcsph, src, sv, qv = deep
-    f, w = k5._padded_forms, wcsph._forms
+    f, w = k5._forms, wcsph._forms
     dt = (1.0 / 2700.0,)
     wq = (qv["pres"], qv["rho"], qv["v"])
     ws = (sv["pres"], sv["rho"], sv["v"])
@@ -969,7 +969,7 @@ def _k3_form(dfsph, wcsph, form, qv, sv):
     the solvers with physical viscosity."""
     if form.endswith("_phys"):
         dfsph, wcsph, form = _physical(dfsph), _physical(wcsph), form.removesuffix("_phys")
-    f, w = dfsph._padded_forms, wcsph._forms
+    f, w = dfsph._forms, wcsph._forms
     dt = (1.0 / 2700.0,)
     wq, ws = (qv["pres"], qv["rho"], qv["v"]), (sv["pres"], sv["rho"], sv["v"])
     return {

@@ -186,12 +186,11 @@ def test_rebuild_every_three_as_jax(route, monkeypatch):
     """7 steps with rebuild_every = 3: two blocks of a rebuilding step and two
     stale ones, then a leftover rebuild (3 sorts after init), against the JAX
     solver's own blocking (summed counts)."""
-    import yasph2d_tpu_torch.models.dfsph_dense as t_dense
+    from yasph2d_tpu_torch.models.slot_solver import SlotSolver
 
     calls = []
-    sort = t_dense.DFSPHSlotSolver._sort
-    monkeypatch.setattr(t_dense.DFSPHSlotSolver, "_sort",
-                        lambda self, *a: calls.append(1) or sort(self, *a))
+    sort = SlotSolver._sort
+    monkeypatch.setattr(SlotSolver, "_sort", lambda self, *a: calls.append(1) or sort(self, *a))
     out = []
     for side in (0, 1):
         world, s, boundary = solver(side, "dfsph", slotmajor=side == 1 and ROUTES[route],

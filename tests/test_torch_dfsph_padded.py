@@ -29,8 +29,10 @@ from yasph2d_tpu.timemanager import FixedTimeStep as JFixed
 from yasph2d_tpu.world import FluidParticleWorld as JWorld
 from yasph2d_tpu_torch.models.dfsph_dense import DFSPHPaddedSolver as TSolver
 from yasph2d_tpu_torch.models.dfsph_plane import DFSPHPlaneSolver as TPlane
+from yasph2d_tpu_torch.models.slot_solver import pair_route
 from yasph2d_tpu_torch.models.viscosity import XSPHViscosityModel as TXSPH
-from yasph2d_tpu_torch.ops.pallas_pair import pallas_pair_reduce
+from yasph2d_tpu_torch.models.wcsph_dense import WCSPHPaddedSolver as TWCSPH
+from yasph2d_tpu_torch.ops.pallas_pair import Rebase, bf16_float, pallas_pair_reduce
 from yasph2d_tpu_torch.ops.sm_pair_reduce import sm_pair_reduce
 from yasph2d_tpu_torch.timemanager import AdaptiveTimeStep as TAdaptive
 from yasph2d_tpu_torch.timemanager import FixedTimeStep as TFixed
@@ -266,17 +268,65 @@ def test_contact_scene_from_scratch(resting_contact, route):
     assert_rows_close(rows, resting_contact.j_final, resting_contact.n)
 
 
-def test_routes_pick_their_kernels(tiny):
-    """The flag picks the pair kernel: K3 with the slot-major closures (and the
-    XLA-order boundary form), K5 with the XLA closures throughout."""
-    k3, k5 = tiny.solvers["k3"], tiny.solvers["k5"]
-    assert k3._reduce is sm_pair_reduce and k5._reduce is pallas_pair_reduce
-    assert [f.name for f in k3._padded_forms] == [
-        "dfsph_ctx", "dfsph_stat", "dfsph_div", "dfsph_corr", "dfsph_visc"]
-    assert [f.name for f in k5._padded_forms] == [
-        "dfsph_ctx", "dfsph_ctx", "dfsph_div", "dfsph_corr", "dfsph_visc"]
-    assert k3._padded_forms.stat.term_fn is not k3._padded_forms.ctx.term_fn
-    assert k5._padded_forms.stat is k5._padded_forms.ctx
+def route_solver(cls, world_fn, slotmajor: bool, dtype: str):
+    world = world_fn(TWorld)
+    h = world.properties.smoothing_length
+    grid = dataclasses.replace(world.dense_grid(), use_pallas_slotmajor=slotmajor,
+                               pair_dtype=dtype)
+    return cls(viscosity_model=TXSPH(h), properties=world.properties, grid=grid,
+               step_config=TFixed(1.0 / 3000.0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("method", ["dfsph", "wcsph"])
+def test_routes_pick_their_kernels(method, route, dtype):
+    """The grid picks the pair route once, at construction (`pair_route`):
+    K3 with the slot-major closures (DFSPH: its boundary form the XLA
+    closure) and live-only outputs, K5 with the XLA closures throughout and
+    +0.0 at dead query slots, in K5's bf16 math mode (bf16 terms and
+    constants, positions rebased) on a bfloat16 grid, which K3 refuses as
+    the JAX slot-major solvers assert."""
+    cls, slotmajor = (TSolver if method == "dfsph" else TWCSPH), ROUTES[route]
+    if slotmajor and dtype == "bfloat16":
+        with pytest.raises(ValueError, match="K3 computes on float32"):
+            route_solver(cls, tiny_scene, slotmajor, dtype)
+        return
+    s = route_solver(cls, tiny_scene, slotmajor, dtype)
+    grid = s.grid
+    assert s._route == pair_route(grid)
+    assert s._route.reduce is (sm_pair_reduce if slotmajor else pallas_pair_reduce)
+    assert s._route.slot_major is slotmajor and s._route.dead_zero is not slotmajor
+    assert s._route.rebase == (None if dtype == "float32" else Rebase(
+        grid.cell_size, tuple(map(float, grid.origin)), 0))
+    names = [f.name for f in s._forms]
+    terms = [f.term_fn.__qualname__.rsplit(".", 1)[-1] for f in s._forms]
+    order = "sm" if slotmajor else "xla"
+    if method == "dfsph":
+        assert names == ["dfsph_ctx", "dfsph_stat" if slotmajor else "dfsph_ctx", "dfsph_div",
+                         "dfsph_corr", "dfsph_visc"]
+        if dtype == "float32":  # K5 runs one form for the fluid and the boundary
+            assert (s._forms.stat is s._forms.ctx) is not slotmajor
+        # the loops' glue skips dead quads where the route's +0.0 makes them
+        # identities, and a dead slot's density m W(0) clamps to rho0: not in
+        # this coarse scene (m W(0) = 2.2 rho0), in the contact scene
+        for world_fn, clamps in ((tiny_scene, False), (contact_scene, True)):
+            d = route_solver(cls, world_fn, slotmajor, dtype) if clamps else s
+            m = np.float32(d.properties.particle_mass)
+            assert bool(m * np.float32(d._w0) <= np.float32(100.0)) is clamps
+            assert bool(d._dead_zero) is (clamps and not slotmajor)
+    else:
+        assert names == ["wcsph_density", "wcsph_stat", "wcsph_forces"]
+    if dtype == "bfloat16":
+        assert all(f.bf16 for f in s._forms)
+        assert s._consts.radius_sq == bf16_float(grid.radius_sq)
+        assert terms == (["ctx", "ctx", "div", "corr", "dfsph_visc"] if method == "dfsph"
+                         else ["density", "stat", "forces"])
+    elif method == "dfsph":
+        assert terms == [f"ctx_{order}", "ctx_xla", f"div_{order}", f"corr_{order}", "visc"]
+    else:
+        assert terms == ["density_terms", "stat_terms",
+                         "force_terms" if slotmajor else "force_terms_xla"]
 
 
 def test_routes_agree(tiny):

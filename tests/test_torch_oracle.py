@@ -41,7 +41,8 @@ from tools.oracle_dfsph import OracleDFSPH  # noqa: E402
 from tools.oracle_wcsph import make_oracle  # noqa: E402
 from yasph2d_tpu_torch.models.dfsph import DFSPHSolver  # noqa: E402
 from yasph2d_tpu_torch.models.viscosity import XSPHViscosityModel  # noqa: E402
-from yasph2d_tpu_torch.models.wcsph import WCSPHSolver, tait_pressure  # noqa: E402
+from yasph2d_tpu_torch.models.wcsph import WCSPHSolver  # noqa: E402
+from yasph2d_tpu_torch.ops.slot_glue import tait_pressure  # noqa: E402
 from yasph2d_tpu_torch.timemanager import AdaptiveTimeStep, FixedTimeStep  # noqa: E402
 from yasph2d_tpu_torch.world import FluidParticleWorld  # noqa: E402
 

@@ -153,7 +153,7 @@ def test_bf16_step_is_live_and_near_f32(kind):
         carry, d = solver.simulate(carry, boundary, STEPS)
         assert d.neighbor_drops == 0
         rows[dtype] = live_rows(solver.export_state(carry))
-    forms = solver._padded_forms if kind == "dfsph" else solver._forms
+    forms = solver._forms
     assert solver._consts.radius_sq == tpp.bf16_float(solver.grid.radius_sq)
     assert all(f.term_fn.__qualname__.startswith("bf16_terms") for f in forms)
     h = world.properties.smoothing_length

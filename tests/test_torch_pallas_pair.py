@@ -89,7 +89,7 @@ def solvers(visc="xsph"):
     common = dict(step_config=TFixed(1.0 / 3000.0), grid=tgrid, properties=tp,
                   viscosity_model=tvisc)
     td, tw = TDFSPH(**common), TWCSPH(**common)
-    forms = {f.name.removesuffix("_phys"): f for f in (*td._padded_forms, *tw._forms)}
+    forms = {f.name.removesuffix("_phys"): f for f in (*td._forms, *tw._forms)}
     return h, jgrid, jd, jw, td, tw, forms
 
 

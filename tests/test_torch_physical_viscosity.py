@@ -39,7 +39,7 @@ def test_forms_and_constants_follow_the_model(cls_name):
     h = 2.0 / 20.0
     xsph = build(cls_name, y.XSPHViscosityModel(h, epsilon=0.07))
     phys = build(cls_name, y.PhysicalViscosityModel(h, fluid_viscosity=0.01))
-    form = {"DFSPHPaddedSolver": lambda s: s._padded_forms.visc,
+    form = {"DFSPHPaddedSolver": lambda s: s._forms.visc,
             "DFSPHPlaneSolver": lambda s: s._forms.visc_gravity,
             "WCSPHPaddedSolver": lambda s: s._forms.forces,
             "WCSPHPlaneSolver": lambda s: s._forms.forces}[cls_name]

@@ -43,7 +43,7 @@ def _inline_density_loop(self, dt, dens_pad, alpha_pad, v_pad, kappa_pad,
         ki = err * alpha_pad
         k_sum = k_sum + ki
         v_pad = v_pad - scale * self._k_correction(ctx, ki)
-        avg = self._mean_live(err, ctx, n_particles)
+        avg = self._mean_of_sum(torch.where(ctx.mask, err, 0.0).sum(), n_particles)
         num += 1
     return v_pad, k_sum, num, avg
 
@@ -66,7 +66,7 @@ def _inline_divergence_loop(self, dt, alpha_pad, v_pad, stiff_pad, prev_iteratio
         ki = delta * alpha_pad
         s_sum = s_sum + ki
         v_pad = v_pad - m * self._k_correction(ctx, ki)
-        avg = self._mean_live(delta, ctx, n_particles) / rho0
+        avg = self._mean_of_sum(torch.where(ctx.mask, delta, 0.0).sum(), n_particles) / rho0
         num += 1
     return v_pad, s_sum, num, avg
 

@@ -251,7 +251,7 @@ def k5_call(dfsph, wcsph, form, vals, phys=False):
         h = dfsph.grid.cell_size
         dfsph, wcsph = (dataclasses.replace(s, viscosity_model=TPhys(h, 0.01))
                         for s in (dfsph, wcsph))
-    f, w = dfsph._padded_forms, wcsph._forms
+    f, w = dfsph._forms, wcsph._forms
     v, dt = vals["v"], (1.0 / 2700.0,)
     wv = (vals["pres"], vals["rho"], v)
     return {

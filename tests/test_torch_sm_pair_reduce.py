@@ -78,7 +78,7 @@ def solvers(visc="xsph"):
     dterms, dn_out = jax_dfsph_terms(jd)
     terms.update(dterms)
     n_out.update(dn_out)
-    forms = {f.name.removesuffix("_phys"): f for f in (*ts._forms, *td._padded_forms)}
+    forms = {f.name.removesuffix("_phys"): f for f in (*ts._forms, *td._forms)}
 
     def run(form, qp, qm, sp, sm, q_vals=(), s_vals=(), scalars=()):
         q, s = build_geom(qp, qm, BR), build_geom(sp, sm, BR)

@@ -30,11 +30,12 @@ from yasph2d_tpu.timemanager import FixedTimeStep as JFixed
 from yasph2d_tpu.world import FluidParticleWorld as JWorld
 from yasph2d_tpu.world import FluidProperties as JProps
 from yasph2d_tpu_torch.models.viscosity import XSPHViscosityModel as TXSPH
-from yasph2d_tpu_torch.models.wcsph import compute_stiffness, tait_pressure
+from yasph2d_tpu_torch.models.wcsph import compute_stiffness
 from yasph2d_tpu_torch.models.wcsph_dense import WCSPHPaddedSolver as TPadded
 from yasph2d_tpu_torch.models.wcsph_plane import WCSPHPlaneCarry
 from yasph2d_tpu_torch.models.wcsph_plane import WCSPHPlaneSolver as TPlane
 from yasph2d_tpu_torch.ops.planes import to_planes
+from yasph2d_tpu_torch.ops.slot_glue import tait_pressure
 from yasph2d_tpu_torch.timemanager import AdaptiveTimeStep as TAdaptive
 from yasph2d_tpu_torch.timemanager import FixedTimeStep as TFixed
 from yasph2d_tpu_torch.utils.interop import (

@@ -50,7 +50,7 @@ from ..world import (
     update_densities,
     update_neighborhood,
 )
-from .dfsph_dense import DFSPHSlotSolver
+from .slot_solver import HostLoop
 from .viscosity import ViscosityModel
 
 f32 = REAL_NP
@@ -82,7 +82,7 @@ class _PairCache(NamedTuple):
 
 
 @dataclass(frozen=True)
-class DFSPHSolver:
+class DFSPHSolver(HostLoop):
     """DFSPH on neighbour tables (`grid` is the world's GridConfig, the
     boundary its `boundary_grid()`). Tolerances as dfsph.rs:49-55; the
     kernel is WendlandQuinticC2 (dfsph.rs:11)."""
@@ -238,10 +238,6 @@ class DFSPHSolver:
     def export_state(self, carry: DFSPHCarry) -> ParticleState:
         """The particles, N rows in cell order (`alive` marks the real ones)."""
         return carry.particles
-
-    # the host loop of the slot solvers: account each step's dt, then step;
-    # the Diagnostics aggregate all steps
-    simulate = DFSPHSlotSolver.simulate
 
     # -------------------------------------------------------------------- step
 

@@ -15,51 +15,45 @@ src/sph/solver/dfsph.rs:414-525), with two carries:
   rho0). The loop state that the next step consumes in the same slots
   (v*, kappa, stiffness) also stays padded, as in JAX.
 
-Both share `DFSPHSlotSolver`: the pair forms, the pair context, the pair
-passes and both pressure loops, so their arithmetic is one. A step is the
-viscosity pass, the CFL
-update, the constant-density loop, advection, the neighbourhood rebuild, a new
-pair context and the divergence-free loop. Every pair pass runs on a kernel
-that reads the carry in place; `DenseGridConfig.use_pallas_slotmajor` picks
-which one:
-
-    True   K3 (ops/sm_pair_reduce.py): dfsph_ctx, dfsph_stat (the boundary),
-           dfsph_div, dfsph_corr, dfsph_visc, in the JAX slot-major closures'
-           operation order; the boundary pass, an XLA pair_reduce in the JAX
-           package, in its XLA closure's order
-    False  K5 (ops/pallas_pair.py): dfsph_ctx (fluid and boundary), dfsph_div,
-           dfsph_corr, dfsph_visc, in the XLA closures' order; on a grid with
-           pair_dtype "bfloat16" in K5's bf16 math mode (the JAX XLA route's:
-           cell-relative bf16 pair math, f32 sums; the glue stays f32), which
-           K3 refuses as JAX does
+Both share `DFSPHSlotSolver` (on the slot solvers' base,
+models/slot_solver.py): the pair forms, the pair context, the pair passes
+and both pressure loops, so their arithmetic is one. A step is the viscosity
+pass, the CFL update, the constant-density loop, advection, the
+neighbourhood rebuild, a new pair context and the divergence-free loop.
+Every pair pass runs on the route's kernel (`pair_route`), reading the carry
+in place: K3 (ops/sm_pair_reduce.py; dfsph_ctx, dfsph_stat for the
+boundary, dfsph_div, dfsph_corr, dfsph_visc, in the JAX slot-major
+closures' order, the boundary pass in its XLA closure's) or K5
+(ops/pallas_pair.py; dfsph_ctx for the fluid and the boundary, dfsph_div,
+dfsph_corr, dfsph_visc in the XLA closures' order, in K5's bf16 math mode on
+a bfloat16 grid, the glue staying f32).
 
 The glue of a pressure-loop iteration between its div and corr passes is
 two kernels on either route (ops/pressure_glue.py: the error, k_i, k_sum and
 the residual's sum, then the velocity update, in place on the loop's own
-tensors), their twins on CPU tensors; the loop-gradient variants and the
-plane step keep torch operations.
+tensors), their twins on CPU tensors; the loop-gradient variants keep torch
+operations, and the plane solver (models/dfsph_plane.py) runs the same loops
+through K1's epilogues or torch.
 
 The padded carry's rebuild is K4 (ops/sm_rebucket.py) with the payload
 [v*(2) | kappa | stiffness] on both (the JAX package's XLA rebucket is
 bit-equal to it); the sorted carry's is the sort. The viscosity form is the
 model's: dfsph_visc (XSPH) or dfsph_visc_phys (PhysicalViscosityModel) on
-either kernel; any other model is refused. The JAX `lax.while_loop`s become host loops that read one
-residual back per iteration, with the JAX exit test (a loop may run max + 1
-times).
+either kernel; any other model is refused. The JAX `lax.while_loop`s become
+host loops that read one residual back per iteration, with the JAX exit
+test (a loop may run max + 1 times).
 
 `rebuild_every = k > 1` is the JAX package's opt-in stale steps: `simulate`
 runs blocks of one rebuilding step and k - 1 stale ones, which keep the slot
 layout (no K4) and refresh the pair context from the advected positions with
 the carry's drop count; leftover steps rebuild.
 
-Spatial sharding (parallel/shard_dense.py) overrides the hooks `_halo` (the
-neighbour shards' rows -1 and ny, None here) and `_rebucket_row0`: then
-every K5 pass and the K4 rebuild take the kernels' halo forms, with the
-fluid's rows exchanged once per pair context (kept in `DenseCtx.halo`), the
-boundary's once at init (`BoundaryDense.halo`) and the source values' once
-per pass; and the reductions over live slots (`_count_live`, the CFL max
-`_max_vel_from_sq`, `_sum_counts`, which also sums the loops' residuals in
-`_mean_of_sum`) run over the shards.
+Under spatial sharding (parallel/shard_dense.py) the hooks of
+models/slot_solver.py exchange rows and reduce over the shards: every K5
+pass and the K4 rebuild take the kernels' halo forms, the fluid's rows
+exchanged once per pair context (`DenseCtx.halo`), the boundary's once at
+init (`BoundaryDense.halo`), the source values' once per pass; the live
+count, the CFL max and the loops' residual sums (`_mean_of_sum`) are global.
 
 The sorted step's rebuild calls the hook `_migrate` before its sort: one
 device has nothing to move (`(tree, 0)`); the sharded sorted solver
@@ -84,9 +78,8 @@ the cache with bf16 pair math, the two together, either on the K3 route,
 and either under sharding (JAX refuses the MXU form there; its cache would
 zero the neighbours' rows across a seam, a fault the port does not copy).
 
-Also here: the static boundary index space (`build_boundary_dense`), the
-padded initial layout (`_padded_init`) and `simulate`, which the plane solver
-(models/dfsph_plane.py) builds on.
+Also here: the static boundary index space (`build_boundary_dense`) and the
+padded initial layout (`_padded_init`), which the plane solver builds on.
 """
 
 import contextlib
@@ -108,22 +101,18 @@ from ..ops.dense_grid import (
     neighbor_windows,
     pad_to_slots,
     pair_map,
-    require_float32_pairs,
     slots_to_sorted,
-    sort_by_dense_keys,
 )
 from ..ops.pair_reduce import PairForm
-from ..ops.pallas_pair import bf16_consts, bf16_form, pallas_pair_reduce, rebase_of
 from ..ops.planes import Halo
-from ..ops.sm_pair_reduce import sm_pair_reduce
 from ..ops.sm_rebucket import sm_rebucket_parts
 from ..ops.smoothing_kernels import WendlandQuinticC2
-from ..timemanager import StepConfig, TimeState, update_simulation_step
+from ..timemanager import TimeState, update_simulation_step
 from ..units import INDEX, REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
 from ..utils.profiling import read_back, scope
-from ..world import GRAVITY, FluidProperties, ParticleState
-from .viscosity import ViscosityModel, kernel_coefficient
+from ..world import GRAVITY, ParticleState
+from .slot_solver import SlotSolver
 
 f32 = REAL_NP
 
@@ -223,17 +212,13 @@ class PaddedForms(NamedTuple):
 
 
 @dataclass(frozen=True)
-class DFSPHSlotSolver:
+class DFSPHSlotSolver(SlotSolver):
     """What the DFSPH slot-layout solvers share (tolerances as
-    dfsph.rs:49-55): the pair forms of the route, the pair context, the pair
-    passes, both pressure loops and `simulate`. The subclasses own the
-    carry: DFSPHPaddedSolver (padded-resident), DFSPHDenseSolver (sorted) and,
-    through the padded one, DFSPHPlaneSolver (planes)."""
+    dfsph.rs:49-55): the pair forms, the pair context, the pair passes and
+    both pressure loops. The subclasses own the carry: DFSPHPaddedSolver
+    (padded-resident), DFSPHDenseSolver (sorted) and, through the padded
+    one, DFSPHPlaneSolver (planes)."""
 
-    viscosity_model: ViscosityModel
-    properties: FluidProperties
-    grid: DenseGridConfig
-    step_config: StepConfig
     max_avg_density_error: float = 0.01 / 100.0
     max_density_iterations: int = 200
     max_divergence_error: float = 0.1 / 100.0
@@ -248,46 +233,20 @@ class DFSPHSlotSolver:
     cache_loop_gradients: bool = False
     mxu_loop_gradients: bool = False
 
-    # K3 takes float32 only (K5 takes bf16 as its math mode); the plane
-    # solver's K1 takes bf16 operands
-    _bf16_operands = False
-
     def __post_init__(self):
         self._check_loop_gradients()
-        if not self._bf16_operands:
-            require_float32_pairs(self.grid, type(self).__name__)
         kernel = WendlandQuinticC2(self.properties.smoothing_length)
         object.__setattr__(self, "kernel", kernel)
-        assert abs(self.grid.cell_size - self.properties.smoothing_length) < 1e-12
-        m = float(self.properties.particle_mass)
         # W(0), the density self-contribution, evaluated in f32
         zero = torch.zeros((), dtype=REAL)
-        w0 = float(kernel.evaluate(zero, zero))
-        visc_suffix, visc_consts = kernel_coefficient(self.viscosity_model, m)
-        object.__setattr__(self, "_w0", w0)
-        object.__setattr__(self, "_visc_suffix", visc_suffix)
-        object.__setattr__(self, "_consts", PairConsts(
-            radius_sq=self.grid.radius_sq,
-            w_h_inv=kernel._h_inv, w_norm=kernel._norm,
-            w_norm_grad=kernel._norm_grad,
-            mass=m, w0=w0, rho0=float(self.properties.fluid_density),
-            alpha_eps=ALPHA_EPSILON,
-            gx=float(self.gravity[0]), gy=float(self.gravity[1]),
-            **visc_consts,
-        ))
-        slotmajor = self.grid.use_pallas_slotmajor
-        object.__setattr__(self, "_reduce",
-                           sm_pair_reduce if slotmajor else pallas_pair_reduce)
-        forms = self._make_padded_forms(m, slotmajor)
-        if not slotmajor and rebase_of(self.grid) is not None:  # K5's bf16 math mode
-            object.__setattr__(self, "_consts", bf16_consts(self._consts))
-            forms = PaddedForms(*(bf16_form(f, self._consts) for f in forms))
-        object.__setattr__(self, "_padded_forms", forms)
+        object.__setattr__(self, "_w0", float(kernel.evaluate(zero, zero)))
+        super().__post_init__()
         # the pressure loops' glue kernels skip quads of dead slots where
         # K5's +0.0 at dead query slots make them identities: a dead slot's
         # density m (W(0) + 0 + 0) clamps to rho0 (ops/pressure_glue.py)
-        object.__setattr__(self, "_dead_zero", not slotmajor and f32(m) * f32(w0)
-                           <= f32(self.properties.fluid_density))
+        m, rho0 = f32(self.properties.particle_mass), f32(self.properties.fluid_density)
+        object.__setattr__(self, "_dead_zero",
+                           self._route.dead_zero and m * f32(self._w0) <= rho0)
 
     def _check_loop_gradients(self):
         """The JAX asserts on the loop-gradient flags
@@ -303,7 +262,18 @@ class DFSPHSlotSolver:
             raise ValueError(f"{name}: the slot-major route (use_pallas_slotmajor) excludes "
                              "cache_loop_gradients and mxu_loop_gradients")
 
-    def _make_padded_forms(self, m: float, slotmajor: bool) -> PaddedForms:
+    def _make_consts(self, m: float, visc_consts: dict) -> PairConsts:
+        kernel = self.kernel
+        return PairConsts(
+            radius_sq=self.grid.radius_sq,
+            w_h_inv=kernel._h_inv, w_norm=kernel._norm, w_norm_grad=kernel._norm_grad,
+            mass=m, w0=self._w0, rho0=float(self.properties.fluid_density),
+            alpha_eps=ALPHA_EPSILON,
+            gx=float(self.gravity[0]), gy=float(self.gravity[1]),
+            **visc_consts,
+        )
+
+    def _make_forms(self, m: float, route) -> PaddedForms:
         """The pair terms as Python callables (the twins'), op for op the JAX
         closures of models/dfsph_dense.py: the slot-major ones (:284-289,
         :381-386, :431-435) on K3, the XLA ones (:269-276, :401-403, :451-453)
@@ -347,7 +317,7 @@ class DFSPHSlotSolver:
             return (c * (s[0] - q[0]), c * (s[1] - q[1]))
 
         visc_form = PairForm("dfsph_visc" + self._visc_suffix, 2, visc)
-        if slotmajor:
+        if route.slot_major:
             return PaddedForms(
                 ctx=PairForm("dfsph_ctx", 5, ctx_sm),
                 stat=PairForm("dfsph_stat", 5, ctx_xla),
@@ -382,74 +352,6 @@ class DFSPHSlotSolver:
             time=TimeState.initial(self.step_config),
         )
 
-    # --- single-device reduction hooks; the shard solvers
-    # --- (parallel/shard_dense.py) reduce them over the shards
-
-    def _sort(self, tensors, positions, alive):
-        """Init-time cell sort of per-particle tensors (sort_by_dense_keys);
-        a shard sorts on its band of rows."""
-        return sort_by_dense_keys(tensors, positions, self.grid, alive)
-
-    def _sum_counts(self, count: torch.Tensor) -> torch.Tensor:
-        """Sum of a per-shard counter (drops) or total (a residual's) over the
-        shards: the count itself on one device."""
-        return count
-
-    def _count_live(self, mask: torch.Tensor) -> np.float32:
-        """Live-particle count, the residual-average denominator (the reference
-        averages over its exact particle count, dfsph.rs:221, 376-377)."""
-        return REAL_NP(read_back("live_count", mask.sum()))
-
-    def _rebucket_row0(self) -> int:
-        """This shard's first global cell row: 0 on one device."""
-        return 0
-
-    def _halo(self, tensors):
-        """The neighbour shards' rows -1 and ny of `tensors` as a Halo, under
-        spatial sharding; None on one device (the kernels' one-device forms)."""
-        return None
-
-    def _max_vel_from_sq(self, v_est_sq) -> np.float32:
-        """CFL velocity from the live slots' squared speeds (dead slots 0); the
-        one hook of the CFL max that the shard solvers override."""
-        return f32(read_back("max_velocity", torch.sqrt(v_est_sq.max())))
-
-    def _slot_pair(self, form: PairForm, q_pos, q_mask, s_pos, s_mask, s_halo=None,
-                   q_vals=(), s_vals=(), scalars=()):
-        """One K3 / K5 pass. A source with a halo (its positions' and mask's
-        rows from the neighbour shards) takes its values' rows from them too,
-        one exchange per pass, and runs K5's halo form. On a bfloat16 grid
-        (K5 only) the pass is in K5's bf16 math mode, rebased on this shard's
-        global rows."""
-        kw = dict(q_vals=q_vals, s_vals=s_vals, scalars=scalars)
-        rebase = rebase_of(self.grid, self._rebucket_row0())
-        if rebase is not None:
-            kw["rebase"] = rebase
-        if s_halo is None:
-            return self._reduce(form, q_pos, q_mask, s_pos, s_mask, self._consts, **kw)
-        rows = self._halo(s_vals).planes if s_vals else ()
-        return pallas_pair_reduce(form, q_pos, q_mask, s_pos, s_mask, self._consts,
-                                  halo=s_halo._replace(planes=s_halo.planes + tuple(rows)),
-                                  **kw)
-
-    def simulate(self, carry, boundary, num_steps: int):
-        """Run `num_steps` steps; the returned Diagnostics aggregates all of them
-        (Diagnostics.accumulate). Each step's dt is accounted before it runs.
-        With `rebuild_every` = k > 1 the steps run in blocks of one rebuilding
-        step and k - 1 stale ones; the num_steps % k leftover steps rebuild
-        (JAX dfsph_dense.py simulate)."""
-        k = max(int(getattr(self, "rebuild_every", 1)), 1)
-        blocked = num_steps - num_steps % k
-        agg = Diagnostics.zeros()
-        for i in range(num_steps):
-            carry = carry._replace(time=carry.time.account_step())
-            if i < blocked and i % k:
-                carry, diag = self.step(carry, boundary, rebuild=False)
-            else:
-                carry, diag = self.step(carry, boundary)
-            agg = agg.accumulate(diag)
-        return carry, agg
-
     # ------------------------------------------------------------ pair context
 
     def _ctx_from_padded(self, pos_pad, mask, boundary: BoundaryDense,
@@ -458,7 +360,7 @@ class DFSPHSlotSolver:
         (dfsph_dense.py:261-346): density with the self-term and the rho0
         clamp, alpha, the boundary gradient sums and the neighbour totals.
         Under sharding the fluid's rows are exchanged here, once per context."""
-        f = self._padded_forms
+        f = self._forms
         halo = self._halo((pos_pad, mask))
         dyn = self._slot_pair(f.ctx, pos_pad, mask, pos_pad, mask, halo)
         stat = self._slot_pair(f.stat, pos_pad, mask, boundary.pos_pad, boundary.mask,
@@ -499,12 +401,12 @@ class DFSPHSlotSolver:
 
     def _div_pass(self, ctx: DenseCtx, v_pad):
         """The div pass's (ny, nx, P) sums sum_dyn (v_i - v_j).grad."""
-        return self._slot_pair(self._padded_forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+        return self._slot_pair(self._forms.div, ctx.pos_pad, ctx.mask, ctx.pos_pad,
                                ctx.mask, ctx.halo, q_vals=(v_pad,), s_vals=(v_pad,))[..., 0]
 
     def _corr_pass(self, ctx: DenseCtx, k_pad):
         """The corr pass's (ny, nx, P, 2) sums sum_dyn (k_i + k_j) grad."""
-        return self._slot_pair(self._padded_forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+        return self._slot_pair(self._forms.corr, ctx.pos_pad, ctx.mask, ctx.pos_pad,
                                ctx.mask, ctx.halo, q_vals=(k_pad,), s_vals=(k_pad,))
 
     def _velocity_divergence(self, ctx: DenseCtx, v_pad):
@@ -544,12 +446,9 @@ class DFSPHSlotSolver:
 
     def _viscosity_pass(self, ctx: DenseCtx, v_pad, rho_pad, dt):
         """Viscous acceleration over fluid neighbours, (ny, nx, P, 2)."""
-        return self._slot_pair(self._padded_forms.visc, ctx.pos_pad, ctx.mask, ctx.pos_pad,
+        return self._slot_pair(self._forms.visc, ctx.pos_pad, ctx.mask, ctx.pos_pad,
                                ctx.mask, ctx.halo, q_vals=(v_pad,), s_vals=(v_pad, rho_pad),
                                scalars=(float(dt),))
-
-    def _mean_live(self, value_pad, ctx: DenseCtx, n_particles) -> np.float32:
-        return self._mean_of_sum(torch.where(ctx.mask, value_pad, 0.0).sum(), n_particles)
 
     def _mean_of_sum(self, total, n_particles) -> np.float32:
         """A residual's average over the live particles from its 0-d sum over
@@ -566,10 +465,9 @@ class DFSPHSlotSolver:
     @staticmethod
     def _slot_glue(ctx) -> bool:
         """Whether the pressure loops' glue runs through ops/pressure_glue.py's
-        kernels (its twins on CPU tensors): on the slot layout's K3 and K5
-        passes; the loop-gradient variants and the plane layout keep their
-        torch glue."""
-        return isinstance(ctx, DenseCtx) and ctx.grad_dyn is None
+        kernels (its twins on CPU tensors): on K3's and K5's passes; the
+        loop-gradient variants keep their torch glue."""
+        return ctx.grad_dyn is None
 
     def _loop_error(self, ctx, v_pad, rho_or_count, alpha_pad, k_sum, work, dt,
                     density: bool):
@@ -930,7 +828,8 @@ class DFSPHDenseSolver(DFSPHSlotSolver):
             dt=dt,
             max_velocity=max_velocity,
             # both grids the step consumed: the carried-in and the rebuilt
-            neighbor_drops=max(int(carry.ctx.num_dropped), int(ctx.num_dropped)),
+            neighbor_drops=max(read_back("drops", carry.ctx.num_dropped),
+                               read_back("drops", ctx.num_dropped)),
             density_iterations=density_iters,
             divergence_iterations=divergence_iters,
             avg_density_error=avg_density_error,

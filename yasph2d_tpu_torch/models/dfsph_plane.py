@@ -25,27 +25,27 @@ passes are the no-epilogue forms
     div          velocity divergence
     corr         k-correction
 
-and the warm starts and loop bodies run in torch: the padded solver's loops
-(models/dfsph_dense.py) over this solver's plane passes `_velocity_divergence`
-and `_k_correction`, which are the JAX `_velocity_divergence_pf` and
-`_k_correction_pf`. The glue is the same f32 operations in the same order as
-the epilogues, one torch operation each, so live slots are bit-equal between
-the fused and unfused steps (dead slots hold what the glue makes of the
-kernels' zeros; nothing reads them).
+and the warm starts and loop bodies run in torch (the JAX
+`_velocity_divergence_pf` and `_k_correction_pf`): the same f32 operations
+in the same order as the epilogues, one torch operation each, so live slots
+are bit-equal between the fused and unfused steps (dead slots hold what the
+glue makes of the kernels' zeros; nothing reads them).
 
-The JAX `lax.while_loop`s become Python loops that read one residual back per
-iteration; the exit test is the JAX one, so a loop may run max + 1 times. The
-f32 scalars that reach the kernels (dt, 1/dt * m) are computed in np.float32
-exactly as JAX computes them on device. A stale step of `rebuild_every` > 1
-skips K2 and rebuilds the ctx (and K1's geometry) from the advected
-positions in the old layout, as the padded solver does.
+Both pressure loops are the padded solver's (models/dfsph_dense.py), this
+solver giving their iteration (`_loop_error`, `_kick`) on K1: host loops
+that read one residual back per iteration, with the JAX exit test (a loop
+may run max + 1 times). The f32 scalars that reach the kernels (dt, 1/dt *
+m) are computed in np.float32 exactly as JAX computes them on device. A
+stale step of `rebuild_every` > 1 skips K2 and rebuilds the ctx (and K1's
+geometry) from the advected positions in the old layout, as the padded
+solver does.
 
-Spatial sharding (parallel/shard_plane.py) overrides the hooks `_halo` (the
-neighbour shards' rows -1 and ny of a set of planes, None here), which makes
-every geometry, pass and re-bucket take the kernels' halo forms, and the
-reductions over live slots (`_count_live`, `_max_vel_from_sq`, `_sum_counts`,
-which also sums the loops' residuals); their defaults here are the one-device
-code.
+Spatial sharding (parallel/shard_plane.py) overrides the hooks of
+models/slot_solver.py: `_halo` (the neighbour shards' rows -1 and ny of a
+set of planes) makes every geometry, pass and re-bucket take the kernels'
+halo forms, and the live count, the CFL max and the drop and residual sums
+are global. `PlanePasses`, K1's geometry and pass and the boundary's planes,
+is shared with the WCSPH plane solver (models/wcsph_plane.py).
 """
 
 from dataclasses import dataclass
@@ -58,12 +58,11 @@ from ..ops.pair_reduce import PairForm, pair_reduce
 from ..ops.planes import PlaneGeom, from_planes, plane_geom, to_planes
 from ..ops.rebucket import rebucket_planes
 from ..timemanager import TimeState, update_simulation_step
-from ..units import REAL, REAL_NP
+from ..units import REAL
 from ..utils.diagnostics import Diagnostics
+from ..utils.profiling import read_back
 from ..world import ParticleState
 from .dfsph_dense import ALPHA_EPSILON, BoundaryDense, DFSPHPaddedSolver
-
-f32 = REAL_NP
 
 
 class BoundaryPlanes(NamedTuple):
@@ -108,8 +107,40 @@ class _Forms(NamedTuple):
     corr: PairForm
 
 
+class PlanePasses:
+    """What the plane solvers (this module's and models/wcsph_plane.py's)
+    share: K1's geometry and pass under the shard solvers' hooks, and the
+    boundary's planes. K1 takes bf16 operands (ops/pair_reduce.py) on the
+    slot-major route, where the padded solvers (K3) refuse them."""
+
+    _bf16_operands = True
+
+    def _geom(self, pos, mask) -> PlaneGeom:
+        """K1's geometry of one index space (planes.plane_geom), with the
+        neighbours' rows of its positions and mask under sharding."""
+        geom = plane_geom(pos, mask, self.grid, self._rebucket_row0())
+        halo = self._halo((geom.pos, geom.mask))
+        return geom if halo is None else geom._replace(halo=halo)
+
+    def _pair(self, form: PairForm, q: PlaneGeom, s: PlaneGeom, q_vals=(), s_vals=(),
+              scalars=(), post_planes=()):
+        """One K1 pass; a source geometry with a halo takes its value planes'
+        rows from the neighbours too, one exchange per pass."""
+        s_halo = () if s.halo is None or not s_vals else self._halo(s_vals).planes
+        return pair_reduce(form, q, s, self._consts, q_vals=q_vals, s_vals=s_vals,
+                           scalars=scalars, post_planes=post_planes, s_halo=s_halo)
+
+    def boundary_planes(self, boundary: BoundaryDense) -> BoundaryPlanes:
+        """Plane-form boundary geometry under `grid.pair_dtype`; build once per
+        boundary change."""
+        return BoundaryPlanes(
+            dense=boundary,
+            geom=self._geom(to_planes(boundary.pos_pad), to_planes(boundary.mask)),
+        )
+
+
 @dataclass(frozen=True)
-class DFSPHPlaneSolver(DFSPHPaddedSolver):
+class DFSPHPlaneSolver(PlanePasses, DFSPHPaddedSolver):
     """DFSPH, plane-resident carry, every pass through the pair kernel. Takes
     `grid.pair_dtype` "float32" or "bfloat16" (K1's bf16 operand mode)."""
 
@@ -118,24 +149,18 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
     fuse_loop_elementwise: bool = True
     fuse_ctx_elementwise: bool = True
 
-    # K1 takes bf16 operands (ops/pair_reduce.py) on the slot-major route, where
-    # the padded solvers (K3) refuse them
-    _bf16_operands = True
-
     def __post_init__(self):
-        super().__post_init__()
         assert self.grid.use_pallas_slotmajor, (
             "DFSPHPlaneSolver is the plane-resident slot-major path; set "
             "DenseGridConfig.use_pallas_slotmajor=True"
         )
-        object.__setattr__(self, "_forms", self._make_forms(
-            float(self.properties.particle_mass), float(self.properties.fluid_density),
-            self._w0))
+        super().__post_init__()
 
-    def _make_forms(self, m: float, rho0: float, w0: float) -> _Forms:
+    def _make_forms(self, m: float, route) -> _Forms:
         """The K1 call forms: their math as Python callables (the twin's),
         op for op the JAX closures of models/dfsph_plane.py."""
         kernel = self.kernel
+        rho0, w0 = float(self.properties.fluid_density), self._w0
         eps = float(ALPHA_EPSILON)
         gx, gy = float(self.gravity[0]), float(self.gravity[1])
 
@@ -205,34 +230,6 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
             visc=PairForm("visc" + self._visc_suffix, 2, visc_terms),
             div=PairForm("div", 1, div_terms),
             corr=PairForm("corr", 2, corr_terms),
-        )
-
-    # ------------------------------------------------- hooks of the shard solvers
-    # (`_rebucket_row0`, `_halo` and `_max_vel_from_sq`: models/dfsph_dense.py)
-
-    def _geom(self, pos, mask) -> PlaneGeom:
-        """K1's geometry of one index space (planes.plane_geom), with the
-        neighbours' rows of its positions and mask under sharding."""
-        geom = plane_geom(pos, mask, self.grid, self._rebucket_row0())
-        halo = self._halo((geom.pos, geom.mask))
-        return geom if halo is None else geom._replace(halo=halo)
-
-    def _pair(self, form: PairForm, q: PlaneGeom, s: PlaneGeom, q_vals=(), s_vals=(),
-              scalars=(), post_planes=()):
-        """One K1 pass; a source geometry with a halo takes its value planes'
-        rows from the neighbours too, one exchange per pass."""
-        s_halo = () if s.halo is None or not s_vals else self._halo(s_vals).planes
-        return pair_reduce(form, q, s, self._consts, q_vals=q_vals, s_vals=s_vals,
-                           scalars=scalars, post_planes=post_planes, s_halo=s_halo)
-
-    # ------------------------------------------------------------- boundaries
-
-    def boundary_planes(self, boundary: BoundaryDense) -> BoundaryPlanes:
-        """Plane-form boundary geometry under `grid.pair_dtype`; build once per
-        boundary change."""
-        return BoundaryPlanes(
-            dense=boundary,
-            geom=self._geom(to_planes(boundary.pos_pad), to_planes(boundary.mask)),
         )
 
     # ------------------------------------------------------------ pair context
@@ -318,46 +315,29 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
     def _max_velocity_pf(self, vstar, mask) -> np.float32:
         return self._max_vel_from_sq(torch.where(mask, (vstar * vstar).sum(dim=0), 0.0))
 
-    # ---------------------------------------------------------- pressure loops
+    # ------------------------- the padded solver's pressure loops on K1's passes
 
-    def _correct_density_error_pf(self, dt, dens, alpha, v, kappa,
-                                  prev_iterations, ctx: PlaneCtx, n_particles):
-        rho0 = f32(self.properties.fluid_density)
-        m = f32(self.properties.particle_mass)
-        scale = (f32(1.0) / f32(dt)) * m
-        tol = f32(self.max_avg_density_error)
-        if prev_iterations > 1:  # warm start
-            k = 0.5 * torch.clamp(kappa, min=float(f32(-0.5) * rho0 * rho0))
-            v = self._apply_correction_pf(ctx, k, v, scale)
-        k_sum = torch.zeros_like(kappa)
-        num, avg = 0, f32(np.inf)
-        while num == 0 or (
-            (avg / rho0) * dt >= tol and num <= self.max_density_iterations
-        ):
-            err, ki = self._density_err_ki_pf(ctx, v, dens, alpha, dt)
-            k_sum = k_sum + ki
-            v = self._apply_correction_pf(ctx, ki, v, scale)
-            avg = self._mean_live(err, ctx, n_particles)
-            num += 1
-        return v, k_sum, num, avg
+    @staticmethod
+    def _slot_glue(ctx) -> bool:
+        """The plane layout's loop glue is K1's epilogues, or torch's: never
+        ops/pressure_glue.py's kernels."""
+        return False
 
-    def _correct_divergence_error_pf(self, dt, alpha, v, stiff,
-                                     prev_iterations, ctx: PlaneCtx, n_particles):
-        rho0 = f32(self.properties.fluid_density)
-        m = f32(self.properties.particle_mass)
-        tol = f32(self.max_divergence_error)
-        if prev_iterations > 1:  # warm start
-            s = 0.5 * torch.clamp(stiff, min=float(f32(-0.5) * rho0 * rho0))
-            v = self._apply_correction_pf(ctx, s, v, m)
-        s_sum = torch.zeros_like(stiff)
-        num, avg = 0, f32(np.inf)
-        while num == 0 or (avg * dt >= tol and num <= self.max_divergence_iterations):
-            delta, ki = self._divergence_delta_ki_pf(ctx, v)
-            s_sum = s_sum + ki
-            v = self._apply_correction_pf(ctx, ki, v, m)
-            avg = self._mean_live(delta, ctx, n_particles) / rho0
-            num += 1
-        return v, s_sum, num, avg
+    def _loop_error(self, ctx: PlaneCtx, v, rho_or_count, alpha, k_sum, work, dt,
+                    density: bool):
+        """err_ki's or delta_ki's epilogue; unfused, the div pass and the
+        padded solver's torch glue."""
+        if not self.fuse_loop_elementwise:
+            return super()._loop_error(ctx, v, rho_or_count, alpha, k_sum, work, dt, density)
+        err, ki = (self._density_err_ki_pf(ctx, v, rho_or_count, alpha, dt) if density
+                   else self._divergence_delta_ki_pf(ctx, v))
+        return ki, k_sum + ki, torch.where(ctx.mask, err, 0.0).sum()
+
+    def _kick(self, ctx: PlaneCtx, v, k, scale: float):
+        """corr_v's epilogue; unfused, the corr pass and torch."""
+        if not self.fuse_loop_elementwise:
+            return super()._kick(ctx, v, k, scale)
+        return self._apply_correction_pf(ctx, k, v, scale)
 
     # ------------------------------------------------------------- host bounds
 
@@ -410,15 +390,11 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         v = carry.v
         rho = ctx.densities
 
-        fused = self.fuse_loop_elementwise
-        if fused:
+        if self.fuse_loop_elementwise:
             accel = self._viscosity_gravity_pf(ctx, v, rho, dt)
         else:
             gvec = torch.tensor(self.gravity, dtype=REAL, device=v.device)
             accel = self._viscosity_pf(ctx, v, rho, dt) + gvec[:, None, None, None]
-        density_loop, divergence_loop = (
-            (self._correct_density_error_pf, self._correct_divergence_error_pf) if fused
-            else (self._correct_density_error, self._correct_divergence_error))
 
         # CFL with the old-dt estimate (dfsph.rs:472-481)
         vstar = v + accel * float(dt)
@@ -431,7 +407,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
 
         # predict v* with the new dt, constant-density loop (dfsph.rs:484-496)
         pred = v + accel * float(dt)
-        pred, kappa, density_iters, avg_density_error = density_loop(
+        pred, kappa, density_iters, avg_density_error = self._correct_density_error(
             dt, rho, ctx.alpha, pred, carry.kappa,
             carry.prev_density_iterations, ctx, n,
         )
@@ -450,11 +426,8 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
             ctx = self._ctx_pf(pos, ctx.mask, boundary, ctx.num_dropped)
 
         # divergence-free loop (dfsph.rs:521)
-        pred, stiff, divergence_iters, avg_divergence = (
-            divergence_loop(
-                dt, ctx.alpha, pred, stiff,
-                carry.prev_divergence_iterations, ctx, n,
-            )
+        pred, stiff, divergence_iters, avg_divergence = self._correct_divergence_error(
+            dt, ctx.alpha, pred, stiff, carry.prev_divergence_iterations, ctx, n,
         )
 
         new_carry = DFSPHPlaneCarry(
@@ -469,7 +442,7 @@ class DFSPHPlaneSolver(DFSPHPaddedSolver):
         diagnostics = Diagnostics(
             dt=dt,
             max_velocity=max_velocity,
-            neighbor_drops=int(ctx.num_dropped),
+            neighbor_drops=read_back("drops", ctx.num_dropped),
             density_iterations=density_iters,
             divergence_iterations=divergence_iters,
             avg_density_error=avg_density_error,

@@ -41,7 +41,7 @@ from ..world import (
     update_densities,
     update_neighborhood,
 )
-from .dfsph_dense import DFSPHSlotSolver
+from .slot_solver import HostLoop
 from .viscosity import ViscosityModel
 
 f32 = REAL_NP
@@ -71,7 +71,7 @@ class WCSPHCarry(NamedTuple):
 
 
 @dataclass(frozen=True)
-class WCSPHSolver:
+class WCSPHSolver(HostLoop):
     """WCSPH on neighbour tables (`grid` is the world's GridConfig, the
     boundary its `boundary_grid()`); defaults as wscsph.rs:35-39."""
 
@@ -176,7 +176,3 @@ class WCSPHSolver:
             dt=dt, max_velocity=max_velocity,
             neighbor_drops=int(neighborhood.dynamic.num_dropped
                                + neighborhood.static.num_dropped))
-
-    # the host loop of the slot solvers: account each step's dt, then step;
-    # the Diagnostics aggregate all steps
-    simulate = DFSPHSlotSolver.simulate

@@ -12,27 +12,24 @@ src/sph/solver/wscsph.rs:126-179), with two carries:
   brings densities and accelerations back through `slots_to_sorted` (a
   particle without a slot takes rho0 and no pair force).
 
-Both share `WCSPHSlotSolver`'s pair passes. Leapfrog, Tait EOS (gamma 7),
-symmetric pressure forces with the Spiky kernel, Poly6 density, XSPH or
-physical viscosity, Monaghan-Kajtar boundary penalty. Every pass runs on a
-kernel that reads the slot layout in place;
-`DenseGridConfig.use_pallas_slotmajor` picks the pair kernel of the three
-passes (fluid Poly6 density, boundary density + penalty force against the
-boundary, symmetric pressure + viscosity):
-
-    True   K3 (ops/sm_pair_reduce.py) wcsph_density, wcsph_stat, wcsph_forces,
-           in the JAX slot-major closures' order
-    False  K5 (ops/pallas_pair.py), the same three forms in the JAX XLA
-           closures' order (wcsph_dense.py:141-150, 189-197); on a grid with
-           pair_dtype "bfloat16" in K5's bf16 math mode (the glue stays f32)
+Both share `WCSPHSlotSolver`'s pair passes, on the slot solvers' base
+(models/slot_solver.py). Leapfrog, Tait EOS (gamma 7), symmetric pressure
+forces with the Spiky kernel, Poly6 density, XSPH or physical viscosity,
+Monaghan-Kajtar boundary penalty. The three pair passes (fluid Poly6
+density, boundary density + penalty force against the boundary, symmetric
+pressure + viscosity) are wcsph_density, wcsph_stat and wcsph_forces on the
+route's kernel (`pair_route`), reading the slot layout in place: K3
+(ops/sm_pair_reduce.py) in the JAX slot-major closures' order, or K5
+(ops/pallas_pair.py) in the JAX XLA closures' order (wcsph_dense.py:141-150,
+189-197), in K5's bf16 math mode on a bfloat16 grid (the glue stays f32).
 
 The forces form of PhysicalViscosityModel is wcsph_forces_phys on either
 kernel (and on K1, models/wcsph_plane.py); any other model is refused.
 
-Spatial sharding (parallel/shard_dense.py) takes the DFSPH padded solver's
-hooks: the fluid's rows are exchanged once per step (after the rebuild),
-the boundary's once at init, the force pass's source values (pressure,
-density, velocity) once per step; K4 and K5 then run their halo forms.
+Under spatial sharding (parallel/shard_dense.py) the fluid's rows are
+exchanged once per step (after the rebuild), the boundary's once at init,
+the force pass's source values (pressure, density, velocity) once per step;
+K4 and K5 then run their halo forms.
 
 The JAX package runs the boundary pass through the XLA dense_grid.pair_reduce
 on both of its routes; here it is the route's kernel, so its f32 sums come in
@@ -57,25 +54,17 @@ import torch
 
 from ..ops import slot_glue
 from ..ops.cuda_build import PairConsts
-from ..ops.dense_grid import (
-    DenseGridConfig,
-    build_slot_grid,
-    pad_to_slots,
-    require_float32_pairs,
-    slots_to_sorted,
-)
+from ..ops.dense_grid import build_slot_grid, pad_to_slots, slots_to_sorted
 from ..ops.pair_reduce import PairForm
-from ..ops.pallas_pair import bf16_consts, bf16_form, pallas_pair_reduce, rebase_of
-from ..ops.sm_pair_reduce import sm_pair_reduce
 from ..ops.sm_rebucket import sm_rebucket_parts
 from ..ops.smoothing_kernels import Poly6, Spiky
-from ..timemanager import StepConfig, TimeState, update_simulation_step
+from ..timemanager import TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
 from ..utils.diagnostics import Diagnostics
 from ..utils.profiling import read_back, scope
-from ..world import GRAVITY, FluidProperties, ParticleState
-from .dfsph_dense import BoundaryDense, DFSPHSlotSolver
-from .viscosity import ViscosityModel, kernel_coefficient
+from ..world import GRAVITY, ParticleState
+from .dfsph_dense import BoundaryDense
+from .slot_solver import SlotSolver
 from .wcsph import compute_stiffness
 
 f32 = REAL_NP
@@ -94,8 +83,8 @@ class WCSPHPaddedCarry(NamedTuple):
 
 class WCSPHForms(NamedTuple):
     """The three pair call forms of a WCSPH step: the CUDA instantiations'
-    names and their math for the twins. K1 (plane) and K3 take the slot-major
-    order, K5 the XLA order."""
+    names and their math for the twins, in the route's sum order (K1 and K3:
+    slot-major; K5: XLA)."""
 
     density: PairForm
     stat: PairForm
@@ -103,63 +92,45 @@ class WCSPHForms(NamedTuple):
 
 
 @dataclass(frozen=True)
-class WCSPHSlotSolver:
-    """What the WCSPH slot-layout solvers share: the pair forms of the route
-    and the three pair passes (`_density_and_forces`). The subclasses own the
-    carry: WCSPHPaddedSolver (padded-resident), WCSPHDenseSolver (sorted) and,
+class WCSPHSlotSolver(SlotSolver):
+    """What the WCSPH slot-layout solvers share: the pair forms and the three
+    pair passes (`_density_and_forces`). The subclasses own the carry:
+    WCSPHPaddedSolver (padded-resident), WCSPHDenseSolver (sorted) and,
     through the padded one, WCSPHPlaneSolver (planes)."""
 
-    viscosity_model: ViscosityModel
-    properties: FluidProperties
-    grid: DenseGridConfig
-    step_config: StepConfig
     boundary_force_factor: float = 1.0  # wscsph.rs:35
     target_density_variation: float = 0.01
     expected_max_flow_speed: float = 1.0
     gravity: tuple = GRAVITY
 
-    # K3 takes float32 only (K5 takes bf16 as its math mode); the plane
-    # solver's K1 takes bf16 operands
-    _bf16_operands = False
-
     def __post_init__(self):
-        if not self._bf16_operands:
-            require_float32_pairs(self.grid, type(self).__name__)
         h = self.properties.smoothing_length
-        assert abs(self.grid.cell_size - h) < 1e-12
-        density_kernel, pressure_kernel = Poly6(h), Spiky(h)
+        density_kernel = Poly6(h)
         object.__setattr__(self, "density_kernel", density_kernel)
-        object.__setattr__(self, "pressure_kernel", pressure_kernel)
+        object.__setattr__(self, "pressure_kernel", Spiky(h))
         object.__setattr__(self, "stiffness", compute_stiffness(
             self.properties, self.target_density_variation,
             self.expected_max_flow_speed,
         ))
-        m = float(self.properties.particle_mass)
         # W(0), the density self-contribution, evaluated in f32
         zero = torch.zeros((), dtype=REAL)
         object.__setattr__(self, "_w0", float(density_kernel.evaluate(zero, zero)))
-        visc_suffix, visc_consts = kernel_coefficient(self.viscosity_model, m)
-        object.__setattr__(self, "_visc_suffix", visc_suffix)
-        object.__setattr__(self, "_consts", PairConsts(
+        super().__post_init__()
+
+    def _make_consts(self, m: float, visc_consts: dict) -> PairConsts:
+        dk, pk = self.density_kernel, self.pressure_kernel
+        return PairConsts(
             radius_sq=self.grid.radius_sq,
             **visc_consts,
             mass=m, rho0=self.properties.fluid_density,
             gx=float(self.gravity[0]), gy=float(self.gravity[1]),
-            d6_hsq=density_kernel._hsq, d6_norm=density_kernel._norm,
-            sp_h=h, sp_norm=pressure_kernel._norm,
-            sp_norm_grad=pressure_kernel._norm_grad,
+            d6_hsq=dk._hsq, d6_norm=dk._norm,
+            sp_h=self.properties.smoothing_length, sp_norm=pk._norm,
+            sp_norm_grad=pk._norm_grad,
             bff=self.boundary_force_factor,
-        ))
-        slotmajor = self.grid.use_pallas_slotmajor
-        object.__setattr__(self, "_reduce",
-                           sm_pair_reduce if slotmajor else pallas_pair_reduce)
-        forms = self._make_forms(m, slotmajor)
-        if not slotmajor and rebase_of(self.grid) is not None:  # K5's bf16 math mode
-            object.__setattr__(self, "_consts", bf16_consts(self._consts))
-            forms = WCSPHForms(*(bf16_form(f, self._consts) for f in forms))
-        object.__setattr__(self, "_forms", forms)
+        )
 
-    def _make_forms(self, m: float, slotmajor: bool) -> WCSPHForms:
+    def _make_forms(self, m: float, route) -> WCSPHForms:
         """The pair terms as Python callables (the twins'), op for op the JAX
         closures of models/wcsph_dense.py and models/wcsph_plane.py: the
         slot-major forces on K3 and K1, the XLA ones (coef (gc dx)) on K5."""
@@ -196,14 +167,8 @@ class WCSPHSlotSolver:
             density=PairForm("wcsph_density", 1, density_terms),
             stat=PairForm("wcsph_stat", 3, stat_terms),
             forces=PairForm("wcsph_forces" + self._visc_suffix, 2,
-                            force_terms if slotmajor else force_terms_xla),
+                            force_terms if route.slot_major else force_terms_xla),
         )
-
-    def _density(self, dyn_w, stat_w):
-        """m (W(0) + dyn + stat), clamped to rho0 (fluidparticleworld.rs:197-231)."""
-        m = float(self.properties.particle_mass)
-        dens = m * ((self._w0 + dyn_w) + stat_w)
-        return torch.clamp(dens, min=self.properties.fluid_density)
 
     def _max_velocity(self, v_est_sq, mask) -> np.float32:
         """CFL velocity from squared speeds; live slots only."""
@@ -223,24 +188,12 @@ class WCSPHSlotSolver:
         halo = self._halo((pos, mask))
         dyn_w = pair(f.density, pos, mask, pos, mask, halo)[..., 0]
         stat = pair(f.stat, pos, mask, boundary.pos_pad, boundary.mask, boundary.halo)
-        # K5 writes +0.0 at dead query slots, so its dead slots need no load
         dens, pres = slot_glue.slot_density_tait(
             dyn_w, stat, mask, float(self.properties.particle_mass), self._w0,
-            self.properties.fluid_density, self.stiffness,
-            dead_zero=not self.grid.use_pallas_slotmajor)
+            self.properties.fluid_density, self.stiffness, dead_zero=self._route.dead_zero)
         accel_dyn = pair(f.forces, pos, mask, pos, mask, halo, q_vals=(pres, dens, v),
                          s_vals=(pres, dens, v), scalars=(float(dt),))
         return dens, accel_dyn, stat
-
-    # the host loop of the DFSPH solvers: account each step's dt, then step;
-    # their pair pass and the hooks of the shard solvers
-    simulate = DFSPHSlotSolver.simulate
-    _slot_pair = DFSPHSlotSolver._slot_pair
-    _sort = DFSPHSlotSolver._sort
-    _sum_counts = DFSPHSlotSolver._sum_counts
-    _rebucket_row0 = DFSPHSlotSolver._rebucket_row0
-    _halo = DFSPHSlotSolver._halo
-    _max_vel_from_sq = DFSPHSlotSolver._max_vel_from_sq
 
 
 @dataclass(frozen=True)
@@ -406,4 +359,5 @@ class WCSPHDenseSolver(WCSPHSlotSolver):
         )
         return new_carry, Diagnostics.zeros()._replace(
             dt=dt, max_velocity=max_velocity,
-            neighbor_drops=int(self._sum_counts(slots.num_dropped) + boundary.num_dropped))
+            neighbor_drops=read_back("drops", self._sum_counts(slots.num_dropped)
+                                     + boundary.num_dropped))

@@ -14,10 +14,11 @@ and the rebuild is K2 (ops/rebucket.py) with the velocity as its payload:
                     with PhysicalViscosityModel)
 
 The TPU-only stat-pass column chunking (pf_stat_chunk_kw) is not ported: the
-kernel has no column chunks. The hooks of spatial sharding are the padded
-solvers' (`_halo`, the CFL max `_max_vel_from_sq`, the drop sum
-`_sum_counts`), with the DFSPH plane solver's `_geom` and `_pair`
-(parallel/shard_plane.py).
+kernel has no column chunks. The hooks of spatial sharding
+(parallel/shard_plane.py) are the slot solvers' (models/slot_solver.py:
+`_halo`, the CFL max `_max_vel_from_sq`, the drop sum `_sum_counts`), under
+K1's geometry and pass `_geom` and `_pair`, which both plane solvers take
+from models/dfsph_plane.PlanePasses.
 """
 
 from dataclasses import dataclass
@@ -29,10 +30,11 @@ from ..ops.planes import from_planes, to_planes
 from ..ops.rebucket import rebucket
 from ..timemanager import TimeState, update_simulation_step
 from ..units import REAL, REAL_NP
+from ..ops.slot_glue import tait_pressure
 from ..utils.diagnostics import Diagnostics
+from ..utils.profiling import read_back
 from ..world import ParticleState
-from .dfsph_plane import BoundaryPlanes, DFSPHPlaneSolver
-from .wcsph import tait_pressure
+from .dfsph_plane import BoundaryPlanes, PlanePasses
 from .wcsph_dense import WCSPHPaddedSolver
 
 f32 = REAL_NP
@@ -50,23 +52,22 @@ class WCSPHPlaneCarry(NamedTuple):
 
 
 @dataclass(frozen=True)
-class WCSPHPlaneSolver(WCSPHPaddedSolver):
+class WCSPHPlaneSolver(PlanePasses, WCSPHPaddedSolver):
     """WCSPH, plane-resident carry, every pass through K1 and K2. Takes
     `grid.pair_dtype` "float32" or "bfloat16" (K1's bf16 operand mode)."""
 
-    # plane-form boundary geometry, built once per boundary change, and K1's
-    # pass under the shard solvers' hooks (models/dfsph_plane.py)
-    boundary_planes = DFSPHPlaneSolver.boundary_planes
-    _geom = DFSPHPlaneSolver._geom
-    _pair = DFSPHPlaneSolver._pair
-    _bf16_operands = True
-
     def __post_init__(self):
-        super().__post_init__()
         assert self.grid.use_pallas_slotmajor, (
             "WCSPHPlaneSolver is the plane-resident slot-major path; set "
             "DenseGridConfig.use_pallas_slotmajor=True"
         )
+        super().__post_init__()
+
+    def _density(self, dyn_w, stat_w):
+        """m (W(0) + dyn + stat), clamped to rho0 (fluidparticleworld.rs:197-231)."""
+        m = float(self.properties.particle_mass)
+        dens = m * ((self._w0 + dyn_w) + stat_w)
+        return torch.clamp(dens, min=self.properties.fluid_density)
 
     def init_carry(self, state: ParticleState, boundary=None) -> WCSPHPlaneCarry:
         """The padded init in plane form. `boundary` is accepted so that every
@@ -141,6 +142,7 @@ class WCSPHPlaneSolver(WCSPHPaddedSolver):
         diagnostics = Diagnostics.zeros()._replace(
             dt=dt,
             max_velocity=max_velocity,
-            neighbor_drops=int(self._sum_counts(drops) + boundary.dense.num_dropped),
+            neighbor_drops=read_back("drops", self._sum_counts(drops)
+                                     + boundary.dense.num_dropped),
         )
         return new_carry, diagnostics

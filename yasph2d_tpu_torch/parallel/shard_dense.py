@@ -155,7 +155,7 @@ def distribute(state: ParticleState, full_grid: DenseGridConfig, n_shards: int,
 
 class _SpatialCollectives:
     """The shard solvers' overrides of the one-device hooks of
-    models/dfsph_dense.py, reduced over the shards through `self.group` (a
+    models/slot_solver.py, reduced over the shards through `self.group` (a
     comm.SpaceGroup). The host classes carry the shard's grid
     (make_local_grid); `_ROW_DIM` is the row axis of their state's tensors."""
 
@@ -202,8 +202,7 @@ class _SpatialCollectives:
 
 class _SlotCollectives(_SpatialCollectives):
     """The slot-layout (padded and sorted) solvers' sharding hooks; K5 is
-    their only pair kernel with a halo form, and the loop-gradient variants
-    have none."""
+    their only pair kernel with a halo form."""
 
     def __post_init__(self):
         if self.grid.use_pallas_slotmajor:
@@ -211,20 +210,28 @@ class _SlotCollectives(_SpatialCollectives):
             raise ValueError("the vector-last slot-major (sm_*) path has no halo "
                              "collectives; sharded slot-major runs through the plane-form "
                              "solvers (parallel/shard_plane.py)")
-        if getattr(self, "mxu_loop_gradients", False):
+        super().__post_init__()
+
+
+class _DFSPHCollectives(_SlotCollectives):
+    """The DFSPH slot solvers' sharding hooks: the loop-gradient variants
+    have no halo form."""
+
+    def _check_loop_gradients(self):
+        if self.mxu_loop_gradients:
             # the JAX package's assert (models/dfsph_dense.py:199-202)
             raise ValueError("mxu_loop_gradients under sharding: pair_map has no halo "
                              "exchange (a one-device variant)")
-        if getattr(self, "cache_loop_gradients", False):
+        if self.cache_loop_gradients:
             # JAX runs it, its pair_map zero-padding the neighbour's rows
             raise ValueError("cache_loop_gradients under sharding: the cached pair map has "
                              "no halo exchange, so an edge row would lose its neighbours "
                              "across the seam")
-        super().__post_init__()
+        super()._check_loop_gradients()
 
 
 @dataclasses.dataclass(frozen=True)
-class DFSPHPaddedShardSolver(_SlotCollectives, DFSPHPaddedSolver):
+class DFSPHPaddedShardSolver(_DFSPHCollectives, DFSPHPaddedSolver):
     """The padded DFSPH step on one shard; `grid` is the shard's
     (make_local_grid), `group` its SpaceGroup."""
 
@@ -240,7 +247,7 @@ class WCSPHPaddedShardSolver(_SlotCollectives, WCSPHPaddedSolver):
 
 
 @dataclasses.dataclass(frozen=True)
-class DFSPHShardMapSolver(_SlotCollectives, DFSPHDenseSolver):
+class DFSPHShardMapSolver(_DFSPHCollectives, DFSPHDenseSolver):
     """The sorted DFSPH step on one shard's block (module docstring); `grid`
     is the shard's (make_local_grid), `group` its SpaceGroup. After each
     step `last_migration` holds the particles this shard sent up and down

@@ -73,7 +73,7 @@ def noise(rng, t, scale):
 def plane_calls(solver, boundary, carry, rng) -> dict:
     """{label: (form, query geometry, source geometry, keyword operands)} of
     a plane step's K1 calls on `carry`."""
-    from yasph2d_tpu_torch.models.wcsph import tait_pressure
+    from yasph2d_tpu_torch.ops.slot_glue import tait_pressure
     from yasph2d_tpu_torch.ops.pair_reduce import pair_reduce
     from yasph2d_tpu_torch.ops.planes import plane_geom
 
@@ -113,12 +113,12 @@ def padded_calls(solver, boundary, carry, rng) -> dict:
     of a padded step's pair calls (K3 or K5, by the solver's route) on
     `carry`; `stat` is the fluid -> boundary pass (K3's dfsph_stat, K5's
     dfsph_ctx)."""
-    from yasph2d_tpu_torch.models.wcsph import tait_pressure
+    from yasph2d_tpu_torch.ops.slot_glue import tait_pressure
 
     dt = float(carry.time.dt)
     walls = (boundary.pos_pad, boundary.mask)
     if hasattr(carry, "ctx"):  # DFSPH
-        f, ctx = solver._padded_forms, carry.ctx
+        f, ctx = solver._forms, carry.ctx
         mask = ctx.mask
         fluid = (ctx.pos_pad, mask)
         v = torch.where(mask[..., None], carry.v_pad + noise(rng, carry.v_pad, 0.5),
@@ -376,10 +376,8 @@ def kind_runs(kind, args, device) -> tuple:
     rng = np.random.default_rng(0)
     runs, records = {}, {}
     if slot:
-        from yasph2d_tpu_torch.ops.pallas_pair import pallas_pair_reduce
-        from yasph2d_tpu_torch.ops.sm_pair_reduce import sm_pair_reduce
+        from yasph2d_tpu_torch.models.slot_solver import pair_route
 
-        pair = sm_pair_reduce if solver.grid.use_pallas_slotmajor else pallas_pair_reduce
         calls = padded_calls(solver, boundary, carry, rng)
         state = (carry.ctx.pos_pad, carry.ctx.mask) if hasattr(carry, "ctx") \
             else (carry.pos_pad, carry.mask)
@@ -389,11 +387,9 @@ def kind_runs(kind, args, device) -> tuple:
             r0, r1 = args.shard * ny // 2, (args.shard + 1) * ny // 2
             calls = {label: shard_call(call, r0, r1, ny) for label, call in calls.items()}
             state = tuple(t[r0:r1] for t in state)
-        mode = {}
-        if solver.grid.pair_dtype == "bfloat16":  # K5's bf16 math mode
-            from yasph2d_tpu_torch.ops.pallas_pair import rebase_of
-
-            mode = dict(rebase=rebase_of(solver.grid, r0))
+        route = pair_route(solver.grid, r0)
+        pair = route.reduce
+        mode = {} if route.rebase is None else dict(rebase=route.rebase)  # K5's bf16 mode
         for label, (form, q, s, kw) in calls.items():
             kw = dict(kw, **mode)
             runs[label] = (lambda form=form, q=q, s=s, kw=kw: pair(form, *q, *s, c, **kw))
