@@ -29,7 +29,11 @@ their twins' bits on every slot a later reader sees, and 300 steps through
 them the twins' carries and dt sequence. So do the DFSPH pressure loops' two
 glue kernels (ops/pressure_glue.py) on every slot, on the K5, K3, bf16 and
 sorted routes, through an impact, with a residual total of fixed bits; the
-plane steps and the loop-gradient variants launch neither."""
+plane steps and the loop-gradient variants launch neither. The loops' exit
+test on the card decides as the host's does, bit for bit; a gated loop
+launch past a loop's end writes nothing (K5, K3, both glue kernels); and the
+loops tested on the card give the host test's carries and diagnostics bit
+for bit however far their chunks over- or undershoot."""
 
 import dataclasses
 import json
@@ -2139,10 +2143,11 @@ def test_pressure_glue_refuses_strided_and_misaligned_operands(device):
 @pytest.mark.parametrize("case", list(PRESSURE_KINDS))
 def test_dfsph_steps_kernels_equal_twins(device, case, monkeypatch):
     """31 steps from rest through the impact (the converged knobs), with the
-    pressure loops' glue kernels and with their twins on the card: the same
-    carry, every slot's bits, the same iterations and dt at every step; two
-    glue launches an iteration (the error and the kick) and one a warm start,
-    none with the twins."""
+    pressure loops' glue kernels (the loops testing their exit on the device
+    and enqueuing iterations ahead) and with their twins on the card (the
+    host's test): the same carry, every slot's bits, the same iterations
+    and dt at every step; two glue launches an enqueued iteration (the
+    error and the kick) and one a warm start, none with the twins."""
     from test_torch_pressure_glue import SETTLE, STEPS, carry_tensors, converged_solver
 
     solver, boundary, start = converged_solver(PRESSURE_KINDS[case], device=device)
@@ -2151,6 +2156,7 @@ def test_dfsph_steps_kernels_equal_twins(device, case, monkeypatch):
         if twins:
             monkeypatch.setattr(pg, "slot_pressure_err", pg.pressure_err_ref)
             monkeypatch.setattr(pg, "slot_pressure_kick", pg.pressure_kick_ref)
+            monkeypatch.setattr(type(solver), "_device_exit", lambda self, ctx: False)
         pg.reset_launch_counts()
         carry, steps = start, []
         for _ in range(SETTLE + STEPS):
@@ -2158,13 +2164,15 @@ def test_dfsph_steps_kernels_equal_twins(device, case, monkeypatch):
             steps.append((d.density_iterations, d.divergence_iterations,
                           np.float32(d.dt).tobytes()))
         torch.cuda.synchronize()
-        runs.append((carry, steps, dict(pg.LAUNCHES)))
-    (got, got_steps, launches), (ref, ref_steps, twin_launches) = runs
+        runs.append((carry, steps, dict(pg.LAUNCHES), dict(pg.ITERATIONS)))
+    (got, got_steps, launches, its), (ref, ref_steps, twin_launches, _) = runs
     assert got_steps == ref_steps
     iterations = sum(s[0] + s[1] for s in got_steps)
+    assert its["density_run"] + its["divergence_run"] == iterations
+    enqueued = its["density_enqueued"] + its["divergence_enqueued"]
     warm = sum(a[0] > 1 for a in got_steps[:-1]) + sum(a[1] > 1 for a in got_steps[:-1])
-    assert max(s[0] for s in got_steps) > 2 and warm > 0
-    assert launches == {"slot_pressure_err": iterations, "slot_pressure_kick": iterations + warm}
+    assert max(s[0] for s in got_steps) > 2 and warm > 0 and enqueued > iterations
+    assert launches == {"slot_pressure_err": enqueued, "slot_pressure_kick": enqueued + warm}
     assert twin_launches == dict.fromkeys(pg.LAUNCHES, 0)
     a, b = carry_tensors(got), carry_tensors(ref)
     assert len(a) == len(b) > 5
@@ -2186,3 +2194,132 @@ def test_other_dfsph_routes_launch_no_pressure_glue(device, kind):
     torch.cuda.synchronize()
     assert pg.LAUNCHES == before
 
+
+
+# ------------------------------------------- the pressure loops' exit test
+
+
+@pytest.mark.parametrize("density", [True, False], ids=["density", "divergence"])
+@pytest.mark.parametrize("case", ["k5", "k3"])
+def test_device_exit_test_is_the_host_test(device, pressure_states, case, density):
+    """The error kernel's exit test on the card decides as the host loop
+    does on its own total: at, just above and just below the tolerance, it
+    goes on (state[0] = i + 1) exactly where `pressure_glue.exit_test`
+    does, stops at the cap (i + 1 > max), reports the host's average bits
+    in state[1], and writes the k_i and k_sum of the ungated launch."""
+    solver, ctx, v, _, k_sum = pressure_states[case]
+    err, _ = _pressure_calls(solver, ctx, v, k_sum, k_sum, density)
+    ref = pg.slot_pressure_err(*err())
+    n_live = np.float32(int(ctx.mask.sum()))
+    mean = np.float32(ref[2].item()) / n_live
+    rho0, dt = np.float32(solver.properties.fluid_density), np.float32(1.5e-4)
+    x = (mean / rho0) * dt
+    decided = set()
+    for tol in (x, np.nextafter(x, np.float32(np.inf)), np.nextafter(x, np.float32(-np.inf))):
+        for i, cap in ((0, 200), (4, 5), (5, 5)):
+            ops = err()
+            ki, state = pg.loop_buffers(ops[6], ctx.mask)
+            state[0] = i
+            pg.err_launcher(*ops, (ki, state), pg.ExitTest(float(n_live), float(tol), cap))(i)
+            avg, goes_on = pg.exit_test(mean, rho0, dt, tol, density)
+            on = goes_on and i + 1 <= cap
+            decided.add(on)
+            assert state.tolist()[0] == (i + 1 if on else i)
+            assert np.int32(state.tolist()[1]).view(np.float32).tobytes() == avg.tobytes()
+            assert torch.equal(ki.view(torch.int32), ref[0].view(torch.int32))
+            assert torch.equal(ops[5].view(torch.int32), ref[1].view(torch.int32))
+    assert decided == {True, False}
+
+
+@pytest.mark.parametrize("case", list(PRESSURE_KINDS))
+def test_gated_launches_write_nothing(device, pressure_states, case):
+    """A loop launch of an iteration past the loop's last (state [2, 7],
+    iteration 3) writes nothing: K5's or K3's div and corr passes leave
+    their outputs, the error kernel k_i, k_sum, its scratch and the state,
+    the kick v; at iteration 2 each gives the bits of its ungated launch
+    (`_div_pass`, `_corr_pass`, slot_pressure_err, slot_pressure_kick)."""
+    solver, ctx, v, k, k_sum = pressure_states[case]
+    route, f, mask, pos = solver._route, solver._forms, ctx.mask, ctx.pos_pad
+    mode = {} if route.rebase is None else dict(rebase=route.rebase)
+    state = torch.tensor([2, 7], dtype=torch.int32, device=device)
+    for form, vals, n_out, ungated in ((f.div, v, 1, solver._div_pass),
+                                       (f.corr, k, 2, solver._corr_pass)):
+        out = torch.full(mask.shape + (n_out,), float("nan"), device=device)
+        bits = out.view(torch.int32).clone()
+        launch = route.loop_launcher(form, pos, mask, pos, mask, solver._consts, (vals,),
+                                     (vals,), out, state, **mode)
+        launch(3)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), bits)
+        launch(2)
+        ref = ungated(ctx, vals)
+        assert torch.equal(out.view(torch.int32), ref.reshape(out.shape).view(torch.int32))
+    err, kick = _pressure_calls(solver, ctx, v, k, k_sum, True)
+    test = pg.ExitTest(float(int(mask.sum())), 1e-8, 200)
+    ops = err()
+    ki = torch.zeros_like(k)  # as loop_work's: K5's route leaves all-dead quads unwritten
+    before = [t.view(torch.int32).clone() for t in (ki, ops[5], ops[6])]
+    pg.err_launcher(*ops, (ki, state), test)(3)
+    kops = list(kick())
+    w = kops[0].clone()
+    pg.kick_launcher(*kops, state)(3)
+    torch.cuda.synchronize()
+    assert all(torch.equal(t.view(torch.int32), b) for t, b in zip((ki, ops[5], ops[6]), before))
+    assert state.tolist() == [2, 7] and torch.equal(kops[0], w)
+    ref = pg.slot_pressure_err(*err())
+    ops = err()
+    pg.err_launcher(*ops, (ki, state), test)(2)
+    assert torch.equal(ki.view(torch.int32), ref[0].view(torch.int32))
+    assert torch.equal(ops[5].view(torch.int32), ref[1].view(torch.int32))
+    kops = list(kick())
+    pg.kick_launcher(*kops, state)(2)
+    assert torch.equal(kops[0].view(torch.int32), pg.slot_pressure_kick(*kick()).view(torch.int32))
+    assert not torch.equal(kops[0], v)
+
+
+@pytest.mark.parametrize("case", list(PRESSURE_KINDS))
+def test_device_exit_route_equals_the_host_test(device, case, monkeypatch):
+    """Through the impact on the card, the loops with their exit test on the
+    device give the host test's dt, iterations, residual averages and
+    carries bit for bit: from the carried counts, and from previous counts
+    that undershoot (1) and overshoot (60). The host test reads back once
+    an iteration; the device's reads the loop's state once a chunk, and
+    launches the glue of every iteration it enqueued."""
+    from test_torch_pressure_glue import SETTLE, carry_tensors, converged_solver
+
+    solver, boundary, carry = converged_solver(PRESSURE_KINDS[case], device=device)
+    carry, _ = solver.simulate(carry, boundary, SETTLE)
+    starts = [carry, carry._replace(prev_density_iterations=1, prev_divergence_iterations=1),
+              carry._replace(prev_density_iterations=60, prev_divergence_iterations=60)]
+    runs = []
+    for host in (True, False):
+        with monkeypatch.context() as mp:
+            if host:
+                mp.setattr(type(solver), "_device_exit", lambda self, ctx: False)
+            pg.reset_launch_counts()
+            profiling.reset_readbacks()
+            out = []
+            for c in starts:
+                for _ in range(3):
+                    c, d = solver.simulate(c, boundary, 1)
+                    out.append((d.density_iterations, d.divergence_iterations,
+                                *(np.float32(x).tobytes() for x in (
+                                    d.dt, d.avg_density_error, d.avg_divergence))))
+                out.append(carry_tensors(c))
+            torch.cuda.synchronize()
+            runs.append((out, dict(pg.ITERATIONS), dict(profiling.READBACKS),
+                         dict(pg.LAUNCHES)))
+    (host, host_its, host_reads, _), (dev, dev_its, dev_reads, launches) = runs
+    for a, b in zip(host, dev):
+        if isinstance(a, tuple):
+            assert a == b
+        else:
+            assert len(a) == len(b) > 5
+            assert all(torch.equal(_bits([x])[0], _bits([y])[0]) for x, y in zip(a, b))
+    runs_total = sum(d[0] + d[1] for d in host if isinstance(d, tuple))
+    assert host_reads["mean_residual"] == runs_total and "loop_state" not in host_reads
+    assert "mean_residual" not in dev_reads and dev_reads["loop_state"] >= 18
+    assert dev_its["density_run"] + dev_its["divergence_run"] == runs_total
+    enqueued = dev_its["density_enqueued"] + dev_its["divergence_enqueued"]
+    assert dev_its["density_enqueued"] > dev_its["density_run"] + 40
+    assert launches["slot_pressure_err"] == enqueued

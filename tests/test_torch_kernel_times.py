@@ -65,10 +65,11 @@ def test_shard_runs_and_their_refusal():
     """`--shard` builds the kind on an even row count and times the halo
     forms on the shard's rows; a plane kind has none and is refused."""
     args = argparse.Namespace(particles=3000, steps=2, shard=1)
-    runs, state, per_step, glue = kt.kind_runs("dfsph_padded_k5", args, CPU)
+    runs, state, per_step, glue, gated = kt.kind_runs("dfsph_padded_k5", args, CPU)
     assert set(runs) == {"ctx", "stat", "div", "corr", "visc", "sm_rebucket",
                          "sm_rebucket_rows_alone"}
-    assert len(per_step) == 2 and state[0].shape[0] == state[1].shape[0] and glue == {}
+    assert len(per_step) == 2 and state[0].shape[0] == state[1].shape[0]
+    assert glue == {} and gated == {}
     out = runs["sm_rebucket"]()
     assert out[0].shape == state[0].shape
     assert runs["ctx"]().shape[:3] == state[1].shape
@@ -103,9 +104,9 @@ def test_glue_records_of_the_padded_wcsph_kinds():
     twin's bits and its launches a step (none on CPU tensors, where the call
     is the twin)."""
     args = argparse.Namespace(particles=3000, steps=2, shard=None)
-    runs, state, per_step, glue = kt.kind_runs("wcsph_padded_k5", args, CPU)
+    runs, state, per_step, glue, gated = kt.kind_runs("wcsph_padded_k5", args, CPU)
     names = ["slot_kick_drift", "slot_density_tait", "slot_accel_cfl", "slot_kick"]
-    assert list(glue) == names and not set(names) & set(runs)
+    assert list(glue) == names and not set(names) & set(runs) and gated == {}
     n = state[1].numel()
     for name, r in glue.items():
         assert r["bit_equal"] and r["launches_per_step"] == 0.0
@@ -118,11 +119,16 @@ def test_glue_records_of_the_padded_dfsph_kinds():
     """A padded DFSPH kind times the pressure loops' glue calls (both loops'
     error and the kick) apart from its pair calls and K4, each with its byte
     bound, whether it gives its twin's bits and its launches a step (none on
-    CPU tensors); `--config` gives the solver the configuration's loop
-    knobs and CFL."""
+    CPU tensors), and an iteration's four loop launches gated off;
+    `--config`
+    gives the solver the configuration's loop knobs and CFL."""
     config = ROOT / "portbench/configs/dfsph_converged_f32.json"
     args = argparse.Namespace(particles=1000, steps=2, shard=None, config=str(config))
-    runs, state, per_step, glue = kt.kind_runs("dfsph_padded_k5", args, CPU)
+    runs, state, per_step, glue, gated = kt.kind_runs("dfsph_padded_k5", args, CPU)
+    assert list(gated) == ["gated_div", "gated_corr", "gated_slot_pressure_err",
+                           "gated_slot_pressure_kick"]
+    for call in gated.values():
+        call()
     names = ["slot_pressure_err", "slot_pressure_err_divergence", "slot_pressure_kick"]
     assert list(glue) == names and not set(names) & set(runs)
     n = state[1].numel()

@@ -11,7 +11,8 @@
   2 numbers (WCSPH) or its pressure iterations + 3 (DFSPH), and opens its
   phase scopes in order inside its step scope.
 - `tools/step_phases.attribute` puts each device operation and idle gap of a
-  trace to the scope open at its launch or at the gap's start.
+  trace to the scope open at its launch or at the gap's start, and splits
+  the pressure loops by their iterations and read-backs.
 """
 
 import json
@@ -284,15 +285,36 @@ def test_step_phases_split_each_pressure_loop_by_its_iterations():
     loops = step_phases.attribute(_synthetic_dfsph_step())["loops"]
     assert list(loops) == ["DFSPH.density_loop", "DFSPH.divergence_loop"]
     assert loops["DFSPH.density_loop"] == {
-        "iterations": 2.0, "device_ms": pytest.approx(0.014),
+        "iterations": 2.0, "readbacks": 2.0, "overshoot": None,
+        "device_ms": pytest.approx(0.014),
         "glue_ms": pytest.approx(0.004), "idle_ms": pytest.approx((8 + 14 + 21 + 39) / 2e3),
         "glue_launches": 2.0, "slot_glue_launches": 0.5}
     # idle behind its launch 150-160, and in its read-back from 162 until
     # the next operation at 190
     assert loops["DFSPH.divergence_loop"] == {
-        "iterations": 1.0, "device_ms": pytest.approx(0.022),
+        "iterations": 1.0, "readbacks": 1.0, "overshoot": None,
+        "device_ms": pytest.approx(0.022),
         "glue_ms": pytest.approx(0.002), "idle_ms": pytest.approx(0.038),
         "glue_launches": 1.0, "slot_glue_launches": 0.0}
+
+
+def test_step_phases_count_a_loop_tested_on_the_device():
+    """Where the device tests a loop's exit, the loop reads its state back
+    once a chunk ("sync.loop_state"), and the iteration counts the trace
+    carries (ops/pressure_glue.py ITERATIONS) give its iterations and the
+    share of enqueued iterations gated off."""
+    events = [dict(e, name="sync.loop_state") if e["name"] == "sync.mean_residual" else e
+              for e in _synthetic_dfsph_step()]
+    counts = {"density_enqueued": 4, "density_run": 3, "divergence_enqueued": 2,
+              "divergence_run": 1}
+    loops = step_phases.attribute(events, counts)["loops"]
+    density, divergence = loops["DFSPH.density_loop"], loops["DFSPH.divergence_loop"]
+    assert (density["iterations"], density["readbacks"], density["overshoot"]) == (3, 2, 0.25)
+    assert density["device_ms"] == pytest.approx(0.028 / 3)
+    assert (divergence["iterations"], divergence["readbacks"], divergence["overshoot"]) == (
+        1, 1, 0.5)
+    # without the counts, a device-tested loop's iterations are unknown
+    assert step_phases.attribute(events)["loops"]["DFSPH.density_loop"]["device_ms"] is None
 
 
 def test_step_phases_count_the_loop_iterations_of_a_real_trace(tmp_path):

@@ -65,6 +65,7 @@ from yasph2d_tpu_torch.parallel.shard_dense import (
 )
 from yasph2d_tpu_torch.timemanager import AdaptiveTimeStep as TAdaptive
 from yasph2d_tpu_torch.timemanager import FixedTimeStep as TFixed
+from yasph2d_tpu_torch.utils import profiling
 from yasph2d_tpu_torch.world import FluidParticleWorld as TWorld
 
 torch.set_num_threads(1)
@@ -469,6 +470,7 @@ def solver_run(group, case):
     sharded = cls(group, full_grid=grid, **kw)
     carry, boundary = sharded.init(state, world.boundary_dense(grid, device="cpu"))
     counts, per_band = [], [band_counts(sharded.export_state(carry).alive, grid, group.size)]
+    profiling.reset_readbacks()
     for n in blocks(case):
         carry, d = sharded.simulate(carry, boundary, n)
         counts.append(step_counts(d))
@@ -476,7 +478,8 @@ def solver_run(group, case):
     ctx = carry.ctx if case[0] == "dfsph" else None
     return dict(counts=counts, rows=sharded.gather_live_rows(carry), bands=per_band,
                 kinds=(type(sharded.solver).__name__, sharded.solver.grid.ny),
-                halo=(boundary.halo is not None, ctx is None or ctx.halo is not None))
+                halo=(boundary.halo is not None, ctx is None or ctx.halo is not None),
+                readbacks=dict(profiling.READBACKS), local_sums=sharded.solver._local_sums())
 
 
 def rank_main(group):
@@ -545,6 +548,20 @@ def test_sharded_padded_bf16_equals_one_device(n, kind):
     assert sum(moved) > 0, moved
     assert not torch.equal(one_device((kind, "contact_bf16"))[1],
                            one_device((kind, "contact"))[1])
+
+
+@pytest.mark.parametrize("n", RANKS)
+def test_sharded_padded_loops_test_on_the_host(n):
+    """The shard solvers' residual totals are global (`_local_sums` False),
+    so their pressure loops keep the host's exit test: one "mean_residual"
+    read-back an iteration, no loop state read."""
+    for res in ranks(n):
+        for case in (c for c in CASES if c[0] == "dfsph"):
+            run = res[case]
+            its = sum(c[0] + c[1] for c in run["counts"])
+            assert run["local_sums"] is False and its > 0
+            assert run["readbacks"]["mean_residual"] == its
+            assert "loop_state" not in run["readbacks"]
 
 
 @pytest.mark.parametrize("n", RANKS)

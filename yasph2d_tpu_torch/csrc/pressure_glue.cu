@@ -40,6 +40,21 @@
 // In place: k_sum, k_i and v are the loop's own tensors (created in the
 // step, never the carry); each slot is read, then written by the same
 // thread.
+//
+// The loop's exit test on the device (the host enqueues iterations ahead of
+// it, models/dfsph_dense.py): with a `state` (two ints, zero before the
+// loop's first launch: the index of the loop's last iteration to run, then
+// the bits of the last run iteration's average), a launch of iteration `it`
+// returns at once, writing nothing, unless it <= state[0]. The error
+// kernel's last block then does the host's test on the total, in float32 in
+// the host's order: mean = total / n_live, ratio = mean / rho0; the loop goes
+// on while ratio * dt >= tol and it + 1 <= max_it (at most max_it + 1
+// iterations), so it sets state[0] = it + 1; it writes the average the host
+// reports (DENSITY: mean; else ratio) to state[1]. Without -fmad and fast
+// math these are the host's IEEE operations, so the decision is the host's,
+// bit for bit. The kick of the iteration that stops the loop still runs, as
+// in the host loop. A gated launch's blocks all read state[0] before any
+// takes a ticket, and only the last writes it, so they agree.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -131,7 +146,8 @@ __device__ __forceinline__ float block_sum(float s, float* warp_sums) {
 }
 
 // rho_or_count: DENSITY the slots' densities, else their neighbour totals.
-// partials: a float a block; ticket: zero before the launch, zero after it
+// partials: a float a block; ticket: zero before the launch, zero after it;
+// state: the loop's (module comment), or null for no gate and no test
 template <bool DENSITY>
 __global__ void __launch_bounds__(PG_THREADS)
     slot_pressure_err_kernel(const unsigned char* __restrict__ mask,
@@ -141,9 +157,11 @@ __global__ void __launch_bounds__(PG_THREADS)
                              const float* __restrict__ alpha, float* ki, float* k_sum,
                              float* __restrict__ partials, unsigned* __restrict__ ticket,
                              float* __restrict__ total, int n, float m, float dt, float rho0,
-                             bool dead_zero) {
+                             bool dead_zero, int* state, int it, float n_live, float tol,
+                             int max_it) {
   __shared__ float warp_sums[PG_THREADS / 32];
   __shared__ bool last;
+  if (state != nullptr && it > state[0]) return;
   const int nq = n / 4 + (n % 4 != 0);
   unsigned word[PG_QUADS];
   bool on[PG_QUADS];
@@ -203,6 +221,12 @@ __global__ void __launch_bounds__(PG_THREADS)
   if (threadIdx.x == 0) {
     *total = t;
     *ticket = 0u;
+    if (state != nullptr) {
+      const float mean = t / n_live;
+      const float ratio = mean / rho0;
+      if (ratio * dt >= tol && it + 1 <= max_it) state[0] = it + 1;
+      state[1] = __float_as_int(DENSITY ? mean : ratio);
+    }
   }
 }
 
@@ -210,7 +234,8 @@ __global__ void __launch_bounds__(PG_THREADS)
     slot_pressure_kick_kernel(const unsigned char* __restrict__ mask, float* v,
                               const float* __restrict__ corr, const float* __restrict__ k,
                               const float* __restrict__ sgs, int n, float scale,
-                              bool dead_zero) {
+                              bool dead_zero, const int* state, int it) {
+  if (state != nullptr && it > state[0]) return;
   const int nq = n / 4 + (n % 4 != 0);
   bool on[PG_QUADS];
 #pragma unroll
@@ -242,12 +267,13 @@ __global__ void __launch_bounds__(PG_THREADS)
   }
 }
 
-// blocks of a launch over n slots; false where n is out of range (a
-// two-component tensor's 2n floats are indexed with int)
+// blocks of a launch over n slots, at least one (n = 0 still sums, and
+// tests, nothing); false where n is out of range (a two-component tensor's
+// 2n floats are indexed with int)
 static bool grid_of(int n, dim3* blocks) {
   const int per_block = PG_THREADS * PG_QUADS * 4;
   if (n < 0 || n > INT_MAX / 2 - per_block) return false;
-  *blocks = dim3((unsigned)((n + per_block - 1) / per_block));
+  *blocks = dim3((unsigned)((n + per_block - 1) / per_block + (n == 0)));
   return true;
 }
 
@@ -257,16 +283,18 @@ extern "C" int slot_pressure_blocks(int n) {
 }
 
 // scratch: slot_pressure_blocks(n) partials, then the ticket (zero before
-// the first launch; each launch leaves it zero); total: a 0-d float32
+// the first launch; each launch leaves it zero); total: a 0-d float32;
+// state, it, n_live, tol, max_it: the loop's state and the exit test
+// (module comment), state null for an ungated launch without a test
 extern "C" int slot_pressure_err(const void* mask, const void* div, const void* v,
                                  const void* sgs, const void* rho_or_count, const void* alpha,
                                  void* ki, void* k_sum, void* scratch, void* total, int n,
                                  float m, float dt, float rho0, int density, int dead_zero,
+                                 void* state, int it, float n_live, float tol, int max_it,
                                  void* stream) {
   dim3 blocks;
   if (!grid_of(n, &blocks)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n == 0) return (int)cudaMemsetAsync(total, 0, sizeof(float), s);
   float* partials = static_cast<float*>(scratch);
   unsigned* ticket = reinterpret_cast<unsigned*>(partials + blocks.x);
   auto kernel = density ? slot_pressure_err_kernel<true> : slot_pressure_err_kernel<false>;
@@ -275,19 +303,21 @@ extern "C" int slot_pressure_err(const void* mask, const void* div, const void* 
       static_cast<const float*>(v), static_cast<const float*>(sgs),
       static_cast<const float*>(rho_or_count), static_cast<const float*>(alpha),
       static_cast<float*>(ki), static_cast<float*>(k_sum), partials, ticket,
-      static_cast<float*>(total), n, m, dt, rho0, dead_zero != 0);
+      static_cast<float*>(total), n, m, dt, rho0, dead_zero != 0, static_cast<int*>(state), it,
+      n_live, tol, max_it);
   return (int)cudaGetLastError();
 }
 
+// state, it: the loop's state and the launch's iteration (state null: no gate)
 extern "C" int slot_pressure_kick(const void* mask, void* v, const void* corr, const void* k,
                                   const void* sgs, int n, float scale, int dead_zero,
-                                  void* stream) {
+                                  const void* state, int it, void* stream) {
   dim3 blocks;
   if (!grid_of(n, &blocks)) return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
   slot_pressure_kick_kernel<<<blocks, PG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(mask), static_cast<float*>(v),
       static_cast<const float*>(corr), static_cast<const float*>(k),
-      static_cast<const float*>(sgs), n, scale, dead_zero != 0);
+      static_cast<const float*>(sgs), n, scale, dead_zero != 0,
+      static_cast<const int*>(state), it);
   return (int)cudaGetLastError();
 }

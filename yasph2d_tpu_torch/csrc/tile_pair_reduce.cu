@@ -5,16 +5,19 @@
 #include "tile_pair_reduce.cuh"
 
 // one launcher per form: PREFIX_NAME, K5 (tile_pair_reduce_) or K3
-// (sm_pair_reduce_), each with the same arguments
+// (sm_pair_reduce_), each with the same arguments; gate and gate_i are a
+// pressure loop's state and the launch's iteration (csrc/tile_pair_reduce.cuh
+// TileArgs), null and 0 for an ungated launch
 #define TILE_PAIR_LAUNCHER(PREFIX, NAME, TERM, PER_VIEW)                              \
   extern "C" int PREFIX##_##NAME(                                                     \
       const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,   \
       const void* const* vals, const int* strides, int n_vals, void* out, int P,      \
       int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,     \
-      float scalar, const PairConsts* consts, void* stream) {                         \
+      float scalar, const void* gate, int gate_i, const PairConsts* consts,           \
+      void* stream) {                                                                 \
     return launch<TERM, PER_VIEW>(q_pos, q_mask, s_pos, s_mask, vals, strides,        \
                                   n_vals, out, P, Ps, ny, nx, ty, tx, threads,        \
-                                  q_round, smem, scalar, consts, stream);             \
+                                  q_round, smem, scalar, gate, gate_i, consts, stream); \
   }
 
 // K5 (csrc/tile_pair_reduce.cuh K5_PAIR_FORMS, the JAX XLA closures):
@@ -26,12 +29,12 @@
       const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,   \
       const void* const* vals, const int* strides, int n_vals, void* out, int P,      \
       int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,     \
-      float scalar, float ox, float oy, float cell, int row0, const PairConsts* consts, \
-      void* stream) {                                                                 \
+      float scalar, float ox, float oy, float cell, int row0, const void* gate,       \
+      int gate_i, const PairConsts* consts, void* stream) {                           \
     return launch<TERM<Bf16Math>, true, false, Bf16Math>(                             \
         q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out, P, Ps, ny, nx, ty,  \
-        tx, threads, q_round, smem, scalar, consts, stream, nullptr, nullptr,         \
-        nullptr, Rebase{ox, oy, cell, row0});                                         \
+        tx, threads, q_round, smem, scalar, gate, gate_i, consts, stream, nullptr,    \
+        nullptr, nullptr, Rebase{ox, oy, cell, row0});                                \
   }
 
 K5_PAIR_FORMS(K5_LAUNCHERS)

@@ -125,6 +125,13 @@
 // because an f32 operation rounded to bf16 costs two conversions beside it
 // (1.4-1.8x the f32 forms' time on the H100, with f32 staging).
 //
+// Gate (TileArgs gate, gate_i; the DFSPH pressure loops' device-side exit
+// test, csrc/pressure_glue.cu): a launch of loop iteration gate_i reads the
+// loop's state and, when gate_i is past its last iteration, returns before it
+// loads or writes anything, its output left as allocated (only the loop's
+// gated glue kernels read it). Every other caller passes a null gate: its
+// work and outputs are the same as without one.
+//
 // Build: yasph2d_tpu_torch/ops/cuda_build.py (sm_90a, -fmad=false, no fast
 // math): each term is rounded as in the plain PyTorch twins
 // (yasph2d_tpu_torch/ops/pallas_pair.py pallas_pair_reduce_ref,
@@ -170,6 +177,8 @@ struct TileArgs {
   int q_round;          // query slots per round (list entries)
   float scalar;         // dt, as f32
   PairConsts c;
+  const int* gate;      // a pressure loop's state (its last iteration to run), or null
+  int gate_i;           // the launch's iteration: with a gate it runs iff gate_i <= *gate
 };
 
 // the halo form's arguments: source rows -1 (index 0) and ny (index 1)
@@ -332,6 +341,8 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
   const int pp_mask = (1 << a.lg_pp) - 1;
   const int n_tq = (a.ty * a.tx) << a.lg_pp;
   bool staged = false;
+  // a gated launch past its loop's last iteration writes nothing
+  if (a.gate != nullptr && a.gate_i > *a.gate) return;
 
   for (int q0 = 0; q0 < n_tq; q0 += a.q_round) {
     // 1. live query slots of this round; each warp takes a contiguous range
@@ -570,14 +581,16 @@ __global__ void __launch_bounds__(K5_MAX_THREADS, K5_MIN_BLOCKS)
 static inline int log2_exact(int v) { return __builtin_ctz((unsigned)v); }
 static inline int log2_ceil(int v) { return v <= 1 ? 0 : 32 - __builtin_clz((unsigned)(v - 1)); }
 
-// HALO: h_pos, h_mask and h_vals (Term::NSV pointers, the strides of the
-// source values') are the halo rows. M = Bf16Math: `rb` is the rebase
+// gate, gate_i: a pressure loop's state and the launch's iteration (null:
+// no gate). HALO: h_pos, h_mask and h_vals (Term::NSV pointers, the strides
+// of the source values') are the halo rows. M = Bf16Math: `rb` is the rebase
 template <class Term, bool PER_VIEW, bool HALO = false, class M = F32Math>
 static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
                   const void* s_mask, const void* const* vals, const int* strides,
                   int n_vals, void* out, int P, int Ps, int ny, int nx, int ty, int tx,
-                  int threads, int q_round, int smem, float scalar,
-                  const PairConsts* consts, void* stream, const void* h_pos = nullptr,
+                  int threads, int q_round, int smem, float scalar, const void* gate,
+                  int gate_i, const PairConsts* consts, void* stream,
+                  const void* h_pos = nullptr,
                   const void* h_mask = nullptr, const void* const* h_vals = nullptr,
                   Rebase rb = Rebase{}) {
   const int W = (Ps + 31) / 32;
@@ -620,6 +633,8 @@ static int launch(const void* q_pos, const void* q_mask, const void* s_pos,
   a.q_round = q_round;
   a.scalar = scalar;
   a.c = *consts;
+  a.gate = static_cast<const int*>(gate);
+  a.gate_i = gate_i;
   if constexpr (HALO) {
     a.h_pos = static_cast<const float2*>(h_pos);
     a.h_mask = static_cast<const bool*>(h_mask);

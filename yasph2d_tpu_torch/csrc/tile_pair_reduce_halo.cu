@@ -10,8 +10,9 @@
 
 #include "tile_pair_reduce.cuh"
 
-// tile_pair_reduce_NAME_halo: the arguments of tile_pair_reduce_NAME, then the
-// halo rows' positions, mask and source value pointers; and
+// tile_pair_reduce_NAME_halo: the arguments of tile_pair_reduce_NAME, with
+// the halo rows' positions, mask and source value pointers before the gate;
+// and
 // tile_pair_reduce_NAME_bf16_halo, the bf16 math mode, whose rebase
 // arguments (origin, cell size, the shard's first global row) follow the
 // scalar as in tile_pair_reduce_NAME_bf16
@@ -21,23 +22,24 @@
       const void* const* vals, const int* strides, int n_vals, void* out, int P,       \
       int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,      \
       float scalar, const void* h_pos, const void* h_mask, const void* const* h_vals,  \
-      const PairConsts* consts, void* stream) {                                        \
+      const void* gate, int gate_i, const PairConsts* consts, void* stream) {          \
     return launch<TERM<F32Math>, true, true>(q_pos, q_mask, s_pos, s_mask, vals,       \
                                              strides, n_vals, out, P, Ps, ny, nx, ty,  \
-                                             tx, threads, q_round, smem, scalar,       \
-                                             consts, stream, h_pos, h_mask, h_vals);   \
+                                             tx, threads, q_round, smem, scalar, gate, \
+                                             gate_i, consts, stream, h_pos, h_mask,    \
+                                             h_vals);                                  \
   }                                                                                    \
   extern "C" int tile_pair_reduce_##NAME##_bf16_halo(                                  \
       const void* q_pos, const void* q_mask, const void* s_pos, const void* s_mask,    \
       const void* const* vals, const int* strides, int n_vals, void* out, int P,       \
       int Ps, int ny, int nx, int ty, int tx, int threads, int q_round, int smem,      \
       float scalar, float ox, float oy, float cell, int row0, const void* h_pos,       \
-      const void* h_mask, const void* const* h_vals, const PairConsts* consts,         \
-      void* stream) {                                                                  \
+      const void* h_mask, const void* const* h_vals, const void* gate, int gate_i,     \
+      const PairConsts* consts, void* stream) {                                        \
     return launch<TERM<Bf16Math>, true, true, Bf16Math>(                               \
         q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out, P, Ps, ny, nx, ty,   \
-        tx, threads, q_round, smem, scalar, consts, stream, h_pos, h_mask, h_vals,     \
-        Rebase{ox, oy, cell, row0});                                                   \
+        tx, threads, q_round, smem, scalar, gate, gate_i, consts, stream, h_pos,       \
+        h_mask, h_vals, Rebase{ox, oy, cell, row0});                                   \
   }
 
 // the forms of the padded K5 route (csrc/tile_pair_reduce.cu's K5 launchers)

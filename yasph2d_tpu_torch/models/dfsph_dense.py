@@ -35,13 +35,21 @@ tensors), their twins on CPU tensors; the loop-gradient variants keep torch
 operations, and the plane solver (models/dfsph_plane.py) runs the same loops
 through K1's epilogues or torch.
 
+Where those kernels run on one CUDA device (`_device_exit`), the loops'
+exit test runs on the device: the error kernel tests each iteration's total
+and gates the iterations the host enqueued ahead (K5's or K3's div and corr
+passes, both glue kernels), and the host reads the loop's state back once a
+chunk of iterations (`_pressure_loop`). Everywhere else (sharding, the
+plane solver, the loop-gradient variants, CPU tensors) the host reads each
+iteration's total back and tests it.
+
 The padded carry's rebuild is K4 (ops/sm_rebucket.py) with the payload
 [v*(2) | kappa | stiffness] on both (the JAX package's XLA rebucket is
 bit-equal to it); the sorted carry's is the sort. The viscosity form is the
 model's: dfsph_visc (XSPH) or dfsph_visc_phys (PhysicalViscosityModel) on
 either kernel; any other model is refused. The JAX `lax.while_loop`s become
-host loops that read one residual back per iteration, with the JAX exit
-test (a loop may run max + 1 times).
+host loops with the JAX exit test (a loop may run max + 1 times), tested on
+the device or on the host as above.
 
 `rebuild_every = k > 1` is the JAX package's opt-in stale steps: `simulate`
 runs blocks of one rebuilding step and k - 1 stale ones, which keep the slot
@@ -469,6 +477,17 @@ class DFSPHSlotSolver(SlotSolver):
         loop-gradient variants keep their torch glue."""
         return ctx.grad_dyn is None
 
+    def _device_exit(self, ctx) -> bool:
+        """Whether the pressure loops test their exit on the device: their
+        glue is ops/pressure_glue.py's kernels on a CUDA device, and a
+        residual's total is this device's own (`_local_sums`)."""
+        return self._slot_glue(ctx) and self._local_sums() and ctx.mask.device.type == "cuda"
+
+    def _loop_args(self, dt, density: bool) -> tuple:
+        """(m, dt, rho0, density): the error kernel's arguments in float32."""
+        return (float(f32(self.properties.particle_mass)), float(dt),
+                float(f32(self.properties.fluid_density)), density)
+
     def _loop_error(self, ctx, v_pad, rho_or_count, alpha_pad, k_sum, work, dt,
                     density: bool):
         """One iteration's error of the velocity divergence of v (the
@@ -476,8 +495,7 @@ class DFSPHSlotSolver(SlotSolver):
         divergence loop's, the neighbour totals) -> (k_i, k_sum + k_i, the
         error's 0-d sum over the live slots). `work`: the loop's buffer
         (`pressure_glue.loop_work`)."""
-        args = (float(f32(self.properties.particle_mass)), float(dt),
-                float(f32(self.properties.fluid_density)), density)
+        args = self._loop_args(dt, density)
         if self._slot_glue(ctx):
             return pressure_glue.slot_pressure_err(
                 self._div_pass(ctx, v_pad), v_pad, ctx.sum_grad_stat, rho_or_count, alpha_pad,
@@ -494,6 +512,37 @@ class DFSPHSlotSolver(SlotSolver):
                                                     self._dead_zero)
         return v_pad - scale * self._k_correction(ctx, k_pad)
 
+    def _gated_iteration(self, ctx, v_pad, rho_or_count, alpha_pad, k_sum, work, dt,
+                         scale: float, density: bool, test) -> tuple:
+        """(a function of i that enqueues a loop's iteration i, the loop's
+        exit-test state) for a loop tested on the device: K5's (K3's) div
+        pass, the error kernel, the corr pass on k_i, the kick, each gated on
+        the state (ops/pressure_glue.py). Their operands are the loop's own
+        for all its iterations (v, k_sum and k_i in place, the passes'
+        outputs in buffers of the loop's), so the launchers check them and
+        build the arguments once."""
+        route, forms, mask, pos = self._route, self._forms, ctx.mask, ctx.pos_pad
+        buffers = ki, state = pressure_glue.loop_buffers(work, mask)
+        mode = {} if route.rebase is None else dict(rebase=route.rebase)
+        div, corr = (torch.empty(mask.shape + (n,), dtype=REAL, device=mask.device)
+                     for n in (1, 2))
+        launches = (
+            route.loop_launcher(forms.div, pos, mask, pos, mask, self._consts, (v_pad,),
+                                (v_pad,), div, state, **mode),
+            pressure_glue.err_launcher(div[..., 0], v_pad, ctx.sum_grad_stat, rho_or_count,
+                                       alpha_pad, k_sum, work, mask,
+                                       *self._loop_args(dt, density), self._dead_zero,
+                                       buffers, test),
+            route.loop_launcher(forms.corr, pos, mask, pos, mask, self._consts, (ki,), (ki,),
+                                corr, state, **mode),
+            pressure_glue.kick_launcher(v_pad, corr, ki, ctx.sum_grad_stat, mask, scale,
+                                        self._dead_zero, state))
+
+        def iteration(i: int):
+            for launch in launches:
+                launch(i)
+        return iteration, state
+
     def _correct_density_error(self, dt, dens_pad, alpha_pad, v_pad, kappa_pad,
                                prev_iterations, ctx: DenseCtx, n_particles):
         """Constant-density loop (dfsph_dense.py:529-561); returns
@@ -502,22 +551,11 @@ class DFSPHSlotSolver(SlotSolver):
         rho0 = f32(self.properties.fluid_density)
         m = f32(self.properties.particle_mass)
         scale = float((f32(1.0) / f32(dt)) * m)
-        tol = f32(self.max_avg_density_error)
         if prev_iterations > 1:  # warm start
             k = 0.5 * torch.clamp(kappa_pad, min=float(f32(-0.5) * rho0 * rho0))
             v_pad = self._kick(ctx, v_pad, k, scale)
-        k_sum = torch.zeros_like(kappa_pad)
-        work = pressure_glue.loop_work(ctx.mask) if self._slot_glue(ctx) else None
-        num, avg = 0, f32(np.inf)
-        while num == 0 or (
-            (avg / rho0) * dt >= tol and num <= self.max_density_iterations
-        ):
-            ki, k_sum, total = self._loop_error(ctx, v_pad, dens_pad, alpha_pad, k_sum, work,
-                                                dt, density=True)
-            v_pad = self._kick(ctx, v_pad, ki, scale)
-            avg = self._mean_of_sum(total, n_particles)
-            num += 1
-        return v_pad, k_sum, num, avg
+        return self._pressure_loop(ctx, v_pad, dens_pad, alpha_pad, torch.zeros_like(kappa_pad),
+                                   dt, scale, prev_iterations, n_particles, density=True)
 
     def _correct_divergence_error(self, dt, alpha_pad, v_pad, stiff_pad,
                                   prev_iterations, ctx: DenseCtx, n_particles):
@@ -525,20 +563,67 @@ class DFSPHSlotSolver(SlotSolver):
         constant-density loop."""
         rho0 = f32(self.properties.fluid_density)
         m = float(f32(self.properties.particle_mass))
-        tol = f32(self.max_divergence_error)
         if prev_iterations > 1:  # warm start
             s = 0.5 * torch.clamp(stiff_pad, min=float(f32(-0.5) * rho0 * rho0))
             v_pad = self._kick(ctx, v_pad, s, m)
-        s_sum = torch.zeros_like(stiff_pad)
+        return self._pressure_loop(ctx, v_pad, ctx.neighbor_total, alpha_pad,
+                                   torch.zeros_like(stiff_pad), dt, m, prev_iterations,
+                                   n_particles, density=False)
+
+    def _pressure_loop(self, ctx, v_pad, rho_or_count, alpha_pad, k_sum, dt, scale: float,
+                       prev_iterations: int, n_particles, density: bool):
+        """A pressure loop's iterations after its warm start -> (v, k_sum,
+        iterations, the last iteration's average): the density loop's with
+        `density` (`rho_or_count` the densities), else the divergence
+        loop's (the neighbour totals). An iteration is the error of v's
+        divergence (`_loop_error`), then v's kick by k_i; the loop ends after
+        the first iteration whose average `pressure_glue.exit_test` ends, or
+        after max + 1 (the JAX exit test).
+
+        With `_device_exit` the test runs on the device, and the host
+        enqueues gated iterations ahead of it in chunks (`_gated_iteration`)
+        and reads the loop's state back once a chunk: the loop is done once
+        the device's count of iterations to run is no more than those
+        enqueued. The first chunk is this loop's count in the previous step
+        and an eighth more (at least 1); while the device has not stopped the
+        loop, the next chunk is a quarter of the iterations enqueued so far
+        (at least 2). An iteration enqueued past the loop's end costs its
+        four gated launches, which return at once (0.045 device ms on an
+        H100 at 1M particles); a chunk too short costs a read-back.
+        Elsewhere the host reads each iteration's total back and tests
+        it."""
+        rho0 = f32(self.properties.fluid_density)
+        tol = f32(self.max_avg_density_error if density else self.max_divergence_error)
+        cap = self.max_density_iterations if density else self.max_divergence_iterations
         work = pressure_glue.loop_work(ctx.mask) if self._slot_glue(ctx) else None
-        num, avg = 0, f32(np.inf)
-        while num == 0 or (avg * dt >= tol and num <= self.max_divergence_iterations):
-            ki, s_sum, total = self._loop_error(ctx, v_pad, ctx.neighbor_total, alpha_pad,
-                                                s_sum, work, dt, density=False)
-            v_pad = self._kick(ctx, v_pad, ki, m)
-            avg = self._mean_of_sum(total, n_particles) / rho0
-            num += 1
-        return v_pad, s_sum, num, avg
+        if self._device_exit(ctx):
+            iteration, state = self._gated_iteration(
+                ctx, v_pad, rho_or_count, alpha_pad, k_sum, work, dt, scale, density,
+                pressure_glue.ExitTest(float(f32(n_particles)), float(tol), cap))
+            enqueued, chunk = 0, max(prev_iterations + prev_iterations // 8, 1)
+            while True:
+                end = min(enqueued + chunk, cap + 1)
+                for i in range(enqueued, end):
+                    iteration(i)
+                enqueued = end
+                num, avg = pressure_glue.read_loop_state(state)
+                if num <= enqueued:
+                    break
+                chunk = max(enqueued // 4, 2)
+        else:
+            num, goes_on = 0, True
+            while num == 0 or (goes_on and num <= cap):
+                ki, k_sum, total = self._loop_error(ctx, v_pad, rho_or_count, alpha_pad, k_sum,
+                                                    work, dt, density)
+                v_pad = self._kick(ctx, v_pad, ki, scale)
+                avg, goes_on = pressure_glue.exit_test(self._mean_of_sum(total, n_particles),
+                                                       rho0, dt, tol, density)
+                num += 1
+            enqueued = num
+        loop = "density" if density else "divergence"
+        pressure_glue.ITERATIONS[f"{loop}_enqueued"] += enqueued
+        pressure_glue.ITERATIONS[f"{loop}_run"] += num
+        return v_pad, k_sum, num, avg
 
 
 @contextlib.contextmanager

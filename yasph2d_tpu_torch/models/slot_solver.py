@@ -30,10 +30,10 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import pallas_pair, sm_pair_reduce
 from ..ops.dense_grid import DenseGridConfig, require_float32_pairs, sort_by_dense_keys
-from ..ops.pallas_pair import Rebase, bf16_consts, bf16_form, pallas_pair_reduce, rebase_of
+from ..ops.pallas_pair import Rebase, bf16_consts, bf16_form, rebase_of
 from ..ops.pair_reduce import PairForm
-from ..ops.sm_pair_reduce import sm_pair_reduce
 from ..timemanager import StepConfig
 from ..units import REAL_NP
 from ..utils.diagnostics import Diagnostics
@@ -49,14 +49,18 @@ class PairRoute(NamedTuple):
     slot_major: bool  # the forms' sum order: the JAX slot-major closures' (K3) or XLA's
     rebase: Optional[Rebase]  # K5's bf16 math mode on the grid's global rows; None: f32
     dead_zero: bool  # `reduce` writes +0.0 at dead query slots (K5)
+    # the same kernel's gated launches of a DFSPH pressure loop (`loop_launcher`)
+    loop_launcher: Callable
 
 
 def pair_route(grid: DenseGridConfig, row0: int = 0) -> PairRoute:
     """The route of `grid`'s pair passes; `row0` is the first global cell row
     of a shard's grid (0 on one device)."""
     if grid.use_pallas_slotmajor:
-        return PairRoute(sm_pair_reduce, True, None, False)
-    return PairRoute(pallas_pair_reduce, False, rebase_of(grid, row0), True)
+        return PairRoute(sm_pair_reduce.sm_pair_reduce, True, None, False,
+                         sm_pair_reduce.loop_launcher)
+    return PairRoute(pallas_pair.pallas_pair_reduce, False, rebase_of(grid, row0), True,
+                     pallas_pair.loop_launcher)
 
 
 class HostLoop:
@@ -130,6 +134,12 @@ class SlotSolver(HostLoop):
         """Sum of a per-shard counter (drops) or total (a residual's) over the
         shards: the count itself on one device."""
         return count
+
+    def _local_sums(self) -> bool:
+        """Whether `_sum_counts` is the identity (one device): a residual's
+        total is then this device's own, and the DFSPH pressure loops may
+        test it on the device (models/dfsph_dense.py)."""
+        return True
 
     def _count_live(self, mask: torch.Tensor) -> np.float32:
         """Live-particle count, the residual-average denominator (the reference

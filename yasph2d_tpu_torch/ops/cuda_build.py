@@ -146,21 +146,22 @@ def library() -> ctypes.CDLL:
     for name in ([f"sm_pair_reduce_{f}" for f in SM_PAIR_FORMS]
                  + [f"tile_pair_reduce_{f}" for f in TILE_PAIR_FORMS]):
         fn = getattr(lib, name)
-        # q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out,
-        # P, Ps, ny, nx, ty, tx, threads, query round, smem, scalar, consts, stream
+        # q_pos, q_mask, s_pos, s_mask, vals, strides, n_vals, out, P, Ps, ny,
+        # nx, ty, tx, threads, query round, smem, scalar, gate, gate's
+        # iteration, consts, stream
         fn.argtypes = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P, _I,
                        ctypes.POINTER(PairConsts), _P]
         fn.restype = _I
     for form in TILE_PAIR_FORMS:
         # K5's bf16 mode: the rebase (origin x, origin y, cell size, first
         # global row) after the scalar; the halo forms: the halo rows'
-        # positions, mask and source value pointers before consts
+        # positions, mask and source value pointers before the gate
         head = [_P, _P, _P, _P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P,
                 _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float]
         rebase = [ctypes.c_float, ctypes.c_float, ctypes.c_float, _I]
         halo = [_P, _P, ctypes.POINTER(_P)]
-        tail = [ctypes.POINTER(PairConsts), _P]
+        tail = [_P, _I, ctypes.POINTER(PairConsts), _P]
         for name, args in ((f"{form}_bf16", head + rebase + tail),
                            (f"{form}_halo", head + halo + tail),
                            (f"{form}_bf16_halo", head + rebase + halo + tail)):
@@ -198,10 +199,13 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = _I
     # the DFSPH pressure loops' glue (csrc/pressure_glue.cu): mask, the
     # inputs, the in-place outputs, [scratch, total], slot count, the float
-    # arguments, [density], dead_zero, stream; the scratch's block count
-    lib.slot_pressure_err.argtypes = [_P] * 10 + [_I, _F, _F, _F, _I, _I, _P]
+    # arguments, [density], dead_zero, the loop's state and the launch's
+    # iteration, [the exit test's live count, tolerance and cap], stream;
+    # the scratch's block count
+    lib.slot_pressure_err.argtypes = [_P] * 10 + [_I, _F, _F, _F, _I, _I, _P, _I, _F, _F, _I,
+                                                  _P]
     lib.slot_pressure_err.restype = _I
-    lib.slot_pressure_kick.argtypes = [_P] * 5 + [_I, _F, _I, _P]
+    lib.slot_pressure_kick.argtypes = [_P] * 5 + [_I, _F, _I, _P, _I, _P]
     lib.slot_pressure_kick.restype = _I
     lib.slot_pressure_blocks.argtypes = [_I]
     lib.slot_pressure_blocks.restype = _I

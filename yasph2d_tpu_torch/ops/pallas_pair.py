@@ -68,6 +68,14 @@ The sums are f32 in K5's order: per view over Ps, then the views; the JAX
 pass sums one 9 Ps axis. The constants come rounded (`bf16_consts`), the
 scalar is rounded here. The CUDA forms of this mode launch and count under
 `<form>_bf16` and `<form>_bf16_halo`.
+
+Loop launches (`loop_launcher`; K3's in ops/sm_pair_reduce.py): a DFSPH
+pressure loop whose exit test runs on the device (ops/pressure_glue.py)
+launches its div and corr passes once an iteration on the same operands,
+into an output of its own. The launcher checks them and builds the launch's
+arguments once and returns a function of the iteration i that launches it
+gated on the loop's state: it writes nothing unless i <= state[0]. On CPU
+tensors it runs the twin into the output under the same condition.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -427,22 +435,24 @@ def halo_operands(halo: Halo, s_vals, device, nx: int, ps: int) -> tuple:
     return h_pos.data_ptr(), h_mask.data_ptr(), ptrs
 
 
-def tile_launch(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
-                consts: cuda_build.PairConsts, q_vals, s_vals, scalars, tile,
-                halo: Optional[Halo] = None, rebase: Optional[Rebase] = None
-                ) -> torch.Tensor:
-    """Launch `kernel`'s instantiation of `form` (csrc/tile_pair_reduce.cu:
-    `tile_pair_reduce`, K5's sum order, or `sm_pair_reduce`, K3's) on CUDA
-    tensors with the launch shape `tile` = (TY, TX, threads); returns
-    (ny, nx, P, n_out). A `halo` (K5 only) launches the form's halo
-    instantiation (csrc/tile_pair_reduce_halo.cu), a `rebase` (K5 only) its
-    bf16 math mode. Counts nothing."""
+def tile_call(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
+              consts: cuda_build.PairConsts, q_vals, s_vals, scalars, tile, out,
+              halo: Optional[Halo] = None, rebase: Optional[Rebase] = None) -> tuple:
+    """Check a launch of `kernel`'s instantiation of `form` (csrc/
+    tile_pair_reduce.cu: `tile_pair_reduce`, K5's sum order, or
+    `sm_pair_reduce`, K3's) on CUDA tensors with the launch shape `tile` =
+    (TY, TX, threads) into `out` (ny, nx, P, n_out), and return (its
+    launcher's name, the arguments before the gate, those after it). A
+    `halo` (K5 only) is the form's halo instantiation
+    (csrc/tile_pair_reduce_halo.cu), a `rebase` (K5 only) its bf16 math
+    mode."""
     require_mode(kernel, form, rebase)
     (ny, nx, p, ps), ptrs, strides, scalar = slot_operands(
         kernel, q_pos, q_mask, s_pos, s_mask, q_vals, s_vals, scalars)
     ty, tx, threads = tile
     n_sv = len(_comps(s_vals))
-    out = torch.empty((ny, nx, p, form.n_out), dtype=torch.float32, device=q_pos.device)
+    cuda_build.check_tensor(out, q_pos.device, (ny, nx, p, form.n_out), torch.float32,
+                            f"{kernel}: output")
     name, extra = f"{kernel}_{form.name}", ()
     if (halo is not None or rebase is not None) and kernel != "tile_pair_reduce":
         raise ValueError(f"{kernel}: no halo form and no bf16 mode (K5's sum order only)")
@@ -455,15 +465,49 @@ def tile_launch(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
         h_pos, h_mask, h_ptrs = halo_operands(halo, s_vals, q_pos.device, nx, ps)
         name += "_halo"
         extra += (h_pos, h_mask, cuda_build.pointer_array(h_ptrs))
-    err = getattr(cuda_build.library(), name)(
+    return name, (
         q_pos.data_ptr(), q_mask.data_ptr(), s_pos.data_ptr(), s_mask.data_ptr(),
         cuda_build.pointer_array(ptrs), cuda_build.int_array(strides), len(ptrs),
         out.data_ptr(), p, ps, ny, nx, ty, tx, threads, query_round(ty, tx, p),
-        smem_bytes(ty, tx, p, ps, n_sv, rebase is not None), scalar, *extra, consts,
-        torch.cuda.current_stream(q_pos.device).cuda_stream,
-    )
-    cuda_build.check(err, name)
+        smem_bytes(ty, tx, p, ps, n_sv, rebase is not None), scalar, *extra), (
+        consts, torch.cuda.current_stream(q_pos.device).cuda_stream)
+
+
+def tile_launch(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
+                consts: cuda_build.PairConsts, q_vals, s_vals, scalars, tile,
+                halo: Optional[Halo] = None, rebase: Optional[Rebase] = None
+                ) -> torch.Tensor:
+    """Launch `kernel`'s instantiation of `form` (`tile_call`) without a
+    gate; returns (ny, nx, P, n_out). Counts nothing."""
+    out = torch.empty(q_mask.shape + (form.n_out,), dtype=torch.float32, device=q_pos.device)
+    name, head, tail = tile_call(kernel, form, q_pos, q_mask, s_pos, s_mask, consts, q_vals,
+                                 s_vals, scalars, tile, out, halo, rebase)
+    cuda_build.check(getattr(cuda_build.library(), name)(*head, None, 0, *tail), name)
     return out
+
+
+def gated_tile_launcher(kernel: str, form: PairForm, q_pos, q_mask, s_pos, s_mask,
+                        consts: cuda_build.PairConsts, q_vals, s_vals, out, state,
+                        rebase: Optional[Rebase], twin: Callable, count: Callable) -> Callable:
+    """A function of a loop's iteration i that launches `kernel`'s `form`
+    (`tile_call`, at `tile_shape`'s launch shape) into `out`, gated on the
+    loop's int32 `state` (module docstring) and counted by `count()`; on
+    CPU tensors `twin()` computes the pass."""
+    if q_pos.device.type == "cpu":
+        def launch(i: int):
+            if i <= int(state[0]):
+                out.copy_(twin())
+        return launch
+    cuda_build.check_tensor(state, q_pos.device, (2,), torch.int32, f"{kernel}: loop state")
+    tile = tile_shape(q_mask.shape[2], s_mask.shape[2], len(_comps(s_vals)), rebase is not None)
+    name, head, tail = tile_call(kernel, form, q_pos, q_mask, s_pos, s_mask, consts, q_vals,
+                                 s_vals, (), tile, out, rebase=rebase)
+    fn, head = getattr(cuda_build.library(), name), head + (state.data_ptr(),)
+
+    def launch(i: int, _out=out):
+        cuda_build.check(fn(*head, i, *tail), name)
+        count()
+    return launch
 
 
 def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.PairConsts,
@@ -476,6 +520,26 @@ def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.Pair
     other shapes through this)."""
     return tile_launch("tile_pair_reduce", form, q_pos, q_mask, s_pos, s_mask, consts,
                        q_vals, s_vals, scalars, tile, halo, rebase)
+
+
+def loop_launcher(form: PairForm, q_pos, q_mask, s_pos, s_mask,
+                  consts: cuda_build.PairConsts, q_vals, s_vals, out, state,
+                  rebase: Optional[Rebase] = None) -> Callable:
+    """K5's `form` (one device, no scalar) into `out`, gated on a pressure
+    loop's `state`, as a function of the iteration (module docstring);
+    counted as `pallas_pair_reduce` counts."""
+    require_mode("pallas_pair_reduce", form, rebase)
+    key = form.name + ("" if rebase is None else "_bf16")
+
+    def twin():
+        return pallas_pair_reduce_ref(form.term_fn, form.n_out, q_pos, q_mask, s_pos, s_mask,
+                                      consts.radius_sq, q_vals=q_vals, s_vals=s_vals,
+                                      rebase=rebase)
+
+    def count():
+        LAUNCHES[key] += 1
+    return gated_tile_launcher("tile_pair_reduce", form, q_pos, q_mask, s_pos, s_mask, consts,
+                               q_vals, s_vals, out, state, rebase, twin, count)
 
 
 def pallas_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,

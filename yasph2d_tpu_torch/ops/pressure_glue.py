@@ -45,22 +45,87 @@ Operands: contiguous float32 slot-major tensors of the mask's (ny, nx, P)
 slots and (ny, nx, P, 2) vectors, each 16-byte aligned on CUDA (the kernels
 load quads as float4). A wrapper raises on any other device, dtype, shape,
 stride or alignment.
+
+The loop's exit test on the device. A loop that the host enqueues ahead of
+its test (models/dfsph_dense.py) keeps a state of two int32 words, zero at
+its start (`loop_buffers`): the index of its last iteration to run, and the
+bits of the last run iteration's average. Its launches come from launchers
+(`err_launcher`, `kick_launcher`; K5's and K3's `loop_launcher`), which
+check the loop's operands and build the arguments once and return a
+function of the iteration i: a launch writes nothing unless i <= state[0].
+The error kernel then also runs the host loop's exit test (`exit_test`) on
+the total, with an `ExitTest` (the live count, the tolerance, the cap): if
+the loop goes on it sets state[0] = i + 1, and it writes the average the
+loop reports to state[1] (csrc/pressure_glue.cu), which `read_loop_state`
+reads back once for many iterations. On CPU tensors the launchers run the
+twins under the same conditions, into the loop's tensors. `ITERATIONS`
+counts each loop's iterations enqueued and run (models/dfsph_dense.py
+counts them; on the host's test they are equal), `utils/profiling.READBACKS`
+the state's read-backs ("loop_state").
 """
 
+from typing import Callable, NamedTuple
+
+import numpy as np
 import torch
 
 from ..units import REAL
+from ..utils.profiling import read_back
 from . import cuda_build
 from .dense_grid import f32_scalar
 from .slot_glue import _check
 
+f32 = np.float32
+
 # kernel launches, counted where the wrapper launches
 LAUNCHES = {"slot_pressure_err": 0, "slot_pressure_kick": 0}
+# pressure-loop iterations by loop (density, divergence): enqueued, gated or
+# not, and run
+ITERATIONS = {f"{loop}_{what}": 0 for loop in ("density", "divergence")
+              for what in ("enqueued", "run")}
 
 
 def reset_launch_counts():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in ITERATIONS:
+        ITERATIONS[name] = 0
+
+
+class ExitTest(NamedTuple):
+    """What the error kernel's exit test takes besides the launch's own
+    arguments (rho0, dt, the loop)."""
+
+    n_live: float  # the live particle count (float32), the average's divisor
+    tol: float  # float32
+    max_iterations: int  # the loop runs at most max_iterations + 1 times
+
+
+def exit_test(mean, rho0, dt, tol, density: bool):
+    """(the average a loop reports, whether it goes on) of an iteration's
+    mean error, in float32 as the host loops test it (dfsph.rs:226, 381):
+    ratio = mean / rho0 goes on while ratio * dt >= tol; the density loop
+    reports the mean, the divergence loop the ratio. The cap is the
+    caller's."""
+    ratio = f32(mean) / f32(rho0)
+    return (f32(mean) if density else ratio), bool(ratio * f32(dt) >= f32(tol))
+
+
+def loop_buffers(work, mask) -> tuple:
+    """(k_i (ny, nx, P), the exit test's zero (2,) int32 state) of a loop
+    tested on the device: on CUDA views of its `loop_work`, on the CPU
+    (`work` None) tensors of their own."""
+    if work is None:
+        return (torch.zeros(mask.shape, dtype=REAL),
+                torch.zeros(2, dtype=torch.int32))
+    return work[:mask.numel()].view(mask.shape), work[-2:].view(torch.int32)
+
+
+def read_loop_state(state) -> tuple:
+    """(iterations run, the last one's average as np.float32) of a loop's
+    state: one read-back, READBACKS["loop_state"]."""
+    last, bits = read_back("loop_state", state)
+    return last + 1, np.int32(bits).view(f32)
 
 
 # ------------------------------------------------------------------- twins
@@ -120,13 +185,33 @@ def _launch(name: str, *args):
 def loop_work(mask):
     """The buffer one pressure loop's slot_pressure_err launches share on
     CUDA: its k_i, (ny, nx, P), then the residual's block partials and
-    ticket, all zero; None on the CPU, where the twins need none."""
+    ticket, then the loop's exit-test state (`loop_buffers`), all zero; None
+    on the CPU, where the twins need none."""
     if mask.device.type != "cuda":
         return None
     blocks = cuda_build.library().slot_pressure_blocks(mask.numel())
     if blocks < 0:
         raise ValueError(f"slot_pressure_err: {mask.numel()} slots are too many")
-    return torch.zeros(mask.numel() + blocks + 1, dtype=REAL, device=mask.device)
+    return torch.zeros(mask.numel() + blocks + 3, dtype=REAL, device=mask.device)
+
+
+def _err_args(div, v, sgs, rho_or_count, alpha, k_sum, work, ki, mask, m: float, dt: float,
+              rho0: float, density: bool, dead_zero: bool) -> tuple:
+    """Check `work` (the aligned CUDA operands are checked); (k_i, the 0-d
+    total, the launcher's arguments before the loop's state), k_i into `ki`,
+    or into `work` where it is None."""
+    n = mask.numel()
+    if (not isinstance(work, torch.Tensor) or work.device != mask.device
+            or work.dtype != REAL or work.numel() != n
+            + cuda_build.library().slot_pressure_blocks(n) + 3):
+        raise ValueError("slot_pressure_err: `work` must be loop_work(mask)")
+    ki = loop_buffers(work, mask)[0] if ki is None else ki
+    total = torch.empty((), dtype=REAL, device=mask.device)
+    return ki, total, (mask.data_ptr(), div.data_ptr(), v.data_ptr(), sgs.data_ptr(),
+                       rho_or_count.data_ptr(), alpha.data_ptr(), ki.data_ptr(),
+                       k_sum.data_ptr(), work[n:].data_ptr(), total.data_ptr(), n,
+                       f32_scalar(m), f32_scalar(dt), f32_scalar(rho0), int(density),
+                       int(dead_zero))
 
 
 def slot_pressure_err(div, v, sgs, rho_or_count, alpha, k_sum, work, mask, m: float,
@@ -139,17 +224,9 @@ def slot_pressure_err(div, v, sgs, rho_or_count, alpha, k_sum, work, mask, m: fl
                           (rho_or_count, 1), (alpha, 1), (k_sum, 1)):
         return pressure_err_ref(div, v, sgs, rho_or_count, alpha, k_sum, work, mask, m, dt,
                                 rho0, density, dead_zero)
-    n = mask.numel()
-    if (not isinstance(work, torch.Tensor) or work.device != mask.device
-            or work.dtype != REAL or work.numel() != n
-            + cuda_build.library().slot_pressure_blocks(n) + 1):
-        raise ValueError("slot_pressure_err: `work` must be loop_work(mask)")
-    ki = work[:n].view(mask.shape)
-    total = torch.empty((), dtype=REAL, device=mask.device)
-    _launch("slot_pressure_err", mask.data_ptr(), div.data_ptr(), v.data_ptr(), sgs.data_ptr(),
-            rho_or_count.data_ptr(), alpha.data_ptr(), ki.data_ptr(), k_sum.data_ptr(),
-            work[n:].data_ptr(), total.data_ptr(), n, f32_scalar(m), f32_scalar(dt),
-            f32_scalar(rho0), int(density), int(dead_zero))
+    ki, total, args = _err_args(div, v, sgs, rho_or_count, alpha, k_sum, work, None, mask, m,
+                                dt, rho0, density, dead_zero)
+    _launch("slot_pressure_err", *args, None, 0, 0.0, 0.0, 0)
     return ki, k_sum, total
 
 
@@ -159,5 +236,65 @@ def slot_pressure_kick(v, corr, k, sgs, mask, scale: float, dead_zero: bool = Fa
     if not _check_aligned("slot_pressure_kick", mask, (v, 2), (corr, 2), (k, 1), (sgs, 2)):
         return pressure_kick_ref(v, corr, k, sgs, mask, scale, dead_zero)
     _launch("slot_pressure_kick", mask.data_ptr(), v.data_ptr(), corr.data_ptr(), k.data_ptr(),
-            sgs.data_ptr(), mask.numel(), f32_scalar(scale), int(dead_zero))
+            sgs.data_ptr(), mask.numel(), f32_scalar(scale), int(dead_zero), None, 0)
     return v
+
+
+def _gated(name: str, state, mask, head: tuple, tail: tuple = (), alive=()) -> Callable:
+    """A function of a loop's iteration i that launches `name` with the
+    arguments head, the loop's `state`, i, tail on the current stream,
+    counted in LAUNCHES; it holds `alive`, the tensors it writes that no
+    caller holds."""
+    cuda_build.check_tensor(state, mask.device, (2,), torch.int32, f"{name}: loop state")
+    fn, stream = getattr(cuda_build.library(), name), torch.cuda.current_stream().cuda_stream
+    head += (state.data_ptr(),)
+
+    def launch(i: int, _alive=alive):
+        cuda_build.check(fn(*head, i, *tail, stream), name)
+        LAUNCHES[name] += 1
+    return launch
+
+
+def err_launcher(div, v, sgs, rho_or_count, alpha, k_sum, work, mask, m: float, dt: float,
+                 rho0: float, density: bool, dead_zero: bool, buffers: tuple, test: ExitTest
+                 ) -> Callable:
+    """slot_pressure_err of a loop's iteration i as a function of i (module
+    docstring): k_i into the loop's `buffers` (`loop_buffers(work, mask)`:
+    k_i, the state), k_sum in place, gated on the loop's state and testing
+    its exit with `test`; on CPU tensors the twin, in place, and
+    `exit_test`."""
+    ki, state = buffers
+    if not _check_aligned("slot_pressure_err", mask, (div, 1), (v, 2), (sgs, 2),
+                          (rho_or_count, 1), (alpha, 1), (k_sum, 1), (ki, 1)):
+        def launch(i: int):
+            if i > int(state[0]):
+                return
+            out = pressure_err_ref(div, v, sgs, rho_or_count, alpha, k_sum, work, mask, m, dt,
+                                   rho0, density)
+            ki.copy_(out[0])
+            k_sum.copy_(out[1])
+            avg, goes_on = exit_test(f32(out[2].item()) / f32(test.n_live), rho0, dt, test.tol,
+                                     density)
+            if goes_on and i + 1 <= test.max_iterations:
+                state[0] = i + 1
+            state[1] = int(avg.view(np.int32))
+        return launch
+    _, total, args = _err_args(div, v, sgs, rho_or_count, alpha, k_sum, work, ki, mask, m, dt,
+                               rho0, density, dead_zero)
+    return _gated("slot_pressure_err", state, mask, args,
+                  (f32_scalar(test.n_live), f32_scalar(test.tol), int(test.max_iterations)),
+                  alive=total)
+
+
+def kick_launcher(v, corr, k, sgs, mask, scale: float, dead_zero: bool, state) -> Callable:
+    """slot_pressure_kick of a loop's iteration i as a function of i (module
+    docstring): v in place, gated on the loop's `state`; on CPU tensors the
+    twin, in place."""
+    if not _check_aligned("slot_pressure_kick", mask, (v, 2), (corr, 2), (k, 1), (sgs, 2)):
+        def launch(i: int):
+            if i <= int(state[0]):
+                v.copy_(pressure_kick_ref(v, corr, k, sgs, mask, scale))
+        return launch
+    return _gated("slot_pressure_kick", state, mask,
+                  (mask.data_ptr(), v.data_ptr(), corr.data_ptr(), k.data_ptr(),
+                   sgs.data_ptr(), mask.numel(), f32_scalar(scale), int(dead_zero)))

@@ -22,12 +22,14 @@ Launch shape: K5's (ops/pallas_pair.py `tile_shape`, `smem_bytes`,
 haloed source tile fits a block.
 """
 
+from typing import Callable
+
 import torch
 
 from . import cuda_build
 from .dense_grid import MIN_DISTANCE_SQ
 from .pair_reduce import PairForm
-from .pallas_pair import _comps, tile_launch, tile_shape
+from .pallas_pair import _comps, gated_tile_launcher, tile_launch, tile_shape
 
 # kernel launches per call form, counted where the wrapper launches
 LAUNCHES = {form: 0 for form in cuda_build.SM_PAIR_FORMS}
@@ -85,6 +87,21 @@ def launch(form: PairForm, q_pos, q_mask, s_pos, s_mask, consts: cuda_build.Pair
     times other shapes through this)."""
     return tile_launch("sm_pair_reduce", form, q_pos, q_mask, s_pos, s_mask, consts,
                        q_vals, s_vals, scalars, tile)
+
+
+def loop_launcher(form: PairForm, q_pos, q_mask, s_pos, s_mask,
+                  consts: cuda_build.PairConsts, q_vals, s_vals, out, state) -> Callable:
+    """K3's `form` (no scalar) into `out`, gated on a pressure loop's
+    `state`, as a function of the iteration (ops/pallas_pair.py
+    `loop_launcher`); counted as `sm_pair_reduce` counts."""
+    def twin():
+        return sm_pair_reduce_ref(form.term_fn, form.n_out, q_pos, q_mask, s_pos, s_mask,
+                                  consts.radius_sq, q_vals=q_vals, s_vals=s_vals)
+
+    def count():
+        LAUNCHES[form.name] += 1
+    return gated_tile_launcher("sm_pair_reduce", form, q_pos, q_mask, s_pos, s_mask, consts,
+                               q_vals, s_vals, out, state, None, twin, count)
 
 
 def sm_pair_reduce(form: PairForm, q_pos, q_mask, s_pos, s_mask,

@@ -199,6 +199,11 @@ class _SpatialCollectives:
         # so every shard takes the same loop exit
         return self.group.sum(count)
 
+    def _local_sums(self) -> bool:
+        # the residuals' totals are global: the pressure loops test them on
+        # the host
+        return False
+
 
 class _SlotCollectives(_SpatialCollectives):
     """The slot-layout (padded and sorted) solvers' sharding hooks; K5 is

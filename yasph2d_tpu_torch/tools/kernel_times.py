@@ -33,7 +33,12 @@ density loop's mode, and in the divergence loop's as
 `slot_pressure_err_divergence`, slot_pressure_kick), their bounds by
 tools/roofline.py `pressure_glue_bytes`; their "bit_equal" holds every slot
 of k_i, k_sum and v to the twin's bits and the error's total to 1e-6 of the
-twin's (`pressure_glue_check`). `--config` takes a solver
+twin's (`pressure_glue_check`); and, where the tree has the loops' exit
+test on the device (ops/pressure_glue.py `err_launcher`), under "gated"
+the ms of each of an iteration's four loop launches gated off
+(`gated_calls`: K5's or K3's div and corr passes, the error kernel with
+its test, the kick), the cost of an iteration enqueued past a loop's
+end. `--config` takes a solver
 configuration in the benchmark's JSON form (portbench/configs/*.json): its
 pressure-loop tolerances and caps and its CFL factor replace the kind's, so
 that `--kind dfsph_padded_k5 --steps 144 --config
@@ -285,6 +290,30 @@ def pressure_glue_calls(solver, carry) -> dict:
                 float(np.float32(1.0) / np.float32(dt) * np.float32(m)), dz), ctx.mask)}
 
 
+def gated_calls(solver, carry, pg) -> dict:
+    """{label: function of no argument} of a pressure-loop iteration's four
+    loop launches (ops/pressure_glue.py `pg`) on a padded DFSPH `carry`,
+    each gated off (the loop's last iteration 0, the launch's 1): K5's or
+    K3's div and corr passes and the two glue kernels. Each call builds its
+    launcher, on the stream it runs on."""
+    ctx, route, forms = carry.ctx, solver._route, solver._forms
+    mask, pos = ctx.mask, ctx.pos_pad
+    calls = pressure_glue_calls(solver, carry)
+    err, kick = calls["slot_pressure_err"][1], calls["slot_pressure_kick"][1]
+    buffers = pg.loop_buffers(err[6], mask)
+    test = pg.ExitTest(float(np.float32(int(mask.sum()))), 1e-8, 200)
+    mode = {} if route.rebase is None else dict(rebase=route.rebase)
+
+    def pair(form, vals):
+        out = torch.empty(mask.shape + (form.n_out,), device=mask.device)
+        return lambda: route.loop_launcher(form, pos, mask, pos, mask, solver._consts, (vals,),
+                                           (vals,), out, buffers[1], **mode)(1)
+
+    return {"gated_div": pair(forms.div, err[1]), "gated_corr": pair(forms.corr, kick[2]),
+            "gated_slot_pressure_err": lambda: pg.err_launcher(*err, buffers, test)(1),
+            "gated_slot_pressure_kick": lambda: pg.kick_launcher(*kick, buffers[1])(1)}
+
+
 def pressure_glue_check(name: str, operands) -> tuple:
     """(kernel call, twin call, equal) of pressure glue kernel `name` on
     `operands`: the kernel on copies of the tensors it updates in place
@@ -353,7 +382,7 @@ def kind_runs(kind, args, device) -> tuple:
     solver, boundary = bench_solver(kind, world, device=device,
                                     **({} if args.shard is None else dict(ny_multiple=2)))
     carry = solver.init_carry(world.initial_state(device=device), boundary)
-    per_step = []
+    per_step, gated = [], {}
     if getattr(args, "config", None):
         solver = configured(solver, args.config)
     try:  # the padded WCSPH step's glue kernels; a tree before them has none
@@ -419,6 +448,8 @@ def kind_runs(kind, args, device) -> tuple:
                         bit_equal=equal, launches_per_step=(
                             pressure_glue.LAUNCHES[name] - glue_before[name])
                         / max(args.steps, 1))
+                if hasattr(pressure_glue, "err_launcher"):
+                    gated = gated_calls(solver, carry, pressure_glue)
         elif "padded" in kind:
             runs["sm_rebucket"], runs["sm_rebucket_rows_alone"] = shard_rebucket(
                 solver, carry, r0, r1)
@@ -436,7 +467,7 @@ def kind_runs(kind, args, device) -> tuple:
         adv = pos + carry.v * float(carry.time.dt)
         runs["rebucket"] = lambda: rebucket(adv, mask, values, solver.grid)
         state = (pos, mask)
-    return runs, state, per_step, records
+    return runs, state, per_step, records, gated
 
 
 def configured(solver, path):
@@ -510,7 +541,7 @@ def main(argv=None):
             print(json.dumps({"kind": kind, "live": int((q[2] > 0).sum()),
                               "device": torch.cuda.get_device_name(0), "ms": times}), flush=True)
             continue
-        runs, state, per_step, records = kind_runs(kind, args, device)
+        runs, state, per_step, records, gated = kind_runs(kind, args, device)
         if args.save:
             saved[kind] = {"state": _cpu(state),
                            "outputs": {label: _cpu(run()) for label, run in runs.items()}}
@@ -521,7 +552,9 @@ def main(argv=None):
                           "shard": args.shard, "live": int(state[1].sum()),
                           "device": torch.cuda.get_device_name(0),
                           "iterations_drops_per_step": per_step, "ms": times,
-                          **({"glue": glue} if glue else {})}), flush=True)
+                          **({"glue": glue} if glue else {}),
+                          **({"gated": {label: graph_ms(run) for label, run in gated.items()}}
+                             if gated else {})}), flush=True)
     if args.save:
         torch.save(saved, args.save)
 

@@ -29,18 +29,24 @@ gives the launches of the glue kernels a step (`SLOT_GLUE`: the padded
 WCSPH step's, ops/slot_glue.py `LAUNCHES`, and the DFSPH pressure loops',
 ops/pressure_glue.py `LAUNCHES`).
 
-A DFSPH pressure loop (`LOOP_SCOPES`) reads its mean residual back once an
-iteration (`LOOP_SYNC`), so the "sync.mean_residual" scopes inside a loop's
-scope count its iterations, as the step's Diagnostics count them. For each
-loop the table `loops` gives the iterations a step and the device, glue and
-idle ms and the glue launches and glue kernel launches (`SLOT_GLUE`) an
-iteration: everything that falls inside the loop's scope, its read-backs'
-idle included, over its iterations.
+A DFSPH pressure loop (`LOOP_SCOPES`) reads back its mean residual once an
+iteration where the host tests its exit ("sync.mean_residual"), its state
+once a chunk of iterations where the device does ("sync.loop_state";
+models/dfsph_dense.py `_pressure_loop`). A trace that tools/trace_step.py
+wrote carries the loops' iteration counts over its steps (ops/pressure_glue.py
+`ITERATIONS`, the trace's "iterations" key); without them a loop's
+iterations are its "sync.mean_residual" read-backs, as on the host's test.
+For each loop the table `loops` gives the iterations and read-backs a step,
+the share of enqueued iterations that the device's test gated off
+(`overshoot`: (enqueued - run) / enqueued; None without the counts), and
+the device, glue and idle ms and the glue launches and glue kernel launches
+(`SLOT_GLUE`) an iteration: everything that falls inside the loop's scope,
+its read-backs' idle included, over its iterations.
 """
 
 import argparse
 import json
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 from ..ops import pressure_glue, slot_glue
 
@@ -49,9 +55,12 @@ STEP_SCOPES = ("WCSPH.step", "DFSPH.step")
 PAIR_SCOPES = ("WCSPH.pairs", "DFSPH.viscosity", "DFSPH.context", "DFSPH.density_loop",
                "DFSPH.divergence_loop")
 SYNC_PREFIX = "sync."
-# the DFSPH pressure loops, and the read-back each of their iterations makes
-LOOP_SCOPES = ("DFSPH.density_loop", "DFSPH.divergence_loop")
+# the DFSPH pressure loops, by their loop's name in pressure_glue.ITERATIONS,
+# and their read-backs: one an iteration on the host's exit test, one a
+# chunk of iterations on the device's
+LOOP_SCOPES = {"DFSPH.density_loop": "density", "DFSPH.divergence_loop": "divergence"}
 LOOP_SYNC = "sync.mean_residual"
+LOOP_SYNCS = (LOOP_SYNC, "sync.loop_state")
 # the port's kernels, as substrings of their traced names: K1 / K3 / K5
 # (pair_reduce_kernel, tile_pair_reduce_kernel), K2 (rebucket_kernel), K4
 KERNELS = ("pair_reduce_kernel", "rebucket_kernel", "sm_rebucket_staged",
@@ -114,11 +123,12 @@ def operations(events: list, spans=None) -> list:
                                                         float(e["ts"])) for e in ops])))
 
 
-def attribute(events: list) -> dict:
+def attribute(events: list, iterations: Optional[dict] = None) -> dict:
     """The per-scope table, the split and the loops of a trace's events (the
     module docstring's rules); times in ms a step (the loops': an
     iteration); split None and no loops where the trace holds no step
-    scope."""
+    scope. `iterations`: the loops' counts over the trace's steps
+    (pressure_glue.ITERATIONS' keys), or None."""
     spans = _spans(events)
     op_stacks = operations(events, spans)
     ops = [e for e, _ in op_stacks]
@@ -186,9 +196,16 @@ def attribute(events: list) -> dict:
     split["syncs"] = sum(s.name.startswith(SYNC_PREFIX) for s in spans) / steps
     split["slot_glue_launches"] = sum(map(_slot_glue, ops)) / steps
     for name, loop in loops.items():
-        its = sum(s.name == LOOP_SYNC and s.start >= o.start and s.end <= o.end
-                  for o in spans if o.name == name for s in spans) / steps
-        loops[name] = {"iterations": its,
+        syncs = {sync: sum(s.name == sync and s.start >= o.start and s.end <= o.end
+                           for o in spans if o.name == name for s in spans) / steps
+                 for sync in LOOP_SYNCS}
+        its, overshoot = syncs[LOOP_SYNC], None
+        if iterations is not None:
+            run = iterations[f"{LOOP_SCOPES[name]}_run"]
+            enqueued = iterations[f"{LOOP_SCOPES[name]}_enqueued"]
+            its, overshoot = run / steps, (enqueued - run) / enqueued if enqueued else None
+        loops[name] = {"iterations": its, "readbacks": sum(syncs.values()),
+                       "overshoot": overshoot,
                        **{k: v / its if its else None for k, v in loop.items()}}
     return {"steps": steps, "scopes": scopes, "split": split, "loops": loops}
 
@@ -209,7 +226,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     with open(args.trace) as f:
         data = json.load(f)
-    result = attribute(data["traceEvents"] if isinstance(data, dict) else data)
+    result = attribute(data["traceEvents"] if isinstance(data, dict) else data,
+                       data.get("iterations") if isinstance(data, dict) else None)
     if not result["steps"]:
         raise SystemExit(f"{args.trace}: no step scope ({', '.join(STEP_SCOPES)})")
     print(f"{result['steps']} steps; a step's ms and launches by innermost scope:")
@@ -222,7 +240,8 @@ def main(argv=None):
     for name, loop in result["loops"].items():
         print(f"  {name}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in loop.items() if v is not None)
-            + " (ms an iteration; iterations a step)")
+            + " (ms an iteration; iterations and read-backs a step; overshoot: the share "
+            "of enqueued iterations gated off)")
     print(json.dumps(result))
 
 

@@ -22,7 +22,10 @@ steps under torch.profiler. Reports the host-clock ms/step of the profiled
 window, the device time per kernel name (per step and per launch), and the
 device's busy and idle shares of the window (one stream, so busy = the sum of
 kernel and memcpy/memset times) and its operations (kernels, memcpys and
-memsets) per step. Needs a CUDA device.
+memsets) per step. The trace (`--trace`) also carries the DFSPH pressure
+loops' iteration counts over the profiled steps (ops/pressure_glue.py
+`ITERATIONS`) under the key "iterations", which tools/step_phases.py reads.
+Needs a CUDA device.
 """
 
 import argparse
@@ -42,6 +45,7 @@ def _device_us(evt) -> float:
 
 
 def main():
+    from yasph2d_tpu_torch.ops import pressure_glue
     from yasph2d_tpu_torch.scenes import SOLVERS, bench_solver, double_dam_break
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -82,6 +86,7 @@ def main():
               flush=True)
 
     torch.cuda.synchronize()
+    pressure_glue.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carry, agg = solver.simulate(carry, boundary, args.steps)
@@ -89,6 +94,11 @@ def main():
         wall_ms = (time.perf_counter() - t0) * 1e3
     if args.trace:
         prof.export_chrome_trace(args.trace)
+        with open(args.trace) as f:
+            data = json.load(f)
+        data["iterations"] = dict(pressure_glue.ITERATIONS)
+        with open(args.trace, "w") as f:
+            json.dump(data, f)
 
     rows = []
     for evt in prof.key_averages():

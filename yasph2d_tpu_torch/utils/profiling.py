@@ -43,12 +43,12 @@ def scope(group: str, name: str):
 
 
 def read_back(what: str, value: torch.Tensor):
-    """The host number of a 0-d tensor (`.item()`: a device value waits for
-    the device), counted in READBACKS[what] and inside a "sync.<what>"
-    scope."""
+    """The host number of a 0-d tensor (`.item()`), or the list of a small
+    tensor's (`.tolist()`): a device value waits for the device. Counted in
+    READBACKS[what] and inside a "sync.<what>" scope."""
     READBACKS[what] += 1
     with scope("sync", what):
-        return value.item()
+        return value.item() if value.dim() == 0 else value.tolist()
 
 
 def reset_readbacks():
