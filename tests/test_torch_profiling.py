@@ -12,7 +12,8 @@
   phase scopes in order inside its step scope.
 - `tools/step_phases.attribute` puts each device operation and idle gap of a
   trace to the scope open at its launch or at the gap's start, and splits
-  the pressure loops by their iterations and read-backs.
+  the pressure loops by their iterations and read-backs; with the steps'
+  counts of timemanager.CLAMPS, the share of steps whose dt each bound set.
 """
 
 import json
@@ -28,6 +29,7 @@ from yasph2d_tpu_torch import (
     FluidParticleWorld,
     XSPHViscosityModel,
 )
+from yasph2d_tpu_torch import timemanager
 from yasph2d_tpu_torch.scenes import bench_solver
 from yasph2d_tpu_torch.tools import step_phases
 from yasph2d_tpu_torch.utils import profiling
@@ -330,3 +332,27 @@ def test_step_phases_count_the_loop_iterations_of_a_real_trace(tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     loops = step_phases.attribute(events)["loops"]
     assert {name: loop["iterations"] * 2 for name, loop in loops.items()} == its
+
+
+def test_step_phases_give_the_share_of_steps_on_each_dt_bound(tmp_path, capsys):
+    """A trace that tools/trace_step.py wrote carries the steps by the bound
+    that set their dt (timemanager.CLAMPS, key "clamps"): each bound's share
+    of the steps; None without the counts."""
+    assert step_phases.attribute(_synthetic_step())["dt_bounds"] is None
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": _synthetic_step(),
+                                "clamps": {"floor": 1, "cfl": 3}}))
+    step_phases.main([str(path)])
+    out = capsys.readouterr().out
+    assert "dt set by: floor 25.0%, ceiling 0.0%, cfl 75.0% of the steps" in out
+    assert json.loads(out.splitlines()[-1])["dt_bounds"] == {"floor": 0.25, "ceiling": 0.0,
+                                                             "cfl": 0.75}
+
+
+def test_padded_steps_count_the_bound_of_each_dt():
+    """From rest at timestep_min the WCSPH step's dt doubles up to its
+    ceiling: each step counts once in timemanager.CLAMPS."""
+    solver, boundary, carry = _padded("wcsph_padded_k5")
+    timemanager.CLAMPS.clear()
+    carry, _ = solver.simulate(carry, boundary, 3)
+    assert dict(timemanager.CLAMPS) == {"ceiling": 3}

@@ -19,6 +19,10 @@ Contracts kept from the reference:
 - a step's dt is accounted *before* the step runs (timemanager.rs:246-248);
 - TargetFrameLength clamps the lower bound with the time elapsed since the
   last target, as written in the reference (timemanager.rs:268-274).
+
+`CLAMPS` counts, on the host, which bound set each adaptive step's dt: a dt
+that sits on `timestep_min` for long says that the floor, not the CFL
+condition, paces the flow.
 """
 
 import collections
@@ -53,6 +57,12 @@ class AdaptiveTimeStep:
 
 
 StepConfig = Union[FixedTimeStep, AdaptiveTimeStep]
+
+# adaptive steps by the bound that set their dt, since the process started
+# or `CLAMPS.clear()`: "floor" (timestep_min, or the frame target's lower
+# bound, raised dt above the CFL dt), "ceiling" (timestep_max or twice the
+# previous dt cut it), "cfl" (the CFL dt itself; also a NaN one)
+CLAMPS = collections.Counter()
 
 
 @dataclass(frozen=True)
@@ -111,7 +121,10 @@ def update_simulation_step(config: StepConfig, time_state: TimeState,
         time_to_target = f32(total - target * np.floor(f32(total / target)))
         lower_bound = np.minimum(lower_bound, time_to_target)
     # np.minimum/np.maximum propagate NaN like jnp's (Python min/max would not)
-    new_dt = np.maximum(lower_bound, np.minimum(upper_bound, time_cfl))
+    capped = np.minimum(upper_bound, time_cfl)
+    new_dt = np.maximum(lower_bound, capped)
+    CLAMPS["floor" if lower_bound > capped else "ceiling" if upper_bound < time_cfl
+           else "cfl"] += 1
     return time_state._replace(dt=f32(new_dt))
 
 

@@ -42,6 +42,11 @@ the share of enqueued iterations that the device's test gated off
 the device, glue and idle ms and the glue launches and glue kernel launches
 (`SLOT_GLUE`) an iteration: everything that falls inside the loop's scope,
 its read-backs' idle included, over its iterations.
+
+A trace that tools/trace_step.py wrote also carries, under the key
+"clamps", which bound set each traced step's dt (timemanager.py `CLAMPS`);
+`dt_bounds` gives each bound's share of the steps: a dt on the floor
+(`timestep_min`) says that the floor, not the CFL condition, paces the flow.
 """
 
 import argparse
@@ -68,6 +73,8 @@ KERNELS = ("pair_reduce_kernel", "rebucket_kernel", "sm_rebucket_staged",
 # the glue kernels of ops/slot_glue.py and ops/pressure_glue.py, by their
 # traced names' start: glue, counted apart
 SLOT_GLUE = tuple(f"{name}_kernel" for name in (*slot_glue.LAUNCHES, *pressure_glue.LAUNCHES))
+# the bounds that can set a step's dt, timemanager.CLAMPS' keys
+DT_BOUNDS = ("floor", "ceiling", "cfl")
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
 NO_SCOPE = "(no scope)"
@@ -123,12 +130,14 @@ def operations(events: list, spans=None) -> list:
                                                         float(e["ts"])) for e in ops])))
 
 
-def attribute(events: list, iterations: Optional[dict] = None) -> dict:
-    """The per-scope table, the split and the loops of a trace's events (the
-    module docstring's rules); times in ms a step (the loops': an
-    iteration); split None and no loops where the trace holds no step
-    scope. `iterations`: the loops' counts over the trace's steps
-    (pressure_glue.ITERATIONS' keys), or None."""
+def attribute(events: list, iterations: Optional[dict] = None,
+              clamps: Optional[dict] = None) -> dict:
+    """The per-scope table, the split, the loops and the dt bounds of a
+    trace's events (the module docstring's rules); times in ms a step (the
+    loops': an iteration); split None and no loops where the trace holds no
+    step scope. `iterations`: the loops' counts over the trace's steps
+    (pressure_glue.ITERATIONS' keys), or None; `clamps`: the steps by the
+    bound that set their dt (timemanager.CLAMPS' keys), or None."""
     spans = _spans(events)
     op_stacks = operations(events, spans)
     ops = [e for e, _ in op_stacks]
@@ -207,7 +216,15 @@ def attribute(events: list, iterations: Optional[dict] = None) -> dict:
         loops[name] = {"iterations": its, "readbacks": sum(syncs.values()),
                        "overshoot": overshoot,
                        **{k: v / its if its else None for k, v in loop.items()}}
-    return {"steps": steps, "scopes": scopes, "split": split, "loops": loops}
+    return {"steps": steps, "scopes": scopes, "split": split, "loops": loops,
+            "dt_bounds": dt_bounds(clamps)}
+
+
+def dt_bounds(clamps: Optional[dict]) -> Optional[dict]:
+    """Each bound's share of the steps whose dt it set (`clamps`:
+    timemanager.CLAMPS' counts), or None without counts."""
+    total = sum(clamps.values()) if clamps else 0
+    return {bound: clamps.get(bound, 0) / total for bound in DT_BOUNDS} if total else None
 
 
 def _slot_glue(e) -> bool:
@@ -226,8 +243,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     with open(args.trace) as f:
         data = json.load(f)
-    result = attribute(data["traceEvents"] if isinstance(data, dict) else data,
-                       data.get("iterations") if isinstance(data, dict) else None)
+    counts = data if isinstance(data, dict) else {}
+    result = attribute(counts.get("traceEvents", data), counts.get("iterations"),
+                       counts.get("clamps"))
     if not result["steps"]:
         raise SystemExit(f"{args.trace}: no step scope ({', '.join(STEP_SCOPES)})")
     print(f"{result['steps']} steps; a step's ms and launches by innermost scope:")
@@ -242,6 +260,10 @@ def main(argv=None):
             f"{k} {v:.4f}" for k, v in loop.items() if v is not None)
             + " (ms an iteration; iterations and read-backs a step; overshoot: the share "
             "of enqueued iterations gated off)")
+    if result["dt_bounds"] is not None:
+        print("  dt set by: " + ", ".join(f"{bound} {100.0 * share:.1f}%"
+                                          for bound, share in result["dt_bounds"].items())
+              + " of the steps")
     print(json.dumps(result))
 
 

@@ -24,8 +24,9 @@ device's busy and idle shares of the window (one stream, so busy = the sum of
 kernel and memcpy/memset times) and its operations (kernels, memcpys and
 memsets) per step. The trace (`--trace`) also carries the DFSPH pressure
 loops' iteration counts over the profiled steps (ops/pressure_glue.py
-`ITERATIONS`) under the key "iterations", which tools/step_phases.py reads.
-Needs a CUDA device.
+`ITERATIONS`) under the key "iterations", and the steps by the bound that
+set their dt (timemanager.py `CLAMPS`: floor, ceiling or CFL) under the key
+"clamps", which tools/step_phases.py reads. Needs a CUDA device.
 """
 
 import argparse
@@ -45,6 +46,7 @@ def _device_us(evt) -> float:
 
 
 def main():
+    from yasph2d_tpu_torch import timemanager
     from yasph2d_tpu_torch.ops import pressure_glue
     from yasph2d_tpu_torch.scenes import SOLVERS, bench_solver, double_dam_break
 
@@ -87,6 +89,7 @@ def main():
 
     torch.cuda.synchronize()
     pressure_glue.reset_launch_counts()
+    timemanager.CLAMPS.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         carry, agg = solver.simulate(carry, boundary, args.steps)
@@ -97,6 +100,7 @@ def main():
         with open(args.trace) as f:
             data = json.load(f)
         data["iterations"] = dict(pressure_glue.ITERATIONS)
+        data["clamps"] = dict(timemanager.CLAMPS)
         with open(args.trace, "w") as f:
             json.dump(data, f)
 
@@ -121,7 +125,7 @@ def main():
     print(json.dumps({
         "solver": args.solver, "particles": n, "steps": steps, "ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy_ms / steps, "device_ops_per_step": ops,
-        "idle_share": 1.0 - busy_ms / wall_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms, "clamps": dict(timemanager.CLAMPS),
         "kernels": [{"name": name, "ms_per_step": us / 1e3 / steps,
                      "launches_per_step": count / steps} for name, us, count in rows],
     }))
